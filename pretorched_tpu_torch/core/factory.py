@@ -1,0 +1,44 @@
+"""Shared factory machinery: construct -> seeded init -> load weights -> stamp.
+
+Counterpart of ``pretorched_tpu/core/factory.py:52-93``: check the class
+count against the settings registry, initialize the parameters from
+``torch.Generator().manual_seed(seed)`` (where JAX took a PRNG key), load the
+hosted ``.pth`` when ``pretrained`` names a dataset, and stamp the metadata.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..models.layers import init_parameters
+from .wrapper import PretrainedModel
+
+
+def build_model(name: str, model: PretrainedModel, settings_map,
+                num_classes: int, pretrained: Optional[str], *,
+                torch_renames: Optional[dict] = None, strict: bool = True,
+                check_num_classes: bool = True,
+                seed: int = 0) -> PretrainedModel:
+    settings = None
+    if pretrained is not None:
+        settings = settings_map[name][pretrained]
+        if check_num_classes and num_classes != settings['num_classes']:
+            raise ValueError(f"num_classes should be {settings['num_classes']}, "
+                             f'but is {num_classes}')
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    model.name = name
+    if pretrained is not None:
+        from ..zoo import io as zoo_io
+        zoo_io.load_pretrained(model, name, pretrained, settings,
+                               torch_renames=torch_renames, strict=strict)
+    model.settings = settings
+    # Even with pretrained=None, stamp the registry's default-dataset
+    # metadata so preprocessing can always read it (factory.py:77-85).
+    meta = settings
+    if meta is None:
+        ds = settings_map.get(name) or {}
+        meta = ds.get('imagenet') or next(iter(ds.values()), None)
+    model.stamp_metadata(meta)
+    return model

@@ -1,0 +1,137 @@
+"""ctypes bindings for the native JPEG decoder.
+
+Counterpart of ``pretorched_tpu/datasets/native.py``. The C++ source is the
+JAX package's ``pretorched_tpu/native/decoder.cpp``, compiled by file path
+(nothing of ``pretorched_tpu`` is imported) with ``g++ -O2 -shared``
+against libjpeg, at first use, into ``build/native/<hash>/`` beside the
+package (git-ignored). When the toolchain or libjpeg is missing, every entry
+point falls back to PIL, so decoding never hard-depends on native code;
+``decoder_name()`` says which one runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import io
+import os
+import subprocess
+from pathlib import Path
+from typing import List, Optional
+
+import numpy as np
+
+_ROOT = Path(__file__).resolve().parents[2]
+SRC = _ROOT / 'pretorched_tpu' / 'native' / 'decoder.cpp'
+_CMD = ('g++', '-O2', '-shared', '-fPIC', '-std=c++17')
+_LIBS = ('-ljpeg', '-lpthread')
+_LIB: Optional[ctypes.CDLL] = None
+_TRIED = False
+
+
+def _build_lib() -> Optional[Path]:
+    if not SRC.exists():
+        return None
+    h = hashlib.sha256(' '.join(_CMD + _LIBS).encode() + SRC.read_bytes())
+    out = _ROOT / 'build' / 'native' / h.hexdigest()[:16] / 'libptjpeg.so'
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
+    cmd = [*_CMD, str(SRC), '-o', str(tmp), *_LIBS]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        return None              # no g++ or no libjpeg: the PIL fallback
+    tmp.replace(out)
+    return out
+
+
+def _get_lib() -> Optional[ctypes.CDLL]:
+    global _LIB, _TRIED
+    if _LIB is None and not _TRIED:
+        _TRIED = True
+        path = _build_lib()
+        try:
+            lib = ctypes.CDLL(str(path)) if path is not None else None
+        except OSError:          # e.g. libjpeg present at build, not at run
+            lib = None
+        if lib is not None:
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.pt_jpeg_dims.argtypes = [u8p, ctypes.c_size_t, ctypes.c_int,
+                                         ip, ip]
+            lib.pt_jpeg_dims.restype = ctypes.c_int
+            lib.pt_jpeg_decode_batch.argtypes = [
+                ctypes.POINTER(u8p), ctypes.POINTER(ctypes.c_size_t),
+                ctypes.POINTER(u8p), ip, ip, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ip]
+            lib.pt_jpeg_decode_batch.restype = ctypes.c_int
+            _LIB = lib
+    return _LIB
+
+
+def native_available() -> bool:
+    return _get_lib() is not None
+
+
+def decoder_name() -> str:
+    return 'native (libjpeg, C++ thread pool)' if native_available() else 'PIL'
+
+
+def _pil_decode(buffers, scale_denom):
+    from PIL import Image
+
+    out = []
+    for b in buffers:
+        img = Image.open(io.BytesIO(b))
+        if scale_denom > 1:
+            img.draft('RGB', (img.width // scale_denom,
+                              img.height // scale_denom))
+        out.append(np.asarray(img.convert('RGB')))
+    return out
+
+
+def decode_jpeg_batch(buffers: List[bytes], threads: int = 8,
+                      scale_denom: int = 1) -> List[np.ndarray]:
+    """Decode JPEG byte strings to (H, W, 3) uint8 arrays."""
+    lib = _get_lib()
+    if lib is None:
+        return _pil_decode(buffers, scale_denom)
+    n = len(buffers)
+    if n == 0:
+        return []
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    bufs = (u8p * n)()
+    lens = (ctypes.c_size_t * n)()
+    hs = (ctypes.c_int * n)()
+    ws = (ctypes.c_int * n)()
+    keep = []
+    for i, b in enumerate(buffers):
+        arr = np.frombuffer(b, np.uint8)
+        keep.append(arr)
+        bufs[i] = arr.ctypes.data_as(u8p)
+        lens[i] = len(b)
+        h, w = ctypes.c_int(), ctypes.c_int()
+        rc = lib.pt_jpeg_dims(bufs[i], lens[i], scale_denom,
+                              ctypes.byref(h), ctypes.byref(w))
+        if rc != 0:
+            return _pil_decode(buffers, scale_denom)
+        hs[i], ws[i] = h.value, w.value
+    outs_np = [np.empty((hs[i], ws[i], 3), np.uint8) for i in range(n)]
+    outs = (u8p * n)(*[o.ctypes.data_as(u8p) for o in outs_np])
+    status = (ctypes.c_int * n)()
+    fails = lib.pt_jpeg_decode_batch(bufs, lens, outs, hs, ws, scale_denom,
+                                     n, threads, status)
+    if fails:
+        return _pil_decode(buffers, scale_denom)
+    return outs_np
+
+
+def decode_jpeg_files(paths: List[str], threads: int = 8,
+                      scale_denom: int = 1) -> List[np.ndarray]:
+    buffers = []
+    for p in paths:
+        with open(p, 'rb') as f:
+            buffers.append(f.read())
+    return decode_jpeg_batch(buffers, threads=threads, scale_denom=scale_denom)

@@ -1,0 +1,63 @@
+"""Multi-clip evaluation on one device.
+
+Counterpart of ``pretorched_tpu/parallel/evaluate.py:27-99`` without the
+mesh: the JAX steps shard the batch over a device mesh; here the batch runs
+on the model's one device. All steps treat ``label == -1`` as padding,
+masked out of every metric sum including 'count', and ``pad_batch`` pads a
+ragged final batch with such rows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def pad_batch(x: torch.Tensor, labels, multiple: int):
+    """Pad (x, labels) along axis 0 to a multiple of ``multiple``; padded
+    rows get label -1. x stays on its device."""
+    n = len(labels)
+    if multiple <= 1 or n % multiple == 0:
+        return x, labels
+    pad = multiple - n % multiple
+    x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    labels = np.concatenate([np.asarray(labels),
+                             np.full((pad,), -1, np.asarray(labels).dtype)])
+    return x, labels
+
+
+def _masked_metrics(logits, labels, topk):
+    """top-k correct sums + NLL sum + count, rows with label -1 masked out."""
+    labels = labels.to(logits.device)
+    valid = labels >= 0
+    safe = labels.clamp(min=0)
+    logp = F.log_softmax(logits.float(), dim=1)
+    loss = -logp.gather(1, safe[:, None])[:, 0]
+    order = torch.topk(logits, max(topk), dim=1).indices
+    correct = (order == safe[:, None]) & valid[:, None]
+    out = {f'top{k}': correct[:, :k].any(dim=1).sum() for k in topk}
+    out['loss'] = torch.where(valid, loss, torch.zeros_like(loss)).sum()
+    out['count'] = valid.sum()
+    return out
+
+
+def multi_clip_eval_step(model, topk=(1, 5)):
+    """N-clip video evaluation (BASELINE config 4's protocol).
+
+    Consensus: per-clip softmax probabilities are averaged over clips;
+    accuracy and loss (NLL of the consensus probability) come from that
+    average. ``step(clips, labels)``: clips (B, N_clips, C, T, H, W) on the
+    model's device, labels (B,) with -1 for padding; returns a dict of
+    device scalars (``top1``, ``top5``, ``loss``, ``count``)."""
+
+    @torch.inference_mode()
+    def step(clips, labels):
+        b, n = clips.shape[:2]
+        logits = model(clips.reshape((b * n,) + tuple(clips.shape[2:])))
+        logits = logits.reshape(b, n, -1).float()
+        probs = F.softmax(logits, dim=-1).mean(dim=1)
+        logp = torch.log(probs.clamp(min=1e-30))
+        return _masked_metrics(logp, torch.as_tensor(labels), topk)
+
+    return step

@@ -1,0 +1,123 @@
+"""Device-side eval preprocessing: resize -> crop -> BGR -> range -> normalize.
+
+Counterpart of the eval chain of ``pretorched_tpu/transforms/fused.py``
+(l.27-132, 215-222). The host only decodes JPEGs to uint8; the chain runs on
+the tensor's device:
+
+* the resize and the center crop are one pair of small matmuls, with the
+  antialiased-triangle weights that ``jax.image.scale_and_translate`` builds
+  (jax/_src/image/scale.py ``compute_weight_mat``), computed only for the
+  crop window's output pixels. So the port matches the JAX package at f32
+  tolerance, not merely at PIL tolerance;
+* range scaling and mean/std fold into one FMA (``_affine_consts``);
+* when the resize is the identity, the uint8 window is cropped first.
+
+The train chain and ``ten_crop`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+def _settings_tuple(settings) -> Tuple:
+    get = settings.__getitem__ if isinstance(settings, dict) else \
+        lambda k: getattr(settings, k)
+    has = settings.__contains__ if isinstance(settings, dict) else \
+        lambda k: hasattr(settings, k)
+    return (tuple(get('input_size')), get('input_space'),
+            tuple(get('input_range')), tuple(get('mean')), tuple(get('std')),
+            get('scale') if has('scale') else 0.875)
+
+
+def _resize_target(h, w, crop, scale):
+    """Resized (nh, nw) before the center crop: the shorter side becomes
+    floor(crop/scale), like torchvision ``Resize(int)``."""
+    target_short = int(math.floor(crop / scale))
+    if h <= w:
+        return target_short, int(round(target_short * w / h))
+    return int(round(target_short * h / w)), target_short
+
+
+def _affine_consts(input_range, mean, std, dtype, device):
+    """u8 -> [0,1] (or [0,255]) scaling and (x - mean) / std as one FMA:
+    ``x * (k/std) + (-mean/std)``, constants computed in float64."""
+    k = 1.0 if max(input_range) == 255 else 1.0 / 255.0
+    std64 = np.asarray(std, np.float64)
+    mul = torch.as_tensor(k / std64, dtype=dtype, device=device)
+    add = torch.as_tensor(-np.asarray(mean, np.float64) / std64, dtype=dtype,
+                          device=device)
+    return mul, add
+
+
+def resize_weights(in_size: int, out_size: int, scale: float,
+                   translation: float, device=None) -> torch.Tensor:
+    """(out_size, in_size) antialiased bilinear weights: output pixel o
+    samples input coordinate ``(o + 0.5 - translation) / scale - 0.5``, with
+    a triangle kernel widened by 1/scale when downsampling; columns are
+    normalized and samples outside the input get weight 0. The f32 formula
+    of ``jax.image.scale_and_translate``."""
+    f32 = dict(dtype=torch.float32, device=device)
+    scale_t = torch.tensor(scale, **f32)
+    inv_scale = 1.0 / scale_t
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = ((torch.arange(out_size, **f32) + 0.5) * inv_scale
+                - torch.tensor(translation, **f32) * inv_scale - 0.5)
+    x = (sample_f[:, None] - torch.arange(in_size, **f32)[None, :]).abs() \
+        / kernel_scale
+    w = torch.clamp(1.0 - x, min=0.0)
+    total = w.sum(dim=1, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[:, None], w, torch.zeros_like(w))
+
+
+def fused_preprocess(batch_u8, settings, channels_last: bool = True,
+                     dtype: torch.dtype = torch.float32, device=None):
+    """uint8 (B, H, W, 3) batch (numpy or tensor) -> normalized batch on
+    ``device`` (default: the tensor's own), (B, S, S, 3) or (B, 3, S, S)."""
+    x = torch.as_tensor(batch_u8, device=device)
+    if x.dim() == 3:
+        x = x[None]
+    (input_size, input_space, input_range, mean, std, scale) = \
+        _settings_tuple(settings)
+    crop = max(input_size)
+    b, h, w, c = x.shape
+    nh, nw = _resize_target(h, w, crop, scale)
+    top = int(round((nh - crop) / 2.0))
+    left = int(round((nw - crop) / 2.0))
+    if (nh, nw) == (h, w):
+        x = x[:, top:top + crop, left:left + crop].to(dtype)
+    else:
+        # resize + crop in one: window pixel j samples the resized grid at
+        # top + j, i.e. translation -top at scale nh/h (fused.py:101-111)
+        wh = resize_weights(h, crop, nh / h, -float(top), x.device).to(dtype)
+        ww = resize_weights(w, crop, nw / w, -float(left), x.device).to(dtype)
+        x = x.to(dtype)
+        x = torch.einsum('oh,bhwc->bowc', wh, x)
+        x = torch.einsum('pw,bowc->bopc', ww, x)
+    if input_space == 'BGR':
+        x = x.flip(-1)
+    mul, add = _affine_consts(input_range, mean, std, dtype, x.device)
+    x = torch.addcmul(add, x, mul)
+    if not channels_last:
+        x = x.permute(0, 3, 1, 2)
+    return x.contiguous()
+
+
+def preprocess_clip(frames_u8, settings, channels_last: bool = True,
+                    dtype: torch.dtype = torch.float32, device=None):
+    """Video clip: uint8 (T, H, W, 3) -> (1, T, S, S, 3) normalized, or
+    (1, 3, T, S, S) (NCTHW, what the models take) when not channels_last."""
+    out = fused_preprocess(frames_u8, settings, channels_last=True,
+                           dtype=dtype, device=device)[None]
+    if not channels_last:
+        out = out.permute(0, 4, 1, 2, 3).contiguous()
+    return out

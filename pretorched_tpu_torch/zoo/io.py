@@ -1,0 +1,111 @@
+"""Weight cache and the hosted-checkpoint load path.
+
+Counterpart of ``pretorched_tpu/zoo/io.py``. Checkpoints live in a local
+cache directory (``$PRETORCHED_HOME``, then ``$TORCH_MODEL_ZOO``, then
+``~/.cache/pretorched_tpu``). The hosted ``.pth`` already is the port's
+format, so it loads straight into the module: the ``{'state_dict': ...}``
+wrapper and DataParallel's ``module.`` prefix are stripped, checkpoint
+prefixes are renamed to the port's (``fc`` -> ``last_linear``), and
+``load_state_dict`` runs with the factory's ``strict`` flag. There is no
+converted cache.
+
+Offline behaviour: with no ``.pth`` found, the model keeps its seeded random
+init with a warning, or raises when ``PRETORCHED_STRICT_WEIGHTS`` is set.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+
+def cache_dir() -> Path:
+    for env in ('PRETORCHED_HOME', 'TORCH_MODEL_ZOO'):
+        v = os.environ.get(env)
+        if v:
+            return Path(v)
+    return Path.home() / '.cache' / 'pretorched_tpu'
+
+
+def find_torch_checkpoint(url: str) -> Optional[Path]:
+    fname = (url or '').rstrip('/').rsplit('/', 1)[-1]
+    if not fname:
+        return None     # settings with url=None (no hosted checkpoint)
+    for base in (cache_dir() / 'weights', cache_dir(),
+                 Path.home() / '.torch' / 'models'):
+        p = base / fname
+        if p.exists():
+            return p
+    return None
+
+
+def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
+    """``.pth`` -> {key: tensor}, unwrapping ``{'state_dict': ...}`` and
+    stripping DataParallel ``module.`` prefixes. Tensors only
+    (``weights_only=True``): a checkpoint is data, not code."""
+    obj = torch.load(str(path), map_location='cpu', weights_only=True)
+    if isinstance(obj, dict) and 'state_dict' in obj:
+        obj = obj['state_dict']
+    return {(k[len('module.'):] if k.startswith('module.') else k): v
+            for k, v in obj.items()}
+
+
+def _rename(key: str, inverse: Dict[str, str]) -> str:
+    for ckpt_prefix, port_prefix in inverse.items():
+        if key.startswith(ckpt_prefix + '.'):
+            return port_prefix + key[len(ckpt_prefix):]
+    return key
+
+
+def load_state_dict_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                         *, torch_renames: Optional[dict] = None,
+                         strict: bool = True):
+    """Load a checkpoint-format state_dict into ``model``.
+
+    ``torch_renames`` maps port prefixes to checkpoint prefixes (as the JAX
+    factories pass them, ``{'last_linear': 'fc'}``). With ``strict=False``,
+    keys the model lacks, keys the checkpoint lacks and tensors of the wrong
+    shape are skipped, and the warning names every one. Returns the
+    ``(missing_keys, unexpected_keys)`` of ``load_state_dict``, with
+    mismatched shapes counted as unexpected."""
+    inverse = {v: k for k, v in (torch_renames or {}).items()}
+    sd = {_rename(k, inverse): v for k, v in sd.items()}
+    own = model.state_dict()
+    mismatched = sorted(k for k, v in sd.items()
+                        if k in own and tuple(v.shape) != tuple(own[k].shape))
+    if mismatched and strict:
+        raise ValueError('shape mismatch: ' + ', '.join(
+            f'{k} {tuple(sd[k].shape)} vs {tuple(own[k].shape)}'
+            for k in mismatched))
+    for k in mismatched:
+        del sd[k]
+    result = model.load_state_dict(sd, strict=strict)
+    missing = list(result.missing_keys)
+    unexpected = sorted(list(result.unexpected_keys) + mismatched)
+    if missing or unexpected:
+        warnings.warn(f'{getattr(model, "name", None)}: non-strict load kept '
+                      f'the init for missing={missing} and dropped '
+                      f'unexpected={unexpected}')
+    return missing, unexpected
+
+
+def load_pretrained(model, name: str, dataset: str, settings: dict, *,
+                    torch_renames: Optional[dict] = None, strict: bool = True):
+    """Find the hosted ``.pth`` for (name, dataset) and load it into
+    ``model``; returns ``(missing, unexpected)`` or None when no file was
+    found."""
+    tpath = find_torch_checkpoint(settings.get('url', '') or '')
+    if tpath is None:
+        msg = (f'pretrained weights for {name}/{dataset} not found locally '
+               f"(the .pth from {settings.get('url')!r} under "
+               f'{cache_dir()}/weights). Proceeding with random initialization.')
+        if os.environ.get('PRETORCHED_STRICT_WEIGHTS'):
+            raise FileNotFoundError(msg)
+        warnings.warn(msg)
+        return None
+    return load_state_dict_into(model, load_torch_state_dict(tpath),
+                                torch_renames=torch_renames, strict=strict)
