@@ -6,15 +6,29 @@ Drives the port's main path once on one CUDA card and checks it:
 1. the card: its name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``pretorched_tpu_torch/csrc``;
 3. the non-local attention forward kernel against its plain PyTorch version
-   at the video slice's shapes, in f32 (TF32 off) and bf16, with both times;
-4. the main path: a fabricated hosted ``kinetics-400`` checkpoint for
+   at the video slice's shapes, in f32 (TF32 off) and bf16, with its time,
+   the plain version's, one ``scaled_dot_product_attention`` call's and the
+   bound;
+4. the eval path: a fabricated hosted ``kinetics-400`` checkpoint for
    ``nonlocalresnet3d50`` (seeded init, every BN randomized, non-local
    weights included), a frame folder of JPEGs, and the 10-clip, 32-frame,
    224 px eval of ``examples/video_eval_torch.py``. It checks that every
    forward launched the kernel 5 times, that the logits are finite, that the
    f32 logits with the kernel match those with the plain attention, and that
    the attention moves the logits;
-5. a last line ``{"ok": true, "device": {...}}``.
+5. the backward kernels (K1-dq, K1-dkv) against the plain backward at the
+   training path's shapes, in f32 and bf16, with the same four times;
+6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
+   ``remat=(0,)``, SGD, 5 steps of 8 clips x 32 frames x 224 px; it checks
+   15 attention launches a step (5 forward, 5 dq, 5 dkv) and a finite loss,
+   prints the step time, clips/s and peak memory, profiles one more step
+   (device time by kernel family, idle share), and saves a checkpoint
+   after step 3 that must restore exactly;
+7. gradient agreement: each non-local block's gradients with the kernels
+   against those with the plain attention, and one step's loss and
+   gradients in f32 with the kernels and with the plain attention, each
+   against the same step in f64;
+8. a line with each kernel's numbers, then ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root. It exits nonzero,
 with no result line, when a phase fails or no CUDA card is present.
@@ -23,10 +37,12 @@ with no result line, when a phase fails or no CUDA card is present.
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -39,6 +55,21 @@ SLICE_SHAPES = {            # (B, N, Nk, C, Cv): 10 clips x 2 videos
     'ragged_n': (3, 1000, 1000, 64, 64),
 }
 TOL = {'float32': (2e-4, 1e-4), 'bfloat16': (2e-2, 1e-2)}    # out, lse
+TRAIN_SHAPES = {            # (B, N, Nk, C, Cv): 8 clips a step
+    'layer2': (8, 6272, 6272, 256, 256),
+    'layer3': (8, 784, 784, 512, 512),
+    'sub_sample': (8, 6272, 784, 256, 256),
+    'cv_ne_c': (4, 4096, 512, 64, 256),
+    'ragged_n': (3, 1000, 1000, 64, 64),
+    'gaussian': (2, 1000, 125, 1024, 512),
+}
+# max |grad - plain| / max |plain grad|: f32 sums in another order; bf16
+# rounds p and ds for the products and stores bf16
+TOL_BWD = {'float32': 1e-4, 'bfloat16': 2e-2}
+# the card's dense peaks (H100 SXM at 700 W) and memory rate, for bounds
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+MEM_BYTES_PER_S = 3.35e12
+TRAIN_CLIPS, TRAIN_STEPS = 8, 5
 
 
 class SmokeFailure(RuntimeError):
@@ -67,6 +98,33 @@ def median_ms(fn, reps=20):
     torch.cuda.synchronize()
     times = sorted(e0.elapsed_time(e1) for e0, e1 in events)
     return times[len(times) // 2]
+
+
+def bound(flops, nbytes, dtype):
+    """(ms, 'operations' or 'bytes'): the least time for this work."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
+                                       else 'bytes')
+
+
+def attention_bounds(b, n, nk, c, cv, dtype):
+    """Bounds of K1-fwd, K1-dq and K1-dkv: each input read once, each output
+    written once; the products each must do (s and p v; s, dp and dq; s,
+    dp, dk and dv)."""
+    e = 2 if dtype == 'bfloat16' else 4
+    q, k, v, o = b * n * c * e, b * nk * c * e, b * nk * cv * e, b * n * cv * e
+    rows = b * n * 4
+    mm = 2 * b * n * nk
+    return {'fwd': bound(mm * (c + cv), q + k + v + o + rows, dtype),
+            'dq': bound(mm * (2 * c + cv), q + k + v + o + 2 * rows + q, dtype),
+            'dkv': bound(mm * (2 * c + 2 * cv),
+                         q + k + v + o + 2 * rows + k + v, dtype)}
+
+
+def sdpa_backend(torch, q, k, v):
+    from torch.nn.attention import SDPBackend
+    names = {int(val): name for name, val in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(q, k, v, scale=1.0)), '?')
 
 
 def kernel_vs_plain(na, torch):
@@ -98,9 +156,23 @@ def kernel_vs_plain(na, torch):
                 plain_ms = median_ms(
                     lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v))
                 line += f' kernel {ms:.3f} ms, plain {plain_ms:.3f} ms'
-                if name == 'layer2' and dt == torch.bfloat16:
+            if name in ('layer2', 'layer3') and dt == torch.bfloat16:
+                import torch.nn.functional as F
+                q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+                with torch.no_grad():
+                    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, scale=1.0))
+                    backend = sdpa_backend(torch, q4, k4, v4)
+                bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
+                                                      dname)['fwd']
+                line += (f', scaled_dot_product_attention {lib_ms:.3f} ms '
+                         f'({backend}), bound {bound_ms:.4f} ms ({bound_by})')
+                if name == 'layer2':
                     result = {'max_abs_err': err, 'ms': ms,
-                              'plain_ms': plain_ms}
+                              'plain_ms': plain_ms, 'library_ms': lib_ms,
+                              'library': f'scaled_dot_product_attention '
+                                         f'({backend})',
+                              'bound_ms': bound_ms, 'bound_by': bound_by}
             print(line, flush=True)
             check(err <= tol and err_lse <= tol_lse,
                   f'kernel disagrees with the plain version: {line}')
@@ -147,7 +219,8 @@ def fabricate(pretorched, torch, np):
 
 
 def main_path(pretorched, na, torch, np):
-    """Phase 4; returns the kernel's launch count in the eval run."""
+    """Phase 4; returns the kernel's launch count in the eval run and the
+    eval CLI's module."""
     from pretorched_tpu_torch.datasets.native import decoder_name
     from pretorched_tpu_torch.models import nonlocalnet
 
@@ -170,9 +243,9 @@ def main_path(pretorched, na, torch, np):
             '--device', 'cuda']
     print('examples/video_eval_torch.py ' + ' '.join(argv), flush=True)
     torch.cuda.reset_peak_memory_stats()
-    na.nonlocal_attention_cuda.launches = 0
+    set_counts(na, 0)
     summary = cli.main(argv)
-    launches = na.nonlocal_attention_cuda.launches
+    launches, dq_dkv = counts(na)[0], counts(na)[1:]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     totals = summary['totals']
     print(f"eval run: {summary['steps']} forwards of 20 clips, {launches} "
@@ -184,6 +257,7 @@ def main_path(pretorched, na, torch, np):
     check(summary['steps'] == 2 and launches == 5 * summary['steps'],
           f'expected 5 launches per forward, got {launches} in '
           f"{summary['steps']} forwards")
+    check(dq_dkv == (0, 0), f'the eval run launched backward kernels {dq_dkv}')
     check(totals['count'] == 4 and 0 <= totals['top1'] <= totals['top5'] <= 4
           and np.isfinite(totals['loss']), f'bad eval totals {totals}')
 
@@ -226,7 +300,405 @@ def main_path(pretorched, na, torch, np):
         print(f'zeroing the 5 W.1 scales moves the f32 logits by rel L2 '
               f'{moved:.3e}')
         check(moved > 1e-2, 'the logits do not depend on the attention')
+    return launches, cli
+
+
+def backward_vs_plain(na, torch):
+    """Phase 5: K1-dq and K1-dkv at every case in both dtypes; returns the
+    layer-2 bf16 numbers."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device='cuda').manual_seed(1)
+    result = None
+    for name, (b, n, nk, c, cv) in TRAIN_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split('.')[-1]
+            q = (torch.randn(b, n, c, device='cuda', generator=g)
+                 / c ** 0.25).to(dt)
+            k = (torch.randn(b, nk, c, device='cuda', generator=g)
+                 / c ** 0.25).to(dt)
+            v = torch.randn(b, nk, cv, device='cuda', generator=g).to(dt)
+            do = torch.randn(b, n, cv, device='cuda', generator=g).to(dt)
+            out, lse = na.nonlocal_attention_cuda(q, k, v)
+            got = na.nonlocal_attention_bwd_cuda(q, k, v, out, lse, do)
+            torch.cuda.synchronize()
+            want = na.nonlocal_attention_bwd_reference(
+                q.float(), k.float(), v.float(), out.float(), lse, do.float())
+            errs, rels = [], []
+            for gr, w in zip(got, want):
+                errs.append((gr.float() - w).abs().max().item())
+                rels.append(errs[-1] / w.abs().max().item())
+            del want
+            tol = TOL_BWD[dname]
+            line = (f'{name:10s} {dname:8s} B={b} N={n} Nk={nk} C={c} '
+                    f'Cv={cv}: max|d-plain|/max|d| dq {rels[0]:.2e}, dk '
+                    f'{rels[1]:.2e}, dv {rels[2]:.2e} (tol {tol:g})')
+            if name in ('layer2', 'layer3') and dt == torch.bfloat16:
+                delta = (do.float() * out.float()).sum(-1)
+                dq_ms = median_ms(lambda: na.nonlocal_attention_bwd_dq_cuda(
+                    q, k, v, do, lse, delta))
+                dkv_ms = median_ms(lambda: na.nonlocal_attention_bwd_dkv_cuda(
+                    q, k, v, do, lse, delta))
+                ms = median_ms(lambda: na.nonlocal_attention_bwd_cuda(
+                    q, k, v, out, lse, do))
+                plain_ms = median_ms(lambda: na.nonlocal_attention_bwd_reference(
+                    q, k, v, out, lse, do))
+                q4, k4, v4 = (t[:, None].detach().requires_grad_()
+                              for t in (q, k, v))
+                o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+                backend = sdpa_backend(torch, q4, k4, v4)
+                lib_ms = median_ms(lambda: torch.autograd.grad(
+                    o4, (q4, k4, v4), do[:, None], retain_graph=True))
+                del q4, k4, v4, o4
+                bounds = attention_bounds(b, n, nk, c, cv, dname)
+                whole = bound(2 * b * n * nk * (3 * c + 2 * cv),
+                              2 * (3 * b * n * c + 3 * b * nk * (c + cv)
+                                   + 2 * b * n * cv), dname)
+                line += (f'\n    kernels {ms:.3f} ms (dq {dq_ms:.3f}, dkv '
+                         f'{dkv_ms:.3f}, delta and allocation the rest), '
+                         f'plain {plain_ms:.3f} ms, scaled_dot_product_'
+                         f'attention backward {lib_ms:.3f} ms ({backend}); '
+                         f'bound: dq {bounds["dq"][0]:.4f} ms, dkv '
+                         f'{bounds["dkv"][0]:.4f} ms, whole backward '
+                         f'{whole[0]:.4f} ms ({whole[1]})')
+                if name == 'layer2':
+                    library = (f'scaled_dot_product_attention backward '
+                               f'({backend}; dq, dk, dv together)')
+                    plain = ('nonlocal_attention_bwd_reference (dq, dk, dv '
+                             'together)')
+                    result = {
+                        'dq': {'max_abs_err': errs[0], 'max_rel_err': rels[0],
+                               'ms': dq_ms, 'plain_ms': plain_ms,
+                               'plain': plain, 'library_ms': lib_ms,
+                               'library': library,
+                               'bound_ms': bounds['dq'][0],
+                               'bound_by': bounds['dq'][1]},
+                        'dkv': {'max_abs_err': max(errs[1:]),
+                                'max_rel_err': max(rels[1:]),
+                                'ms': dkv_ms, 'plain_ms': plain_ms,
+                                'plain': plain, 'library_ms': lib_ms,
+                                'library': library,
+                                'bound_ms': bounds['dkv'][0],
+                                'bound_by': bounds['dkv'][1]}}
+            print(line, flush=True)
+            check(max(rels) <= tol,
+                  f'backward kernels disagree with the plain version: {line}')
+            del q, k, v, do, out, lse, got
+            torch.cuda.empty_cache()
+    return result
+
+
+def counts(na):
+    return (na.nonlocal_attention_cuda.launches,
+            na.nonlocal_attention_bwd_dq_cuda.launches,
+            na.nonlocal_attention_bwd_dkv_cuda.launches)
+
+
+def set_counts(na, value):
+    na.nonlocal_attention_cuda.launches = value
+    na.nonlocal_attention_bwd_dq_cuda.launches = value
+    na.nonlocal_attention_bwd_dkv_cuda.launches = value
+
+
+def train_batch(cli, settings, torch):
+    """2 clips from each of the 4 fabricated videos, with their labels."""
+    videos, _ = cli.list_videos(WORK / 'val')
+    per_video = TRAIN_CLIPS // len(videos)
+    x = torch.cat([cli.load_video(frames, per_video, 32, settings, 'cuda',
+                                  dtype=torch.float32)
+                   for frames, _ in videos])
+    labels = torch.tensor([label for _, label in videos
+                           for _ in range(per_video)], device='cuda')
+    return x, labels
+
+
+def profile_step(step, x, labels, torch):
+    """One more train step under ``torch.profiler``: device time by kernel,
+    the attention's share, and the device's idle share of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():     # the profiler's note on its cycles
+        warnings.simplefilter('ignore', UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(x, labels)
+            torch.cuda.synchronize()
+            window = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    busy = sum(by_name.values()) / 1e3
+    if not busy:
+        print('profiled step: the profiler saw no device time (not measured)')
+        return
+    attn = {k: v / 1e3 for k, v in by_name.items()
+            if 'nonlocal_attention' in k}
+    print(f'profiled step (torch.profiler, one step after the timed ones): '
+          f'{window:.1f} ms host window, {busy:.1f} ms of kernels, device '
+          f'idle {max(0.0, 1 - busy / window):.1%}; attention kernels '
+          f'{sum(attn.values()):.1f} ms ({sum(attn.values()) / busy:.1%})',
+          flush=True)
+    # kernel families by name (cuDNN's and PyTorch's kernel names)
+    groups = {'attention': ('nonlocal_attention',),
+              'convolution': ('conv', 'xmma', 'fprop', 'dgrad', 'wgrad',
+                              'implicit', 'cudnn', 'gemm'),
+              'batch norm': ('batch_norm', 'bn_fw', 'bn_bw'),
+              'optimizer': ('multi_tensor', 'foreach')}
+    sums = dict.fromkeys([*groups, 'other'], 0.0)
+    for name, us in by_name.items():
+        low = name.lower()
+        group = next((g for g, keys in groups.items()
+                      if any(k in low for k in keys)), 'other')
+        sums[group] += us / 1e3
+    print('  by family: ' + ', '.join(f'{g} {ms:.1f} ms ({ms / busy:.1%})'
+                                      for g, ms in sums.items()))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f'  {us / 1e3:8.2f} ms {us / 1e3 / busy:6.1%}  {name[:90]}')
+
+
+def train_path(pretorched, na, torch, np, cli):
+    """Phase 6; returns the launch counts of the 5 steps."""
+    from pretorched_tpu_torch.parallel.train import (make_train_step,
+                                                     sgd_step_decay)
+    from pretorched_tpu_torch.zoo.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+
+    model = pretorched.nonlocalresnet3d50(num_classes=400,
+                                          pretrained='kinetics-400')
+    model.cuda().bfloat16()
+    sgd = dict(lr=0.01, momentum=0.9, weight_decay=1e-4)
+    opt, sched = sgd_step_decay(model.parameters(), **sgd)
+    step = make_train_step(model, opt, sched, remat=(0,))
+    x, labels = train_batch(cli, model.settings, torch)
+    check(x.shape == (TRAIN_CLIPS, 3, 32, 224, 224), f'batch {tuple(x.shape)}')
+    print(f'nonlocalresnet3d50, bf16 compute (f32 parameters), remat=(0,), '
+          f'SGD lr 0.01 momentum 0.9 wd 1e-4; {TRAIN_CLIPS} clips x 32 x '
+          f'224 x 224 a step, labels {labels.tolist()}', flush=True)
+    ckpt = WORK / 'train' / 'checkpoint.pth'
+    ckpt.parent.mkdir(parents=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(na, 0)
+    times = []
+    for i in range(TRAIN_STEPS):
+        before = counts(na)
+        t0 = time.perf_counter()
+        out = step(x, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = tuple(a - b for a, b in zip(counts(na), before))
+        loss = out['loss'].item()
+        print(f'step {i + 1}: loss {loss:.4f} top1 {out["top1"].item():.3f} '
+              f'{times[-1] * 1e3:.1f} ms, launches fwd/dq/dkv {launched}',
+              flush=True)
+        check(launched == (5, 5, 5), f'step {i + 1} launched {launched}, '
+              'expected 5 of each attention kernel')
+        check(np.isfinite(loss), f'step {i + 1}: loss {loss}')
+        if i == 2:
+            save_checkpoint(str(ckpt), {'model': model.state_dict(),
+                                        'optimizer': opt.state_dict(),
+                                        'scheduler': sched.state_dict(),
+                                        'step': i + 1})
+            at_save = ([p.detach().clone() for p in model.parameters()],
+                       [opt.state[p]['momentum_buffer'].clone()
+                        for p in model.parameters()])
+    launches = counts(na)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    print(f'train step: {step_s * 1e3:.1f} ms (median of steps 2-5, host '
+          f'clock around synchronize) = {TRAIN_CLIPS / step_s:.2f} train '
+          f'clips/s; peak device memory {peak_gb:.2f} GiB; launches '
+          f'fwd/dq/dkv {launches} in {TRAIN_STEPS} steps', flush=True)
+
+    profile_step(step, x, labels, torch)
+
+    # the checkpoint of step 3 restores into a fresh model and optimizer
+    state = load_checkpoint(str(ckpt), map_location='cuda')
+    fresh = pretorched.nonlocalresnet3d50(num_classes=400, pretrained=None)
+    fresh.cuda().load_state_dict(state['model'])
+    opt2, sched2 = sgd_step_decay(fresh.parameters(), **sgd)
+    opt2.load_state_dict(state['optimizer'])
+    sched2.load_state_dict(state['scheduler'])
+    params, bufs = at_save
+    same = all(torch.equal(p, w) for p, w in zip(fresh.parameters(), params))
+    same_m = all(torch.equal(opt2.state[p]['momentum_buffer'], w)
+                 for p, w in zip(fresh.parameters(), bufs))
+    print(f'checkpoint after step 3: {ckpt.stat().st_size / 2 ** 20:.1f} MiB;'
+          f' parameters restored exactly: {same}; momentum buffers restored '
+          f'exactly: {same_m} ({len(bufs)} buffers); lr '
+          f'{sched2.get_last_lr()[0]:g}', flush=True)
+    check(same and same_m and len(bufs) == len(list(fresh.parameters())),
+          'the checkpoint did not restore exactly')
+    del fresh, opt2, sched2, state, at_save, params, bufs, model, opt, x
+    torch.cuda.empty_cache()
     return launches
+
+
+def attention_f64(q, k, v, scale=1.0):
+    """The plain attention in the inputs' dtype (f64 for the exact step)."""
+    import torch
+    return torch.bmm(torch.softmax(torch.bmm(q, k.transpose(1, 2)) * scale,
+                                   -1), v)
+
+
+def block_agreement(na, torch, nonlocalnet, blocks, inputs):
+    """Each non-local block alone, on the input it had in the f32 step and
+    a random cotangent: the gradients of its input and of its parameters
+    with the kernels against those with the plain attention, rel L2 <= 1e-3.
+    One attention amplifies rounding only by its logits' spread, so here
+    the two agree as f32 sums in another order do. A tensor whose gradient
+    is zero but for rounding (``phi``'s bias shifts a softmax row by a
+    constant; ``W.0``'s bias feeds a BN) is measured against 1e-2 of the
+    block's largest gradient norm instead of its own."""
+    g = torch.Generator(device='cuda').manual_seed(7)
+    worst = (0.0, '')
+    for name, blk in blocks:
+        x = inputs[name]
+        ct = torch.randn(x.shape, device='cuda', generator=g)
+
+        def grads(attention=None):
+            orig = nonlocalnet.auto_nonlocal_attention
+            nonlocalnet.auto_nonlocal_attention = attention or orig
+            try:
+                xi = x.clone().requires_grad_()
+                blk.zero_grad(set_to_none=True)
+                (blk(xi) * ct).sum().backward()
+            finally:
+                nonlocalnet.auto_nonlocal_attention = orig
+            return {'input': xi.grad, **{n: p.grad for n, p in
+                                         blk.named_parameters()}}
+
+        gk, gp = grads(), grads(na.nonlocal_attention_reference)
+        top = max(t.norm().item() for t in gp.values())
+        for n in gp:
+            rel = ((gk[n] - gp[n]).norm().item()
+                   / max(gp[n].norm().item(), 1e-2 * top))
+            worst = max(worst, (rel, f'{name}: {n}'))
+        blk.zero_grad(set_to_none=True)
+    print(f'each of the {len(blocks)} non-local blocks alone, input and '
+          f'parameter gradients, kernels vs plain: worst rel L2 '
+          f'{worst[0]:.3e} ({worst[1]}; tol 1e-3)', flush=True)
+    check(len(blocks) == 5 and worst[0] <= 1e-3,
+          f'block gradients disagree: {worst}')
+
+
+def gradient_agreement(pretorched, na, torch, cli):
+    """Phase 7: one training step's loss and gradients in f32 with the
+    kernels (K) and with the plain attention (P), each against the same step
+    in f64 with the attention in f64 (D).
+
+    With random weights and train-mode BN the model amplifies rounding: a
+    last-bit change of the attention's output moves the gradients of the
+    early BN parameters by percents. So K is not held to P at 1e-3; it is
+    held to D as closely as P is: each error within 1e-3, or within 4x the
+    plain f32 step's own error. Each non-local block alone is well
+    conditioned, and there the kernels are held to the plain attention at
+    1e-3 (``block_agreement``)."""
+    from pretorched_tpu_torch.models import nonlocalnet
+    from pretorched_tpu_torch.parallel.train import cross_entropy
+
+    torch.backends.cudnn.deterministic = True
+    model = pretorched.nonlocalresnet3d50(num_classes=400,
+                                          pretrained='kinetics-400')
+    model.cuda().train()
+    x, labels = train_batch(cli, model.settings, torch)
+    x, labels = x[:2], labels[:2]
+
+    def grads(attention=None):
+        model.zero_grad(set_to_none=True)
+        orig = nonlocalnet.auto_nonlocal_attention
+        nonlocalnet.auto_nonlocal_attention = attention or orig
+        t0 = time.perf_counter()
+        try:
+            xd = x.to(next(model.parameters()).dtype)
+            loss = cross_entropy(model(xd), labels)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            nonlocalnet.auto_nonlocal_attention = orig
+        return (loss.item(), {n: p.grad.double()
+                              for n, p in model.named_parameters()},
+                time.perf_counter() - t0)
+
+    blocks = [(n, m) for n, m in model.named_modules()
+              if isinstance(m, nonlocalnet.NonLocalBlock)]
+    inputs = {}
+    def keep_input(name):
+        def hook(module, args):
+            inputs.setdefault(name, args[0].detach().clone())
+        return hook
+
+    hooks = [m.register_forward_pre_hook(keep_input(n)) for n, m in blocks]
+    before = counts(na)
+    try:
+        loss_k, gk, _ = grads()
+    finally:
+        for h in hooks:
+            h.remove()
+    launched = tuple(a - b for a, b in zip(counts(na), before))
+    loss_p, gp, _ = grads(na.nonlocal_attention_reference)
+    check(counts(na) == tuple(c + l for c, l in zip(before, launched)),
+          'the plain step launched a kernel')
+    block_agreement(na, torch, nonlocalnet, blocks, inputs)
+    model.double()
+    loss_d, gd, f64_s = grads(attention_f64)
+
+    # biases that feed a BN or a softmax have no gradient but rounding: the
+    # error of each tensor is taken relative to at least 1e-4 of the
+    # largest gradient norm
+    floor = 1e-4 * max(g.norm().item() for g in gd.values())
+
+    def errs(g):
+        per = {n: (g[n] - gd[n]).norm().item() / max(gd[n].norm().item(), floor)
+               for n in gd}
+        diff = sum((g[n] - gd[n]).norm().item() ** 2 for n in gd) ** 0.5
+        whole = sum(gd[n].norm().item() ** 2 for n in gd) ** 0.5
+        return per, diff / whole
+
+    ek, ek_all = errs(gk)
+    ep, ep_all = errs(gp)
+    worst = max(ek, key=lambda n: ek[n] / max(1e-3, 4 * ep[n]))
+    kp = {n: (gk[n] - gp[n]).norm().item() / max(gp[n].norm().item(), floor)
+          for n in gd}
+    worst_kp = max(kp, key=kp.get)
+    nl = [n for n in gk if '.nonlocalblock.' in n
+          and n.rsplit('.', 2)[-2] in ('theta', 'phi', 'g')
+          and n.endswith('weight')]
+    nl_norms = {n: gk[n].norm().item() for n in nl}
+    lk, lp = abs(loss_k - loss_d) / loss_d, abs(loss_p - loss_d) / loss_d
+    print(f'2 clips x 32 x 224, TF32 off, cudnn.deterministic; launches '
+          f'fwd/dq/dkv {launched} in the kernels step; f64 step '
+          f'{f64_s:.1f} s', flush=True)
+    print(f'loss: f64 {loss_d:.8f}, f32 kernels {loss_k:.8f} (rel '
+          f'{lk:.2e}), f32 plain {loss_p:.8f} (rel {lp:.2e})')
+    print(f'all {len(gd)} gradients together, rel L2 to f64: kernels '
+          f'{ek_all:.3e}, plain {ep_all:.3e}')
+    print(f'worst tensor against its bound max(1e-3, 4 x plain): {worst} '
+          f'kernels {ek[worst]:.3e}, plain {ep[worst]:.3e}; largest '
+          f'tensor error to f64: kernels {max(ek.values()):.3e}, plain '
+          f'{max(ep.values()):.3e}; kernels vs f32 plain directly: '
+          f'{kp[worst_kp]:.3e} ({worst_kp})')
+    nl_err = max(ek[n] for n in gd if '.nonlocalblock.' in n)
+    print(f'non-local blocks\' {sum(".nonlocalblock." in n for n in gd)} '
+          f'tensors, largest error to f64: kernels {nl_err:.3e}, plain '
+          f'{max(ep[n] for n in gd if ".nonlocalblock." in n):.3e}; '
+          f'smallest theta/phi/g weight gradient norm '
+          f'{min(nl_norms.values()):.3e} over {len(nl)} tensors', flush=True)
+    check(launched == (5, 5, 5), f'f32 step launched {launched}')
+    check(lk <= max(1e-5, 4 * lp), f'loss: kernels {loss_k}, plain {loss_p}, '
+          f'f64 {loss_d}')
+    check(ek_all <= max(1e-3, 4 * ep_all),
+          f'gradients: kernels {ek_all:.3e} from f64, plain {ep_all:.3e}')
+    check(ek[worst] <= max(1e-3, 4 * ep[worst]),
+          f'{worst}: kernels {ek[worst]:.3e} from f64, plain {ep[worst]:.3e}')
+    check(len(nl) == 15 and min(nl_norms.values()) > 0,
+          f'theta/phi/g gradients {nl_norms}')
+    torch.backends.cudnn.deterministic = False
+    del model, gk, gp, gd
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -253,8 +725,16 @@ def main():
     print(f'kernel library {build.library_path().relative_to(REPO)}: '
           f'{build.build_seconds:.2f} s')
     for line in build.build_log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            print('  ' + line.strip())
+        if 'Function properties for' in line:
+            kernel = re.search(r'nonlocal_attention_(?:fwd|bwd)_(?:bf16|f32)'
+                               r'_kernel(?:ILi(\d+)ELb([01])E)?', line)
+            name = kernel.group(0).split('I')[0] if kernel else line.split()[-1]
+            if kernel and kernel.group(1):
+                name += (f' ({kernel.group(1)} warps, rows '
+                         f'{"resident" if kernel.group(2) == "1" else "streamed"})')
+            print('  ' + name)
+        elif 'registers' in line or 'spill' in line:
+            print('    ' + line.strip())
 
     phase('3. non-local attention forward kernel vs plain PyTorch')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -265,17 +745,36 @@ def main():
           'inputs; times are CUDA-event medians of 20', flush=True)
     k1 = kernel_vs_plain(na, torch)
 
-    phase('4. main path: nonlocalresnet3d50, 10 clips x 32 frames x 224 px')
-    launches = main_path(pretorched, na, torch, np)
+    phase('4. eval path: nonlocalresnet3d50, 10 clips x 32 frames x 224 px')
+    eval_launches, cli = main_path(pretorched, na, torch, np)
 
-    phase('5. result')
-    print(json.dumps({'kernels': [{
-        'name': 'nonlocal_attention_fwd', 'route': 'cuda',
-        'source': 'pretorched_tpu_torch/csrc/nonlocal_attention_fwd.cu',
-        'replaces': 'pretorched_tpu/ops/pallas/nonlocal_attention.py:33',
-        'launches': launches, 'max_abs_err': k1['max_abs_err'],
-        'ms': k1['ms'], 'plain_ms': k1['plain_ms'],
-        'shape': list(SLICE_SHAPES['layer2']), 'dtype': 'bfloat16'}]}))
+    phase('5. non-local attention backward kernels vs plain PyTorch')
+    k1b = backward_vs_plain(na, torch)
+
+    phase(f'6. training path: nonlocalresnet3d50, {TRAIN_STEPS} steps of '
+          f'{TRAIN_CLIPS} clips x 32 frames x 224 px')
+    train_launches = train_path(pretorched, na, torch, np, cli)
+
+    phase('7. gradient agreement: f32 step with the kernels, with the plain '
+          'attention, and in f64')
+    gradient_agreement(pretorched, na, torch, cli)
+
+    phase('8. result')
+    src = 'pretorched_tpu_torch/csrc/'
+    pallas = 'pretorched_tpu/ops/pallas/nonlocal_attention.py:'
+    print(json.dumps({'kernels': [
+        {'name': 'nonlocal_attention_fwd', 'route': 'cuda',
+         'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
+         'launches': train_launches[0], 'launches_eval': eval_launches,
+         **k1, 'shape': list(SLICE_SHAPES['layer2']), 'dtype': 'bfloat16'},
+        {'name': 'nonlocal_attention_bwd_dq', 'route': 'cuda',
+         'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
+         'launches': train_launches[1], **k1b['dq'],
+         'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
+        {'name': 'nonlocal_attention_bwd_dkv', 'route': 'cuda',
+         'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '172',
+         'launches': train_launches[2], **k1b['dkv'],
+         'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

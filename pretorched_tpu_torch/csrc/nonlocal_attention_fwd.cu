@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -219,54 +221,10 @@ size_t f32_smem_bytes(int cv) {
 }
 
 // ------------------------------------------------------ bf16, tensor cores
-typedef __nv_bfloat16 bf16;
-constexpr int kMThreads = 128;  // 4 warps x 16 query rows
 constexpr int kMBQ = 64;
 constexpr int kMBK = 64;
 constexpr int kMCK = 64;        // channel chunk of q k^T
 constexpr int kMDV = 128;       // value columns per block (grid.z)
-constexpr int kLd = 72;         // smem row stride in bf16: 64 + 8 pad, so
-                                // fragment loads of 8 rows hit 32 banks
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// dst[r][cc] = src[row0 + r][col0 + cc] for r < ROWS, cc < 64; zero where
-// row >= rows or col >= cols. 8 threads cover one 64-element row.
-template <int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int ld,
-                                          int row0, int rows, int col0,
-                                          int cols, bool vec) {
-  for (int gi = threadIdx.x; gi < ROWS * 8; gi += kMThreads) {
-    const int r = gi >> 3, cc = (gi & 7) * 8;
-    const int row = row0 + r, col = col0 + cc;
-    bf16* d = dst + r * kLd + cc;
-    if (vec && row < rows && col + 8 <= cols) {
-      *reinterpret_cast<uint4*>(d) =
-          *reinterpret_cast<const uint4*>(src + (size_t)row * ld + col);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        d[e] = (row < rows && col + e < cols) ? src[(size_t)row * ld + col + e]
-                                              : __float2bfloat16(0.f);
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kMThreads)
 nonlocal_attention_fwd_bf16_kernel(const bf16* __restrict__ q,
@@ -290,9 +248,8 @@ nonlocal_attention_fwd_bf16_kernel(const bf16* __restrict__ q,
   const bf16* qb = q + (size_t)bi * n * c;
   const bf16* kb = k + (size_t)bi * nk * c;
   const bf16* vb = v + (size_t)bi * nk * cv;
-  const bool vec_qk = c % 8 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0 &&
-                      (reinterpret_cast<uintptr_t>(k) & 15) == 0;
-  const bool vec_v = cv % 8 == 0 && (reinterpret_cast<uintptr_t>(v) & 15) == 0;
+  const bool vec_qk = c % 8 == 0 && aligned16(q) && aligned16(k);
+  const bool vec_v = cv % 8 == 0 && aligned16(v);
 
   // o[t][0..1]: row wr + g, cols v0 + 8t + 2qd + {0,1}; o[t][2..3]: row + 8
   float o[kMDV / 8][4];
@@ -368,31 +325,14 @@ nonlocal_attention_fwd_bf16_kernel(const bf16* __restrict__ q,
     }
 
     // ---- o += p v. vt is free: every warp passed this tile's first
-    // barrier after its last read of it. Consecutive threads take
-    // consecutive keys, so the transposing stores do not collide.
-    for (int gi = tid; gi < kMBK * (kMDV / 8); gi += kMThreads) {
-      const int kr = gi % kMBK, cc = (gi / kMBK) * 8;
-      const int row = k0 + kr, col = v0 + cc;
-      union { uint4 u; bf16 h[8]; } tmp;
-      if (vec_v && row < nk && col + 8 <= cv) {
-        tmp.u = *reinterpret_cast<const uint4*>(vb + (size_t)row * cv + col);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          tmp.h[e] = (row < nk && col + e < cv) ? vb[(size_t)row * cv + col + e]
-                                                : __float2bfloat16(0.f);
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[(cc + e) * kLd + kr] = tmp.h[e];
-    }
+    // barrier after its last read of it.
+    load_rows_t<kMDV>(vt, vb, cv, k0, nk, v0, cv, vec_v);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < kMBK / 16; ++j) {
       // the C fragments of score tiles 2j, 2j+1 are the A fragment of P
-      const uint32_t a[4] = {pack_pair(s[2 * j][0], s[2 * j][1]),
-                             pack_pair(s[2 * j][2], s[2 * j][3]),
-                             pack_pair(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_pair(s[2 * j + 1][2], s[2 * j + 1][3])};
+      uint32_t a[4];
+      c_to_a(a, s[2 * j], s[2 * j + 1]);
 #pragma unroll
       for (int t = 0; t < kMDV / 8; ++t) {
         const bf16* vp = vt + (t * 8 + g) * kLd + j * 16 + 2 * qd;

@@ -11,19 +11,71 @@ build is reproducible from its seed:
 * everything else gets torch's own default: weight and bias uniform in
   ``+-1/sqrt(fan_in)`` for convs and linears, BN scale 1 and shift 0.
 
+``BatchNorm`` is the port's batch norm: torch's, except that its train-mode
+update of ``running_var`` uses the biased batch variance, as flax does.
+
 ``SpaceToDepthConv`` is not ported: it is a re-indexing of the stem for the
 TPU's matrix unit, and cuDNN takes the plain strided conv.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn as nn
 
 _CONV_TYPES = (nn.Conv1d, nn.Conv2d, nn.Conv3d)
-_BN_TYPES = (nn.BatchNorm1d, nn.BatchNorm2d, nn.BatchNorm3d)
+# per thread: the recompute runs on the autograd engine's thread
+_bn_state = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_bn_stats():
+    """Within (on this thread): train-mode ``BatchNorm`` normalizes with the
+    batch statistics but leaves its running statistics alone.
+    ``torch.utils.checkpoint``'s recompute runs under this, so a
+    rematerialized block updates them once, in its forward, as flax's
+    ``nn.remat`` does."""
+    depth = getattr(_bn_state, 'frozen', 0)
+    _bn_state.frozen = depth + 1
+    try:
+        yield
+    finally:
+        _bn_state.frozen = depth
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """Batch norm over dim 1 of an (N, C, ...) input, with the state-dict
+    keys and eval behaviour of ``nn.BatchNorm1d/2d/3d``. In train mode the
+    running variance moves toward the BIASED batch variance, as flax's
+    ``nn.BatchNorm`` (``pretorched_tpu/models/layers.py:91-108``) and not as
+    torch's, which uses the unbiased one (they differ by n / (n - 1))."""
+
+    def _check_input_dim(self, x):
+        if x.dim() < 2:
+            raise ValueError(f'expected an (N, C, ...) input, got {x.dim()}D')
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        # one pass: the output and the batch mean and 1 / sqrt(var + eps)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if not getattr(_bn_state, 'frozen', 0):
+            with torch.no_grad():
+                dt = self.running_var.dtype
+                var = invstd.to(dt).pow(-2) - self.eps
+                self.running_mean.lerp_(mean.to(dt), self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1):
+    return BatchNorm(channels, eps=eps, momentum=momentum)
 
 
 class Identity(nn.Module):
@@ -80,7 +132,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, _CONV_TYPES + (nn.Linear,)):
             torch_default_init(m.weight, m.bias, generator)
-        elif isinstance(m, _BN_TYPES):
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_running_stats()
             m.weight.fill_(0.0 if getattr(m, 'zero_init', False) else 1.0)
             m.bias.zero_()

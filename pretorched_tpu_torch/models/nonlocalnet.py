@@ -32,6 +32,7 @@ from ..core.registry import register_model, register_settings
 from ..ops.cuda.nonlocal_attention import (auto_nonlocal_attention,
                                            linear_nonlocal_attention)
 from ..ops.pooling import max_pool
+from .layers import batch_norm
 from .resnet3d import VideoResNet, video_settings
 
 _NL_URLS = {
@@ -44,7 +45,6 @@ _NL_URLS = {
 pretrained_settings = video_settings(['nonlocalresnet3d50'], urls=_NL_URLS)
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
-_BN = {1: nn.BatchNorm1d, 2: nn.BatchNorm2d, 3: nn.BatchNorm3d}
 _MODES = ('embedded_gaussian', 'gaussian', 'dot_product', 'concatenation')
 
 
@@ -86,7 +86,7 @@ class NonLocalBlock(nn.Module):
             self.concat_project = nn.Sequential(
                 nn.Conv2d(2 * self.inter, 1, 1, bias=False), nn.ReLU())
         if bn_layer:
-            last = _BN[dimension](in_channels, eps=1e-5, momentum=0.1)
+            last = batch_norm(in_channels)
             self.W = nn.Sequential(conv(self.inter, in_channels, 1), last)
         else:
             last = self.W = conv(self.inter, in_channels, 1)

@@ -9,21 +9,29 @@ pretorched/models/resnet3D.py), in native NCTHW layout:
   channel padding, no parameters, resnet3D.py:65-74) and 'B' (1x1 conv + BN,
   keys ``downsample.0/1``);
 * head: global average pool over (T, H, W) + ``last_linear`` (the hosted
-  checkpoints call it ``fc``).
+  checkpoints call it ``fc``);
+* ``remat``: ``True`` or a tuple of stages (0 = layer1 .. 3 = layer4) whose
+  residual blocks are checkpointed (``torch.utils.checkpoint``) when a
+  gradient is taken: backprop keeps only each block's input and recomputes
+  its inside, as the JAX module's ``nn.remat`` does (resnet3d.py:210-233).
 
-The JAX module's ``cardinality``, ``preact``, ``factored``, ``s2d_stem`` and
-``remat`` variants are not ported yet; asking for one raises.
+The JAX module's ``cardinality``, ``preact``, ``factored`` and ``s2d_stem``
+variants are not ported yet; asking for one raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.registry import image_settings, register_model, register_settings
 from ..core.wrapper import PretrainedModel
 from ..ops.pooling import global_avg_pool, max_pool
-from .layers import conv3d_kaiming_out
+from .layers import batch_norm, conv3d_kaiming_out, frozen_bn_stats
 
 _KINETICS = 'kinetics-400'
 
@@ -64,7 +72,15 @@ WIDTHS = (64, 128, 256, 512)     # planes of layer1..layer4
 
 
 def _bn(ch):
-    return nn.BatchNorm3d(ch, eps=1e-5, momentum=0.1)
+    return batch_norm(ch)
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward; the
+    recompute leaves BN running statistics alone (``frozen_bn_stats``)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          frozen_bn_stats()))
 
 
 def _shortcut_a(x, out_ch, stride):
@@ -139,8 +155,7 @@ class VideoResNet(PretrainedModel):
                  preact: bool = False, factored: bool = False,
                  s2d_stem: bool = False, remat=False):
         unported = {'cardinality': cardinality, 'preact': preact,
-                    'factored': factored, 's2d_stem': s2d_stem,
-                    'remat': remat}
+                    'factored': factored, 's2d_stem': s2d_stem}
         asked = sorted(k for k, v in unported.items() if v)
         if asked:
             raise NotImplementedError(
@@ -154,6 +169,7 @@ class VideoResNet(PretrainedModel):
         self.block = block
         self.layers = tuple(layers)
         self.shortcut_type = shortcut_type
+        self.remat = remat
         self.conv1 = conv3d_kaiming_out(3, 64, 7, stride=(1, 2, 2), padding=3)
         self.bn1 = _bn(64)
         inplanes = 64
@@ -176,12 +192,20 @@ class VideoResNet(PretrainedModel):
         """Hook between residual blocks (non-local blocks go here)."""
         return x
 
+    def _remat_stages(self):
+        """0-based stages whose residual blocks are checkpointed."""
+        if self.remat is True:
+            return (0, 1, 2, 3)
+        return tuple(self.remat or ())
+
     def _features(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
         x = max_pool(x, 3, 2, 1)
+        remat = self._remat_stages() if torch.is_grad_enabled() else ()
         for stage in range(1, 5):
             for i, blk in enumerate(getattr(self, f'layer{stage}')):
-                x = self._after_block(blk(x), stage, i)
+                x = checkpointed(blk, x) if stage - 1 in remat else blk(x)
+                x = self._after_block(x, stage, i)
         return x
 
     def _logits(self, features):
@@ -199,6 +223,15 @@ CONFIGS = {
     'resnet3d152': ('bottleneck', (3, 8, 36, 3)),
     'resnet3d200': ('bottleneck', (3, 24, 36, 3)),
 }
+
+
+def get_fine_tuning_parameter_names(ft_begin_index: int):
+    """Parameter-name prefixes to fine-tune (reference: resnet3D.py:221-239):
+    the stages from ``ft_begin_index`` on plus the classifier; None for 0
+    (train everything)."""
+    if ft_begin_index == 0:
+        return None
+    return [f'layer{i}' for i in range(ft_begin_index, 5)] + ['last_linear']
 
 
 def _build(name, num_classes, pretrained, shortcut_type):

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``pretorched_tpu_torch/csrc/*.cu`` have a plain C interface.
-At first use they are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/kernels/<hash>/`` beside the package (git-ignored),
-keyed on a hash of the sources and the flags, and loaded with ``ctypes``.
+At first use each is compiled by its own ``nvcc`` for ``sm_90a``, all at
+once, and the objects are linked into one shared library under ``build/kernels/<hash>/`` beside the package (git-ignored),
+keyed on a hash of the sources, their headers (``*.cuh``) and the flags,
+and loaded with ``ctypes``.
 No PyTorch header is included, so a build takes seconds, not minutes.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG.parent / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 LIB_NAME = 'libpretorched_kernels.so'
 
 _lib: Optional[ctypes.CDLL] = None
@@ -48,22 +49,36 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob('*.cu*')):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
 
 
+def _run(cmds):
+    """Run the commands side by side; their output, or raise on a failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({p.returncode}):\n'
+                               f'{" ".join(cmd)}\n{log}')
+    return ''.join(logs)
+
+
 def _compile(out: Path) -> str:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, _sources())]
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({r.returncode}):\n{" ".join(cmd)}\n'
-                           f'{r.stdout}{r.stderr}')
+    tag = f'{os.getpid()}.tmp'
+    objs = [out.with_name(f'{src.stem}.{tag}.o') for src in _sources()]
+    log = _run([[_nvcc(), *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+                for src, obj in zip(_sources(), objs)])
+    tmp = out.with_name(f'{out.name}.{tag}')
+    log += _run([[_nvcc(), '-shared', '-o', str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)        # atomic: no process loads a half-written file
-    log = r.stdout + r.stderr
     out.with_name('build.log').write_text(log)
     return log
 
@@ -85,6 +100,13 @@ def load_library() -> ctypes.CDLL:
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     lib.pt_nonlocal_attention_fwd.restype = ctypes.c_int
+    # q, k, v, do, lse, delta, then dq (dk, dv); b, n, nk, c, cv; scale,
+    # dtype, stream
+    for fn, outs in ((lib.pt_nonlocal_attention_bwd_dq, 1),
+                     (lib.pt_nonlocal_attention_bwd_dkv, 2)):
+        fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pt_cuda_error_string.restype = ctypes.c_char_p
     build_seconds = time.perf_counter() - t0

@@ -1,4 +1,4 @@
-"""Non-local attention: the CUDA forward kernel, its plain version, dispatch.
+"""Non-local attention: the CUDA kernels, their plain versions, autograd.
 
 Counterpart of ``pretorched_tpu/ops/pallas/nonlocal_attention.py``.
 ``softmax(q @ k^T * scale) @ v`` with no 1/sqrt(d) (the reference's
@@ -6,18 +6,25 @@ embedded-gaussian and gaussian modes apply none; ``scale`` covers other
 uses). q is (B, N, C); k is (B, Nk, C) and v (B, Nk, Cv): Nk differs from N
 under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
 
-* ``nonlocal_attention_cuda``: the hand-written kernel
+* ``nonlocal_attention_cuda``: the hand-written forward kernel
   (``csrc/nonlocal_attention_fwd.cu``, replacing the TPU's ``_attn_kernel``).
-  CUDA tensors only; it raises on anything it does not take.
-* ``nonlocal_attention_fwd_lse_reference`` / ``nonlocal_attention_reference``:
-  the plain PyTorch version, N x N scores in f32.
-* ``auto_nonlocal_attention``: what the model calls. A CPU tensor takes the
-  plain version; a CUDA tensor always takes the kernel.
+* ``nonlocal_attention_bwd_cuda``: the backward, two hand-written kernels
+  (``csrc/nonlocal_attention_bwd.cu``, replacing ``_attn_dq_kernel`` and
+  ``_attn_dkv_kernel``) behind ``nonlocal_attention_bwd_dq_cuda`` and
+  ``nonlocal_attention_bwd_dkv_cuda``.
+  The kernel wrappers take CUDA tensors only and raise on anything they do
+  not take; each counts its launches in ``.launches``.
+* ``nonlocal_attention_fwd_lse_reference`` / ``nonlocal_attention_reference``
+  / ``nonlocal_attention_bwd_reference``: the plain PyTorch versions, N x N
+  matrices in f32.
+* ``NonLocalAttention``: the ``torch.autograd.Function`` (the JAX package's
+  custom VJP): kernels for CUDA tensors, plain versions for CPU tensors.
+* ``auto_nonlocal_attention``: what the model calls. Through
+  ``NonLocalAttention`` when a gradient is needed, else the forward alone.
 * ``linear_nonlocal_attention``: the dot_product mode, linear in N.
 
 The JAX package's ``PALLAS_MIN_N`` crossover was measured on a TPU v5e and is
-not carried over. The backward kernels are not ported yet, so the kernel
-path is inference-only: it raises if a gradient is asked of it.
+not carried over.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import build
 
@@ -51,6 +59,22 @@ def nonlocal_attention_reference(q, k, v, scale: float = 1.0):
     return nonlocal_attention_fwd_lse_reference(q, k, v, scale)[0]
 
 
+def nonlocal_attention_bwd_reference(q, k, v, o, lse, do, scale: float = 1.0):
+    """Plain version of the backward (``_nonlocal_attention_bwd_blockwise``):
+    (dq, dk, dv) in the inputs' dtypes, from the forward's out and lse."""
+    with _no_autocast(q.device.type):
+        qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+        delta = (dof * o.float()).sum(-1)
+        p = torch.exp(torch.bmm(qf, kf.transpose(1, 2)) * scale - lse[..., None])
+        dv = torch.bmm(p.transpose(1, 2), dof)
+        ds = torch.bmm(dof, vf.transpose(1, 2))          # dp, then ds in place
+        ds.sub_(delta[..., None]).mul_(p).mul_(scale)
+        del p
+        dq = torch.bmm(ds, kf)
+        dk = torch.bmm(ds.transpose(1, 2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_inputs(q, k, v):
     for name, t in (('q', q), ('k', k), ('v', v)):
         if not t.is_cuda:
@@ -71,21 +95,31 @@ def _check_inputs(q, k, v):
         raise ValueError(f'q and k channels differ: {q.shape} {k.shape}')
     if v.shape[1] != k.shape[1]:
         raise ValueError(f'k and v lengths differ: {k.shape} {v.shape}')
-    if q.dtype == torch.float32 and v.shape[2] > MAX_CV_F32:
-        raise ValueError(f'Cv={v.shape[2]} > {MAX_CV_F32} does not fit the '
-                         'f32 kernel\'s shared-memory accumulator')
     if min(n, k.shape[1], c, v.shape[2]) < 1 or not 1 <= b <= 65535:
         raise ValueError(f'empty or oversized shape: {q.shape} {k.shape} '
                          f'{v.shape}')
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError('the attention backward kernels are not '
-                                  'ported yet; run under torch.no_grad()')
+
+
+def _check_rows(q, v, do, lse, delta):
+    b, n = q.shape[:2]
+    for name, t, shape, dtype in (('do', do, (b, n, v.shape[2]), q.dtype),
+                                  ('lse', lse, (b, n), torch.float32),
+                                  ('delta', delta, (b, n), torch.float32)):
+        if t.device != q.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f'{name} must be {shape} {dtype} on {q.device}, '
+                             f'got {tuple(t.shape)} {t.dtype} on {t.device}')
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def nonlocal_attention_cuda(q, k, v, scale: float = 1.0):
     """Launch the forward kernel: returns (out (B, N, Cv), lse (B, N) f32)."""
     _check_inputs(q, k, v)
+    if q.dtype == torch.float32 and v.shape[2] > MAX_CV_F32:
+        raise ValueError(f'Cv={v.shape[2]} > {MAX_CV_F32} does not fit the '
+                         'f32 kernel\'s shared-memory accumulator')
     lib = build.load_library()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, n, c = q.shape
@@ -95,9 +129,7 @@ def nonlocal_attention_cuda(q, k, v, scale: float = 1.0):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.pt_nonlocal_attention_fwd(
-            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(lse.data_ptr()), b, n, nk, c, cv, float(scale),
+            *map(_ptr, (q, k, v, out, lse)), b, n, nk, c, cv, float(scale),
             _DTYPE_CODES[q.dtype], ctypes.c_void_p(stream))
     build.check(lib, err, 'nonlocal_attention_fwd launch')
     nonlocal_attention_cuda.launches += 1
@@ -116,8 +148,95 @@ def nonlocal_attention_fwd_lse(q, k, v, scale: float = 1.0):
     return nonlocal_attention_fwd_lse_reference(q, k, v, scale)
 
 
+def _launch_bwd(entry, q, k, v, do, lse, delta, outs, scale):
+    """Launch a backward kernel on contiguous, checked tensors."""
+    lib = build.load_library()
+    b, n, c = q.shape
+    nk, cv = v.shape[1], v.shape[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, entry)(
+            *map(_ptr, (q, k, v, do, lse, delta, *outs)), b, n, nk, c, cv,
+            float(scale), _DTYPE_CODES[q.dtype], ctypes.c_void_p(stream))
+    build.check(lib, err, f'{entry} launch')
+
+
+def nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float = 1.0):
+    """Launch K1-dq: dq (B, N, C) in q's dtype."""
+    _check_inputs(q, k, v)
+    _check_rows(q, v, do, lse, delta)
+    q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    dq = torch.empty_like(q)
+    _launch_bwd('pt_nonlocal_attention_bwd_dq', q, k, v, do, lse, delta, (dq,),
+                scale)
+    nonlocal_attention_bwd_dq_cuda.launches += 1
+    return dq
+
+
+def nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float = 1.0):
+    """Launch K1-dkv: (dk (B, Nk, C), dv (B, Nk, Cv)) in k's and v's dtype."""
+    _check_inputs(q, k, v)
+    _check_rows(q, v, do, lse, delta)
+    q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd('pt_nonlocal_attention_bwd_dkv', q, k, v, do, lse, delta,
+                (dk, dv), scale)
+    nonlocal_attention_bwd_dkv_cuda.launches += 1
+    return dk, dv
+
+
+nonlocal_attention_bwd_dq_cuda.launches = 0
+nonlocal_attention_bwd_dkv_cuda.launches = 0
+
+
+def nonlocal_attention_bwd_cuda(q, k, v, o, lse, do, scale: float = 1.0):
+    """The backward on the card: ``delta = rowsum(do * o)`` in plain torch
+    (the JAX package also computes it outside Pallas), then K1-dq and
+    K1-dkv. Returns (dq, dk, dv) in the inputs' dtypes."""
+    _check_inputs(q, k, v)
+    if o.shape != do.shape or o.device != q.device:
+        raise ValueError(f'o {tuple(o.shape)} on {o.device} does not match '
+                         f'do {tuple(do.shape)} on {q.device}')
+    with _no_autocast('cuda'):
+        delta = (do.float() * o.float()).sum(-1)
+    dq = nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale)
+    dk, dv = nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale)
+    return dq, dk, dv
+
+
+class NonLocalAttention(torch.autograd.Function):
+    """``softmax(q k^T scale) v`` with the blockwise backward (the JAX
+    package's ``_nonlocal_attention_ad``). The forward saves q, k, v, out
+    and lse; both directions take the kernels for CUDA tensors and the plain
+    versions for CPU tensors, with autocast off inside."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type='cuda')
+    def forward(ctx, q, k, v, scale: float = 1.0):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = nonlocal_attention_fwd_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    @torch.amp.custom_bwd(device_type='cuda')
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = (nonlocal_attention_bwd_cuda if q.is_cuda
+               else nonlocal_attention_bwd_reference)
+        dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
 def auto_nonlocal_attention(q, k, v, scale: float = 1.0):
-    """``softmax(q k^T scale) v`` for the model: see the module docstring."""
+    """``softmax(q k^T scale) v`` for the model: through ``NonLocalAttention``
+    when a gradient is needed, else the forward alone (one launch on the
+    card, nothing saved)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return NonLocalAttention.apply(q, k, v, scale)
     return nonlocal_attention_fwd_lse(q, k, v, scale)[0]
 
 

@@ -1,1 +1,1 @@
-"""Evaluation steps."""
+"""Evaluation and training steps."""

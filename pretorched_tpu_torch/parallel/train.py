@@ -1,0 +1,109 @@
+"""The training step on one device.
+
+Counterpart of ``pretorched_tpu/parallel/train.py``: cross-entropy, SGD with
+momentum and weight decay, and the reference's step-decay schedule
+(imagenet_eval.py:162-208, 281-285). The JAX step is one jitted function of
+(params, batch_stats, opt_state); here the model and the optimizer hold
+that state and the step updates them in place. The JAX step's buffer
+donation has no counterpart. ``mesh`` and ``zero_axis`` (data and model
+parallelism, ZeRO) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..models.resnet3d import checkpointed
+
+
+def cross_entropy(logits, labels):
+    """Mean cross-entropy, with the log-softmax in f32."""
+    return F.cross_entropy(logits.float(), labels)
+
+
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    scheduler=None, accum_steps: int = 1, remat=False,
+                    mesh=None, zero_axis: Optional[str] = None) -> Callable:
+    """Returns ``step(x, labels) -> {'loss', 'top1'}`` (0-d tensors on the
+    model's device; reading them synchronizes, the step does not).
+
+    A step puts the model in train mode, takes the gradient of the mean
+    cross-entropy, steps ``optimizer`` and then ``scheduler`` (per step, as
+    the JAX schedule counts optimizer updates).
+
+    ``accum_steps > 1`` splits the batch (divisible by it) into microbatches
+    run one after another: BN statistics update per microbatch, and the
+    gradients are averaged over the microbatches before the one update, as
+    the JAX step's ``lax.scan`` does (train.py:99-121).
+
+    ``remat``: ``True`` or a tuple of stages. A model with a ``remat``
+    attribute (``VideoResNet``) gets it set, and checkpoints those stages'
+    residual blocks; any other model is checkpointed as a whole forward.
+    """
+    if mesh is not None or zero_axis is not None:
+        raise NotImplementedError('mesh and zero_axis (multi-GPU) are not '
+                                  'ported yet')
+    if accum_steps < 1:
+        raise ValueError(f'accum_steps must be >= 1, got {accum_steps}')
+    forward = model
+    if remat and hasattr(model, 'remat'):
+        model.remat = remat
+    elif remat:
+        def forward(x):
+            return checkpointed(model, x)
+
+    def step(x, labels) -> Dict[str, torch.Tensor]:
+        if x.shape[0] % accum_steps:
+            raise ValueError(f'batch {x.shape[0]} not divisible by '
+                             f'accum_steps {accum_steps}')
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        losses, top1s = [], []
+        for xi, li in zip(x.chunk(accum_steps), labels.chunk(accum_steps)):
+            logits = forward(xi)
+            loss = cross_entropy(logits, li)
+            (loss / accum_steps).backward()
+            losses.append(loss.detach())
+            top1s.append((logits.argmax(1) == li).float().mean())
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return {'loss': torch.stack(losses).mean(),
+                'top1': torch.stack(top1s).mean()}
+
+    return step
+
+
+def finetune_mask(model: torch.nn.Module, trainable_prefixes) -> Dict[str, bool]:
+    """``{parameter name: trainable}``: True where the name starts with one
+    of ``trainable_prefixes`` (from ``models.resnet3d.
+    get_fine_tuning_parameter_names``); None trains everything. Hand only
+    the trainable parameters to the optimizer, so that frozen ones get no
+    update at all, weight decay included::
+
+        mask = finetune_mask(model, get_fine_tuning_parameter_names(4))
+        opt, sched = sgd_step_decay(
+            [p for n, p in model.named_parameters() if mask[n]], lr=0.01)
+    """
+    return {name: trainable_prefixes is None
+            or any(name.startswith(pref) for pref in trainable_prefixes)
+            for name, _ in model.named_parameters()}
+
+
+def sgd_step_decay(params, lr: float = 0.1, momentum: float = 0.9,
+                   weight_decay: float = 1e-4, decay_epochs: int = 30,
+                   steps_per_epoch: int = 1):
+    """``(optimizer, scheduler)``: SGD with momentum, whose ``weight_decay``
+    adds ``weight_decay * p`` to the gradient before the momentum trace (the
+    JAX ``add_decayed_weights`` then ``sgd``), and the reference's 0.1x every
+    ``decay_epochs`` epochs as a per-step staircase (train.py:159-167). Call
+    ``scheduler.step()`` once per optimizer step (``make_train_step`` does)."""
+    optimizer = torch.optim.SGD(params, lr=lr, momentum=momentum,
+                                weight_decay=weight_decay)
+    period = decay_epochs * steps_per_epoch
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda step: 0.1 ** (step // period))
+    return optimizer, scheduler

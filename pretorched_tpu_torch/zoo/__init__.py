@@ -1,1 +1,1 @@
-"""Weight conversion and loading."""
+"""Weight conversion and loading; training checkpoints."""

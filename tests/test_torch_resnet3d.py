@@ -43,6 +43,6 @@ def test_state_dict_from_flax_equals_jax_export():
 
 def test_unported_variants_raise():
     for kw in ({'cardinality': 32}, {'preact': True}, {'factored': True},
-               {'s2d_stem': True}, {'remat': (0,)}):
+               {'s2d_stem': True}):
         with pytest.raises(NotImplementedError):
             VideoResNet('bottleneck', (1, 1, 1, 1), **kw)
