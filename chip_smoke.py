@@ -28,7 +28,19 @@ Drives the port's main path once on one CUDA card and checks it:
    against those with the plain attention, and one step's loss and
    gradients in f32 with the kernels and with the plain attention, each
    against the same step in f64;
-8. a line with each kernel's numbers, then ``{"ok": true, "device": {...}}``.
+8. the fused bottleneck tail kernel (K2) against its plain version at
+   SlowFast-R50's shapes (fused_blocks 32 and 64) and an odd one, in f32
+   (TF32 off) and bf16, with its time, the plain version's, the unfused
+   tail's (the block's own cuDNN convs, BN and ReLU) and the bound;
+9. the SlowFast eval path: ``slowfast_resnet50(fused_blocks=32)`` (seeded
+   init, every BN randomized), 2 steps of 2 videos x 10 clips x 64 frames x
+   224 px from the eval CLI's ``load_video`` through
+   ``multi_clip_eval_step``. It checks 11 K2 launches per forward and none
+   of K1, finite logits, the f32 logits with K2 against fused_blocks=0,
+   and that the randomized BN moves the logits; it prints the forward A/B
+   of fused_blocks 32 and 0, peak memory and a profiled forward, then runs
+   ``examples/video_eval_torch.py -a slowfast_resnet50`` once;
+10. a line with each kernel's numbers, then ``{"ok": true, "device": {...}}``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root. It exits nonzero,
 with no result line, when a phase fails or no CUDA card is present.
@@ -70,6 +82,31 @@ TOL_BWD = {'float32': 1e-4, 'bfloat16': 2e-2}
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 MEM_BYTES_PER_S = 3.35e12
 TRAIN_CLIPS, TRAIN_STEPS = 8, 5
+# K2 (the fused bottleneck tail): (N, T, H, W, Cin, Cm, Cout, projection)
+# of SlowFast-R50 on 20 clips x 64 frames x 224 px (fast pathway B*T =
+# 20 x 32, slow 20 x 4); the first four are fused_blocks=32's, with their
+# launches per forward, the next three what fused_blocks=64 adds
+K2_SHAPES = {
+    'fast res2.0': (20, 32, 56, 56, 8, 8, 32, True),
+    'fast res2.1-2': (20, 32, 56, 56, 32, 8, 32, False),
+    'fast res3.1-3': (20, 32, 28, 28, 64, 16, 64, False),
+    'fast res4.1-5': (20, 32, 14, 14, 128, 32, 128, False),
+    'fast res5.1-2': (20, 32, 7, 7, 256, 64, 256, False),
+    'slow res2.0': (20, 4, 56, 56, 80, 64, 256, True),
+    'slow res2.1-2': (20, 4, 56, 56, 256, 64, 256, False),
+    'odd': (1, 3, 7, 7, 64, 16, 64, False),
+}
+K2_SLICE = {'fast res2.0': 1, 'fast res2.1-2': 2, 'fast res3.1-3': 3,
+            'fast res4.1-5': 5}
+# max |out - plain| / max |plain|: f32 sums in another order (TF32 off);
+# bf16 also rounds y2 and the output, where a sum near a rounding boundary
+# lands one bf16 step (2^-8 relative) apart
+TOL_K2 = {'float32': 1e-4, 'bfloat16': 2e-2}
+SF_FRAMES, SF_CLIPS, SF_VIDEOS = 64, 10, 2
+# the eval CLI's metadata for a model with no settings (SlowFast has none)
+CLI_SETTINGS = {'input_space': 'RGB', 'input_size': [3, 224, 224],
+                'input_range': [0, 1], 'mean': [0.485, 0.456, 0.406],
+                'std': [0.229, 0.224, 0.225]}
 
 
 class SmokeFailure(RuntimeError):
@@ -412,9 +449,9 @@ def train_batch(cli, settings, torch):
     return x, labels
 
 
-def profile_step(step, x, labels, torch):
-    """One more train step under ``torch.profiler``: device time by kernel,
-    the attention's share, and the device's idle share of the step."""
+def device_times(fn, torch):
+    """``fn()`` once under ``torch.profiler``: (host window ms, device time
+    by kernel name in us)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -423,13 +460,40 @@ def profile_step(step, x, labels, torch):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step(x, labels)
+            fn()
             torch.cuda.synchronize()
             window = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    return window, by_name
+
+
+def print_families(by_name, busy, groups):
+    """Device time by kernel family (cuDNN's and PyTorch's kernel names),
+    then the ten largest kernels."""
+    sums = dict.fromkeys([*groups, 'other'], 0.0)
+    for name, us in by_name.items():
+        low = name.lower()
+        group = next((g for g, keys in groups.items()
+                      if any(k in low for k in keys)), 'other')
+        sums[group] += us / 1e3
+    print('  by family: ' + ', '.join(f'{g} {ms:.1f} ms ({ms / busy:.1%})'
+                                      for g, ms in sums.items()))
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f'  {us / 1e3:8.2f} ms {us / 1e3 / busy:6.1%}  {name[:90]}')
+    return sums
+
+
+CONV_KEYS = ('conv', 'xmma', 'fprop', 'dgrad', 'wgrad', 'implicit', 'cudnn',
+             'gemm')
+
+
+def profile_step(step, x, labels, torch):
+    """One more train step under ``torch.profiler``: device time by kernel,
+    the attention's share, and the device's idle share of the step."""
+    window, by_name = device_times(lambda: step(x, labels), torch)
     busy = sum(by_name.values()) / 1e3
     if not busy:
         print('profiled step: the profiler saw no device time (not measured)')
@@ -441,22 +505,10 @@ def profile_step(step, x, labels, torch):
           f'idle {max(0.0, 1 - busy / window):.1%}; attention kernels '
           f'{sum(attn.values()):.1f} ms ({sum(attn.values()) / busy:.1%})',
           flush=True)
-    # kernel families by name (cuDNN's and PyTorch's kernel names)
-    groups = {'attention': ('nonlocal_attention',),
-              'convolution': ('conv', 'xmma', 'fprop', 'dgrad', 'wgrad',
-                              'implicit', 'cudnn', 'gemm'),
-              'batch norm': ('batch_norm', 'bn_fw', 'bn_bw'),
-              'optimizer': ('multi_tensor', 'foreach')}
-    sums = dict.fromkeys([*groups, 'other'], 0.0)
-    for name, us in by_name.items():
-        low = name.lower()
-        group = next((g for g, keys in groups.items()
-                      if any(k in low for k in keys)), 'other')
-        sums[group] += us / 1e3
-    print('  by family: ' + ', '.join(f'{g} {ms:.1f} ms ({ms / busy:.1%})'
-                                      for g, ms in sums.items()))
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f'  {us / 1e3:8.2f} ms {us / 1e3 / busy:6.1%}  {name[:90]}')
+    print_families(by_name, busy, {
+        'attention': ('nonlocal_attention',), 'convolution': CONV_KEYS,
+        'batch norm': ('batch_norm', 'bn_fw', 'bn_bw'),
+        'optimizer': ('multi_tensor', 'foreach')})
 
 
 def train_path(pretorched, na, torch, np, cli):
@@ -701,6 +753,300 @@ def gradient_agreement(pretorched, na, torch, cli):
     torch.cuda.empty_cache()
 
 
+def k2_block(torch, slowfast, shape, g):
+    """A SlowFast bottleneck of this shape (stride 1) on the card in eval
+    mode: conv weights normal with std sqrt(2 / fan_in), every BN
+    randomized, all from the CPU generator ``g``."""
+    n, t, h, w, cin, cm, cout, proj = shape
+    blk = slowfast.Bottleneck(cin, cm, 1, proj, 3)
+    with torch.no_grad():
+        for m in blk.modules():
+            if isinstance(m, torch.nn.Conv3d):
+                m.weight.normal_(0.0, (2 / m.weight[0].numel()) ** 0.5,
+                                 generator=g)
+    randomize_bn(blk, torch, seed=int(torch.randint(1 << 30, (1,),
+                                                    generator=g)))
+    return blk.cuda().eval()
+
+
+def k2_bound(shape, dtype):
+    """K2's bound: y1, x and out once each, the weights and folded BN once
+    (f32, as the kernel reads them); the products conv2, conv3 and the
+    projection must do."""
+    n, t, h, w, cin, cm, cout, proj = shape
+    e = 2 if dtype == 'bfloat16' else 4
+    pixels = n * t * h * w
+    macs = 9 * cm * cm + cm * cout + (cin * cout if proj else 0)
+    nbytes = pixels * (cm + cin + cout) * e + 4 * (macs + 2 * (cm + cout)
+                                                   + 2 * cout * proj)
+    return bound(2 * pixels * macs, nbytes, dtype)
+
+
+def k2_vs_plain(torch, fb, fb_cuda, slowfast):
+    """Phase 8: K2 at every shape, in f32 and bf16, against the plain
+    version on the same inputs; at the slice's four shapes in bf16 also the
+    kernel's time, the whole wrapper call's (the BN fold and weight layout
+    included), the plain version's, the unfused tail's (the block's own
+    conv2 -> BN -> ReLU -> conv3 -> BN -> add -> ReLU under bf16 autocast:
+    several cuDNN and PyTorch calls, as the model runs at fused_blocks=0)
+    and the bound. Returns the numbers of the slice's shapes."""
+    g = torch.Generator().manual_seed(2)
+    gc = torch.Generator(device='cuda').manual_seed(3)
+    rows = {}
+    for name, shape in K2_SHAPES.items():
+        n, t, h, w, cin, cm, cout, proj = shape
+        blk = k2_block(torch, slowfast, shape, g)
+        y1f = torch.randn((n, cm, t, h, w), device='cuda',
+                          generator=gc).relu_()
+        xf = torch.randn((n, cin, t, h, w), device='cuda',
+                         generator=gc).relu_()
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split('.')[-1]
+            y1, x = y1f.to(dt), xf.to(dt)
+            with torch.inference_mode():
+                weights = blk.tail_weights()
+                prepared = fb_cuda.prepare_tail(y1, x, *weights)
+                out = fb_cuda.launch_tail(prepared)
+                torch.cuda.synchronize()
+                want = fb.fused_bottleneck_tail_reference(y1, x, *weights)
+                err = (out.float() - want.float()).abs().max().item()
+                rel = err / want.float().abs().max().item()
+            tol = TOL_K2[dname]
+            path = 'tensor cores' if prepared['mma'] else 'CUDA cores'
+            line = (f'{name:14s} {dname:8s} N={n} T={t} {h}x{w} {cin}->{cm}'
+                    f'->{cout}{" (projection)" if proj else ""}, {path}: '
+                    f'max|out-plain|/max|plain| {rel:.2e} (tol {tol:g})')
+            if name in K2_SLICE and dt == torch.bfloat16:
+                with torch.inference_mode():
+                    ms = median_ms(lambda: fb_cuda.launch_tail(prepared))
+                    call_ms = median_ms(
+                        lambda: fb_cuda.fused_bottleneck_tail_cuda(
+                            y1, x, *blk.tail_weights()))
+                    plain_ms = median_ms(
+                        lambda: fb.fused_bottleneck_tail_reference(
+                            y1, x, *weights))
+                    with torch.autocast('cuda', dtype=torch.bfloat16):
+                        lib_ms = median_ms(lambda: blk.tail(y1, x))
+                        unfused = blk.tail(y1, x)
+                    lib_err = ((unfused.float() - want.float()).abs().max()
+                               / want.float().abs().max()).item()
+                    del unfused
+                bound_ms, bound_by = k2_bound(shape, dname)
+                line += (f'\n    kernel {ms:.4f} ms (the wrapper call with '
+                         f'BN fold and weight layout {call_ms:.4f} ms), '
+                         f'plain {plain_ms:.4f} ms, unfused tail (several '
+                         f'cuDNN and PyTorch calls) {lib_ms:.4f} ms '
+                         f'(max|unfused-plain|/max|plain| {lib_err:.2e}), '
+                         f'bound {bound_ms:.4f} ms ({bound_by}); '
+                         f'{K2_SLICE[name]} launches a forward')
+                rows[name] = {
+                    'path': path, 'max_abs_err': err, 'ms': ms,
+                    'call_ms': call_ms,
+                    'plain_ms': plain_ms, 'library_ms': lib_ms,
+                    'bound_ms': bound_ms, 'bound_by': bound_by}
+            print(line, flush=True)
+            check(rel <= tol, f'K2 disagrees with the plain version: {line}')
+            del y1, x, out, want, weights, prepared
+        del blk, y1f, xf
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fabricate_videos(np, root, frames=80):
+    """2 classes x 2 videos x ``frames`` JPEG frames at 240 x 320 (numpy
+    seed 0): enough for 10 distinct 64-frame clips a video."""
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    for cls in ('applauding', 'boxing'):
+        for vid in range(2):
+            d = root / cls / f'v{vid}'
+            d.mkdir(parents=True)
+            base = rng.randint(0, 256, (240, 320, 3)).astype(np.int16)
+            for f in range(frames):
+                frame = base + rng.randint(-20, 21, base.shape)
+                Image.fromarray(np.clip(frame, 0, 255).astype(np.uint8)).save(
+                    d / f'frame_{f:05d}.jpg', quality=90)
+
+
+def k_counts(na, fb_cuda):
+    """Launches of K1-fwd, K1-dq, K1-dkv and K2."""
+    return (*counts(na), fb_cuda.fused_bottleneck_tail_cuda.launches)
+
+
+def forward_ab(model, batch, torch):
+    """Median forward ms (CUDA events, 5 each) with fused_blocks 32 and 0,
+    in turns: fused, unfused, unfused, fused."""
+    times = {32: [], 0: []}
+    for n in (32, 0, 0, 32):
+        model.fused_blocks = n
+        times[n].append(median_ms(lambda: model(batch), reps=5))
+    model.fused_blocks = 32
+    return times
+
+
+def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
+    """Phase 9: ``slowfast_resnet50(fused_blocks=32)`` from seed 0 with
+    every BN randomized, 2 steps of 2 videos x 10 clips x 64 frames x 224
+    px from the CLI's ``load_video`` through ``multi_clip_eval_step``;
+    then, on the first batch, the forward A/B against fused_blocks=0, peak
+    memory, a profiled forward, the f32 agreement of the fused and unfused
+    paths, and the effect of the randomized BN; last the eval CLI on the
+    same videos. Returns K2's launches in the two steps."""
+    from pretorched_tpu_torch.parallel.evaluate import multi_clip_eval_step
+
+    root = WORK / 'val64'
+    t0 = time.perf_counter()
+    fabricate_videos(np, root)
+    print(f'fabricated 4 videos x 80 JPEG frames in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    model = pretorched.slowfast_resnet50(num_classes=400, pretrained=None,
+                                         fused_blocks=32)
+    randomize_bn(model, torch, seed=1)
+    model.cuda().eval().bfloat16()
+    step = multi_clip_eval_step(model)
+    videos, _ = cli.list_videos(root)
+    check(len(videos) == 4, f'{len(videos)} videos')
+
+    def batch_of(pair):
+        return torch.stack([cli.load_video(frames, SF_CLIPS, SF_FRAMES,
+                                           CLI_SETTINGS, 'cuda')
+                            for frames, _ in pair])
+
+    torch.cuda.synchronize()
+    set_counts(na, 0)
+    fb_cuda.fused_bottleneck_tail_cuda.launches = 0
+    t0 = time.perf_counter()
+    totals = {}
+    for i in range(0, len(videos), SF_VIDEOS):
+        pair = videos[i:i + SF_VIDEOS]
+        labels = torch.tensor([label for _, label in pair], device='cuda')
+        for k, v in step(batch_of(pair), labels).items():
+            totals[k] = totals.get(k, 0) + v.item()
+    seconds = time.perf_counter() - t0
+    launched = k_counts(na, fb_cuda)
+    steps = len(videos) // SF_VIDEOS
+    print(f'eval path: {steps} steps of {SF_VIDEOS} videos x {SF_CLIPS} clips '
+          f'x {SF_FRAMES} frames, {len(videos) * SF_CLIPS} clips in '
+          f'{seconds:.3f} s = {len(videos) * SF_CLIPS / seconds:.2f} clips/s '
+          f'(decode + preprocess + forward, first run); launches K1-fwd/dq/'
+          f'dkv/K2 {launched}; totals {totals}', flush=True)
+    check(launched == (0, 0, 0, 11 * steps),
+          f'expected 11 K2 launches per forward and no K1, got {launched}')
+    check(totals['count'] == 4 and 0 <= totals['top1'] <= totals['top5'] <= 4
+          and np.isfinite(totals['loss']), f'bad eval totals {totals}')
+
+    batch = batch_of(videos[:SF_VIDEOS]).flatten(0, 1)
+    check(batch.shape == (SF_VIDEOS * SF_CLIPS, 3, SF_FRAMES, 224, 224)
+          and batch.dtype == torch.bfloat16, f'batch {tuple(batch.shape)}')
+    nclips = batch.shape[0]
+    with torch.inference_mode():
+        logits_bf16 = model(batch).float()
+        check(logits_bf16.shape == (nclips, 400)
+              and bool(torch.isfinite(logits_bf16).all()),
+              'bf16 logits not finite')
+        times = forward_ab(model, batch, torch)
+        for n in (32, 0):
+            ms = sum(times[n]) / 2
+            print(f'forward, bf16, {nclips} clips x {SF_FRAMES} x 224 x 224, '
+                  f'fused_blocks={n}: {times[n][0]:.3f} / {times[n][1]:.3f} '
+                  f'ms (CUDA events, median of 5, two turns) = '
+                  f'{nclips / ms * 1e3:.2f} clips/s', flush=True)
+        peak = {}
+        for n in (32, 0):
+            model.fused_blocks = n
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            model(batch)
+            torch.cuda.synchronize()
+            peak[n] = torch.cuda.max_memory_allocated() / 2 ** 30
+        model.fused_blocks = 32
+        print(f'peak device memory of one forward: fused_blocks=32 '
+              f'{peak[32]:.2f} GiB, fused_blocks=0 {peak[0]:.2f} GiB')
+        window, by_name = device_times(lambda: model(batch), torch)
+        busy = sum(by_name.values()) / 1e3
+        if busy:
+            k2 = sum(v for k, v in by_name.items()
+                     if 'fused_bottleneck_tail' in k) / 1e3
+            print(f'profiled forward (torch.profiler, fused_blocks=32): '
+                  f'{window:.1f} ms host window, {busy:.1f} ms of kernels, '
+                  f'device idle {max(0.0, 1 - busy / window):.1%}; K2 '
+                  f'{k2:.2f} ms ({k2 / busy:.1%})', flush=True)
+            print_families(by_name, busy, {
+                'fused tail (K2)': ('fused_bottleneck_tail',),
+                'convolution': CONV_KEYS,
+                'batch norm': ('batch_norm', 'bn_fw'),
+                'pooling': ('pool',),
+                'elementwise': ('elementwise', 'vectorized', 'unrolled')})
+        else:
+            print('profiled forward: the profiler saw no device time (not '
+                  'measured)')
+
+        model.float()
+        batch32 = batch.float()
+        logits_k = model(batch32)
+        model.fused_blocks = 0
+        logits_u = model(batch32)
+        model.fused_blocks = 32
+        rel = ((logits_k - logits_u).norm() / logits_u.norm()).item()
+        rel_bf16 = ((logits_bf16 - logits_u).norm() / logits_u.norm()).item()
+        print(f'f32 logits, fused_blocks=32 vs 0: rel L2 {rel:.3e} (tol '
+              f'1e-3); bf16 fused vs f32 unfused: rel L2 {rel_bf16:.3e}')
+        check(bool(torch.isfinite(logits_k).all()) and rel <= 1e-3,
+              f'fused and unfused paths disagree: rel L2 {rel:.3e}')
+        del model
+        plain_bn = pretorched.slowfast_resnet50(num_classes=400,
+                                                pretrained=None,
+                                                fused_blocks=32)
+        plain_bn.cuda().eval()
+        moved = ((plain_bn(batch32) - logits_k).norm()
+                 / logits_k.norm()).item()
+        print(f'the same weights with BN at its init (the fold an identity) '
+              f'move the f32 logits by rel L2 {moved:.3e}')
+        check(moved > 1e-2, 'the randomized BN does not reach the logits')
+        del plain_bn, batch, batch32
+    torch.cuda.empty_cache()
+
+    argv = [str(root), '-a', 'slowfast_resnet50', '--pretrained', 'none',
+            '--frames', str(SF_FRAMES), '--clips', str(SF_CLIPS), '-b',
+            str(SF_VIDEOS), '--print-freq', '1', '--device', 'cuda']
+    print('examples/video_eval_torch.py ' + ' '.join(argv), flush=True)
+    before = k_counts(na, fb_cuda)
+    summary = cli.main(argv)
+    print(f"CLI: {summary['steps']} steps, {summary['clips']} clips in "
+          f"{summary['seconds']:.3f} s (fused_blocks at its default 0: K2 "
+          f'launches {k_counts(na, fb_cuda)[3] - before[3]})', flush=True)
+    check(summary['steps'] == 2 and summary['totals']['count'] == 4,
+          f'CLI summary {summary}')
+    torch.cuda.empty_cache()
+    return launched[3]
+
+
+def kernel_label(line):
+    """A readable name for a kernel of ptxas's 'Function properties for'
+    line: its template arguments spelled out."""
+    m = re.search(r'nonlocal_attention_(?:fwd|bwd)_(?:bf16|f32)_kernel'
+                  r'(?:ILi(\d+)ELb([01])E)?', line)
+    if m:
+        name = m.group(0).split('I')[0]
+        if m.group(1):
+            rows = 'resident' if m.group(2) == '1' else 'streamed'
+            name += f' ({m.group(1)} warps, rows {rows})'
+        return name
+    shortcut = {'0': 'identity', '1': 'projection'}
+    m = re.search(r'fused_bottleneck_tail_kernelI(f|\d+__nv_bfloat16)'
+                  r'Li(\d+)ELb([01])E', line)
+    if m:
+        dtype = 'f32' if m.group(1) == 'f' else 'bf16'
+        return (f'fused_bottleneck_tail_kernel ({dtype}, {m.group(2)} conv2 '
+                f'channels a pass, {shortcut[m.group(3)]})')
+    m = re.search(r'fused_bottleneck_tail_mma_kernelILi(\d+)ELb([01])E', line)
+    if m:
+        return (f'fused_bottleneck_tail_mma_kernel (bf16 tensor cores, Cm <= '
+                f'{m.group(1)}, {shortcut[m.group(2)]})')
+    return line.split()[-1]
+
+
 def main():
     import numpy as np
     import torch
@@ -718,6 +1064,9 @@ def main():
     sys.path.insert(0, str(REPO))
     import pretorched_tpu_torch as pretorched
     from pretorched_tpu_torch.ops.cuda import build
+    from pretorched_tpu_torch.models import slowfast
+    from pretorched_tpu_torch.ops import fused_block as fb
+    from pretorched_tpu_torch.ops.cuda import fused_block as fb_cuda
     from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
 
     phase('2. build')
@@ -726,13 +1075,7 @@ def main():
           f'{build.build_seconds:.2f} s')
     for line in build.build_log.splitlines():
         if 'Function properties for' in line:
-            kernel = re.search(r'nonlocal_attention_(?:fwd|bwd)_(?:bf16|f32)'
-                               r'_kernel(?:ILi(\d+)ELb([01])E)?', line)
-            name = kernel.group(0).split('I')[0] if kernel else line.split()[-1]
-            if kernel and kernel.group(1):
-                name += (f' ({kernel.group(1)} warps, rows '
-                         f'{"resident" if kernel.group(2) == "1" else "streamed"})')
-            print('  ' + name)
+            print('  ' + kernel_label(line))
         elif 'registers' in line or 'spill' in line:
             print('    ' + line.strip())
 
@@ -759,8 +1102,17 @@ def main():
           'attention, and in f64')
     gradient_agreement(pretorched, na, torch, cli)
 
-    phase('8. result')
+    phase('8. fused bottleneck tail kernel (K2) vs plain PyTorch')
+    k2 = k2_vs_plain(torch, fb, fb_cuda, slowfast)
+
+    phase(f'9. eval path: slowfast_resnet50, fused_blocks=32, {SF_CLIPS} '
+          f'clips x {SF_FRAMES} frames x 224 px')
+    k2_launches = slowfast_path(pretorched, torch, np, cli, na, fb_cuda)
+
+    phase('10. result')
     src = 'pretorched_tpu_torch/csrc/'
+    forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
+               for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
     pallas = 'pretorched_tpu/ops/pallas/nonlocal_attention.py:'
     print(json.dumps({'kernels': [
         {'name': 'nonlocal_attention_fwd', 'route': 'cuda',
@@ -774,7 +1126,18 @@ def main():
         {'name': 'nonlocal_attention_bwd_dkv', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '172',
          'launches': train_launches[2], **k1b['dkv'],
-         'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'}]}))
+         'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
+        {'name': 'fused_bottleneck_tail', 'route': 'cuda',
+         'source': src + 'fused_block.cu',
+         'replaces': 'pretorched_tpu/ops/pallas/fused_block.py:69',
+         'launches': k2_launches, **k2['fast res2.1-2'],
+         'plain': 'fused_bottleneck_tail_reference',
+         'library': 'the unfused tail: cuDNN conv2, BN, ReLU, cuDNN conv3, '
+                    'BN, add, ReLU (several calls; no one PyTorch call '
+                    'computes the function)',
+         'shape': list(K2_SHAPES['fast res2.1-2'][:7]), 'dtype': 'bfloat16',
+         'per_forward': {**forward, 'launches': sum(K2_SLICE.values()),
+                         'shapes': list(K2_SLICE)}}]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """pretorched_tpu_torch — the PyTorch and CUDA port of ``pretorched_tpu``.
 
 The JAX package stays the reference; this package imports no JAX. It covers
-the 3D ResNet and non-local ResNet families, their hosted-checkpoint
-loading, device-side preprocessing and multi-clip evaluation, with the
-non-local attention forward as a hand-written CUDA kernel for Hopper.
+the 3D ResNet, non-local ResNet and SlowFast families, their
+hosted-checkpoint loading, device-side preprocessing, multi-clip evaluation
+and training, with the JAX package's Pallas kernels as hand-written CUDA
+kernels for Hopper: the non-local attention forward and backward, and
+SlowFast's fused eval bottleneck tail.
 
 Public contract (the reference's, pretorched/__init__.py:11-83):
 

@@ -6,3 +6,5 @@ from .resnet3d import (resnet3d10, resnet3d18, resnet3d34, resnet3d50,  # noqa: 
 from .nonlocalnet import (nonlocalresnet3d18, nonlocalresnet3d34,  # noqa: F401
                           nonlocalresnet3d50, nonlocalresnet3d101,
                           nonlocalresnet3d152)
+from . import slowfast  # noqa: F401  (the reference's pretorched.slowfast)
+from .slowfast import SlowFastV0  # noqa: F401

@@ -107,6 +107,23 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    # y1, x, w2t, a2, w3t, a3, wpt, ap, out; n, t, h, w, cm, cin, cout,
+    # dtype; stream
+    lib.pt_fused_bottleneck_tail.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    lib.pt_fused_bottleneck_tail.restype = ctypes.c_int
+    lib.pt_fused_bottleneck_tail_cm_chunk.argtypes = [ctypes.c_int]
+    lib.pt_fused_bottleneck_tail_cm_chunk.restype = ctypes.c_int
+    lib.pt_fused_bottleneck_tail_cout_chunk.argtypes = []
+    lib.pt_fused_bottleneck_tail_cout_chunk.restype = ctypes.c_int
+    # the tensor-core path: the same pointers, then n .. cout; stream
+    lib.pt_fused_bottleneck_tail_mma.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.pt_fused_bottleneck_tail_mma.restype = ctypes.c_int
+    lib.pt_fused_bottleneck_tail_mma_rows.argtypes = [ctypes.c_int] * 6
+    lib.pt_fused_bottleneck_tail_mma_rows.restype = ctypes.c_int
+    lib.pt_fused_bottleneck_tail_mma_padded.argtypes = [ctypes.c_int]
+    lib.pt_fused_bottleneck_tail_mma_padded.restype = ctypes.c_int
     lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pt_cuda_error_string.restype = ctypes.c_char_p
     build_seconds = time.perf_counter() - t0

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (the non-local attention forward K1-fwd and its
-backward K1-dq, K1-dkv) against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels (the non-local attention forward K1-fwd, its
+backward K1-dq, K1-dkv, and the fused bottleneck tail K2) against their
+plain PyTorch versions, on a card.
 
 Every test here is marked ``gpu`` and skips without CUDA. The file imports
 no JAX, so it runs on a machine that has only PyTorch (the suite's
@@ -12,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from pretorched_tpu_torch.ops import fused_block as fb
+from pretorched_tpu_torch.ops.cuda import fused_block as fb_cuda
 from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
 
 # (B, N, Nk, C, Cv, scale), as in test_torch_nonlocal_attention.py, plus
@@ -163,3 +166,100 @@ def test_remat_updates_bn_stats_once_on_cuda(cuda):
         if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
             assert int(m.num_batches_tracked) == 1, name
     assert model.layer1[0].conv1.weight.grad is not None
+
+
+# K2: (N, T, H, W, Cin, Cm, Cout, projection): SlowFast-R50's fast pathway
+# at fused_blocks=32 on 20 clips x 64 frames x 224 px, one shape of
+# fused_blocks=64 with a wide projection (too wide for the tensor-core
+# path's shared memory: bf16 takes the CUDA-core path), an odd case, and
+# channel counts that are no multiple of 8 (the CUDA-core path again)
+K2_CASES = [
+    (20, 32, 56, 56, 8, 8, 32, True),
+    (20, 32, 56, 56, 32, 8, 32, False),
+    (20, 32, 28, 28, 64, 16, 64, False),
+    (20, 32, 14, 14, 128, 32, 128, False),
+    (2, 4, 56, 56, 80, 64, 256, True),
+    (1, 3, 7, 7, 64, 16, 64, False),
+    (2, 3, 9, 300, 24, 20, 40, True),      # W > 256 threads, ragged chunks
+]
+
+
+def _k2_inputs(case, dtype, device, seed=0):
+    n, t, h, w, cin, cm, cout, proj = case
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(device)
+
+    def affine(c):
+        return torch.stack([torch.rand(c, generator=g) + 0.5,
+                            torch.rand(c, generator=g) * 0.4 - 0.2]).to(device)
+
+    y1 = rand(n, cm, t, h, w).relu_().to(dtype)
+    x = rand(n, cin, t, h, w).relu_().to(dtype)
+    return (y1, x, rand(cm, cm, 3, 3, scale=(2 / (9 * cm)) ** 0.5),
+            affine(cm), rand(cout, cm, scale=(2 / cm) ** 0.5), affine(cout),
+            rand(cout, cin, scale=(2 / cin) ** 0.5) if proj else None,
+            affine(cout) if proj else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize('case', K2_CASES)
+def test_fused_tail_kernel_matches_plain(cuda, dtype, tol, case):
+    """max |out - plain| / max |plain|. f32: the same f32 products, summed
+    in another order (TF32 off for the plain convs). bf16: both round y2
+    and the output to bf16; a sum near a rounding boundary lands one bf16
+    step apart."""
+    args = _k2_inputs(case, dtype, cuda)
+    before = fb_cuda.fused_bottleneck_tail_cuda.launches
+    with torch.no_grad():
+        out = fb.fused_bottleneck_tail(*args)
+        torch.cuda.synchronize()
+        assert fb_cuda.fused_bottleneck_tail_cuda.launches == before + 1
+        want = fb.fused_bottleneck_tail_reference(*args)
+    n, t, h, w, cin, cm, cout, proj = case
+    assert out.dtype == dtype and out.shape == (n, cout, t, h, w)
+    assert _rel_err(out, want.float()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', K2_CASES[:4])
+def test_fused_tail_slice_shapes_take_the_tensor_cores(cuda, case):
+    """bf16 at the slice's shapes goes to the tensor-core path; f32 to the
+    CUDA-core one."""
+    for dtype, mma in ((torch.bfloat16, True), (torch.float32, False)):
+        args = _k2_inputs(case, dtype, cuda)
+        with torch.no_grad():
+            assert fb_cuda.prepare_tail(*args)['mma'] is mma
+
+
+@pytest.mark.gpu
+def test_fused_tail_kernel_refuses_what_it_does_not_take(cuda):
+    args = list(_k2_inputs((1, 2, 5, 5, 32, 8, 32, False), torch.float32,
+                           cuda))
+    with pytest.raises(ValueError, match='x_res is torch.bfloat16'):
+        fb_cuda.fused_bottleneck_tail_cuda(args[0], args[1].bfloat16(),
+                                           *args[2:])
+    args[2].requires_grad_()
+    with pytest.raises(ValueError, match='eval-only'):
+        fb_cuda.fused_bottleneck_tail_cuda(*args)
+
+
+@pytest.mark.gpu
+def test_slowfast_fused_blocks_on_the_card(cuda):
+    """A small SlowFast in f32 with fused_blocks=32 launches K2 once per
+    fused block and gives the logits of fused_blocks=0."""
+    from pretorched_tpu_torch.models.slowfast import SlowFast
+
+    model = SlowFast(layers=(2, 2, 3, 1), num_classes=7,
+                     fused_blocks=32).to(cuda).eval()
+    x = torch.randn(2, 3, 32, 64, 64, device=cuda)
+    before = fb_cuda.fused_bottleneck_tail_cuda.launches
+    with torch.no_grad():
+        fused = model(x)
+        assert fb_cuda.fused_bottleneck_tail_cuda.launches == before + 5
+        model.fused_blocks = 0
+        plain = model(x)
+    assert ((fused - plain).norm() / plain.norm()).item() <= 1e-4

@@ -37,8 +37,8 @@ def _inputs(b, n, nk, c, cv, seed=0):
 @pytest.mark.parametrize('b,n,nk,c,cv,scale', CASES)
 def test_plain_matches_pallas(b, n, nk, c, cv, scale):
     q, k, v = _inputs(b, n, nk, c, cv)
-    want_out, want_lse = _nonlocal_attention_fwd_lse(q, k, v, scale=scale,
-                                                     interpret=True)
+    want_out, want_lse = (np.asarray(a) for a in _nonlocal_attention_fwd_lse(
+        q, k, v, scale=scale, interpret=True))      # waits for XLA first
     before = na.nonlocal_attention_cuda.launches
     out, lse = na.nonlocal_attention_fwd_lse(
         *(torch.from_numpy(a) for a in (q, k, v)), scale)

@@ -6,6 +6,11 @@ on the same out and lse, and the autograd Function with ``jax.grad`` of the
 custom VJP. Both sides compute in f32 with sums in another order: 1e-4. The
 kernels themselves run only on a CUDA card
 (``tests/test_torch_kernels_gpu.py`` holds them against the plain version).
+
+JAX dispatches asynchronously, so each JAX result is brought to numpy (which
+waits for it) before the port's side runs: the port's CPU kernels then never
+share the cores with XLA's threads still at work on the same process's
+computation.
 """
 
 import jax
@@ -33,15 +38,15 @@ def test_plain_backward_matches_pallas(b, n, nk, c, cv, scale):
     q, k, v = _inputs(b, n, nk, c, cv)
     do = np.random.RandomState(1).randn(b, n, cv).astype(np.float32)
     o, lse = _nonlocal_attention_fwd_lse(q, k, v, scale=scale, interpret=True)
-    want = _nonlocal_attention_bwd_blockwise(q, k, v, o, lse, do, scale=scale,
-                                             interpret=True)
+    want = [np.asarray(w) for w in _nonlocal_attention_bwd_blockwise(
+        q, k, v, o, lse, do, scale=scale, interpret=True)]
     got = na.nonlocal_attention_bwd_reference(
         *(torch.from_numpy(np.array(a)) for a in (q, k, v, o, lse, do)),
         scale)
     for g, w, name in zip(got, want, ('dq', 'dk', 'dv')):
         assert g.shape == w.shape and g.dtype == torch.float32, name
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
-                                   atol=1e-4, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize('b,n,nk,c,cv,scale', CASES)
@@ -55,7 +60,7 @@ def test_autograd_matches_jax_grad(b, n, nk, c, cv, scale):
         return (jnp.asarray(ct) * _nonlocal_attention_ad(q, k, v, scale,
                                                          True)).sum()
 
-    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    want = [np.asarray(w) for w in jax.grad(loss, argnums=(0, 1, 2))(q, k, v)]
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     before = _launches()
     out = na.auto_nonlocal_attention(tq, tk, tv, scale)
