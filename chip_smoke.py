@@ -5,22 +5,32 @@ Drives the port's main path once on one CUDA card and checks it:
 
 1. the card: its name and power limit (``nvidia-smi``);
 2. the build of the CUDA kernels from ``pretorched_tpu_torch/csrc``;
-3. the non-local attention forward kernel against its plain PyTorch version
-   at the video slice's shapes, in f32 (TF32 off) and bf16, with its time,
-   the plain version's, one ``scaled_dot_product_attention`` call's and the
-   bound;
+3. the non-local attention forward kernels against their plain PyTorch
+   version at the video slice's shapes, in f32 (TF32 off) and bf16, each
+   with the kernel the dispatch picks (``attention_kernel``: bf16 with C
+   and Cv multiples of 64 up to 256 on the wgmma kernel, other bf16 shapes
+   on mma.sync, f32 scalar), its time, its bound and one
+   ``scaled_dot_product_attention`` call's time, the plain version's at
+   layers 2 and 3, and at layer 2 the mma.sync kernel that wgmma replaced
+   and each one's host time per call;
 4. the eval path: a fabricated hosted ``kinetics-400`` checkpoint for
    ``nonlocalresnet3d50`` (seeded init, every BN randomized, non-local
    weights included), a frame folder of JPEGs, and the 10-clip, 32-frame,
    224 px eval of ``examples/video_eval_torch.py``. It checks that every
-   forward launched the kernel 5 times, that the logits are finite, that the
-   f32 logits with the kernel match those with the plain attention, and that
-   the attention moves the logits;
+   forward launched K1-fwd 5 times (layer 2's 2 on wgmma, layer 3's 3 on
+   mma.sync), that the logits are finite, that the bf16 logits through the
+   wgmma kernel match the same bf16 model with the plain attention, that the
+   f32 logits with the kernel match those with the plain attention, and
+   that the attention moves the logits; it profiles one bf16 forward by
+   kernel family;
 5. the backward kernels (K1-dq, K1-dkv) against the plain backward at the
-   training path's shapes, in f32 and bf16, with the same four times;
+   training path's shapes, in f32 and bf16, with the same times per bf16
+   shape and, at layer 2, the generic K1-dkv that wgmma replaced (time and
+   host time per call);
 6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
    ``remat=(0,)``, SGD, 5 steps of 8 clips x 32 frames x 224 px; it checks
-   15 attention launches a step (5 forward, 5 dq, 5 dkv) and a finite loss,
+   15 attention launches a step (5 forward, 5 dq, 5 dkv; K1-fwd and K1-dkv
+   at layer 2 on wgmma) and a finite loss,
    prints the step time, clips/s and peak memory, profiles one more step
    (device time by kernel family, idle share), and saves a checkpoint
    after step 3 that must restore exactly;
@@ -67,6 +77,14 @@ SLICE_SHAPES = {            # (B, N, Nk, C, Cv): 10 clips x 2 videos
     'ragged_n': (3, 1000, 1000, 64, 64),
 }
 TOL = {'float32': (2e-4, 1e-4), 'bfloat16': (2e-2, 1e-2)}    # out, lse
+# bf16 out also within 2e-2 of the largest |out|: at layer 2 |out| is ~0.02
+# RMS, so the absolute 2e-2 alone would pass a kernel that drops a k/v tile
+TOL_REL_BF16 = 2e-2
+# the bf16 eval logits through the kernels against the same bf16 model with
+# the plain attention (rel L2): the random-weight network amplifies bf16
+# rounding to ~2e-2 (1.8e-2 through wgmma, 2.0e-2 through mma.sync on an
+# H100), so this catches gross faults; also no more than twice mma.sync's
+TOL_LOGITS_BF16 = 5e-2
 TRAIN_SHAPES = {            # (B, N, Nk, C, Cv): 8 clips a step
     'layer2': (8, 6272, 6272, 256, 256),
     'layer3': (8, 784, 784, 512, 512),
@@ -75,6 +93,11 @@ TRAIN_SHAPES = {            # (B, N, Nk, C, Cv): 8 clips a step
     'ragged_n': (3, 1000, 1000, 64, 64),
     'gaussian': (2, 1000, 125, 1024, 512),
 }
+# K1-fwd and K1-dkv launches by kernel (the dispatch of
+# ops/cuda/nonlocal_attention.py): layer 2 (C = Cv = 256) on wgmma, 2 blocks
+# a pass; layer 3 (C = Cv = 512) on mma.sync, 3 blocks
+EVAL_KERNELS = {'fwd wgmma': 2, 'fwd mma_sync': 3}
+TRAIN_KERNELS = {**EVAL_KERNELS, 'dkv wgmma': 2, 'dkv mma_sync': 3}
 # max |grad - plain| / max |plain grad|: f32 sums in another order; bf16
 # rounds p and ds for the products and stores bf16
 TOL_BWD = {'float32': 1e-4, 'bfloat16': 2e-2}
@@ -137,6 +160,20 @@ def median_ms(fn, reps=20):
     return times[len(times) // 2]
 
 
+def host_us(fn, reps=20):
+    """Host microseconds a call of ``fn`` takes to queue its work (the
+    wrapper, tensor maps, launch), with no synchronize inside the loop."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def bound(flops, nbytes, dtype):
     """(ms, 'operations' or 'bytes'): the least time for this work."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / MEM_BYTES_PER_S
@@ -164,8 +201,35 @@ def sdpa_backend(torch, q, k, v):
     return names.get(int(torch._fused_sdp_choice(q, k, v, scale=1.0)), '?')
 
 
+def sdpa_ms(torch, q, k, v, do=None):
+    """(ms, backend) of one ``scaled_dot_product_attention`` call on the
+    same inputs (its backward alone when ``do`` is given), or (None,
+    reason) where no backend takes the shape."""
+    import torch.nn.functional as F
+    q4, k4, v4 = (t[:, None].detach().requires_grad_(do is not None)
+                  for t in (q, k, v))
+    try:
+        backend = sdpa_backend(torch, q4, k4, v4)
+        if do is None:
+            with torch.no_grad():
+                return median_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, scale=1.0)), backend
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+        return median_ms(lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do[:, None], retain_graph=True)), backend
+    except (RuntimeError, ValueError) as e:   # a yardstick, never the port
+        return None, f'not measured: {str(e).splitlines()[0][:80]}'
+
+
+def fmt_ms(ms):
+    return 'n/a' if ms is None else f'{ms:.3f} ms'
+
+
 def kernel_vs_plain(na, torch):
-    """Phase 3: every case in both dtypes; returns the layer-2 bf16 row."""
+    """Phase 3: every case in both dtypes, with the kernel the dispatch
+    picks; bf16 cases timed with their bound and SDPA's time, layer 2 also
+    on the mma.sync kernel that wgmma replaced. Returns the layer-2 bf16
+    row."""
     g = torch.Generator(device='cuda').manual_seed(0)
     result = None
     for name, (b, n, nk, c, cv) in SLICE_SHAPES.items():
@@ -177,42 +241,57 @@ def kernel_vs_plain(na, torch):
             k = (torch.randn(b, nk, c, device='cuda', generator=g)
                  / c ** 0.25).to(dt)
             v = torch.randn(b, nk, cv, device='cuda', generator=g).to(dt)
+            kernel = na.attention_kernel(dt, c, cv)
             out, lse = na.nonlocal_attention_cuda(q, k, v)
             torch.cuda.synchronize()
             want, want_lse = na.nonlocal_attention_fwd_lse_reference(
                 q.float(), k.float(), v.float())
             err = (out.float() - want).abs().max().item()
+            err_rel = err / want.abs().max().item()
             err_lse = (lse - want_lse).abs().max().item()
             tol, tol_lse = TOL[dname]
+            tol_rel = TOL_REL_BF16 if dt == torch.bfloat16 else float('inf')
             line = (f'{name:10s} {dname:8s} B={b} N={n} Nk={nk} C={c} '
-                    f'Cv={cv}: max|out-plain|={err:.3e} (tol {tol:g}) '
+                    f'Cv={cv} [{kernel}]: max|out-plain|={err:.3e} (tol '
+                    f'{tol:g}), /max|plain| {err_rel:.3e} (tol {tol_rel:g}), '
                     f'max|lse-plain|={err_lse:.3e} (tol {tol_lse:g})')
             del want, want_lse
-            if name in ('layer2', 'layer3'):
+            if dt == torch.bfloat16 or name in ('layer2', 'layer3'):
                 ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
+                line += f'\n    kernel {ms:.3f} ms'
+            if name in ('layer2', 'layer3'):
                 plain_ms = median_ms(
                     lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v))
-                line += f' kernel {ms:.3f} ms, plain {plain_ms:.3f} ms'
-            if name in ('layer2', 'layer3') and dt == torch.bfloat16:
-                import torch.nn.functional as F
-                q4, k4, v4 = q[:, None], k[:, None], v[:, None]
-                with torch.no_grad():
-                    lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-                        q4, k4, v4, scale=1.0))
-                    backend = sdpa_backend(torch, q4, k4, v4)
+                line += f', plain {plain_ms:.3f} ms'
+            if dt == torch.bfloat16:
+                lib_ms, backend = sdpa_ms(torch, q, k, v)
                 bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
                                                       dname)['fwd']
-                line += (f', scaled_dot_product_attention {lib_ms:.3f} ms '
+                line += (f', scaled_dot_product_attention {fmt_ms(lib_ms)} '
                          f'({backend}), bound {bound_ms:.4f} ms ({bound_by})')
                 if name == 'layer2':
-                    result = {'max_abs_err': err, 'ms': ms,
+                    earlier_ms = median_ms(lambda: na._launch_fwd(
+                        q, k, v, 1.0, 'mma_sync'))
+                    hosts = (host_us(lambda: na.nonlocal_attention_cuda(
+                                 q, k, v)),
+                             host_us(lambda: na._launch_fwd(
+                                 q, k, v, 1.0, 'mma_sync')))
+                    line += (f'; the mma.sync kernel {earlier_ms:.3f} ms; '
+                             f'host per call {hosts[0]:.1f} us ({kernel}), '
+                             f'{hosts[1]:.1f} us (mma.sync)')
+                    result = {'kernel': kernel, 'max_abs_err': err, 'ms': ms,
                               'plain_ms': plain_ms, 'library_ms': lib_ms,
                               'library': f'scaled_dot_product_attention '
                                          f'({backend})',
-                              'bound_ms': bound_ms, 'bound_by': bound_by}
+                              'bound_ms': bound_ms, 'bound_by': bound_by,
+                              'earlier_ms': earlier_ms,
+                              'earlier': 'mma.sync kernel (PR 1), same run',
+                              'host_us': hosts[0],
+                              'earlier_host_us': hosts[1]}
             print(line, flush=True)
-            check(err <= tol and err_lse <= tol_lse,
+            check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
                   f'kernel disagrees with the plain version: {line}')
+            del q, k, v, out, lse
             torch.cuda.empty_cache()
     return result
 
@@ -256,8 +335,8 @@ def fabricate(pretorched, torch, np):
 
 
 def main_path(pretorched, na, torch, np):
-    """Phase 4; returns the kernel's launch count in the eval run and the
-    eval CLI's module."""
+    """Phase 4; returns K1-fwd's launch count in the eval run, the count by
+    kernel, and the eval CLI's module."""
     from pretorched_tpu_torch.datasets.native import decoder_name
     from pretorched_tpu_torch.models import nonlocalnet
 
@@ -295,6 +374,9 @@ def main_path(pretorched, na, torch, np):
           f'expected 5 launches per forward, got {launches} in '
           f"{summary['steps']} forwards")
     check(dq_dkv == (0, 0), f'the eval run launched backward kernels {dq_dkv}')
+    eval_by_kernel = kernel_counts(na)
+    print(f'eval run, K1-fwd launches by kernel: {eval_by_kernel}')
+    expect_kernels(na, EVAL_KERNELS, summary['steps'], 'eval run')
     check(totals['count'] == 4 and 0 <= totals['top1'] <= totals['top5'] <= 4
           and np.isfinite(totals['loss']), f'bad eval totals {totals}')
 
@@ -313,19 +395,53 @@ def main_path(pretorched, na, torch, np):
         logits_bf16 = model(batch).float()
         print(f'forward, bf16, 20 clips x 32 x 224 x 224: {ms:.3f} ms = '
               f'{20 / ms * 1e3:.2f} clips/s (CUDA events, median of 5)')
+        window, by_name = device_times(lambda: model(batch), torch)
+        busy = sum(by_name.values()) / 1e3
+        if busy:
+            print(f'profiled forward (torch.profiler): {window:.1f} ms host '
+                  f'window, {busy:.1f} ms of kernels, device idle '
+                  f'{max(0.0, 1 - busy / window):.1%}', flush=True)
+            print_families(by_name, busy, {
+                'attention (K1-fwd)': ('nonlocal_attention',),
+                'convolution': CONV_KEYS,
+                'batch norm': ('batch_norm', 'bn_fw'), 'pooling': ('pool',),
+                'elementwise': ('elementwise', 'vectorized', 'unrolled')})
+        else:
+            print('profiled forward: the profiler saw no device time (not '
+                  'measured)')
         check(logits_bf16.shape == (20, 400)
               and bool(torch.isfinite(logits_bf16).all()),
               'bf16 logits not finite')
+
+        def with_attention(fn):
+            orig = nonlocalnet.auto_nonlocal_attention
+            nonlocalnet.auto_nonlocal_attention = fn
+            try:
+                return model(batch).float()
+            finally:
+                nonlocalnet.auto_nonlocal_attention = orig
+
+        def rel_l2(a, b):
+            return ((a - b).norm() / b.norm()).item()
+
+        # the bf16 model through the wgmma kernel (layer 2) against the same
+        # model with the mma.sync kernel there and with the plain attention
+        logits_mma = with_attention(
+            lambda q, k, v: na._launch_fwd(q, k, v, 1.0, 'mma_sync')[0])
+        logits_pb = with_attention(na.nonlocal_attention_reference)
+        rel_wp, rel_mp = rel_l2(logits_bf16, logits_pb), rel_l2(logits_mma,
+                                                                logits_pb)
+        print(f'bf16 logits, rel L2 to the bf16 model with plain attention: '
+              f'wgmma at layer 2 {rel_wp:.3e} (tol {TOL_LOGITS_BF16:g} and '
+              f'2x mma.sync\'s), mma.sync there {rel_mp:.3e}; wgmma vs '
+              f'mma.sync {rel_l2(logits_bf16, logits_mma):.3e}', flush=True)
+        check(rel_wp <= min(TOL_LOGITS_BF16, 2 * rel_mp),
+              f'bf16 logits through wgmma off the plain attention: {rel_wp}')
         model.float()
         logits_k = model(batch)
-        orig = nonlocalnet.auto_nonlocal_attention
-        nonlocalnet.auto_nonlocal_attention = na.nonlocal_attention_reference
-        try:
-            logits_p = model(batch)
-        finally:
-            nonlocalnet.auto_nonlocal_attention = orig
-        rel = ((logits_k - logits_p).norm() / logits_p.norm()).item()
-        rel_bf16 = ((logits_bf16 - logits_p).norm() / logits_p.norm()).item()
+        logits_p = with_attention(na.nonlocal_attention_reference)
+        rel = rel_l2(logits_k, logits_p)
+        rel_bf16 = rel_l2(logits_bf16, logits_p)
         print(f'f32 logits, kernel vs plain attention: rel L2 {rel:.3e} '
               f'(tol 1e-3); bf16 vs f32-plain: rel L2 {rel_bf16:.3e}')
         check(bool(torch.isfinite(logits_k).all()) and rel <= 1e-3,
@@ -337,14 +453,14 @@ def main_path(pretorched, na, torch, np):
         print(f'zeroing the 5 W.1 scales moves the f32 logits by rel L2 '
               f'{moved:.3e}')
         check(moved > 1e-2, 'the logits do not depend on the attention')
-    return launches, cli
+    return launches, eval_by_kernel, cli
 
 
 def backward_vs_plain(na, torch):
-    """Phase 5: K1-dq and K1-dkv at every case in both dtypes; returns the
-    layer-2 bf16 numbers."""
-    import torch.nn.functional as F
-
+    """Phase 5: K1-dq and K1-dkv at every case in both dtypes, with the
+    K1-dkv kernel the dispatch picks; bf16 cases timed with their bounds and
+    SDPA's backward, layer 2 also on the generic K1-dkv that wgmma
+    replaced. Returns the layer-2 bf16 numbers."""
     g = torch.Generator(device='cuda').manual_seed(1)
     result = None
     for name, (b, n, nk, c, cv) in TRAIN_SHAPES.items():
@@ -367,10 +483,12 @@ def backward_vs_plain(na, torch):
                 rels.append(errs[-1] / w.abs().max().item())
             del want
             tol = TOL_BWD[dname]
+            kernel = na.attention_kernel(dt, c, cv)
             line = (f'{name:10s} {dname:8s} B={b} N={n} Nk={nk} C={c} '
-                    f'Cv={cv}: max|d-plain|/max|d| dq {rels[0]:.2e}, dk '
-                    f'{rels[1]:.2e}, dv {rels[2]:.2e} (tol {tol:g})')
-            if name in ('layer2', 'layer3') and dt == torch.bfloat16:
+                    f'Cv={cv} [dkv {kernel}]: max|d-plain|/max|d| dq '
+                    f'{rels[0]:.2e}, dk {rels[1]:.2e}, dv {rels[2]:.2e} (tol '
+                    f'{tol:g})')
+            if dt == torch.bfloat16:
                 delta = (do.float() * out.float()).sum(-1)
                 dq_ms = median_ms(lambda: na.nonlocal_attention_bwd_dq_cuda(
                     q, k, v, do, lse, delta))
@@ -378,45 +496,57 @@ def backward_vs_plain(na, torch):
                     q, k, v, do, lse, delta))
                 ms = median_ms(lambda: na.nonlocal_attention_bwd_cuda(
                     q, k, v, out, lse, do))
-                plain_ms = median_ms(lambda: na.nonlocal_attention_bwd_reference(
-                    q, k, v, out, lse, do))
-                q4, k4, v4 = (t[:, None].detach().requires_grad_()
-                              for t in (q, k, v))
-                o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
-                backend = sdpa_backend(torch, q4, k4, v4)
-                lib_ms = median_ms(lambda: torch.autograd.grad(
-                    o4, (q4, k4, v4), do[:, None], retain_graph=True))
-                del q4, k4, v4, o4
+                lib_ms, backend = sdpa_ms(torch, q, k, v, do)
                 bounds = attention_bounds(b, n, nk, c, cv, dname)
                 whole = bound(2 * b * n * nk * (3 * c + 2 * cv),
                               2 * (3 * b * n * c + 3 * b * nk * (c + cv)
                                    + 2 * b * n * cv), dname)
                 line += (f'\n    kernels {ms:.3f} ms (dq {dq_ms:.3f}, dkv '
                          f'{dkv_ms:.3f}, delta and allocation the rest), '
-                         f'plain {plain_ms:.3f} ms, scaled_dot_product_'
-                         f'attention backward {lib_ms:.3f} ms ({backend}); '
-                         f'bound: dq {bounds["dq"][0]:.4f} ms, dkv '
+                         f'scaled_dot_product_attention backward '
+                         f'{fmt_ms(lib_ms)} ({backend}); bound: dq '
+                         f'{bounds["dq"][0]:.4f} ms, dkv '
                          f'{bounds["dkv"][0]:.4f} ms, whole backward '
                          f'{whole[0]:.4f} ms ({whole[1]})')
+                if name in ('layer2', 'layer3'):
+                    plain_ms = median_ms(
+                        lambda: na.nonlocal_attention_bwd_reference(
+                            q, k, v, out, lse, do))
+                    line += f', plain {plain_ms:.3f} ms'
                 if name == 'layer2':
+                    earlier_ms = median_ms(lambda: na._launch_dkv(
+                        q, k, v, do, lse, delta, 1.0, 'mma_sync'))
+                    hosts = (host_us(lambda: na.nonlocal_attention_bwd_dkv_cuda(
+                                 q, k, v, do, lse, delta)),
+                             host_us(lambda: na._launch_dkv(
+                                 q, k, v, do, lse, delta, 1.0, 'mma_sync')))
+                    line += (f'; the generic mma.sync K1-dkv {earlier_ms:.3f} '
+                             f'ms; host per call {hosts[0]:.1f} us ({kernel}),'
+                             f' {hosts[1]:.1f} us (mma.sync)')
                     library = (f'scaled_dot_product_attention backward '
                                f'({backend}; dq, dk, dv together)')
                     plain = ('nonlocal_attention_bwd_reference (dq, dk, dv '
                              'together)')
                     result = {
-                        'dq': {'max_abs_err': errs[0], 'max_rel_err': rels[0],
-                               'ms': dq_ms, 'plain_ms': plain_ms,
-                               'plain': plain, 'library_ms': lib_ms,
-                               'library': library,
+                        'dq': {'kernel': 'mma_sync', 'max_abs_err': errs[0],
+                               'max_rel_err': rels[0], 'ms': dq_ms,
+                               'plain_ms': plain_ms, 'plain': plain,
+                               'library_ms': lib_ms, 'library': library,
                                'bound_ms': bounds['dq'][0],
                                'bound_by': bounds['dq'][1]},
-                        'dkv': {'max_abs_err': max(errs[1:]),
+                        'dkv': {'kernel': kernel,
+                                'max_abs_err': max(errs[1:]),
                                 'max_rel_err': max(rels[1:]),
                                 'ms': dkv_ms, 'plain_ms': plain_ms,
                                 'plain': plain, 'library_ms': lib_ms,
                                 'library': library,
                                 'bound_ms': bounds['dkv'][0],
-                                'bound_by': bounds['dkv'][1]}}
+                                'bound_by': bounds['dkv'][1],
+                                'earlier_ms': earlier_ms,
+                                'earlier': 'generic mma.sync kernel (PR 2), '
+                                           'same run',
+                                'host_us': hosts[0],
+                                'earlier_host_us': hosts[1]}}
             print(line, flush=True)
             check(max(rels) <= tol,
                   f'backward kernels disagree with the plain version: {line}')
@@ -435,6 +565,24 @@ def set_counts(na, value):
     na.nonlocal_attention_cuda.launches = value
     na.nonlocal_attention_bwd_dq_cuda.launches = value
     na.nonlocal_attention_bwd_dkv_cuda.launches = value
+    for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dkv_cuda):
+        fn.by_kernel = dict.fromkeys(na.KERNELS, value)
+
+
+def kernel_counts(na):
+    """K1-fwd's and K1-dkv's launches by kernel, e.g. {'fwd wgmma': 2}."""
+    return {f'{name} {kernel}': n
+            for name, fn in (('fwd', na.nonlocal_attention_cuda),
+                             ('dkv', na.nonlocal_attention_bwd_dkv_cuda))
+            for kernel, n in fn.by_kernel.items() if n}
+
+
+def expect_kernels(na, per_pass, passes, what):
+    """Each pass launched the kernels of ``per_pass`` ({'fwd wgmma': 2, ...})
+    and no other K1-fwd or K1-dkv kernel."""
+    got = kernel_counts(na)
+    want = {k: n * passes for k, n in per_pass.items()}
+    check(got == want, f'{what}: launches by kernel {got}, expected {want}')
 
 
 def train_batch(cli, settings, torch):
@@ -548,6 +696,7 @@ def train_path(pretorched, na, torch, np, cli):
               flush=True)
         check(launched == (5, 5, 5), f'step {i + 1} launched {launched}, '
               'expected 5 of each attention kernel')
+        expect_kernels(na, TRAIN_KERNELS, i + 1, f'step {i + 1}')
         check(np.isfinite(loss), f'step {i + 1}: loss {loss}')
         if i == 2:
             save_checkpoint(str(ckpt), {'model': model.state_dict(),
@@ -560,10 +709,12 @@ def train_path(pretorched, na, torch, np, cli):
     launches = counts(na)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     step_s = sorted(times[1:])[len(times[1:]) // 2]
+    by_kernel = kernel_counts(na)
     print(f'train step: {step_s * 1e3:.1f} ms (median of steps 2-5, host '
           f'clock around synchronize) = {TRAIN_CLIPS / step_s:.2f} train '
           f'clips/s; peak device memory {peak_gb:.2f} GiB; launches '
-          f'fwd/dq/dkv {launches} in {TRAIN_STEPS} steps', flush=True)
+          f'fwd/dq/dkv {launches} in {TRAIN_STEPS} steps, by kernel '
+          f'{by_kernel}', flush=True)
 
     profile_step(step, x, labels, torch)
 
@@ -586,7 +737,7 @@ def train_path(pretorched, na, torch, np, cli):
           'the checkpoint did not restore exactly')
     del fresh, opt2, sched2, state, at_save, params, bufs, model, opt, x
     torch.cuda.empty_cache()
-    return launches
+    return launches, by_kernel
 
 
 def attention_f64(q, k, v, scale=1.0):
@@ -1025,6 +1176,10 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
+    m = re.search(r'nonlocal_attention_(?:fwd|bwd_dkv)_wgmma_kernel', line)
+    if m:
+        return (f'{m.group(0)} (bf16, wgmma + TMA ring, 2 consumer '
+                'warpgroups at 240 registers, 1 producer at 24)')
     m = re.search(r'nonlocal_attention_(?:fwd|bwd)_(?:bf16|f32)_kernel'
                   r'(?:ILi(\d+)ELb([01])E)?', line)
     if m:
@@ -1076,8 +1231,12 @@ def main():
     for line in build.build_log.splitlines():
         if 'Function properties for' in line:
             print('  ' + kernel_label(line))
-        elif 'registers' in line or 'spill' in line:
+        elif 'Used' in line and 'registers' in line or 'spill' in line:
             print('    ' + line.strip())
+        elif 'Potential Performance Loss' in line:
+            print(f'  ptxas on {kernel_label(line)}: '
+                  + line.split('Potential Performance Loss: ')[1]
+                  .split(' in the function')[0])
 
     phase('3. non-local attention forward kernel vs plain PyTorch')
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1089,14 +1248,16 @@ def main():
     k1 = kernel_vs_plain(na, torch)
 
     phase('4. eval path: nonlocalresnet3d50, 10 clips x 32 frames x 224 px')
-    eval_launches, cli = main_path(pretorched, na, torch, np)
+    eval_launches, eval_by_kernel, cli = main_path(pretorched, na, torch,
+                                                   np)
 
     phase('5. non-local attention backward kernels vs plain PyTorch')
     k1b = backward_vs_plain(na, torch)
 
     phase(f'6. training path: nonlocalresnet3d50, {TRAIN_STEPS} steps of '
           f'{TRAIN_CLIPS} clips x 32 frames x 224 px')
-    train_launches = train_path(pretorched, na, torch, np, cli)
+    train_launches, train_by_kernel = train_path(pretorched, na, torch,
+                                                 np, cli)
 
     phase('7. gradient agreement: f32 step with the kernels, with the plain '
           'attention, and in f64')
@@ -1118,6 +1279,10 @@ def main():
         {'name': 'nonlocal_attention_fwd', 'route': 'cuda',
          'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
          'launches': train_launches[0], 'launches_eval': eval_launches,
+         'launches_by_kernel': {
+             'train': {k[4:]: n for k, n in train_by_kernel.items()
+                       if k.startswith('fwd')},
+             'eval': {k[4:]: n for k, n in eval_by_kernel.items()}},
          **k1, 'shape': list(SLICE_SHAPES['layer2']), 'dtype': 'bfloat16'},
         {'name': 'nonlocal_attention_bwd_dq', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
@@ -1126,6 +1291,8 @@ def main():
         {'name': 'nonlocal_attention_bwd_dkv', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '172',
          'launches': train_launches[2], **k1b['dkv'],
+         'launches_by_kernel': {k[4:]: n for k, n in train_by_kernel.items()
+                                if k.startswith('dkv')},
          'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
         {'name': 'fused_bottleneck_tail', 'route': 'cuda',
          'source': src + 'fused_block.cu',

@@ -37,10 +37,16 @@
 // KB a block may have, and C reaches 1024 in gaussian mode. Each chunk
 // recomputes s and dp: at C = Cv = 256 in bf16 that is 2.6x the minimal
 // FLOPs, bought for register-resident accumulators. dk and dv are separate
-// chunks of the K1-dkv grid, so a dv block skips dp. Two paths, chosen by
-// dtype:
+// chunks of the K1-dkv grid, so a dv block skips dp. The caller's dispatch
+// picks one of three programs:
 //
-// * bf16 (the model's path): tensor cores through mma.sync.m16n8k16, warps
+// * K1-dkv in bf16 with C and Cv multiples of 64 up to 256 (the train
+//   layer-2 shape): a warp-specialised wgmma kernel with TMA, which forms
+//   s^T once and keeps both whole accumulators in registers
+//   (nonlocal_attention_bwd_dkv_wgmma_kernel below, wgmma_tiles.cuh).
+//   K1-dq always takes the generic program.
+// * bf16 otherwise (K1-dq; K1-dkv at layer 3's and gaussian mode's widths):
+//   tensor cores through mma.sync.m16n8k16, warps
 //   of 16 rows (mma_tiles.cuh), fragments read by ldmatrix. X goes from the
 //   C fragments straight into the A fragments of the accumulating product,
 //   rounded to bf16 (as P is in the forward). The tiles stream through a
@@ -61,6 +67,7 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -565,6 +572,255 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout,
   return launch(p, b, zk + zv, stream);
 }
 
+// ---------------------------------------- bf16, Hopper: wgmma, TMA, ring
+// K1-dkv where C and Cv are multiples of 64 up to 256 (the dispatch in
+// ops/cuda/nonlocal_attention.py; the train layer-2 shape). A block owns
+// (batch item, 64 keys). Warpgroup 2 produces (one thread issues every TMA
+// copy); warpgroup 0 accumulates dv (64 x Cv f32), warpgroup 1 dk (64 x C
+// f32), 128 registers a thread each. Shared memory, each tile a stack of
+// swizzled 64-channel chunks (wgmma_tiles.cuh):
+//   k, v     the block's 64 keys, loaded once     (128 (C + Cv) bytes)
+//   q ring   2 slots of 64 queries x C            (256 C bytes)
+//   do ring  2 slots of 64 queries x Cv           (256 Cv bytes)
+//   p^T      2 slots of 64 x 64 f32                (32 KB)
+// 224 KB at C = Cv = 256. Per query tile:
+//   dv group: s^T = k q^T (64 keys x 64 queries, both operands in shared
+//     memory), p^T = exp(s^T scale - lse) in registers, handed to the dk
+//     group through shared memory (f32, in accumulator order, so each
+//     thread reads back exactly its own fragment: no bank conflicts), then
+//     dv += p^T do (A = p^T from registers, B = do MN-major);
+//   dk group: dp^T = v do^T, ds^T = p^T (dp^T - delta) scale in registers,
+//     dk += ds^T q (A from registers, B = q MN-major).
+// s^T is formed once, so each product runs once: 1.0x the minimal FLOPs,
+// against 2.6x for the generic program's 128-column chunks. The two groups
+// do equal work (C = Cv). No atomics: the gradient is the same every run.
+constexpr int kDkvPBytes = 32 * 128 * 4;   // one p^T slot
+
+size_t dkv_wgmma_smem(int c, int cv) {
+  return 384 * (size_t)(c + cv) + 2 * kDkvPBytes + 2 * sizeof(Ring<2>) +
+         sizeof(uint64_t) + 1024;   // + 1024: aligning the base
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+nonlocal_attention_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap,
+    const __grid_constant__ CUtensorMap dkmap,
+    const __grid_constant__ CUtensorMap dvmap, const float* __restrict__ lse,
+    const float* __restrict__ delta, int n, int nk, int c, int cv,
+    float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = align1024(smem_raw);
+  unsigned char* vs = ks + 128 * c;
+  unsigned char* qr = vs + 128 * cv;       // the q ring, then the do ring
+  unsigned char* dor = qr + 256 * c;
+  float* pbuf = reinterpret_cast<float*>(dor + 256 * cv);
+  Ring<2>* qring = reinterpret_cast<Ring<2>*>(
+      reinterpret_cast<unsigned char*>(pbuf) + 2 * kDkvPBytes);
+  Ring<2>* doring = qring + 1;
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(doring + 1);
+
+  const int nc = c / 64, nv = cv / 64;
+  const int bi = blockIdx.y;
+  const int k0 = blockIdx.x * 64;
+  const int tiles = (n + 63) / 64;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    qring->init(kWConsumerWarps);
+    doring->init(kWConsumerWarps);
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: k and v once, then q and do tiles through the rings
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kvbar, 64 * (c + cv) * 2);
+      for (int j = 0; j < nc; ++j)
+        tma_load(ks + j * 8192, &kmap, kvbar, 64 * j, k0, bi);
+      for (int j = 0; j < nv; ++j)
+        tma_load(vs + j * 8192, &vmap, kvbar, 64 * j, k0, bi);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<2>::slot(t);
+        qring->wait_empty(t);
+        mbar_expect_tx(&qring->full[s], 64 * c * 2);
+        for (int j = 0; j < nc; ++j)
+          tma_load(qr + s * 128 * c + j * 8192, &qmap, &qring->full[s],
+                   64 * j, 64 * t, bi);
+        doring->wait_empty(t);
+        mbar_expect_tx(&doring->full[s], 64 * cv * 2);
+        for (int j = 0; j < nv; ++j)
+          tma_load(dor + s * 128 * cv + j * 8192, &domap, &doring->full[s],
+                   64 * j, 64 * t, bi);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const float sl2 = scale * kLog2e;
+    const float* lse_b = lse + (size_t)bi * n;
+    const float* delta_b = delta + (size_t)bi * n;
+
+    float acc[4][32];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+    // Named barriers: 1 + b "p^T slot b written", 3 + b "slot b read", over
+    // both consumer groups (256 threads).
+    mbar_wait(kvbar, 0);
+    if (wg == 0) {
+      // ---- dv += p^T do
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<2>::slot(t), b = t & 1;
+        // this thread's 16 query columns: 8 (i / 4) + 2 qd + i % 2
+        float lcol[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int col = 64 * t + 8 * (e >> 1) + 2 * qd + (e & 1);
+          lcol[e] = col < n ? lse_b[col] * kLog2e : 0.f;
+        }
+        float st[32];
+        qring->wait_full(t);
+        wgmma_fence();
+        ss_scores(st, smem_addr(ks), 8192, smem_addr(qr) + s * 128 * c, nc);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(st);
+        qring->release(t);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int e = 2 * (i >> 2) + (i & 1);
+          const int col = 64 * t + 8 * (i >> 2) + 2 * qd + (i & 1);
+          st[i] = col < n ? exp2f(st[i] * sl2 - lcol[e]) : 0.f;
+        }
+        named_sync(3 + b, 256);
+        float* pb = pbuf + b * 32 * 128;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) pb[i * 128 + tid] = st[i];
+        named_arrive(1 + b, 256);
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_to_a(pa[j], st, j);
+        doring->wait_full(t);
+        const uint32_t dt = smem_addr(dor) + s * 128 * cv;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          rs_product(acc, pa[kk], dt + kk * 16 * 128, nv);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          reg_fence(acc[j]);
+          reg_fence(pa[j]);
+        }
+        doring->release(t);
+      }
+    } else {
+      // ---- dk += ds^T q; both p^T slots start free
+      named_arrive(3, 256);
+      if (tiles > 1) named_arrive(4, 256);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<2>::slot(t), b = t & 1;
+        float dcol[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int col = 64 * t + 8 * (e >> 1) + 2 * qd + (e & 1);
+          dcol[e] = col < n ? delta_b[col] : 0.f;
+        }
+        float dp[32];
+        doring->wait_full(t);
+        wgmma_fence();
+        ss_scores(dp, smem_addr(vs), 8192, smem_addr(dor) + s * 128 * cv, nv);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(dp);
+        doring->release(t);
+        named_sync(1 + b, 256);
+        const float* pb = pbuf + b * 32 * 128;
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          dp[i] = pb[i * 128 + tid] * (dp[i] - dcol[2 * (i >> 2) + (i & 1)]) *
+                  scale;
+        if (t + 2 < tiles) named_arrive(3 + b, 256);
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc_to_a(pa[j], dp, j);
+        qring->wait_full(t);
+        const uint32_t qt = smem_addr(qr) + s * 128 * c;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          rs_product(acc, pa[kk], qt + kk * 16 * 128, nc);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          reg_fence(acc[j]);
+          reg_fence(pa[j]);
+        }
+        qring->release(t);
+      }
+    }
+
+    // ---- epilogue: dv (group 0) and dk (group 1) in bf16 through the
+    // rings (free once both groups are past their last product), one TMA
+    // store per 64-column chunk; keys past nk are clipped by the store
+    named_sync(5, 256);
+    unsigned char* stage = qr + (wg == 0 ? 0 : 128 * cv);
+    const int nw = wg == 0 ? nv : nc;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= nw) break;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = warp * 16 + g + 8 * ((i >> 1) & 1);
+        *reinterpret_cast<uint32_t*>(
+            stage + j * 8192 + swizzled_pair(r, 8 * (i >> 2) + 2 * qd)) =
+            pack_pair(acc[j][i], acc[j][i + 1]);
+      }
+    }
+    fence_proxy_async();
+    named_sync(6 + wg, 128);
+    if (tid == 0) {
+      for (int j = 0; j < nw; ++j)
+        tma_store(wg == 0 ? &dvmap : &dkmap, stage + j * 8192, 64 * j, k0, bi);
+      tma_store_drain();
+    }
+  }
+}
+
+int launch_dkv_wgmma(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int b, int n, int nk, int c, int cv,
+                     float scale, cudaStream_t stream) {
+  if (c % 64 || cv % 64 || c > 256 || cv > 256)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm, dom, dkm, dvm;
+  if (!make_map(&qm, q, b, n, c, 64) || !make_map(&km, k, b, nk, c, 64) ||
+      !make_map(&vm, v, b, nk, cv, 64) || !make_map(&dom, dout, b, n, cv, 64) ||
+      !make_map(&dkm, dk, b, nk, c, 64) || !make_map(&dvm, dv, b, nk, cv, 64))
+    return (int)cudaErrorNotSupported;
+  const size_t smem = dkv_wgmma_smem(c, cv);
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err =
+      allow_smem(nonlocal_attention_bwd_dkv_wgmma_kernel, smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((nk + 63) / 64, b);
+  nonlocal_attention_bwd_dkv_wgmma_kernel<<<grid, kWThreads, smem, stream>>>(
+      qm, km, vm, dom, dkm, dvm, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), n, nk, c, cv, scale);
+  return (int)cudaGetLastError();
+}
+
 bool bad_shape(int b, int n, int nk, int c, int cv) {
   return b < 1 || n < 1 || nk < 1 || c < 1 || cv < 1 || b > 65535;
 }
@@ -605,6 +861,20 @@ int pt_nonlocal_attention_bwd_dkv(const void* q, const void* k, const void* v,
     return run_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, b, n, nk, c, cv,
                          scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 wgmma kernel: the same function as pt_nonlocal_attention_bwd_dkv,
+// for C and Cv multiples of 64 up to 256 and 16-byte aligned tensors (the
+// caller's dispatch picks it).
+int pt_nonlocal_attention_bwd_dkv_wgmma(const void* q, const void* k,
+                                        const void* v, const void* dout,
+                                        const void* lse, const void* delta,
+                                        void* dk, void* dv, int b, int n,
+                                        int nk, int c, int cv, float scale,
+                                        void* stream) {
+  if (bad_shape(b, n, nk, c, cv)) return (int)cudaErrorInvalidValue;
+  return launch_dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, b, n, nk, c, cv,
+                          scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

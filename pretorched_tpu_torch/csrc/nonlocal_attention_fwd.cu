@@ -20,18 +20,24 @@
 // block owns (batch item, 64-query tile) and loops over the 64-key tiles
 // itself, keeping m and l in registers. C of any size is handled by forming
 // q k^T in channel chunks. The ragged last key tile is masked; the ragged
-// last query tile is zero-filled on load and skipped on store. Two paths,
-// chosen by dtype:
+// last query tile is zero-filled on load and skipped on store. Three
+// kernels, chosen by the caller's dispatch on dtype and shape:
 //
-// * bf16 (the model's path): tensor cores through mma.sync.m16n8k16 with f32
+// * bf16 with C and Cv multiples of 64 up to 256 (the eval and train
+//   layer-2 shapes, sub_sample): Hopper's own route, warp-specialised. One
+//   producer thread streams k and v through a 2-slot TMA + mbarrier ring,
+//   two consumer warpgroups run wgmma with the whole (64, Cv) accumulator
+//   in registers, so q k^T is formed once and q is loaded once
+//   (nonlocal_attention_fwd_wgmma_kernel below, wgmma_tiles.cuh).
+// * other bf16 shapes (layer 3's C = Cv = 512, gaussian mode's C = 1024):
+//   tensor cores through mma.sync.m16n8k16 with f32
 //   accumulation, four warps of 16 query rows each (the FlashAttention-2
 //   layout). The score tile stays in registers; P is rounded to bf16 for
 //   P V, as in FlashAttention. The (16, Cv) accumulator of a warp would need
 //   Cv / 2 registers a thread, so Cv is split over the grid in 128-column
 //   chunks (grid.z) and each chunk recomputes q k^T: at C = Cv = 256 that is
 //   1.5x the minimal FLOPs, bought for a register-resident accumulator.
-//   Tiles are staged through shared memory with plain loads; no cp.async,
-//   TMA or wgmma yet (later work).
+//   Tiles are staged through shared memory with plain loads.
 // * f32: scalar FMAs (TF32 would break the f32 tolerance), 16 x 16 threads,
 //   each with a 4 x 4 register tile of scores; the (64, Cv) f32 accumulator
 //   in dynamic shared memory (Cv <= 512: 185 KB with the staging tiles, of
@@ -42,6 +48,7 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -360,12 +367,228 @@ nonlocal_attention_fwd_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
+// ---------------------------------------- bf16, Hopper: wgmma, TMA, ring
+// C and Cv multiples of 64, at most 256 (the dispatch in
+// ops/cuda/nonlocal_attention.py). A block owns (batch item, 128 queries):
+// warpgroups 0 and 1 consume 64 query rows each, warpgroup 2 produces
+// (one thread issues every TMA copy). Shared memory, each tile a stack of
+// swizzled 64-channel chunks (wgmma_tiles.cuh):
+//   q      128 x C, loaded once              (256 C bytes)
+//   k ring 2 slots of 64 keys x C            (256 C bytes)
+//   v ring 2 slots of 64 keys x Cv           (256 Cv bytes; O's staging at
+//                                             the end)
+// 192 KB at C = Cv = 256. Per key tile a consumer forms S = q k^T (64 x 64,
+// wgmma m64n64k16, both operands in shared memory), the online softmax in
+// registers (a row across the 4 threads of a quad), P in bf16 straight from
+// the accumulator, then O += P v (wgmma with A = P from registers, B = v
+// MN-major: m64n256k16 at Cv = 256, Cv / 64 m64n64k16 otherwise). O (64 x
+// Cv f32) stays in 128 registers a thread: no Cv split, no recompute.
+constexpr int kWQ = 128;            // query rows per block
+constexpr int kWK = 64;             // keys per tile
+
+size_t fwd_wgmma_smem(int c, int cv) {
+  return 512 * (size_t)c + 256 * (size_t)cv + 2 * sizeof(Ring<2>) +
+         sizeof(uint64_t) + 1024;   // + 1024: aligning the base
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+nonlocal_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                                    const __grid_constant__ CUtensorMap kmap,
+                                    const __grid_constant__ CUtensorMap vmap,
+                                    const __grid_constant__ CUtensorMap omap,
+                                    float* __restrict__ lse, int n, int nk,
+                                    int c, int cv, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* ks = qs + 256 * c;
+  unsigned char* vs = ks + 256 * c;
+  Ring<2>* kring = reinterpret_cast<Ring<2>*>(vs + 256 * cv);
+  Ring<2>* vring = kring + 1;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(vring + 1);
+
+  const int nc = c / 64, nv = cv / 64;
+  const int bi = blockIdx.y;
+  const int q0 = blockIdx.x * kWQ;
+  const int tiles = (nk + kWK - 1) / kWK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    kring->init(kWConsumerWarps);
+    vring->init(kWConsumerWarps);
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: q once, then k and v tiles through the rings
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, kWQ * c * 2);
+      for (int j = 0; j < nc; ++j)
+        tma_load(qs + j * kWQ * 128, &qmap, qbar, 64 * j, q0, bi);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<2>::slot(t);
+        kring->wait_empty(t);
+        mbar_expect_tx(&kring->full[s], kWK * c * 2);
+        for (int j = 0; j < nc; ++j)
+          tma_load(ks + s * 128 * c + j * 8192, &kmap, &kring->full[s],
+                   64 * j, t * kWK, bi);
+        vring->wait_empty(t);
+        mbar_expect_tx(&vring->full[s], kWK * cv * 2);
+        for (int j = 0; j < nv; ++j)
+          tma_load(vs + s * 128 * cv + j * 8192, &vmap, &vring->full[s],
+                   64 * j, t * kWK, bi);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const float sl2 = scale * kLog2e;   // scores in log2 units
+    const uint32_t q_rows = smem_addr(qs) + wg * 64 * 128;
+
+    float o[4][32];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+    float m_i[2] = {kNegInf, kNegInf};
+    float l_i[2] = {0.f, 0.f};
+
+    mbar_wait(qbar, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = Ring<2>::slot(t);
+      // ---- S = q k^T
+      float sc[32];
+      kring->wait_full(t);
+      wgmma_fence();
+      ss_scores(sc, q_rows, kWQ * 128, smem_addr(ks) + s * 128 * c, nc);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+      kring->release(t);
+
+      // ---- online softmax; keys past nk (zero-filled) are masked
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = t * kWK + 8 * (i >> 2) + 2 * qd + (i & 1);
+        sc[i] = key < nk ? sc[i] * sl2 : kNegInf;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_i[h], mx[h]);
+        alpha[h] = exp2f(m_i[h] - m_new);
+        m_i[h] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = exp2f(sc[i] - m_i[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l_i[h] = l_i[h] * alpha[h] + sum[h];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[j][i] *= alpha[(i >> 1) & 1];
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc_to_a(pa[j], sc, j);
+
+      // ---- O += P v
+      vring->wait_full(t);
+      const uint32_t vt = smem_addr(vs) + s * 128 * cv;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        rs_product(o, pa[kk], vt + kk * 16 * 128, nv);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        reg_fence(o[j]);
+        reg_fence(pa[j]);
+      }
+      vring->release(t);
+    }
+
+    // ---- epilogue: O / l in bf16 through the v ring (free once both
+    // consumer warpgroups are past their last product), one TMA store per
+    // 64-column chunk of this warpgroup's rows; lse in f32
+    named_sync(1, 256);
+    float inv_l[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv_l[h] = 1.f / l_i[h];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j >= nv) break;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int h = (i >> 1) & 1;
+        const int r = wg * 64 + warp * 16 + g + 8 * h;
+        *reinterpret_cast<uint32_t*>(
+            vs + j * kWQ * 128 + swizzled_pair(r, 8 * (i >> 2) + 2 * qd)) =
+            pack_pair(o[j][i] * inv_l[h], o[j][i + 1] * inv_l[h]);
+      }
+    }
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    if (tid == 0) {
+      for (int j = 0; j < nv; ++j)
+        tma_store(&omap, vs + j * kWQ * 128 + wg * 64 * 128, 64 * j,
+                  q0 + wg * 64, bi);
+      tma_store_drain();
+    }
+    if (qd == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + wg * 64 + warp * 16 + g + 8 * h;
+        if (row < n)
+          lse[(size_t)bi * n + row] = (m_i[h] + log2f(l_i[h])) * kLn2;
+      }
+    }
+  }
+}
+
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                     float* lse, int b, int n, int nk, int c, int cv,
+                     float scale, cudaStream_t stream) {
+  if (c % 64 || cv % 64 || c > 256 || cv > 256)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm, om;
+  if (!make_map(&qm, q, b, n, c, kWQ) || !make_map(&km, k, b, nk, c, kWK) ||
+      !make_map(&vm, v, b, nk, cv, kWK) || !make_map(&om, out, b, n, cv, 64))
+    return (int)cudaErrorNotSupported;
+  const size_t smem = fwd_wgmma_smem(c, cv);
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err =
+      allow_smem(nonlocal_attention_fwd_wgmma_kernel, smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kWQ - 1) / kWQ, b);
+  nonlocal_attention_fwd_wgmma_kernel<<<grid, kWThreads, smem, stream>>>(
+      qm, km, vm, om, lse, n, nk, c, cv, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. All tensors contiguous, on the current
-// device. Returns the cudaError_t of the launch (0 = cudaSuccess).
+// dtype: 0 = float32 (the scalar kernel), 1 = bfloat16 (mma.sync). All
+// tensors contiguous, on the current device. Returns the cudaError_t of the
+// launch (0 = cudaSuccess).
 int pt_nonlocal_attention_fwd(const void* q, const void* k, const void* v,
                               void* out, void* lse, int b, int n, int nk,
                               int c, int cv, float scale, int dtype,
@@ -395,6 +618,19 @@ int pt_nonlocal_attention_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The bf16 wgmma kernel: the same function as pt_nonlocal_attention_fwd,
+// for C and Cv multiples of 64 up to 256 and 16-byte aligned tensors (the
+// caller's dispatch picks it).
+int pt_nonlocal_attention_fwd_wgmma(const void* q, const void* k,
+                                    const void* v, void* out, void* lse,
+                                    int b, int n, int nk, int c, int cv,
+                                    float scale, void* stream) {
+  if (b < 1 || n < 1 || nk < 1 || c < 1 || cv < 1 || b > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd_wgmma(q, k, v, out, static_cast<float*>(lse), b, n, nk,
+                          c, cv, scale, static_cast<cudaStream_t>(stream));
 }
 
 const char* pt_cuda_error_string(int err) {

@@ -1,10 +1,10 @@
 """ctypes bindings for the native JPEG decoder.
 
 Counterpart of ``pretorched_tpu/datasets/native.py``. The C++ source is the
-JAX package's ``pretorched_tpu/native/decoder.cpp``, compiled by file path
-(nothing of ``pretorched_tpu`` is imported) with ``g++ -O2 -shared``
-against libjpeg, at first use, into ``build/native/<hash>/`` beside the
-package (git-ignored). When the toolchain or libjpeg is missing, every entry
+port's own copy of the JAX package's decoder,
+``pretorched_tpu_torch/native/decoder.cpp``, compiled with ``g++ -O2
+-shared`` against libjpeg, at first use, into ``build/native/<hash>/``
+beside the package (git-ignored). When the toolchain or libjpeg is missing, every entry
 point falls back to PIL, so decoding never hard-depends on native code;
 ``decoder_name()`` says which one runs.
 """
@@ -22,7 +22,7 @@ from typing import List, Optional
 import numpy as np
 
 _ROOT = Path(__file__).resolve().parents[2]
-SRC = _ROOT / 'pretorched_tpu' / 'native' / 'decoder.cpp'
+SRC = _ROOT / 'pretorched_tpu_torch' / 'native' / 'decoder.cpp'
 _CMD = ('g++', '-O2', '-shared', '-fPIC', '-std=c++17')
 _LIBS = ('-ljpeg', '-lpthread')
 _LIB: Optional[ctypes.CDLL] = None

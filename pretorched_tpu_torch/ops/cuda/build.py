@@ -96,16 +96,27 @@ def load_library() -> ctypes.CDLL:
     else:
         build_log = _compile(path)
     lib = ctypes.CDLL(str(path))
+    # q, k, v, out, lse; b, n, nk, c, cv; scale, dtype, stream (the wgmma
+    # entry: no dtype, bf16 only)
     lib.pt_nonlocal_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.pt_nonlocal_attention_fwd.restype = ctypes.c_int
+    lib.pt_nonlocal_attention_fwd_wgmma.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p])
     # q, k, v, do, lse, delta, then dq (dk, dv); b, n, nk, c, cv; scale,
-    # dtype, stream
-    for fn, outs in ((lib.pt_nonlocal_attention_bwd_dq, 1),
-                     (lib.pt_nonlocal_attention_bwd_dkv, 2)):
+    # dtype, stream (the wgmma entry: no dtype)
+    for fn, outs, ints in ((lib.pt_nonlocal_attention_bwd_dq, 1, 1),
+                           (lib.pt_nonlocal_attention_bwd_dkv, 2, 1),
+                           (lib.pt_nonlocal_attention_bwd_dkv_wgmma, 2, 0)):
         fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float] + [ctypes.c_int] * ints
+                       + [ctypes.c_void_p])
+    for fn in (lib.pt_nonlocal_attention_fwd,
+               lib.pt_nonlocal_attention_fwd_wgmma,
+               lib.pt_nonlocal_attention_bwd_dq,
+               lib.pt_nonlocal_attention_bwd_dkv,
+               lib.pt_nonlocal_attention_bwd_dkv_wgmma):
         fn.restype = ctypes.c_int
     # y1, x, w2t, a2, w3t, a3, wpt, ap, out; n, t, h, w, cm, cin, cout,
     # dtype; stream

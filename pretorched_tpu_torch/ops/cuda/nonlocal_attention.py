@@ -6,14 +6,19 @@ embedded-gaussian and gaussian modes apply none; ``scale`` covers other
 uses). q is (B, N, C); k is (B, Nk, C) and v (B, Nk, Cv): Nk differs from N
 under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
 
-* ``nonlocal_attention_cuda``: the hand-written forward kernel
+* ``nonlocal_attention_cuda``: the hand-written forward kernels
   (``csrc/nonlocal_attention_fwd.cu``, replacing the TPU's ``_attn_kernel``).
-* ``nonlocal_attention_bwd_cuda``: the backward, two hand-written kernels
+* ``nonlocal_attention_bwd_cuda``: the backward, hand-written kernels
   (``csrc/nonlocal_attention_bwd.cu``, replacing ``_attn_dq_kernel`` and
   ``_attn_dkv_kernel``) behind ``nonlocal_attention_bwd_dq_cuda`` and
   ``nonlocal_attention_bwd_dkv_cuda``.
+* ``attention_kernel``: the one dispatch of K1-fwd and K1-dkv on dtype and
+  shape: ``'wgmma'`` (bf16, C and Cv multiples of 64 up to 256: Hopper's
+  warp-specialised wgmma + TMA kernels), ``'mma_sync'`` (every other bf16
+  shape) or ``'scalar'`` (f32). K1-dq always takes its generic program.
   The kernel wrappers take CUDA tensors only and raise on anything they do
-  not take; each counts its launches in ``.launches``.
+  not take; each counts its launches in ``.launches``, and K1-fwd and
+  K1-dkv also per kernel in ``.by_kernel``.
 * ``nonlocal_attention_fwd_lse_reference`` / ``nonlocal_attention_reference``
   / ``nonlocal_attention_bwd_reference``: the plain PyTorch versions, N x N
   matrices in f32.
@@ -38,6 +43,30 @@ from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CV_F32 = 512  # the f32 path keeps a (64, Cv) accumulator in shared memory
+KERNELS = ('wgmma', 'mma_sync', 'scalar')
+# the wgmma kernels hold a (64, width) f32 accumulator in 128 registers a
+# thread and read 64-channel TMA boxes
+WGMMA_MAX_WIDTH = 256
+
+
+def attention_kernel(dtype, c: int, cv: int) -> str:
+    """The kernel K1-fwd and K1-dkv take for this dtype and C, Cv."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f'dtype {dtype} not supported (float32, bfloat16)')
+    if dtype == torch.float32:
+        return 'scalar'
+    fits = all(w % 64 == 0 and w <= WGMMA_MAX_WIDTH for w in (c, cv))
+    return 'wgmma' if fits else 'mma_sync'
+
+
+def _check_kernel(dtype, c: int, cv: int, kernel: str):
+    """``kernel`` must be the dispatch's choice, or mma_sync where that is
+    wgmma: the mma.sync kernels take every bf16 shape, so a wgmma launch can
+    be held against the kernel it replaced."""
+    chosen = attention_kernel(dtype, c, cv)
+    if kernel != chosen and (kernel, chosen) != ('mma_sync', 'wgmma'):
+        raise ValueError(f'kernel {kernel!r} does not take {dtype} with '
+                         f'C={c}, Cv={cv} (the dispatch picks {chosen!r})')
 
 
 def _no_autocast(device_type):
@@ -114,9 +143,37 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _check_tma(*tensors):
+    """TMA reads and writes 16-byte aligned rows from a 16-byte aligned
+    base; the rows (C, Cv multiples of 64 in bf16) always are."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f'the wgmma kernels need 16-byte aligned tensors;'
+                             f' got one of {tuple(t.shape)} at '
+                             f'{t.data_ptr():#x}')
+
+
+def _count(fn, kernel):
+    fn.launches += 1
+    fn.by_kernel[kernel] += 1
+
+
+def _reset(fn):
+    fn.launches = 0
+    fn.by_kernel = dict.fromkeys(KERNELS, 0)
+
+
 def nonlocal_attention_cuda(q, k, v, scale: float = 1.0):
-    """Launch the forward kernel: returns (out (B, N, Cv), lse (B, N) f32)."""
+    """Launch the forward kernel that ``attention_kernel`` picks: returns
+    (out (B, N, Cv), lse (B, N) f32)."""
     _check_inputs(q, k, v)
+    return _launch_fwd(q, k, v, scale,
+                       attention_kernel(q.dtype, q.shape[2], v.shape[2]))
+
+
+def _launch_fwd(q, k, v, scale, kernel):
+    """Launch K1-fwd's ``kernel`` (checked by ``_check_kernel``) on checked
+    inputs and count it on ``nonlocal_attention_cuda``."""
     if q.dtype == torch.float32 and v.shape[2] > MAX_CV_F32:
         raise ValueError(f'Cv={v.shape[2]} > {MAX_CV_F32} does not fit the '
                          'f32 kernel\'s shared-memory accumulator')
@@ -124,19 +181,25 @@ def nonlocal_attention_cuda(q, k, v, scale: float = 1.0):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, n, c = q.shape
     nk, cv = v.shape[1], v.shape[2]
+    _check_kernel(q.dtype, c, cv, kernel)
     out = torch.empty((b, n, cv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    args = (*map(_ptr, (q, k, v, out, lse)), b, n, nk, c, cv, float(scale))
+    if kernel == 'wgmma':
+        _check_tma(q, k, v, out)
+        entry = lib.pt_nonlocal_attention_fwd_wgmma
+    else:
+        entry = lib.pt_nonlocal_attention_fwd
+        args += (_DTYPE_CODES[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.pt_nonlocal_attention_fwd(
-            *map(_ptr, (q, k, v, out, lse)), b, n, nk, c, cv, float(scale),
-            _DTYPE_CODES[q.dtype], ctypes.c_void_p(stream))
-    build.check(lib, err, 'nonlocal_attention_fwd launch')
-    nonlocal_attention_cuda.launches += 1
+        err = entry(*args, ctypes.c_void_p(stream))
+    build.check(lib, err, f'nonlocal_attention_fwd ({kernel}) launch')
+    _count(nonlocal_attention_cuda, kernel)
     return out, lse
 
 
-nonlocal_attention_cuda.launches = 0
+_reset(nonlocal_attention_cuda)
 
 
 def nonlocal_attention_fwd_lse(q, k, v, scale: float = 1.0):
@@ -148,8 +211,9 @@ def nonlocal_attention_fwd_lse(q, k, v, scale: float = 1.0):
     return nonlocal_attention_fwd_lse_reference(q, k, v, scale)
 
 
-def _launch_bwd(entry, q, k, v, do, lse, delta, outs, scale):
-    """Launch a backward kernel on contiguous, checked tensors."""
+def _launch_bwd(entry, q, k, v, do, lse, delta, outs, scale, *dtype):
+    """Launch a backward kernel on contiguous, checked tensors; ``dtype``
+    is its code, for the entries that take one."""
     lib = build.load_library()
     b, n, c = q.shape
     nk, cv = v.shape[1], v.shape[2]
@@ -157,7 +221,7 @@ def _launch_bwd(entry, q, k, v, do, lse, delta, outs, scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, entry)(
             *map(_ptr, (q, k, v, do, lse, delta, *outs)), b, n, nk, c, cv,
-            float(scale), _DTYPE_CODES[q.dtype], ctypes.c_void_p(stream))
+            float(scale), *dtype, ctypes.c_void_p(stream))
     build.check(lib, err, f'{entry} launch')
 
 
@@ -168,25 +232,40 @@ def nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float = 1.0):
     q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
     dq = torch.empty_like(q)
     _launch_bwd('pt_nonlocal_attention_bwd_dq', q, k, v, do, lse, delta, (dq,),
-                scale)
+                scale, _DTYPE_CODES[q.dtype])
     nonlocal_attention_bwd_dq_cuda.launches += 1
     return dq
 
 
-def nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float = 1.0):
-    """Launch K1-dkv: (dk (B, Nk, C), dv (B, Nk, Cv)) in k's and v's dtype."""
+def nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                    scale: float = 1.0):
+    """Launch the K1-dkv kernel that ``attention_kernel`` picks: (dk (B, Nk,
+    C), dv (B, Nk, Cv)) in k's and v's dtype."""
     _check_inputs(q, k, v)
     _check_rows(q, v, do, lse, delta)
+    return _launch_dkv(q, k, v, do, lse, delta, scale,
+                       attention_kernel(q.dtype, q.shape[2], v.shape[2]))
+
+
+def _launch_dkv(q, k, v, do, lse, delta, scale, kernel):
+    """Launch K1-dkv's ``kernel`` (checked by ``_check_kernel``) on checked
+    inputs and count it on ``nonlocal_attention_bwd_dkv_cuda``."""
     q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    _check_kernel(q.dtype, q.shape[2], v.shape[2], kernel)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd('pt_nonlocal_attention_bwd_dkv', q, k, v, do, lse, delta,
-                (dk, dv), scale)
-    nonlocal_attention_bwd_dkv_cuda.launches += 1
+    if kernel == 'wgmma':
+        _check_tma(q, k, v, do, dk, dv)
+        _launch_bwd('pt_nonlocal_attention_bwd_dkv_wgmma', q, k, v, do, lse,
+                    delta, (dk, dv), scale)
+    else:
+        _launch_bwd('pt_nonlocal_attention_bwd_dkv', q, k, v, do, lse, delta,
+                    (dk, dv), scale, _DTYPE_CODES[q.dtype])
+    _count(nonlocal_attention_bwd_dkv_cuda, kernel)
     return dk, dv
 
 
 nonlocal_attention_bwd_dq_cuda.launches = 0
-nonlocal_attention_bwd_dkv_cuda.launches = 0
+_reset(nonlocal_attention_bwd_dkv_cuda)
 
 
 def nonlocal_attention_bwd_cuda(q, k, v, o, lse, do, scale: float = 1.0):

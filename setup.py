@@ -19,7 +19,8 @@ setup(
     license=about['__license__'],
     packages=find_packages(exclude=('tests', 'examples')),
     # the PyTorch port builds its CUDA kernels from these at first use
-    package_data={'pretorched_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh']},
+    package_data={'pretorched_tpu_torch': ['csrc/*.cu', 'csrc/*.cuh',
+                                          'native/*.cpp']},
     python_requires='>=3.10',
     install_requires=[
         'jax', 'flax', 'optax', 'numpy', 'Pillow',

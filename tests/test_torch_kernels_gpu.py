@@ -1,6 +1,7 @@
 """The port's CUDA kernels (the non-local attention forward K1-fwd, its
-backward K1-dq, K1-dkv, and the fused bottleneck tail K2) against their
-plain PyTorch versions, on a card.
+backward K1-dq, K1-dkv, each of K1-fwd and K1-dkv on wgmma where the
+dispatch sends bf16, and the fused bottleneck tail K2) against their plain
+PyTorch versions, on a card.
 
 Every test here is marked ``gpu`` and skips without CUDA. The file imports
 no JAX, so it runs on a machine that has only PyTorch (the suite's
@@ -149,6 +150,116 @@ def test_launch_counters_advance_once_per_backward(cuda):
         na.auto_nonlocal_attention(q, k, v)
     assert [f.launches for f in launches] == [before[0] + 2, before[1] + 1,
                                               before[2] + 1]
+
+
+# (B, N, Nk, C, Cv) for the wgmma kernels (bf16, C and Cv multiples of 64 up
+# to 256): the smallest shape; ragged N and Nk with B >= 2, so a tile
+# crosses a batch boundary; Cv != C both ways (Cv = 128 and 192 take
+# m64n64k16 chunks, Cv = 256 one m64n256k16); sub_sample and layer 2 of
+# the slice at B = 2
+WGMMA_CASES = [
+    (1, 64, 64, 64, 64),
+    (3, 1000, 1000, 64, 64),
+    (2, 300, 200, 64, 64),
+    (2, 130, 520, 64, 128),
+    (2, 300, 72, 64, 256),
+    (1, 100, 90, 256, 64),
+    (2, 1000, 1000, 128, 192),
+    (2, 6272, 784, 256, 256),
+    (2, 6272, 6272, 256, 256),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv', WGMMA_CASES)
+def test_wgmma_forward_matches_plain(cuda, b, n, nk, c, cv):
+    """K1-fwd's wgmma kernel on bf16 inputs vs the plain version in f32 on
+    the same inputs (out 2e-2, lse 1e-2, as for the mma.sync kernel; out
+    also within 2e-2 of the largest |out|, since at Nk = 6272 |out| is
+    itself ~0.02 and the absolute limit alone would pass a dropped tile)."""
+    q, k, v, _ = _bwd_inputs(b, n, nk, c, cv, torch.bfloat16, cuda)
+    before = na.nonlocal_attention_cuda.by_kernel['wgmma']
+    out, lse = na.nonlocal_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert na.nonlocal_attention_cuda.by_kernel['wgmma'] == before + 1
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+        q.float(), k.float(), v.float())
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n, cv)
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
+    assert _rel_err(out, want) <= 2e-2
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv', WGMMA_CASES)
+def test_wgmma_dkv_matches_plain(cuda, b, n, nk, c, cv):
+    """K1-dkv's wgmma kernel against the plain backward in f32 (max error
+    over the largest gradient, 2e-2, as for the generic kernel), and
+    bitwise the same on a second run (no atomics)."""
+    q, k, v, do = _bwd_inputs(b, n, nk, c, cv, torch.bfloat16, cuda)
+    out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+    out = out.to(torch.bfloat16)
+    delta = (do.float() * out.float()).sum(-1)
+    before = na.nonlocal_attention_bwd_dkv_cuda.by_kernel['wgmma']
+    dk, dv = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    again = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert na.nonlocal_attention_bwd_dkv_cuda.by_kernel['wgmma'] == before + 2
+    _, want_dk, want_dv = na.nonlocal_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float())
+    for g, w, x in ((dk, want_dk, k), (dv, want_dv, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+        assert _rel_err(g, w) <= 2e-2
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+@pytest.mark.gpu
+def test_layer2_shapes_take_the_wgmma_kernels(cuda):
+    """The non-local model's layer-2 shapes (reduced B) go to the wgmma
+    kernels and layer 3's to mma.sync, by the counters; dq stays on its
+    generic kernel."""
+    fwd, dq, dkv = (na.nonlocal_attention_cuda,
+                    na.nonlocal_attention_bwd_dq_cuda,
+                    na.nonlocal_attention_bwd_dkv_cuda)
+    for (n, c), kernel in (((6272, 256), 'wgmma'), ((784, 512), 'mma_sync')):
+        q, k, v, do = _bwd_inputs(1, n, n, c, c, torch.bfloat16, cuda)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        before = (dict(fwd.by_kernel), dq.launches, dict(dkv.by_kernel))
+        na.auto_nonlocal_attention(q, k, v).backward(do)
+        torch.cuda.synchronize()
+        for counter, was in ((fwd.by_kernel, before[0]),
+                             (dkv.by_kernel, before[2])):
+            assert {key: counter[key] - was[key] for key in counter} == {
+                key: int(key == kernel) for key in na.KERNELS}
+        assert dq.launches == before[1] + 1
+
+
+@pytest.mark.gpu
+def test_wgmma_agrees_with_the_mma_sync_kernels(cuda):
+    """At layer 2's widths the wgmma kernels and the kernels they replaced
+    compute the same function (the replaced ones through the wrappers'
+    private launch routes)."""
+    q, k, v, do = _bwd_inputs(2, 1000, 700, 256, 256, torch.bfloat16, cuda)
+    ow, lw = na.nonlocal_attention_cuda(q, k, v)
+    om, lm = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
+    assert _rel_err(ow, om.float()) <= 2e-2
+    torch.testing.assert_close(lw, lm, rtol=0, atol=1e-2)
+    delta = (do.float() * om.float()).sum(-1)
+    gw = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lm, delta)
+    gm = na._launch_dkv(q, k, v, do, lm, delta, 1.0, 'mma_sync')
+    for a, b in zip(gw, gm):
+        assert _rel_err(a, b.float()) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_wgmma_kernels_refuse_misaligned_tensors(cuda):
+    """TMA needs a 16-byte aligned base: a view 2 bytes into its storage is
+    refused, not copied."""
+    flat = torch.randn(1 * 64 * 64 + 1, device=cuda).to(torch.bfloat16)
+    q = flat[1:].view(1, 64, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        na.nonlocal_attention_cuda(q, q, q)
 
 
 @pytest.mark.gpu

@@ -6,6 +6,8 @@ itself runs only on a CUDA card: ``tests/test_torch_kernels_gpu.py``
 compares it with the plain version there, at these same cases.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -78,3 +80,50 @@ def test_plain_runs_f32_under_autocast():
         got = na.nonlocal_attention_reference(tq, tk, tv)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# (dtype, C, Cv, kernel): the layer-2 and sub_sample shapes (C = Cv = 256),
+# Cv != C, the smallest wgmma shape; layer 3 (512), gaussian mode (1024)
+# and channels that are no multiple of 64 stay on mma.sync; f32 is scalar
+DISPATCH = [
+    (torch.bfloat16, 256, 256, 'wgmma'),
+    (torch.bfloat16, 64, 256, 'wgmma'),
+    (torch.bfloat16, 256, 64, 'wgmma'),
+    (torch.bfloat16, 64, 64, 'wgmma'),
+    (torch.bfloat16, 128, 192, 'wgmma'),
+    (torch.bfloat16, 512, 512, 'mma_sync'),
+    (torch.bfloat16, 1024, 512, 'mma_sync'),
+    (torch.bfloat16, 256, 320, 'mma_sync'),
+    (torch.bfloat16, 32, 32, 'mma_sync'),
+    (torch.bfloat16, 96, 64, 'mma_sync'),
+    (torch.float32, 256, 256, 'scalar'),
+    (torch.float32, 32, 24, 'scalar'),
+]
+
+
+@pytest.mark.parametrize('dtype,c,cv,kernel', DISPATCH)
+def test_dispatch_picks_kernel_by_dtype_and_shape(dtype, c, cv, kernel):
+    assert na.attention_kernel(dtype, c, cv) == kernel
+    na._check_kernel(dtype, c, cv, kernel)
+
+
+def test_dispatch_takes_mma_sync_by_name_and_refuses_the_rest():
+    """The private launch routes may send a wgmma shape to the mma.sync
+    kernels (the A/B against the kernel wgmma replaced); nothing else is
+    forced, and the public wrappers take no kernel choice."""
+    na._check_kernel(torch.bfloat16, 256, 256, 'mma_sync')
+    with pytest.raises(ValueError, match='does not take'):
+        na._check_kernel(torch.bfloat16, 512, 512, 'wgmma')
+    with pytest.raises(ValueError, match='does not take'):
+        na._check_kernel(torch.float32, 256, 256, 'wgmma')
+    with pytest.raises(ValueError, match='does not take'):
+        na._check_kernel(torch.float32, 256, 256, 'mma_sync')
+    with pytest.raises(ValueError, match='not supported'):
+        na.attention_kernel(torch.float16, 256, 256)
+    for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dkv_cuda):
+        assert 'kernel' not in inspect.signature(fn).parameters
+
+
+def test_launch_counters_are_kept_per_kernel():
+    for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dkv_cuda):
+        assert set(fn.by_kernel) == set(na.KERNELS)

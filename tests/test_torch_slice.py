@@ -265,8 +265,8 @@ def test_device_running_sums_one_snapshot():
 
 @pytest.mark.parametrize('scale_denom', [1, 2])
 def test_jpeg_decode_matches_jax(tmp_path, scale_denom):
-    """The port builds the JAX package's decoder.cpp by path; both give the
-    same pixels (native or, without libjpeg, the same PIL fallback)."""
+    """The port builds its own copy of the JAX package's decoder.cpp; both
+    give the same pixels (native or, without libjpeg, the same PIL fallback)."""
     from pretorched_tpu.datasets.native import \
         decode_jpeg_files as jax_decode
     from pretorched_tpu_torch.datasets.native import (decode_jpeg_files,
