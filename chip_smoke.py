@@ -25,32 +25,41 @@ Drives the port's main path once on one CUDA card and checks it:
    kernel family;
 5. the backward kernels (K1-dq, K1-dkv) against the plain backward at the
    training path's shapes, in f32 and bf16, with the same times per bf16
-   shape and, at layer 2, the generic K1-dkv that wgmma replaced (time and
-   host time per call);
+   shape and, at layer 2, the generic K1-dq and K1-dkv that wgmma replaced
+   (time and host time per call; K1-dq's two outputs held together);
 6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
-   ``remat=(0,)``, SGD, 5 steps of 8 clips x 32 frames x 224 px; it checks
-   15 attention launches a step (5 forward, 5 dq, 5 dkv; K1-fwd and K1-dkv
-   at layer 2 on wgmma) and a finite loss,
-   prints the step time, clips/s and peak memory, profiles one more step
-   (device time by kernel family, idle share), and saves a checkpoint
-   after step 3 that must restore exactly;
+   ``remat=(0,)``, SGD, 12 steps of 8 clips x 32 frames x 224 px; it checks
+   15 attention launches a step (5 forward, 5 dq, 5 dkv; each at layer 2
+   on wgmma, at layer 3 on mma.sync) and a finite loss, prints each step's
+   host time and device time (CUDA events around the step) and their
+   medians over steps 2-12, clips/s and peak memory, profiles one more
+   step (device time by kernel family, K1-dq's share, idle share), and
+   saves a checkpoint after step 3 that must restore exactly;
 7. gradient agreement: each non-local block's gradients with the kernels
    against those with the plain attention, and one step's loss and
    gradients in f32 with the kernels and with the plain attention, each
    against the same step in f64;
 8. the fused bottleneck tail kernel (K2) against its plain version at
    SlowFast-R50's shapes (fused_blocks 32 and 64) and an odd one, in f32
-   (TF32 off) and bf16, with its time, the plain version's, the unfused
-   tail's (the block's own cuDNN convs, BN and ReLU) and the bound;
+   (TF32 off) and bf16, each on the kernel the dispatch picks (bf16 on the
+   TMA kernel at res2 and res3 of fused_blocks=32, on mma.sync at res4),
+   with, in bf16, its
+   time, the mma.sync kernel's where the TMA kernel replaced it (outputs
+   equal), the host time of a call with and without the fold, the plain
+   version's time, the unfused tail's (the block's own cuDNN convs, BN and
+   ReLU) and the bound;
 9. the SlowFast eval path: ``slowfast_resnet50(fused_blocks=32)`` (seeded
    init, every BN randomized), 2 steps of 2 videos x 10 clips x 64 frames x
    224 px from the eval CLI's ``load_video`` through
-   ``multi_clip_eval_step``. It checks 11 K2 launches per forward and none
-   of K1, finite logits, the f32 logits with K2 against fused_blocks=0,
+   ``multi_clip_eval_step``. It checks 11 K2 launches per forward (6 on
+   the TMA kernel, 5 on mma.sync) and none of K1, finite logits, the f32
+   logits with K2 against fused_blocks=0,
    and that the randomized BN moves the logits; it prints the forward A/B
    of fused_blocks 32 and 0, peak memory and a profiled forward, then runs
    ``examples/video_eval_torch.py -a slowfast_resnet50`` once;
-10. a line with each kernel's numbers, then ``{"ok": true, "device": {...}}``.
+10. a line with each kernel's numbers and the card, then
+    ``{"ok": true, "device": {...}}``. Every phase's heading names the card
+    and its power limit.
 
 Usage: ``python3 chip_smoke.py`` from the repository root. It exits nonzero,
 with no result line, when a phase fails or no CUDA card is present.
@@ -97,14 +106,17 @@ TRAIN_SHAPES = {            # (B, N, Nk, C, Cv): 8 clips a step
 # ops/cuda/nonlocal_attention.py): layer 2 (C = Cv = 256) on wgmma, 2 blocks
 # a pass; layer 3 (C = Cv = 512) on mma.sync, 3 blocks
 EVAL_KERNELS = {'fwd wgmma': 2, 'fwd mma_sync': 3}
-TRAIN_KERNELS = {**EVAL_KERNELS, 'dkv wgmma': 2, 'dkv mma_sync': 3}
+TRAIN_KERNELS = {**EVAL_KERNELS, 'dq wgmma': 2, 'dq mma_sync': 3,
+                 'dkv wgmma': 2, 'dkv mma_sync': 3}
 # max |grad - plain| / max |plain grad|: f32 sums in another order; bf16
 # rounds p and ds for the products and stores bf16
 TOL_BWD = {'float32': 1e-4, 'bfloat16': 2e-2}
 # the card's dense peaks (H100 SXM at 700 W) and memory rate, for bounds
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 MEM_BYTES_PER_S = 3.35e12
-TRAIN_CLIPS, TRAIN_STEPS = 8, 5
+# 12 steps: the first warms up, the median of steps 2-12 is read, by host
+# clock and by device time (CUDA events around each step)
+TRAIN_CLIPS, TRAIN_STEPS, TRAIN_LR = 8, 12, 1e-3
 # K2 (the fused bottleneck tail): (N, T, H, W, Cin, Cm, Cout, projection)
 # of SlowFast-R50 on 20 clips x 64 frames x 224 px (fast pathway B*T =
 # 20 x 32, slow 20 x 4); the first four are fused_blocks=32's, with their
@@ -121,6 +133,12 @@ K2_SHAPES = {
 }
 K2_SLICE = {'fast res2.0': 1, 'fast res2.1-2': 2, 'fast res3.1-3': 3,
             'fast res4.1-5': 5}
+# the K2 kernel the dispatch gives each shape in bf16 (f32: CUDA cores):
+# the TMA kernel at Cout <= 64, mma.sync (faster there) at fast res4
+K2_KERNELS = {'fast res2.0': 'tma', 'fast res2.1-2': 'tma',
+              'fast res3.1-3': 'tma', 'fast res4.1-5': 'mma_sync',
+              'fast res5.1-2': 'mma_sync', 'slow res2.0': 'cuda_cores',
+              'slow res2.1-2': 'mma_sync', 'odd': 'mma_sync'}
 # max |out - plain| / max |plain|: f32 sums in another order (TF32 off);
 # bf16 also rounds y2 and the output, where a sum near a rounding boundary
 # lands one bf16 step (2^-8 relative) apart
@@ -141,8 +159,11 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+CARD = ''    # nvidia-smi's name and power limit, printed with every phase
+
+
 def phase(title):
-    print(f'\n== {title}', flush=True)
+    print(f'\n== {title}' + (f' ({CARD})' if CARD else ''), flush=True)
 
 
 def median_ms(fn, reps=20):
@@ -458,8 +479,8 @@ def main_path(pretorched, na, torch, np):
 
 def backward_vs_plain(na, torch):
     """Phase 5: K1-dq and K1-dkv at every case in both dtypes, with the
-    K1-dkv kernel the dispatch picks; bf16 cases timed with their bounds and
-    SDPA's backward, layer 2 also on the generic K1-dkv that wgmma
+    kernels the dispatch picks; bf16 cases timed with their bounds and
+    SDPA's backward, layer 2 also on the generic K1-dq and K1-dkv that wgmma
     replaced. Returns the layer-2 bf16 numbers."""
     g = torch.Generator(device='cuda').manual_seed(1)
     result = None
@@ -485,7 +506,7 @@ def backward_vs_plain(na, torch):
             tol = TOL_BWD[dname]
             kernel = na.attention_kernel(dt, c, cv)
             line = (f'{name:10s} {dname:8s} B={b} N={n} Nk={nk} C={c} '
-                    f'Cv={cv} [dkv {kernel}]: max|d-plain|/max|d| dq '
+                    f'Cv={cv} [dq, dkv {kernel}]: max|d-plain|/max|d| dq '
                     f'{rels[0]:.2e}, dk {rels[1]:.2e}, dv {rels[2]:.2e} (tol '
                     f'{tol:g})')
             if dt == torch.bfloat16:
@@ -520,20 +541,41 @@ def backward_vs_plain(na, torch):
                                  q, k, v, do, lse, delta)),
                              host_us(lambda: na._launch_dkv(
                                  q, k, v, do, lse, delta, 1.0, 'mma_sync')))
-                    line += (f'; the generic mma.sync K1-dkv {earlier_ms:.3f} '
-                             f'ms; host per call {hosts[0]:.1f} us ({kernel}),'
-                             f' {hosts[1]:.1f} us (mma.sync)')
+                    dq_earlier_ms = median_ms(lambda: na._launch_dq(
+                        q, k, v, do, lse, delta, 1.0, 'mma_sync'))
+                    dq_hosts = (host_us(lambda: na.nonlocal_attention_bwd_dq_cuda(
+                                    q, k, v, do, lse, delta)),
+                                host_us(lambda: na._launch_dq(
+                                    q, k, v, do, lse, delta, 1.0, 'mma_sync')))
+                    dq_earlier = na._launch_dq(q, k, v, do, lse, delta, 1.0,
+                                               'mma_sync')
+                    dq_ab = ((got[0].float() - dq_earlier.float()).abs().max()
+                             / dq_earlier.float().abs().max()).item()
+                    del dq_earlier
+                    line += (f'; the generic mma.sync K1-dq {dq_earlier_ms:.3f}'
+                             f' ms (max|wgmma-generic|/max|generic| '
+                             f'{dq_ab:.2e}), K1-dkv {earlier_ms:.3f} ms; host '
+                             f'per call dq {dq_hosts[0]:.1f} us ({kernel}), '
+                             f'{dq_hosts[1]:.1f} us (mma.sync), dkv '
+                             f'{hosts[0]:.1f} us ({kernel}), {hosts[1]:.1f} us '
+                             f'(mma.sync)')
+                    check(dq_ab <= TOL_BWD[dname],
+                          f'K1-dq wgmma and generic disagree: {dq_ab}')
                     library = (f'scaled_dot_product_attention backward '
                                f'({backend}; dq, dk, dv together)')
                     plain = ('nonlocal_attention_bwd_reference (dq, dk, dv '
                              'together)')
                     result = {
-                        'dq': {'kernel': 'mma_sync', 'max_abs_err': errs[0],
+                        'dq': {'kernel': kernel, 'max_abs_err': errs[0],
                                'max_rel_err': rels[0], 'ms': dq_ms,
                                'plain_ms': plain_ms, 'plain': plain,
                                'library_ms': lib_ms, 'library': library,
                                'bound_ms': bounds['dq'][0],
-                               'bound_by': bounds['dq'][1]},
+                               'bound_by': bounds['dq'][1],
+                               'earlier_ms': dq_earlier_ms,
+                               'earlier': 'generic mma.sync kernel, same run',
+                               'host_us': dq_hosts[0],
+                               'earlier_host_us': dq_hosts[1]},
                         'dkv': {'kernel': kernel,
                                 'max_abs_err': max(errs[1:]),
                                 'max_rel_err': max(rels[1:]),
@@ -562,24 +604,25 @@ def counts(na):
 
 
 def set_counts(na, value):
-    na.nonlocal_attention_cuda.launches = value
-    na.nonlocal_attention_bwd_dq_cuda.launches = value
-    na.nonlocal_attention_bwd_dkv_cuda.launches = value
-    for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dkv_cuda):
+    for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
+               na.nonlocal_attention_bwd_dkv_cuda):
+        fn.launches = value
         fn.by_kernel = dict.fromkeys(na.KERNELS, value)
 
 
 def kernel_counts(na):
-    """K1-fwd's and K1-dkv's launches by kernel, e.g. {'fwd wgmma': 2}."""
+    """K1-fwd's, K1-dq's and K1-dkv's launches by kernel, e.g.
+    {'fwd wgmma': 2}."""
     return {f'{name} {kernel}': n
             for name, fn in (('fwd', na.nonlocal_attention_cuda),
+                             ('dq', na.nonlocal_attention_bwd_dq_cuda),
                              ('dkv', na.nonlocal_attention_bwd_dkv_cuda))
             for kernel, n in fn.by_kernel.items() if n}
 
 
 def expect_kernels(na, per_pass, passes, what):
     """Each pass launched the kernels of ``per_pass`` ({'fwd wgmma': 2, ...})
-    and no other K1-fwd or K1-dkv kernel."""
+    and no other K1 kernel."""
     got = kernel_counts(na)
     want = {k: n * passes for k, n in per_pass.items()}
     check(got == want, f'{what}: launches by kernel {got}, expected {want}')
@@ -648,11 +691,15 @@ def profile_step(step, x, labels, torch):
         return
     attn = {k: v / 1e3 for k, v in by_name.items()
             if 'nonlocal_attention' in k}
+    dq = sum(v for k, v in attn.items() if 'bwd_dq_wgmma' in k)
+    generic = sum(v for k, v in attn.items() if 'bwd_bf16_kernel' in k)
     print(f'profiled step (torch.profiler, one step after the timed ones): '
           f'{window:.1f} ms host window, {busy:.1f} ms of kernels, device '
           f'idle {max(0.0, 1 - busy / window):.1%}; attention kernels '
-          f'{sum(attn.values()):.1f} ms ({sum(attn.values()) / busy:.1%})',
-          flush=True)
+          f'{sum(attn.values()):.1f} ms ({sum(attn.values()) / busy:.1%}): '
+          f'K1-dq wgmma {dq:.2f} ms ({dq / busy:.1%}, 2 launches), the '
+          f'generic backward program {generic:.2f} ms (layer 3: 3 K1-dq + 3 '
+          f'K1-dkv)', flush=True)
     print_families(by_name, busy, {
         'attention': ('nonlocal_attention',), 'convolution': CONV_KEYS,
         'batch norm': ('batch_norm', 'bn_fw', 'bn_bw'),
@@ -660,7 +707,7 @@ def profile_step(step, x, labels, torch):
 
 
 def train_path(pretorched, na, torch, np, cli):
-    """Phase 6; returns the launch counts of the 5 steps."""
+    """Phase 6; returns the launch counts of the timed steps."""
     from pretorched_tpu_torch.parallel.train import (make_train_step,
                                                      sgd_step_decay)
     from pretorched_tpu_torch.zoo.checkpoint import (load_checkpoint,
@@ -669,31 +716,37 @@ def train_path(pretorched, na, torch, np, cli):
     model = pretorched.nonlocalresnet3d50(num_classes=400,
                                           pretrained='kinetics-400')
     model.cuda().bfloat16()
-    sgd = dict(lr=0.01, momentum=0.9, weight_decay=1e-4)
+    # lr 0.001: at the non-local recipe's 0.01 these random weights on one
+    # repeated batch diverge to a NaN loss by step 7 of 12 (PERF.md)
+    sgd = dict(lr=TRAIN_LR, momentum=0.9, weight_decay=1e-4)
     opt, sched = sgd_step_decay(model.parameters(), **sgd)
     step = make_train_step(model, opt, sched, remat=(0,))
     x, labels = train_batch(cli, model.settings, torch)
     check(x.shape == (TRAIN_CLIPS, 3, 32, 224, 224), f'batch {tuple(x.shape)}')
     print(f'nonlocalresnet3d50, bf16 compute (f32 parameters), remat=(0,), '
-          f'SGD lr 0.01 momentum 0.9 wd 1e-4; {TRAIN_CLIPS} clips x 32 x '
+          f'SGD lr {TRAIN_LR:g} momentum 0.9 wd 1e-4; {TRAIN_CLIPS} clips x 32 x '
           f'224 x 224 a step, labels {labels.tolist()}', flush=True)
     ckpt = WORK / 'train' / 'checkpoint.pth'
     ckpt.parent.mkdir(parents=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     set_counts(na, 0)
-    times = []
+    times, device_ms = [], []
     for i in range(TRAIN_STEPS):
         before = counts(na)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
+        e0.record()
         out = step(x, labels)
+        e1.record()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        device_ms.append(e0.elapsed_time(e1))
         launched = tuple(a - b for a, b in zip(counts(na), before))
         loss = out['loss'].item()
         print(f'step {i + 1}: loss {loss:.4f} top1 {out["top1"].item():.3f} '
-              f'{times[-1] * 1e3:.1f} ms, launches fwd/dq/dkv {launched}',
-              flush=True)
+              f'{times[-1] * 1e3:.1f} ms host, {device_ms[-1]:.1f} ms CUDA '
+              f'events, launches fwd/dq/dkv {launched}', flush=True)
         check(launched == (5, 5, 5), f'step {i + 1} launched {launched}, '
               'expected 5 of each attention kernel')
         expect_kernels(na, TRAIN_KERNELS, i + 1, f'step {i + 1}')
@@ -709,11 +762,15 @@ def train_path(pretorched, na, torch, np, cli):
     launches = counts(na)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     step_s = sorted(times[1:])[len(times[1:]) // 2]
+    step_dev = sorted(device_ms[1:])[len(device_ms[1:]) // 2]
     by_kernel = kernel_counts(na)
-    print(f'train step: {step_s * 1e3:.1f} ms (median of steps 2-5, host '
-          f'clock around synchronize) = {TRAIN_CLIPS / step_s:.2f} train '
-          f'clips/s; peak device memory {peak_gb:.2f} GiB; launches '
-          f'fwd/dq/dkv {launches} in {TRAIN_STEPS} steps, by kernel '
+    print(f'train step: {step_s * 1e3:.1f} ms host clock around synchronize '
+          f'= {TRAIN_CLIPS / step_s:.2f} train clips/s; {step_dev:.2f} ms '
+          f'between CUDA events recorded around the step (steps '
+          f'{min(device_ms[1:]):.2f}-{max(device_ms[1:]):.2f}) = '
+          f'{TRAIN_CLIPS / step_dev * 1e3:.2f} train clips/s; medians of '
+          f'steps 2-{TRAIN_STEPS}; peak device memory {peak_gb:.2f} GiB; '
+          f'launches fwd/dq/dkv {launches} in {TRAIN_STEPS} steps, by kernel '
           f'{by_kernel}', flush=True)
 
     profile_step(step, x, labels, torch)
@@ -935,12 +992,14 @@ def k2_bound(shape, dtype):
 
 def k2_vs_plain(torch, fb, fb_cuda, slowfast):
     """Phase 8: K2 at every shape, in f32 and bf16, against the plain
-    version on the same inputs; at the slice's four shapes in bf16 also the
-    kernel's time, the whole wrapper call's (the BN fold and weight layout
-    included), the plain version's, the unfused tail's (the block's own
-    conv2 -> BN -> ReLU -> conv3 -> BN -> add -> ReLU under bf16 autocast:
-    several cuDNN and PyTorch calls, as the model runs at fused_blocks=0)
-    and the bound. Returns the numbers of the slice's shapes."""
+    version on the same inputs, each on the kernel ``tail_kernel`` picks
+    (``K2_KERNELS``); in bf16 also the kernel's time, the mma.sync kernel's
+    where the TMA kernel replaced it (and that the two outputs are equal),
+    the host time of a wrapper call that folds and lays out the weights and
+    of one with the block's kept layout, the plain version's time, the
+    unfused tail's (the block's own conv2 -> BN -> ReLU -> conv3 -> BN ->
+    add -> ReLU under bf16 autocast: several cuDNN and PyTorch calls, as the
+    model runs at fused_blocks=0) and the bound. Returns the bf16 rows."""
     g = torch.Generator().manual_seed(2)
     gc = torch.Generator(device='cuda').manual_seed(3)
     rows = {}
@@ -963,16 +1022,35 @@ def k2_vs_plain(torch, fb, fb_cuda, slowfast):
                 err = (out.float() - want.float()).abs().max().item()
                 rel = err / want.float().abs().max().item()
             tol = TOL_K2[dname]
-            path = 'tensor cores' if prepared['mma'] else 'CUDA cores'
+            kernel = prepared['kernel']
+            expected = (K2_KERNELS[name] if dt == torch.bfloat16
+                        else 'cuda_cores')
             line = (f'{name:14s} {dname:8s} N={n} T={t} {h}x{w} {cin}->{cm}'
-                    f'->{cout}{" (projection)" if proj else ""}, {path}: '
+                    f'->{cout}{" (projection)" if proj else ""} [{kernel}]: '
                     f'max|out-plain|/max|plain| {rel:.2e} (tol {tol:g})')
-            if name in K2_SLICE and dt == torch.bfloat16:
+            check(kernel == expected,
+                  f'K2 {name} {dname} took {kernel}, expected {expected}')
+            if dt == torch.bfloat16:
                 with torch.inference_mode():
                     ms = median_ms(lambda: fb_cuda.launch_tail(prepared))
+                    earlier_ms = None
+                    if kernel == 'tma':
+                        layout = fb_cuda.TailLayout(*weights)
+                        old = fb_cuda._prepare(y1, x, layout, 'mma_sync')
+                        earlier_ms = median_ms(
+                            lambda: fb_cuda.launch_tail(old))
+                        same = torch.equal(fb_cuda.launch_tail(old), out)
+                        check(same, f'K2 {name}: the TMA and mma.sync '
+                              'kernels differ')
+                        del old
                     call_ms = median_ms(
                         lambda: fb_cuda.fused_bottleneck_tail_cuda(
                             y1, x, *blk.tail_weights()))
+                    host_fold = host_us(
+                        lambda: fb_cuda.fused_bottleneck_tail_cuda(
+                            y1, x, *blk.tail_weights()))
+                    host_kept = host_us(lambda: fb.fused_tail_with_layout(
+                        y1, x, blk.tail_layout()))
                     plain_ms = median_ms(
                         lambda: fb.fused_bottleneck_tail_reference(
                             y1, x, *weights))
@@ -983,16 +1061,22 @@ def k2_vs_plain(torch, fb, fb_cuda, slowfast):
                                / want.float().abs().max()).item()
                     del unfused
                 bound_ms, bound_by = k2_bound(shape, dname)
-                line += (f'\n    kernel {ms:.4f} ms (the wrapper call with '
-                         f'BN fold and weight layout {call_ms:.4f} ms), '
-                         f'plain {plain_ms:.4f} ms, unfused tail (several '
-                         f'cuDNN and PyTorch calls) {lib_ms:.4f} ms '
+                line += (f'\n    kernel {ms:.4f} ms'
+                         + (f', the mma.sync kernel {earlier_ms:.4f} ms '
+                            '(outputs equal)' if earlier_ms else '')
+                         + f'; wrapper call with BN fold and weight layout '
+                         f'{call_ms:.4f} ms, host {host_fold:.1f} us a call '
+                         f'(with the block\'s kept layout {host_kept:.1f} '
+                         f'us); plain {plain_ms:.4f} ms, unfused tail '
+                         f'(several cuDNN and PyTorch calls) {lib_ms:.4f} ms '
                          f'(max|unfused-plain|/max|plain| {lib_err:.2e}), '
-                         f'bound {bound_ms:.4f} ms ({bound_by}); '
-                         f'{K2_SLICE[name]} launches a forward')
+                         f'bound {bound_ms:.4f} ms ({bound_by})'
+                         + (f'; {K2_SLICE[name]} launches a forward'
+                            if name in K2_SLICE else ''))
                 rows[name] = {
-                    'path': path, 'max_abs_err': err, 'ms': ms,
-                    'call_ms': call_ms,
+                    'kernel': kernel, 'max_abs_err': err, 'max_rel_err': rel,
+                    'ms': ms, 'earlier_ms': earlier_ms, 'call_ms': call_ms,
+                    'host_us': host_kept, 'host_us_with_fold': host_fold,
                     'plain_ms': plain_ms, 'library_ms': lib_ms,
                     'bound_ms': bound_ms, 'bound_by': bound_by}
             print(line, flush=True)
@@ -1043,7 +1127,8 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
     then, on the first batch, the forward A/B against fused_blocks=0, peak
     memory, a profiled forward, the f32 agreement of the fused and unfused
     paths, and the effect of the randomized BN; last the eval CLI on the
-    same videos. Returns K2's launches in the two steps."""
+    same videos. Returns K2's launches in the two steps, in all and by
+    kernel."""
     from pretorched_tpu_torch.parallel.evaluate import multi_clip_eval_step
 
     root = WORK / 'val64'
@@ -1067,6 +1152,8 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
     torch.cuda.synchronize()
     set_counts(na, 0)
     fb_cuda.fused_bottleneck_tail_cuda.launches = 0
+    fb_cuda.fused_bottleneck_tail_cuda.by_kernel = dict.fromkeys(
+        fb_cuda.KERNELS, 0)
     t0 = time.perf_counter()
     totals = {}
     for i in range(0, len(videos), SF_VIDEOS):
@@ -1082,8 +1169,14 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
           f'{seconds:.3f} s = {len(videos) * SF_CLIPS / seconds:.2f} clips/s '
           f'(decode + preprocess + forward, first run); launches K1-fwd/dq/'
           f'dkv/K2 {launched}; totals {totals}', flush=True)
+    k2_by_kernel = dict(fb_cuda.fused_bottleneck_tail_cuda.by_kernel)
+    print(f'K2 launches by kernel: {k2_by_kernel}', flush=True)
     check(launched == (0, 0, 0, 11 * steps),
           f'expected 11 K2 launches per forward and no K1, got {launched}')
+    want = {'tma': 6 * steps, 'mma_sync': 5 * steps, 'cuda_cores': 0}
+    check(k2_by_kernel == want, f'K2 launches by kernel {k2_by_kernel}, '
+          f'expected {want} (res2 and res3 on the TMA kernel, res4 on '
+          'mma.sync)')
     check(totals['count'] == 4 and 0 <= totals['top1'] <= totals['top5'] <= 4
           and np.isfinite(totals['loss']), f'bad eval totals {totals}')
 
@@ -1170,13 +1263,14 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
     check(summary['steps'] == 2 and summary['totals']['count'] == 4,
           f'CLI summary {summary}')
     torch.cuda.empty_cache()
-    return launched[3]
+    return launched[3], k2_by_kernel
 
 
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
-    m = re.search(r'nonlocal_attention_(?:fwd|bwd_dkv)_wgmma_kernel', line)
+    m = re.search(r'nonlocal_attention_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel',
+                  line)
     if m:
         return (f'{m.group(0)} (bf16, wgmma + TMA ring, 2 consumer '
                 'warpgroups at 240 registers, 1 producer at 24)')
@@ -1195,10 +1289,12 @@ def kernel_label(line):
         dtype = 'f32' if m.group(1) == 'f' else 'bf16'
         return (f'fused_bottleneck_tail_kernel ({dtype}, {m.group(2)} conv2 '
                 f'channels a pass, {shortcut[m.group(3)]})')
-    m = re.search(r'fused_bottleneck_tail_mma_kernelILi(\d+)ELb([01])E', line)
+    m = re.search(r'fused_bottleneck_tail_(mma|tma)_kernelILi(\d+)ELb([01])E',
+                  line)
     if m:
-        return (f'fused_bottleneck_tail_mma_kernel (bf16 tensor cores, Cm <= '
-                f'{m.group(1)}, {shortcut[m.group(2)]})')
+        how = ('TMA, persistent, ' if m.group(1) == 'tma' else '')
+        return (f'fused_bottleneck_tail_{m.group(1)}_kernel (bf16 {how}'
+                f'mma.sync, Cm <= {m.group(2)}, {shortcut[m.group(3)]})')
     return line.split()[-1]
 
 
@@ -1214,7 +1310,9 @@ def main():
     check(smi.returncode == 0, f'nvidia-smi failed: {smi.stderr}')
     print(f'python {sys.version.split()[0]}, torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)')
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    global CARD
+    card = CARD = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
 
     sys.path.insert(0, str(REPO))
     import pretorched_tpu_torch as pretorched
@@ -1268,12 +1366,16 @@ def main():
 
     phase(f'9. eval path: slowfast_resnet50, fused_blocks=32, {SF_CLIPS} '
           f'clips x {SF_FRAMES} frames x 224 px')
-    k2_launches = slowfast_path(pretorched, torch, np, cli, na, fb_cuda)
+    k2_launches, k2_by_kernel = slowfast_path(pretorched, torch, np, cli, na,
+                                              fb_cuda)
 
     phase('10. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
+    # the mma.sync kernel at every slice shape (res4 runs it already)
+    forward['earlier_ms'] = sum((k2[s]['earlier_ms'] or k2[s]['ms']) * n
+                                for s, n in K2_SLICE.items())
     pallas = 'pretorched_tpu/ops/pallas/nonlocal_attention.py:'
     print(json.dumps({'kernels': [
         {'name': 'nonlocal_attention_fwd', 'route': 'cuda',
@@ -1287,6 +1389,8 @@ def main():
         {'name': 'nonlocal_attention_bwd_dq', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
          'launches': train_launches[1], **k1b['dq'],
+         'launches_by_kernel': {k[3:]: n for k, n in train_by_kernel.items()
+                                if k.startswith('dq')},
          'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
         {'name': 'nonlocal_attention_bwd_dkv', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '172',
@@ -1297,14 +1401,16 @@ def main():
         {'name': 'fused_bottleneck_tail', 'route': 'cuda',
          'source': src + 'fused_block.cu',
          'replaces': 'pretorched_tpu/ops/pallas/fused_block.py:69',
-         'launches': k2_launches, **k2['fast res2.1-2'],
+         'launches': k2_launches, 'launches_by_kernel': k2_by_kernel,
+         **k2['fast res2.1-2'], 'earlier': 'mma.sync kernel, same run',
          'plain': 'fused_bottleneck_tail_reference',
          'library': 'the unfused tail: cuDNN conv2, BN, ReLU, cuDNN conv3, '
                     'BN, add, ReLU (several calls; no one PyTorch call '
                     'computes the function)',
          'shape': list(K2_SHAPES['fast res2.1-2'][:7]), 'dtype': 'bfloat16',
          'per_forward': {**forward, 'launches': sum(K2_SLICE.values()),
-                         'shapes': list(K2_SLICE)}}]}))
+                         'shapes': list(K2_SLICE)}}],
+        'card': card}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

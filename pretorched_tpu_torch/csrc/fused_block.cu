@@ -52,6 +52,7 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -531,6 +532,500 @@ cudaError_t launch_mma_cm(const void* y1, const void* x, const void* w2b,
 #undef PT_LAUNCH_MMA
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 path for Hopper: TMA loads, 16-byte staging and stores, a
+// persistent block with a 2-stage ring. Replaces the TPU kernel `_kernel`
+// (pretorched_tpu/ops/pallas/fused_block.py:69) at the shapes of the
+// tensor-core path above where T * H * W is a multiple of 8 (16-byte
+// aligned channel planes), Cout <= 64 and the plan below fits two blocks an
+// SM: SlowFast's fast pathway at res2 and res3, 6 of the slice's 11 tails a
+// forward (res4's 5 stay on mma.sync; see "Where it applies").
+//
+// What bounds it: bytes. At fast res2.1-2 (20 x 32 frames of 56 x 56, Cin =
+// Cout = 32, Cm = 8) the tail moves 2 (Cm + Cin + Cout) = 144 bytes a pixel
+// and does ~2.2 kFLOP of products a pixel (bf16 tensor cores): 0.086 ms of
+// bytes against 0.008 ms of operations. The mma.sync kernel above loads its
+// tiles with 2-byte scalar loads into channels-last shared memory, writes
+// the output 2 bytes at a time, copies the weights again for every tile and
+// never overlaps a tile's loads with its products.
+//
+// Design. Each block loads the padded weights once and walks over tiles
+// (TH full-width rows of one frame, at most 256 pixels) blockIdx.x,
+// + gridDim.x, ...; the grid is what the occupancy calculator allows on the
+// card's SMs. One thread issues a tile's TMA loads two tiles ahead, into a
+// 2-slot ring completing on mbarriers, so the next tile's loads run under
+// this tile's products and stores. The tensor maps see y1 and x as 2-D
+// (T * H * W, N * C): a box is 128 consecutive pixels of a channel plane by
+// all C channels, started at the 8-pixel boundary below the tile (so every
+// shared and global 16-byte group lines up); boxes past the tensor read
+// zeros, and halo rows outside the frame are zeroed while staging. A tile:
+//   1. y1 (and x with a projection) from the boxes (channels-first) into
+//      the channels-last tiles of the mma.sync path, 8 channels x 8 pixels
+//      a thread: eight 16-byte loads, a register transpose, eight 16-byte
+//      stores; the one-pixel column halo stays zero from the start;
+//   2. conv2, BN2, ReLU, the rounding to bf16, conv3 (and the projection)
+//      on mma.sync as above (Cm is 8-32 on the path: far below the 64-row
+//      tiles that would make wgmma pay);
+//   3. BN3, the residual and the ReLU into a channels-first output tile in
+//      the ring slot (in place over x for the identity residual: each
+//      element is read, then written, by the same thread);
+//   4. the output tile to device memory, 16 bytes a thread, the threads of
+//      a warp on consecutive groups of a channel plane.
+// Where it applies. The plan keeps two blocks on an SM, so that one
+// block's loads, staging and stores run beside the other's products, and
+// Cout is at most 64: the output's pass through shared memory grows with
+// Cout, and at fast res4 (Cout = 128) the kernel lost to mma.sync's with
+// one block an SM and with two (PERF.md), so those shapes keep it.
+// Shared memory at fast res2.1-2 (TH = 4 of 56: 224 pixels): the ring
+// 2 x (3 y1 boxes x 8 ch + 2 x boxes x 32 ch) x 256 bytes = 44 KB, the y1
+// halo tile 17 KB, y2 11 KB, weights 5 KB: 77 KB.
+// ptxas on the H100 build: 64-128 registers and no spills for the identity
+// tails, 128 registers and 80-104 bytes of spill for the projection ones
+// (chip_smoke.py's phase 2 prints the report).
+constexpr int kBox = 128;                      // pixels of a TMA box
+constexpr int kTmaThreads = 256;
+constexpr int kTmaMaxCout = 64;
+constexpr size_t kTwoBlocksSmem = 110 * 1024;  // two blocks an SM
+
+__host__ __device__ __forceinline__ int y1_boxes(int th, int w) {
+  return ((th + 2) * w + 7 + kBox - 1) / kBox;
+}
+__host__ __device__ __forceinline__ int x_boxes(int th, int w) {
+  return (th * w + 7 + kBox - 1) / kBox;
+}
+
+// Bytes of one ring slot: the y1 boxes, the x boxes and, with a projection,
+// the output tile.
+__host__ __device__ __forceinline__ int slot_bytes(int th, int w, int cm,
+                                                   int cin, int cout,
+                                                   bool proj) {
+  return kBox * 2 * (y1_boxes(th, w) * cm +
+                     x_boxes(th, w) * (cin + (proj ? cout : 0)));
+}
+
+size_t tma_smem_bytes(int th, int w, int cm, int cin, int cout, bool proj) {
+  const size_t mt16 = (size_t)(th * w + 15) / 16 * 16;
+  const size_t cmp = padded(cm), cinp = padded(cin);
+  size_t elems = 9 * (size_t)cm * cmp + (size_t)cout * cmp   // w2, w3
+                 + (size_t)(th + 2) * (w + 2) * cmp          // y1 halo tile
+                 + mt16 * cmp;                               // y2 tile
+  if (proj) elems += (size_t)cout * cinp + mt16 * cinp;     // wp, x tile
+  return 2 * (size_t)slot_bytes(th, w, cm, cin, cout, proj) +
+         elems * sizeof(bf16) + 2 * sizeof(uint64_t) + 128;
+}
+
+// Rows per tile of the TMA path, or 0 where it does not apply: the most
+// rows (at most 256 pixels) whose plan lets two blocks share an SM, spread
+// evenly over the frame's tiles.
+int tma_rows(int t, int h, int w, int cm, int cin, int cout, bool proj) {
+  if (mma_rows(h, w, cm, cin, cout, proj) < 1) return 0;
+  if ((int64_t)t * h * w % 8 || (int64_t)t * h * w >= (1ll << 31) ||
+      cin > 256 || cout > kTmaMaxCout)
+    return 0;
+  const int top = h < 256 / w ? h : 256 / w;
+  for (int th = top; th >= 1; --th) {
+    if (tma_smem_bytes(th, w, cm, cin, cout, proj) <= kTwoBlocksSmem) {
+      const int tiles = (h + th - 1) / th;
+      return (h + tiles - 1) / tiles;
+    }
+  }
+  return 0;
+}
+
+// The map of a contiguous bf16 tensor of `planes` channel planes of `len`
+// pixels (len % 8 == 0), boxes of kBox pixels x `chans` planes, no swizzle.
+bool plane_map(CUtensorMap* map, const void* base, int64_t len, int planes,
+               int chans) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)len, (cuuint64_t)planes};
+  const cuuint64_t strides[1] = {(cuuint64_t)len * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBox, (cuuint32_t)chans};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// Element (channel c, slot position q) of a tile held as kBox-pixel boxes
+// of `chans` channels.
+__device__ __forceinline__ int box_index(int q, int c, int chans) {
+  return (q / kBox) * chans * kBox + c * kBox + q % kBox;
+}
+
+// Eight channels c8 * 8 .. + 7 at the eight slot positions q8 * 8 .. + 7 of
+// a box tile, as eight 16-byte rows, one per position: v[e] holds the
+// channels of position q8 * 8 + e.
+__device__ __forceinline__ void load_transposed(Pack8 (&v)[8], const bf16* tile,
+                                                int chans, int c8, int q8) {
+  Pack8 a[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    a[i].u = *reinterpret_cast<const uint4*>(
+        tile + box_index(q8 * 8, c8 * 8 + i, chans));
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[e].h[i] = a[i].h[e];
+}
+
+// y1 (n, cm, t, h, w), x (n, cin, t, h, w), out (n, cout, t, h, w) bf16,
+// through y1map and xmap (plane_map); weights as for the mma.sync path.
+template <int CM, bool PROJ>
+__global__ void __launch_bounds__(kTmaThreads)
+fused_bottleneck_tail_tma_kernel(const __grid_constant__ CUtensorMap y1map,
+                                 const __grid_constant__ CUtensorMap xmap,
+                                 const bf16* __restrict__ w2b,
+                                 const float* __restrict__ a2,
+                                 const bf16* __restrict__ w3b,
+                                 const float* __restrict__ a3,
+                                 const bf16* __restrict__ wpb,
+                                 const float* __restrict__ ap,
+                                 bf16* __restrict__ out, int tlen, int h,
+                                 int w, int cm, int cin, int cout, int th,
+                                 int tiles, int total) {
+  extern __shared__ unsigned char smem_tma[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_tma) + 127) & ~uintptr_t(127));
+  const int hw = h * w;
+  const int64_t thw = (int64_t)tlen * hw;
+  const int hrow = w + 2, hp = (th + 2) * hrow;
+  const int mt = (th * w + 15) / 16;
+  const int cmp = padded(cm), cinp = padded(cin);
+  const int k2 = (cm + 15) / 16, kp = (cin + 15) / 16;
+  const int nby = y1_boxes(th, w), nbx = x_boxes(th, w);
+  const int ybytes = nby * cm * kBox * 2, xbytes = nbx * cin * kBox * 2;
+  const int sbytes = slot_bytes(th, w, cm, cin, cout, PROJ);
+  bf16* w2s = reinterpret_cast<bf16*>(ring + 2 * sbytes);   // [9][cm][cmp]
+  bf16* w3s = w2s + 9 * cm * cmp;                           // [cout][cmp]
+  bf16* wps = w3s + cout * cmp;                             // [cout][cinp]
+  bf16* y1h = wps + (PROJ ? cout * cinp : 0);               // [hp][cmp]
+  bf16* y2s = y1h + hp * cmp;                               // [mt * 16][cmp]
+  bf16* xs = y2s + mt * 16 * cmp;                           // [mt * 16][cinp]
+  uint64_t* full = reinterpret_cast<uint64_t*>(xs + (PROJ ? mt * 16 * cinp : 0));
+
+  // the tile's frame, first row and rows; its first pixel in the plane
+  struct Tile { int ni, y0, rows, g0; };
+  auto tile_at = [&](int i) {
+    const int frame = i / tiles, y0 = (i % tiles) * th;
+    return Tile{frame / tlen, y0, min(th, h - y0), (frame % tlen) * hw + y0 * w};
+  };
+  auto issue = [&](int k, int i) {
+    const Tile tl = tile_at(i);
+    unsigned char* slot = ring + (k & 1) * sbytes;
+    uint64_t* bar = &full[k & 1];
+    mbar_expect_tx(bar, ybytes + xbytes);
+    const int ys0 = (tl.g0 - w) & ~7, xs0 = tl.g0 & ~7;
+    for (int b = 0; b < nby; ++b)
+      tma_load_2d(slot + b * cm * kBox * 2, &y1map, bar, ys0 + b * kBox,
+                  tl.ni * cm);
+    for (int b = 0; b < nbx; ++b)
+      tma_load_2d(slot + ybytes + b * cin * kBox * 2, &xmap, bar,
+                  xs0 + b * kBox, tl.ni * cin);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    issue(0, blockIdx.x);
+    if ((int)(blockIdx.x + gridDim.x) < total) issue(1, blockIdx.x + gridDim.x);
+  }
+  // the weights once; zeros where the tiles are padded (the halo columns,
+  // channels past cm and cin) and stay so
+  copy16(w2s, w2b, 9 * cm * cmp);
+  copy16(w3s, w3b, cout * cmp);
+  if (PROJ) copy16(wps, wpb, cout * cinp);
+  {
+    uint4* z = reinterpret_cast<uint4*>(y1h);
+    const int nz = (hp * cmp + mt * 16 * cmp + (PROJ ? mt * 16 * cinp : 0)) / 8;
+    for (int i = threadIdx.x; i < nz; i += blockDim.x) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, qd = lane % 4;
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8, lk = (lane >> 4) * 8;
+  const uint4 zero16 = make_uint4(0, 0, 0, 0);
+  for (int k = 0, i = blockIdx.x; i < total; ++k, i += gridDim.x) {
+    const Tile tl = tile_at(i);
+    const int npix = tl.rows * w;
+    const int sy = (tl.g0 - w) - ((tl.g0 - w) & ~7), sx = tl.g0 & 7;
+    const int xs0 = tl.g0 - sx;
+    unsigned char* slot = ring + (k & 1) * sbytes;
+    const bf16* ybuf = reinterpret_cast<const bf16*>(slot);
+    bf16* xbuf = reinterpret_cast<bf16*>(slot + ybytes);
+    bf16* obuf = PROJ ? reinterpret_cast<bf16*>(slot + ybytes + xbytes) : xbuf;
+    mbar_wait(&full[k & 1], (k >> 1) & 1);
+
+    // 1. y1 -> the channels-last halo tile; rows outside the frame zero
+    const int run = (tl.rows + 2) * w;
+    const int yg = (sy + run + 7) / 8, c8y = cm / 8;
+    for (int e8 = threadIdx.x; e8 < yg * c8y; e8 += blockDim.x) {
+      const int c8 = e8 % c8y, q8 = e8 / c8y;
+      Pack8 v[8];
+      load_transposed(v, ybuf, cm, c8, q8);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int j = q8 * 8 + e - sy;     // position in the run
+        if (j < 0 || j >= run) continue;
+        const int r = j / w, x = j % w, gy = tl.y0 - 1 + r;
+        *reinterpret_cast<uint4*>(y1h + (r * hrow + x + 1) * cmp + c8 * 8) =
+            gy >= 0 && gy < h ? v[e].u : zero16;
+      }
+    }
+    if (PROJ) {   // x -> the channels-last x tile
+      const int xg = (sx + npix + 7) / 8, c8x = cin / 8;
+      for (int e8 = threadIdx.x; e8 < xg * c8x; e8 += blockDim.x) {
+        const int c8 = e8 % c8x, q8 = e8 / c8x;
+        Pack8 v[8];
+        load_transposed(v, xbuf, cin, c8, q8);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int p = q8 * 8 + e - sx;
+          if (p >= 0 && p < npix)
+            *reinterpret_cast<uint4*>(xs + p * cinp + c8 * 8) = v[e].u;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. conv2 and conv3 (+ projection) as mma.sync's. Where registers
+    // allow (Cm <= 16, identity residual), a warp takes two 16-pixel tiles
+    // at once (m and m + 8): their products interleave, so one tile's
+    // chain of 9 k2 dependent mmas runs under the other's, each tile's sums
+    // in the same order as one at a time. (With the projection or Cm = 32
+    // the second tile's registers made the kernel slower: PERF.md.)
+    constexpr int kWarps = kTmaThreads / 32;
+    constexpr int NT = CM <= 16 && !PROJ ? 2 : 1;
+    for (int m0 = warp; m0 < mt; m0 += NT * kWarps) {
+      const int nt = NT == 2 && m0 + kWarps < mt ? 2 : 1;
+      const bf16* arow[NT];
+      float acc[NT][CM / 8][4];
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        const int p = min((m0 + u * kWarps) * 16 + lrow, npix - 1);
+        arow[u] = y1h + ((p / w) * hrow + p % w) * cmp + lk;
+#pragma unroll
+        for (int j = 0; j < CM / 8; ++j)
+          acc[u][j][0] = acc[u][j][1] = acc[u][j][2] = acc[u][j][3] = 0.f;
+      }
+      for (int tap = 0; tap < 9; ++tap) {
+        const int shift = ((tap / 3) * hrow + tap % 3) * cmp;
+        const bf16* brow = w2s + (tap * cm + g) * cmp + 2 * qd;
+        for (int ks = 0; ks < k2; ++ks) {
+          uint32_t a[NT][4];
+#pragma unroll
+          for (int u = 0; u < NT; ++u)
+            if (u < nt) ldsm_x4(a[u], arow[u] + shift + ks * 16);
+#pragma unroll
+          for (int j = 0; j < CM / 8; ++j) {
+            if (j * 8 < cm) {
+              const bf16* b = brow + j * 8 * cmp + ks * 16;
+              const uint32_t b0 = ld_pair(b), b1 = ld_pair(b + 8);
+#pragma unroll
+              for (int u = 0; u < NT; ++u)
+                if (u < nt) mma_bf16(acc[u][j], a[u], b0, b1);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < NT; ++u) {
+        if (u >= nt) break;
+#pragma unroll
+        for (int j = 0; j < CM / 8; ++j) {
+          const int co = j * 8 + 2 * qd;
+          if (co < cm) {
+            const float s0 = a2[co], s1 = a2[co + 1];
+            const float b0 = a2[cm + co], b1 = a2[cm + co + 1];
+            bf16* row = y2s + ((m0 + u * kWarps) * 16 + g) * cmp + co;
+            *reinterpret_cast<uint32_t*>(row) =
+                pack_pair(fmaxf(fmaf(acc[u][j][0], s0, b0), 0.f),
+                          fmaxf(fmaf(acc[u][j][1], s1, b1), 0.f));
+            *reinterpret_cast<uint32_t*>(row + 8 * cmp) =
+                pack_pair(fmaxf(fmaf(acc[u][j][2], s0, b0), 0.f),
+                          fmaxf(fmaf(acc[u][j][3], s1, b1), 0.f));
+          }
+        }
+      }
+      __syncwarp();
+
+      for (int o0 = 0; o0 < cout; o0 += 32) {
+        float acc3[NT][4][4], accp[NT][4][4];
+#pragma unroll
+        for (int u = 0; u < NT; ++u)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc3[u][j][e] = accp[u][j][e] = 0.f;
+        for (int ks = 0; ks < k2; ++ks) {
+          uint32_t a[NT][4];
+#pragma unroll
+          for (int u = 0; u < NT; ++u)
+            if (u < nt)
+              ldsm_x4(a[u], y2s + ((m0 + u * kWarps) * 16 + lrow) * cmp + lk +
+                                ks * 16);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (o0 + j * 8 < cout) {
+              const bf16* b = w3s + (o0 + j * 8 + g) * cmp + ks * 16 + 2 * qd;
+              const uint32_t b0 = ld_pair(b), b1 = ld_pair(b + 8);
+#pragma unroll
+              for (int u = 0; u < NT; ++u)
+                if (u < nt) mma_bf16(acc3[u][j], a[u], b0, b1);
+            }
+          }
+        }
+        if (PROJ) {
+          for (int ks = 0; ks < kp; ++ks) {
+            uint32_t a[NT][4];
+#pragma unroll
+            for (int u = 0; u < NT; ++u)
+              if (u < nt)
+                ldsm_x4(a[u], xs + ((m0 + u * kWarps) * 16 + lrow) * cinp +
+                                  lk + ks * 16);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (o0 + j * 8 < cout) {
+                const bf16* b =
+                    wps + (o0 + j * 8 + g) * cinp + ks * 16 + 2 * qd;
+                const uint32_t b0 = ld_pair(b), b1 = ld_pair(b + 8);
+#pragma unroll
+                for (int u = 0; u < NT; ++u)
+                  if (u < nt) mma_bf16(accp[u][j], a[u], b0, b1);
+              }
+            }
+          }
+        }
+        // 3. the epilogue into the channels-first output tile
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int co = o0 + j * 8 + 2 * qd;
+          if (co >= cout) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = co + e;
+            const float s3 = a3[c], b3 = a3[cout + c];
+            const float sp = PROJ ? ap[c] : 0.f, bp = PROJ ? ap[cout + c] : 0.f;
+#pragma unroll
+            for (int u = 0; u < NT; ++u) {
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int pp = (m0 + u * kWarps) * 16 + g + 8 * half;
+                if (u >= nt || pp >= npix) continue;
+                const int at = box_index(pp + sx, c, cout);
+                const float r =
+                    PROJ ? fmaf(accp[u][j][2 * half + e], sp, bp)
+                         : __bfloat162float(xbuf[at]);
+                const float v = fmaf(acc3[u][j][2 * half + e], s3, b3);
+                obuf[at] = __float2bfloat16(fmaxf(v + r, 0.f));
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 4. the output tile to device memory, 16 bytes a thread where all 8
+    // positions lie in the tile
+    const int og = (sx + npix + 7) / 8;
+    for (int e8 = threadIdx.x; e8 < cout * og; e8 += blockDim.x) {
+      const int c = e8 / og, q = (e8 % og) * 8;
+      const bf16* src = obuf + box_index(q, c, cout);
+      bf16* dst = out + ((int64_t)tl.ni * cout + c) * thw + xs0 + q;
+      if (q >= sx && q + 8 <= sx + npix) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8; ++e)
+          if (q + e >= sx && q + e < sx + npix) dst[e] = src[e];
+      }
+    }
+    // this slot's reads and writes are done before TMA refills it
+    fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0 && i + 2 * (int)gridDim.x < total)
+      issue(k + 2, i + 2 * gridDim.x);
+  }
+}
+
+int sm_count() {
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 0;
+  if (count[dev] == 0)
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+template <int CM, bool PROJ>
+cudaError_t launch_tma(const void* y1, const void* x, const void* w2b,
+                       const float* a2, const void* w3b, const float* a3,
+                       const void* wpb, const float* ap, void* out, int n,
+                       int tlen, int h, int w, int cm, int cin, int cout,
+                       int th, cudaStream_t stream) {
+  const int tiles = (h + th - 1) / th;
+  const int64_t total = (int64_t)n * tlen * tiles;
+  if (total > 0x7fffffff || (int64_t)n * (cm > cin ? cm : cin) > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const int64_t thw = (int64_t)tlen * h * w;
+  CUtensorMap ym, xm;
+  if (!plane_map(&ym, y1, thw, n * cm, cm) ||
+      !plane_map(&xm, x, thw, n * cin, cin))
+    return cudaErrorNotSupported;
+  const size_t smem = tma_smem_bytes(th, w, cm, cin, cout, PROJ);
+  auto kernel = fused_bottleneck_tail_tma_kernel<CM, PROJ>;
+  static int allowed[kMaxDevices] = {};
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kTmaThreads, smem);
+  if (err != cudaSuccess) return err;
+  int64_t blocks = (int64_t)sm_count() * (per_sm > 0 ? per_sm : 1);
+  if (blocks > total) blocks = total;
+  if (blocks < 1) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kTmaThreads, smem, stream>>>(
+      ym, xm, static_cast<const bf16*>(w2b), a2,
+      static_cast<const bf16*>(w3b), a3, static_cast<const bf16*>(wpb), ap,
+      static_cast<bf16*>(out), tlen, h, w, cm, cin, cout, th, tiles,
+      (int)total);
+  return cudaGetLastError();
+}
+
+template <bool PROJ>
+cudaError_t launch_tma_cm(const void* y1, const void* x, const void* w2b,
+                          const float* a2, const void* w3b, const float* a3,
+                          const void* wpb, const float* ap, void* out, int n,
+                          int tlen, int h, int w, int cm, int cin, int cout,
+                          int th, cudaStream_t s) {
+#define PT_LAUNCH_TMA(CM)                                                    \
+  return launch_tma<CM, PROJ>(y1, x, w2b, a2, w3b, a3, wpb, ap, out, n, tlen, \
+                              h, w, cm, cin, cout, th, s)
+  if (cm <= 8) PT_LAUNCH_TMA(8);
+  if (cm <= 16) PT_LAUNCH_TMA(16);
+  if (cm <= 32) PT_LAUNCH_TMA(32);
+  PT_LAUNCH_TMA(64);
+#undef PT_LAUNCH_TMA
+}
+
 }  // namespace
 
 extern "C" {
@@ -554,6 +1049,41 @@ int pt_fused_bottleneck_tail_mma_rows(int h, int w, int cm, int cin, int cout,
 }
 
 int pt_fused_bottleneck_tail_mma_padded(int c) { return padded(c); }
+
+// The TMA path for bf16: its rows per tile where it applies (> 0), else 0
+// (then pt_fused_bottleneck_tail_mma_rows decides). Same weights as the
+// mma.sync path.
+int pt_fused_bottleneck_tail_tma_rows(int t, int h, int w, int cm, int cin,
+                                      int cout, int proj) {
+  if (t < 1 || h < 1 || w < 1 || cm < 1 || cin < 1 || cout < 1) return 0;
+  return tma_rows(t, h, w, cm, cin, cout, proj != 0);
+}
+
+// Arguments as pt_fused_bottleneck_tail_mma; y1, x and out 16-byte
+// aligned.
+int pt_fused_bottleneck_tail_tma(const void* y1, const void* x,
+                                 const void* w2b, const void* a2,
+                                 const void* w3b, const void* a3,
+                                 const void* wpb, const void* ap, void* out,
+                                 int n, int t, int h, int w, int cm, int cin,
+                                 int cout, void* stream) {
+  if (n < 1 || t < 1) return (int)cudaErrorInvalidValue;
+  if ((wpb == nullptr) != (ap == nullptr) || (wpb == nullptr && cin != cout))
+    return (int)cudaErrorInvalidValue;
+  const bool proj = wpb != nullptr;
+  const int th = pt_fused_bottleneck_tail_tma_rows(t, h, w, cm, cin, cout,
+                                                   proj);
+  if (th < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *a2f = static_cast<const float*>(a2),
+              *a3f = static_cast<const float*>(a3),
+              *apf = static_cast<const float*>(ap);
+  if (proj)
+    return (int)launch_tma_cm<true>(y1, x, w2b, a2f, w3b, a3f, wpb, apf, out,
+                                    n, t, h, w, cm, cin, cout, th, s);
+  return (int)launch_tma_cm<false>(y1, x, w2b, a2f, w3b, a3f, wpb, apf, out,
+                                   n, t, h, w, cm, cin, cout, th, s);
+}
 
 // y1, x, out bf16 as for pt_fused_bottleneck_tail; w2b (9, cm, padded(cm)):
 // tap-major, then output channel, then input channel; w3b (cout,

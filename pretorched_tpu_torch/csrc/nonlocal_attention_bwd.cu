@@ -40,12 +40,12 @@
 // chunks of the K1-dkv grid, so a dv block skips dp. The caller's dispatch
 // picks one of three programs:
 //
-// * K1-dkv in bf16 with C and Cv multiples of 64 up to 256 (the train
-//   layer-2 shape): a warp-specialised wgmma kernel with TMA, which forms
-//   s^T once and keeps both whole accumulators in registers
-//   (nonlocal_attention_bwd_dkv_wgmma_kernel below, wgmma_tiles.cuh).
-//   K1-dq always takes the generic program.
-// * bf16 otherwise (K1-dq; K1-dkv at layer 3's and gaussian mode's widths):
+// * bf16 with C and Cv multiples of 64 up to 256 (the train layer-2
+//   shape): warp-specialised wgmma kernels with TMA, which form s (s^T)
+//   once and keep whole accumulators in registers
+//   (nonlocal_attention_bwd_dq_wgmma_kernel and
+//   nonlocal_attention_bwd_dkv_wgmma_kernel below, wgmma_tiles.cuh).
+// * bf16 otherwise (layer 3's and gaussian mode's widths):
 //   tensor cores through mma.sync.m16n8k16, warps
 //   of 16 rows (mma_tiles.cuh), fragments read by ldmatrix. X goes from the
 //   C fragments straight into the A fragments of the accumulating product,
@@ -798,6 +798,256 @@ nonlocal_attention_bwd_dkv_wgmma_kernel(
   }
 }
 
+// ---------------------------------------- bf16, Hopper: K1-dq on wgmma
+// Replaces `_attn_dq_kernel` (pretorched_tpu/ops/pallas/
+// nonlocal_attention.py:141) where C and Cv are multiples of 64 up to 256
+// (the same dispatch as K1-fwd and K1-dkv; the train layer-2 shape and
+// sub_sample).
+//
+// What bounds it: operations. At (B, N, Nk, C, Cv) = (8, 6272, 6272, 256,
+// 256) dq needs 2 B N Nk (2C + Cv) = 483 GFLOP, 0.49 ms at the bf16 peak,
+// against 0.18 ms for its bytes. The generic program splits dq's 256
+// columns into two grid chunks, each forming s and dp again (1.67x the
+// products), on mma.sync.
+//
+// Design. A block owns (batch item, 64 queries); q, do, lse and delta of
+// the band stay resident, k and v stream through 2-slot TMA rings.
+// Warpgroup 2 produces (one thread issues every TMA copy); per key tile:
+//   group 0: s = q k^T (SS, k K-major), p = exp(s scale - lse), zero at
+//     keys past Nk, handed to group 1 in shared memory (f32, accumulator
+//     order: each thread reads back only its own words, no bank conflicts);
+//   group 1: dp = do v^T (SS, v K-major), ds = p (dp - delta) scale, rounded
+//     to bf16 as the A fragments of the next product and handed back in the
+//     same words;
+//   both: dq[:, half] += ds k[:, half] (A = ds from registers, B = k
+//     MN-major): group 0 takes dq's first ceil(C / 128) 64-column chunks,
+//     group 1 the rest, 64 x 128 f32 (64 registers a thread) each at C =
+//     256.
+// s and dp run side by side on the two groups, then the two halves of dq:
+// every product once (1.0x the minimal work) and equal work per group. One
+// exchange slot suffices: group 0 writes p of tile t + 1 only after reading
+// ds of tile t, and group 1 writes ds only after reading p.
+// Shared memory at C = Cv = 256 (each tile a stack of swizzled 64-channel
+// chunks, wgmma_tiles.cuh): q and do 32 KB each, the k and v rings 64 KB
+// each, the exchange slot 16 KB: 208 KB, plus barriers and 1 KB of
+// alignment. ptxas on the H100 build: 168 registers at entry, no spills;
+// `setmaxnreg` gives the consumers 240 and the producer 24 (chip_smoke.py's
+// phase 2 prints the report). No atomics: dq is the same every run.
+constexpr int kDqXBytes = 32 * 128 * 4;   // the p / ds exchange slot
+
+size_t dq_wgmma_smem(int c, int cv) {
+  return 384 * (size_t)(c + cv) + kDqXBytes + 2 * sizeof(Ring<2>) +
+         sizeof(uint64_t) + 1024;   // + 1024: aligning the base
+}
+
+__global__ void __launch_bounds__(kWThreads, 1)
+nonlocal_attention_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap,
+    const __grid_constant__ CUtensorMap dqmap, const float* __restrict__ lse,
+    const float* __restrict__ delta, int n, int nk, int c, int cv,
+    float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* dos = qs + 128 * c;
+  unsigned char* kr = dos + 128 * cv;      // the k ring, then the v ring
+  unsigned char* vr = kr + 256 * c;
+  float* xbuf = reinterpret_cast<float*>(vr + 256 * cv);
+  Ring<2>* kring = reinterpret_cast<Ring<2>*>(
+      reinterpret_cast<unsigned char*>(xbuf) + kDqXBytes);
+  Ring<2>* vring = kring + 1;
+  uint64_t* rowbar = reinterpret_cast<uint64_t*>(vring + 1);
+
+  const int nc = c / 64, nv = cv / 64;
+  const int half0 = (nc + 1) / 2;          // dq chunks of group 0
+  const int bi = blockIdx.y;
+  const int q0 = blockIdx.x * 64;
+  const int tiles = (nk + 63) / 64;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    kring->init(kWConsumerWarps);          // both groups read k
+    vring->init(kWConsumerWarps / 2);      // group 1 alone reads v
+    mbar_init(rowbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: q and do once, then k and v tiles through the rings
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(rowbar, 64 * (c + cv) * 2);
+      for (int j = 0; j < nc; ++j)
+        tma_load(qs + j * 8192, &qmap, rowbar, 64 * j, q0, bi);
+      for (int j = 0; j < nv; ++j)
+        tma_load(dos + j * 8192, &domap, rowbar, 64 * j, q0, bi);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<2>::slot(t);
+        kring->wait_empty(t);
+        mbar_expect_tx(&kring->full[s], 64 * c * 2);
+        for (int j = 0; j < nc; ++j)
+          tma_load(kr + s * 128 * c + j * 8192, &kmap, &kring->full[s],
+                   64 * j, 64 * t, bi);
+        vring->wait_empty(t);
+        mbar_expect_tx(&vring->full[s], 64 * cv * 2);
+        for (int j = 0; j < nv; ++j)
+          tma_load(vr + s * 128 * cv + j * 8192, &vmap, &vring->full[s],
+                   64 * j, 64 * t, bi);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const float sl2 = scale * kLog2e;
+    // this thread's rows warp * 16 + g + 8 h: lse (in log2 units) for group
+    // 0, delta for group 1
+    float rowstat[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + warp * 16 + g + 8 * h;
+      const float* stat = wg == 0 ? lse : delta;
+      rowstat[h] = row < n ? stat[(size_t)bi * n + row] : 0.f;
+      if (wg == 0) rowstat[h] *= kLog2e;
+    }
+    // dq chunks [j0, j0 + nw) of this group
+    const int j0 = wg == 0 ? 0 : half0;
+    const int nw = wg == 0 ? half0 : nc - half0;
+    uint32_t* xwords = reinterpret_cast<uint32_t*>(xbuf);
+
+    float acc[2][32];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+    // Named barriers over both groups (256 threads): 1 "p written", 2 "ds
+    // written".
+    mbar_wait(rowbar, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = Ring<2>::slot(t);
+      uint32_t pa[4][4];
+      if (wg == 0) {
+        // ---- s = q k^T, p
+        float st[32];
+        kring->wait_full(t);
+        wgmma_fence();
+        ss_scores(st, smem_addr(qs), 8192, smem_addr(kr) + s * 128 * c, nc);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(st);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 64 * t + 8 * (i >> 2) + 2 * qd + (i & 1);
+          xbuf[i * 128 + tid] =
+              col < nk ? exp2f(st[i] * sl2 - rowstat[(i >> 1) & 1]) : 0.f;
+        }
+        named_arrive(1, 256);
+        named_sync(2, 256);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pa[j][e] = xwords[(4 * j + e) * 128 + tid];
+      } else {
+        // ---- dp = do v^T, ds
+        float dp[32];
+        vring->wait_full(t);
+        wgmma_fence();
+        ss_scores(dp, smem_addr(dos), 8192, smem_addr(vr) + s * 128 * cv, nv);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(dp);
+        vring->release(t);
+        named_sync(1, 256);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          dp[i] = xbuf[i * 128 + tid] * (dp[i] - rowstat[(i >> 1) & 1]) *
+                  scale;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc_to_a(pa[j], dp, j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xwords[(4 * j + e) * 128 + tid] = pa[j][e];
+        }
+        named_arrive(2, 256);
+        kring->wait_full(t);
+      }
+      // ---- dq[:, this group's chunks] += ds k. Both products are issued
+      // whatever nw is: a branch around a wgmma makes ptxas serialize the
+      // warpgroup's wgmmas (C7520), which cost 25% at layer 2 (PERF.md).
+      // Past nw the product rereads chunk j0 into an accumulator that is
+      // never stored.
+      const uint32_t kt = smem_addr(kr) + s * 128 * c + j0 * 8192;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wgmma_rs_n64(acc[j], pa[kk],
+                       wgmma_desc(kt + kk * 16 * 128 + (j < nw ? j : 0) * 8192,
+                                  0, 1024),
+                       1);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) reg_fence(pa[j]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) reg_fence(acc[j]);
+      kring->release(t);
+    }
+
+    // ---- epilogue: dq in bf16, staged swizzled over q (free once group
+    // 0's last s is done), one TMA store per 64-column chunk; rows past n
+    // are clipped by the store
+    named_sync(3, 256);
+    unsigned char* stage = qs + j0 * 8192;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j >= nw) break;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = warp * 16 + g + 8 * ((i >> 1) & 1);
+        *reinterpret_cast<uint32_t*>(
+            stage + j * 8192 + swizzled_pair(r, 8 * (i >> 2) + 2 * qd)) =
+            pack_pair(acc[j][i], acc[j][i + 1]);
+      }
+    }
+    fence_proxy_async();
+    named_sync(4 + wg, 128);
+    if (tid == 0 && nw > 0) {
+      for (int j = 0; j < nw; ++j)
+        tma_store(&dqmap, stage + j * 8192, 64 * (j0 + j), q0, bi);
+      tma_store_drain();
+    }
+  }
+}
+
+int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dq, int b, int n, int nk, int c, int cv, float scale,
+                    cudaStream_t stream) {
+  if (c % 64 || cv % 64 || c > 256 || cv > 256)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm, dom, dqm;
+  if (!make_map(&qm, q, b, n, c, 64) || !make_map(&km, k, b, nk, c, 64) ||
+      !make_map(&vm, v, b, nk, cv, 64) || !make_map(&dom, dout, b, n, cv, 64) ||
+      !make_map(&dqm, dq, b, n, c, 64))
+    return (int)cudaErrorNotSupported;
+  const size_t smem = dq_wgmma_smem(c, cv);
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err =
+      allow_smem(nonlocal_attention_bwd_dq_wgmma_kernel, smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + 63) / 64, b);
+  nonlocal_attention_bwd_dq_wgmma_kernel<<<grid, kWThreads, smem, stream>>>(
+      qm, km, vm, dom, dqm, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), n, nk, c, cv, scale);
+  return (int)cudaGetLastError();
+}
+
 int launch_dkv_wgmma(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, int b, int n, int nk, int c, int cv,
@@ -875,6 +1125,19 @@ int pt_nonlocal_attention_bwd_dkv_wgmma(const void* q, const void* k,
   if (bad_shape(b, n, nk, c, cv)) return (int)cudaErrorInvalidValue;
   return launch_dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, b, n, nk, c, cv,
                           scale, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 wgmma kernel: the same function as pt_nonlocal_attention_bwd_dq,
+// for C and Cv multiples of 64 up to 256 and 16-byte aligned tensors (the
+// caller's dispatch picks it).
+int pt_nonlocal_attention_bwd_dq_wgmma(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dq, int b, int n, int nk, int c,
+                                       int cv, float scale, void* stream) {
+  if (bad_shape(b, n, nk, c, cv)) return (int)cudaErrorInvalidValue;
+  return launch_dq_wgmma(q, k, v, dout, lse, delta, dq, b, n, nk, c, cv,
+                         scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -17,10 +17,13 @@ blocks; a basic block's conv2 has a bias and carries the stride only when
 
 ``fused_blocks=N`` (eval only): every stride-1 bottleneck with planes <= N
 runs its tail (conv2 -> bn2 -> relu -> conv3 -> bn3 -> + residual -> relu)
-through ``ops/fused_block.fused_bottleneck_tail``, with BN folded from the
-block's modules at each call: the CUDA kernel K2 on the card, the plain
-version on the CPU. ``s2d_stem`` is accepted and changes nothing (the JAX
-package's fold is an exact re-indexing for the TPU).
+through ``ops/fused_block.fused_tail_with_layout``: the CUDA kernel K2 on
+the card, the plain version on the CPU. The block folds its BN and lays the
+weights out for the kernel once, and keeps them until a parameter or buffer
+of conv2, bn2, conv3, bn3 or the downsample changes (its version, storage,
+device or dtype) or ``train()`` is called. ``s2d_stem`` is accepted and
+changes nothing (the JAX package's fold is an exact re-indexing for the
+TPU).
 
 Module names follow the JAX package's flat names (``fast.res2.0.conv1``,
 ``fast.lateral_p1``, ``slow.res2.0.downsample.1``), so
@@ -35,7 +38,7 @@ import torch.nn.functional as F
 
 from ..core.registry import register_model
 from ..core.wrapper import PretrainedModel
-from ..ops.fused_block import fold_bn, fused_bottleneck_tail
+from ..ops.fused_block import TailLayout, fold_bn, fused_tail_with_layout
 from ..ops.pooling import global_avg_pool, max_pool
 from .layers import batch_norm
 
@@ -94,6 +97,7 @@ class Bottleneck(nn.Module):
         self.bn3 = batch_norm(planes * 4)
         self.downsample = _downsample(inplanes, planes * 4, stride) if down \
             else None
+        self._tail_cache = None      # (source key, TailLayout)
 
     def tail_weights(self):
         """(w2, a2, w3, a3, wp, ap) of ``fused_bottleneck_tail``, with each
@@ -104,6 +108,31 @@ class Bottleneck(nn.Module):
             ap = _folded(self.downsample[1])
         return (self.conv2.weight, _folded(self.bn2),
                 self.conv3.weight.flatten(1), _folded(self.bn3), wp, ap)
+
+    def _tail_sources(self):
+        mods = [self.conv2, self.bn2, self.conv3, self.bn3]
+        if self.downsample is not None:
+            mods += list(self.downsample)
+        return [t for m in mods for t in (*m.parameters(recurse=False),
+                                          *m.buffers(recurse=False))]
+
+    def tail_layout(self) -> TailLayout:
+        """The folded tail weights, kept with their kernel layout until a
+        source tensor changes. Tensors made under ``inference_mode`` keep
+        no version counter, so a block holding one folds at every call."""
+        sources = self._tail_sources()
+        with torch.no_grad():
+            if any(t.is_inference() for t in sources):
+                return TailLayout(*self.tail_weights())
+            key = tuple((t._version, t.data_ptr(), t.device, t.dtype)
+                        for t in sources)
+            if self._tail_cache is None or self._tail_cache[0] != key:
+                self._tail_cache = (key, TailLayout(*self.tail_weights()))
+        return self._tail_cache[1]
+
+    def train(self, mode: bool = True):
+        self._tail_cache = None
+        return super().train(mode)
 
     def tail(self, y1, x):
         """conv2 -> bn2 -> relu -> conv3 -> bn3 -> + residual -> relu, one
@@ -116,7 +145,7 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         y1 = F.relu(self.bn1(self.conv1(x)))
         if self.fuse and not self.training:
-            return fused_bottleneck_tail(y1, x, *self.tail_weights())
+            return fused_tail_with_layout(y1, x, self.tail_layout())
         return self.tail(y1, x)
 
 

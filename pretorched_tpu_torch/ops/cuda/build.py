@@ -107,6 +107,7 @@ def load_library() -> ctypes.CDLL:
     # q, k, v, do, lse, delta, then dq (dk, dv); b, n, nk, c, cv; scale,
     # dtype, stream (the wgmma entry: no dtype)
     for fn, outs, ints in ((lib.pt_nonlocal_attention_bwd_dq, 1, 1),
+                           (lib.pt_nonlocal_attention_bwd_dq_wgmma, 1, 0),
                            (lib.pt_nonlocal_attention_bwd_dkv, 2, 1),
                            (lib.pt_nonlocal_attention_bwd_dkv_wgmma, 2, 0)):
         fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 5
@@ -115,6 +116,7 @@ def load_library() -> ctypes.CDLL:
     for fn in (lib.pt_nonlocal_attention_fwd,
                lib.pt_nonlocal_attention_fwd_wgmma,
                lib.pt_nonlocal_attention_bwd_dq,
+               lib.pt_nonlocal_attention_bwd_dq_wgmma,
                lib.pt_nonlocal_attention_bwd_dkv,
                lib.pt_nonlocal_attention_bwd_dkv_wgmma):
         fn.restype = ctypes.c_int
@@ -127,12 +129,17 @@ def load_library() -> ctypes.CDLL:
     lib.pt_fused_bottleneck_tail_cm_chunk.restype = ctypes.c_int
     lib.pt_fused_bottleneck_tail_cout_chunk.argtypes = []
     lib.pt_fused_bottleneck_tail_cout_chunk.restype = ctypes.c_int
-    # the tensor-core path: the same pointers, then n .. cout; stream
+    # the tensor-core paths: the same pointers, then n .. cout; stream
     lib.pt_fused_bottleneck_tail_mma.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.pt_fused_bottleneck_tail_mma.restype = ctypes.c_int
     lib.pt_fused_bottleneck_tail_mma_rows.argtypes = [ctypes.c_int] * 6
     lib.pt_fused_bottleneck_tail_mma_rows.restype = ctypes.c_int
+    lib.pt_fused_bottleneck_tail_tma.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.pt_fused_bottleneck_tail_tma.restype = ctypes.c_int
+    lib.pt_fused_bottleneck_tail_tma_rows.argtypes = [ctypes.c_int] * 7
+    lib.pt_fused_bottleneck_tail_tma_rows.restype = ctypes.c_int
     lib.pt_fused_bottleneck_tail_mma_padded.argtypes = [ctypes.c_int]
     lib.pt_fused_bottleneck_tail_mma_padded.restype = ctypes.c_int
     lib.pt_cuda_error_string.argtypes = [ctypes.c_int]

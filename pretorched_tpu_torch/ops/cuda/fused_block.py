@@ -1,18 +1,23 @@
 """The fused eval bottleneck tail K2 on the card (``csrc/fused_block.cu``).
 
 ``fused_bottleneck_tail_cuda`` launches the hand-written kernel that
-replaces the TPU's ``_kernel`` (``pretorched_tpu/ops/pallas/fused_block.py``):
-its tensor-core path for bf16 where the shape allows it (channel counts
-multiples of 8, Cm <= 64, the tile within shared memory), else its
-CUDA-core path. It takes CUDA tensors only and raises on anything the
-kernel does not take: CPU tensors, y1 and x_res of different dtypes, and
+replaces the TPU's ``_kernel`` (``pretorched_tpu/ops/pallas/fused_block.py``),
+as ``tail_kernel`` picks it: for bf16 the TMA kernel (persistent blocks,
+TMA loads, 16-byte staging and stores) where its plan fits, else the
+mma.sync kernel where the shape allows it (channel counts multiples of 8,
+Cm <= 64, the tile within shared memory); else, and for f32, the CUDA-core
+kernel. It takes CUDA tensors only and raises on anything the kernel does
+not take: CPU tensors, y1 and x_res of different dtypes, and
 inputs that need a gradient (K2 is eval-only and has no backward, as in the
 JAX package). It never falls back to the plain version, which
 ``ops/fused_block.py`` holds with the dispatcher. Each launch adds one to
-``fused_bottleneck_tail_cuda.launches``.
+``fused_bottleneck_tail_cuda.launches`` and to its kernel's count in
+``.by_kernel``.
 
 A call is ``prepare_tail`` (checks, and the weights laid out for the path)
-then ``launch_tail``; a caller that times the kernel alone prepares once.
+then ``launch_tail``; a caller that times the kernel alone prepares once. A
+``TailLayout`` keeps one tail's laid-out weights across calls
+(``fused_bottleneck_tail_laid_out_cuda``).
 """
 
 from __future__ import annotations
@@ -110,11 +115,80 @@ def _ptr(t):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def prepare_tail(y1, x_res, w2, a2, w3, a3, wp=None, ap=None):
-    """Check the inputs and lay them out for the kernel (the weights as
-    ``kernel_weights`` says, the folded BN as contiguous f32, the output
-    allocated): the launch arguments of ``launch_tail``."""
-    args = (y1, x_res, w2, a2, w3, a3, wp, ap)
+KERNELS = ('tma', 'mma_sync', 'cuda_cores')
+
+
+def tail_kernel(lib, dtype, dims, proj: bool) -> str:
+    """The K2 kernel for this dtype and (N, T, H, W, Cm, Cin, Cout): bf16
+    on the TMA kernel where its plan fits (T * H * W a multiple of 8, Cout
+    <= 64, two blocks an SM, the tensor-core path's channel rules), else
+    on the mma.sync kernel where that fits, else (and f32 always) on CUDA
+    cores. The rules live in ``csrc/fused_block.cu``."""
+    n, t, h, w, cm, cin, cout = dims
+    if dtype == torch.bfloat16:
+        if lib.pt_fused_bottleneck_tail_tma_rows(t, h, w, cm, cin, cout,
+                                                 int(proj)) > 0:
+            return 'tma'
+        if lib.pt_fused_bottleneck_tail_mma_rows(h, w, cm, cin, cout,
+                                                 int(proj)) > 0:
+            return 'mma_sync'
+    return 'cuda_cores'
+
+
+class TailLayout:
+    """One tail's folded weights (``w2, a2, w3, a3, wp, ap`` as
+    ``fused_bottleneck_tail`` takes them), laid out for a kernel family at
+    its first use and kept: a module that holds one pays the layout once
+    (``models/slowfast.py`` drops it when a source tensor changes)."""
+
+    def __init__(self, w2, a2, w3, a3, wp=None, ap=None):
+        self.folded = (w2, a2, w3, a3, wp, ap)
+        self._laid_out = {}
+
+    @property
+    def proj(self) -> bool:
+        return self.folded[4] is not None
+
+    def for_kernel(self, lib, kernel: str, dtype):
+        """(w2, a2, w3, a3, wp, ap) as ``kernel`` reads them: the
+        tensor-core layout (``mma_weights``) for 'tma' and 'mma_sync',
+        ``kernel_weights`` in f32 for 'cuda_cores'; the folded BN as
+        contiguous f32."""
+        key = (kernel == 'cuda_cores', dtype)
+        if key not in self._laid_out:
+            w2, a2, w3, a3, wp, ap = self.folded
+            with torch.no_grad():
+                if kernel == 'cuda_cores':
+                    weights = kernel_weights(
+                        w2, w3, wp, dtype,
+                        lib.pt_fused_bottleneck_tail_cm_chunk(w2.shape[0]),
+                        lib.pt_fused_bottleneck_tail_cout_chunk())
+                else:
+                    weights = mma_weights(
+                        w2, w3, wp, lib.pt_fused_bottleneck_tail_mma_padded)
+                folded = [None if a is None else a.float().contiguous()
+                          for a in (a2, a3, ap)]
+            self._laid_out[key] = (weights[0], folded[0], weights[1],
+                                   folded[1], weights[2], folded[2])
+        return self._laid_out[key]
+
+
+def _check_tma(*tensors):
+    """TMA reads from, and the 16-byte stores write to, 16-byte aligned
+    channel planes."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f'the TMA kernel of K2 needs 16-byte aligned '
+                             f'tensors; got one of {tuple(t.shape)} at '
+                             f'{t.data_ptr():#x}')
+
+
+def _prepare(y1, x_res, layout, kernel=None):
+    """Check the inputs against ``layout`` and lay them out for ``kernel``
+    (the dispatch's choice by default; 'mma_sync' also where that is
+    'tma', the A/B against the kernel it replaced): the launch arguments of
+    ``launch_tail``."""
+    args = (y1, x_res, *layout.folded)
     cm, cin, cout = check_tail_inputs(*args)
     if needs_grad(*args):
         raise ValueError('fused_bottleneck_tail_cuda is eval-only: it has '
@@ -129,21 +203,27 @@ def prepare_tail(y1, x_res, w2, a2, w3, a3, wp=None, ap=None):
     lib = build.load_library()
     dt, dev = y1.dtype, y1.device
     n, _, t, h, w = y1.shape
-    mma = dt == torch.bfloat16 and lib.pt_fused_bottleneck_tail_mma_rows(
-        h, w, cm, cin, cout, int(wp is not None)) > 0
-    if mma:
-        weights = mma_weights(w2, w3, wp,
-                              lib.pt_fused_bottleneck_tail_mma_padded)
-    else:
-        weights = kernel_weights(w2, w3, wp, dt,
-                                 lib.pt_fused_bottleneck_tail_cm_chunk(cm),
-                                 lib.pt_fused_bottleneck_tail_cout_chunk())
-    return dict(mma=mma, y1=y1.contiguous(), x=x_res.contiguous(),
-                w2=weights[0], a2=a2.float().contiguous(), w3=weights[1],
-                a3=a3.float().contiguous(), wp=weights[2],
-                ap=None if ap is None else ap.float().contiguous(),
-                out=torch.empty((n, cout, t, h, w), dtype=dt, device=dev),
-                dims=(n, t, h, w, cm, cin, cout))
+    dims = (n, t, h, w, cm, cin, cout)
+    chosen = tail_kernel(lib, dt, dims, layout.proj)
+    kernel = kernel or chosen
+    if kernel != chosen and (kernel, chosen) != ('mma_sync', 'tma'):
+        raise ValueError(f'K2 kernel {kernel!r} does not take {dt} at '
+                         f'{dims} (the dispatch picks {chosen!r})')
+    w2, a2, w3, a3, wp, ap = layout.for_kernel(lib, kernel, dt)
+    p = dict(kernel=kernel, y1=y1.contiguous(), x=x_res.contiguous(),
+             w2=w2, a2=a2, w3=w3, a3=a3, wp=wp, ap=ap,
+             out=torch.empty((n, cout, t, h, w), dtype=dt, device=dev),
+             dims=dims)
+    if kernel == 'tma':
+        _check_tma(p['y1'], p['x'], p['out'])
+    return p
+
+
+def prepare_tail(y1, x_res, w2, a2, w3, a3, wp=None, ap=None):
+    """Check the inputs and lay them out for the kernel the dispatch picks
+    (the weights as ``TailLayout`` says, the output allocated): the launch
+    arguments of ``launch_tail``."""
+    return _prepare(y1, x_res, TailLayout(w2, a2, w3, a3, wp, ap))
 
 
 def launch_tail(prepared):
@@ -153,15 +233,20 @@ def launch_tail(prepared):
     dev = p['y1'].device
     ptrs = map(_ptr, (p['y1'], p['x'], p['w2'], p['a2'], p['w3'], p['a3'],
                       p['wp'], p['ap'], p['out']))
+    kernel = p['kernel']
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if p['mma']:
+        if kernel == 'tma':
+            err = lib.pt_fused_bottleneck_tail_tma(*ptrs, *p['dims'], stream)
+        elif kernel == 'mma_sync':
             err = lib.pt_fused_bottleneck_tail_mma(*ptrs, *p['dims'], stream)
         else:
             err = lib.pt_fused_bottleneck_tail(
                 *ptrs, *p['dims'], _DTYPE_CODES[p['y1'].dtype], stream)
-    build.check(lib, err, 'fused_bottleneck_tail launch')
-    fused_bottleneck_tail_cuda.launches += 1
+    build.check(lib, err, f'fused_bottleneck_tail ({kernel}) launch')
+    fn = fused_bottleneck_tail_cuda
+    fn.launches += 1
+    fn.by_kernel[kernel] += 1
     return p['out']
 
 
@@ -174,4 +259,11 @@ def fused_bottleneck_tail_cuda(y1, x_res, w2, a2, w3, a3, wp=None, ap=None):
     return launch_tail(prepare_tail(y1, x_res, w2, a2, w3, a3, wp, ap))
 
 
+def fused_bottleneck_tail_laid_out_cuda(y1, x_res, layout):
+    """K2 with weights already held in a ``TailLayout``: no fold and no
+    layout after the layout's first call."""
+    return launch_tail(_prepare(y1, x_res, layout))
+
+
 fused_bottleneck_tail_cuda.launches = 0
+fused_bottleneck_tail_cuda.by_kernel = dict.fromkeys(KERNELS, 0)

@@ -12,13 +12,12 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   (``csrc/nonlocal_attention_bwd.cu``, replacing ``_attn_dq_kernel`` and
   ``_attn_dkv_kernel``) behind ``nonlocal_attention_bwd_dq_cuda`` and
   ``nonlocal_attention_bwd_dkv_cuda``.
-* ``attention_kernel``: the one dispatch of K1-fwd and K1-dkv on dtype and
-  shape: ``'wgmma'`` (bf16, C and Cv multiples of 64 up to 256: Hopper's
-  warp-specialised wgmma + TMA kernels), ``'mma_sync'`` (every other bf16
-  shape) or ``'scalar'`` (f32). K1-dq always takes its generic program.
-  The kernel wrappers take CUDA tensors only and raise on anything they do
-  not take; each counts its launches in ``.launches``, and K1-fwd and
-  K1-dkv also per kernel in ``.by_kernel``.
+* ``attention_kernel``: the one dispatch of K1-fwd, K1-dq and K1-dkv on
+  dtype and shape: ``'wgmma'`` (bf16, C and Cv multiples of 64 up to 256:
+  Hopper's warp-specialised wgmma + TMA kernels), ``'mma_sync'`` (every
+  other bf16 shape) or ``'scalar'`` (f32). The kernel wrappers take CUDA
+  tensors only and raise on anything they do not take; each counts its
+  launches in ``.launches`` and per kernel in ``.by_kernel``.
 * ``nonlocal_attention_fwd_lse_reference`` / ``nonlocal_attention_reference``
   / ``nonlocal_attention_bwd_reference``: the plain PyTorch versions, N x N
   matrices in f32.
@@ -50,7 +49,7 @@ WGMMA_MAX_WIDTH = 256
 
 
 def attention_kernel(dtype, c: int, cv: int) -> str:
-    """The kernel K1-fwd and K1-dkv take for this dtype and C, Cv."""
+    """The kernel K1-fwd, K1-dq and K1-dkv take for this dtype and C, Cv."""
     if dtype not in _DTYPE_CODES:
         raise ValueError(f'dtype {dtype} not supported (float32, bfloat16)')
     if dtype == torch.float32:
@@ -226,14 +225,28 @@ def _launch_bwd(entry, q, k, v, do, lse, delta, outs, scale, *dtype):
 
 
 def nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float = 1.0):
-    """Launch K1-dq: dq (B, N, C) in q's dtype."""
+    """Launch the K1-dq kernel that ``attention_kernel`` picks: dq (B, N,
+    C) in q's dtype."""
     _check_inputs(q, k, v)
     _check_rows(q, v, do, lse, delta)
+    return _launch_dq(q, k, v, do, lse, delta, scale,
+                      attention_kernel(q.dtype, q.shape[2], v.shape[2]))
+
+
+def _launch_dq(q, k, v, do, lse, delta, scale, kernel):
+    """Launch K1-dq's ``kernel`` (checked by ``_check_kernel``) on checked
+    inputs and count it on ``nonlocal_attention_bwd_dq_cuda``."""
     q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    _check_kernel(q.dtype, q.shape[2], v.shape[2], kernel)
     dq = torch.empty_like(q)
-    _launch_bwd('pt_nonlocal_attention_bwd_dq', q, k, v, do, lse, delta, (dq,),
-                scale, _DTYPE_CODES[q.dtype])
-    nonlocal_attention_bwd_dq_cuda.launches += 1
+    if kernel == 'wgmma':
+        _check_tma(q, k, v, do, dq)
+        _launch_bwd('pt_nonlocal_attention_bwd_dq_wgmma', q, k, v, do, lse,
+                    delta, (dq,), scale)
+    else:
+        _launch_bwd('pt_nonlocal_attention_bwd_dq', q, k, v, do, lse, delta,
+                    (dq,), scale, _DTYPE_CODES[q.dtype])
+    _count(nonlocal_attention_bwd_dq_cuda, kernel)
     return dq
 
 
@@ -264,7 +277,7 @@ def _launch_dkv(q, k, v, do, lse, delta, scale, kernel):
     return dk, dv
 
 
-nonlocal_attention_bwd_dq_cuda.launches = 0
+_reset(nonlocal_attention_bwd_dq_cuda)
 _reset(nonlocal_attention_bwd_dkv_cuda)
 
 

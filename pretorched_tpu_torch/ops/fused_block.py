@@ -19,6 +19,9 @@ HWIO; its tests move the axes.
   (``ops/cuda/fused_block.py``) for CUDA tensors, the plain version for CPU
   tensors. Eval only on both: an input that needs a gradient raises, as the
   JAX function has no backward.
+* ``fused_tail_with_layout``: the same, with the folded weights held in a
+  ``TailLayout`` that keeps their kernel layout between calls (what
+  ``models/slowfast.py`` calls).
 * ``fused_bottleneck_tail_reference``: the plain PyTorch version, the JAX
   reference's arithmetic (l.207-228): f32 accumulation, the affine in f32,
   y2 rounded to the input dtype before conv3, the input dtype out.
@@ -29,7 +32,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .cuda.fused_block import (check_tail_inputs, fused_bottleneck_tail_cuda,
+from .cuda.fused_block import (TailLayout, check_tail_inputs,
+                               fused_bottleneck_tail_cuda,
+                               fused_bottleneck_tail_laid_out_cuda,
                                needs_grad)
 
 
@@ -77,3 +82,11 @@ def fused_bottleneck_tail(y1, x_res, w2, a2, w3, a3, wp=None, ap=None):
         raise ValueError('fused_bottleneck_tail is eval-only: it has no '
                          'backward, and an input requires a gradient')
     return fused_bottleneck_tail_reference(y1, x_res, w2, a2, w3, a3, wp, ap)
+
+
+def fused_tail_with_layout(y1, x_res, layout: TailLayout):
+    """``fused_bottleneck_tail(y1, x_res, *layout.folded)``, with the
+    kernel's weight layout kept in ``layout`` from call to call."""
+    if y1.is_cuda:
+        return fused_bottleneck_tail_laid_out_cuda(y1, x_res, layout)
+    return fused_bottleneck_tail(y1, x_res, *layout.folded)

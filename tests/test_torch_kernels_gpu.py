@@ -1,7 +1,7 @@
 """The port's CUDA kernels (the non-local attention forward K1-fwd, its
-backward K1-dq, K1-dkv, each of K1-fwd and K1-dkv on wgmma where the
-dispatch sends bf16, and the fused bottleneck tail K2) against their plain
-PyTorch versions, on a card.
+backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16, and
+the fused bottleneck tail K2) against their plain PyTorch versions, on a
+card.
 
 Every test here is marked ``gpu`` and skips without CUDA. The file imports
 no JAX, so it runs on a machine that has only PyTorch (the suite's
@@ -214,24 +214,47 @@ def test_wgmma_dkv_matches_plain(cuda, b, n, nk, c, cv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv', WGMMA_CASES)
+def test_wgmma_dq_matches_plain(cuda, b, n, nk, c, cv):
+    """K1-dq's wgmma kernel against the plain backward in f32: max error
+    within 2e-2 of the largest |dq| (ds is rounded to bf16 for its product
+    and dq is stored in bf16, as in the generic kernel; relative to the
+    largest output because |dq| is small at large Nk and an absolute limit
+    would pass a dropped k tile), and bitwise the same on a second run (no
+    atomics)."""
+    q, k, v, do = _bwd_inputs(b, n, nk, c, cv, torch.bfloat16, cuda)
+    out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+    out = out.to(torch.bfloat16)
+    delta = (do.float() * out.float()).sum(-1)
+    before = na.nonlocal_attention_bwd_dq_cuda.by_kernel['wgmma']
+    dq = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+    again = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert na.nonlocal_attention_bwd_dq_cuda.by_kernel['wgmma'] == before + 2
+    want_dq = na.nonlocal_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float())[0]
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert _rel_err(dq, want_dq) <= 2e-2
+    assert torch.equal(dq, again)
+
+
+@pytest.mark.gpu
 def test_layer2_shapes_take_the_wgmma_kernels(cuda):
     """The non-local model's layer-2 shapes (reduced B) go to the wgmma
-    kernels and layer 3's to mma.sync, by the counters; dq stays on its
-    generic kernel."""
-    fwd, dq, dkv = (na.nonlocal_attention_cuda,
-                    na.nonlocal_attention_bwd_dq_cuda,
-                    na.nonlocal_attention_bwd_dkv_cuda)
+    kernels and layer 3's to mma.sync, by the counters of K1-fwd, K1-dq and
+    K1-dkv."""
+    fns = (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
+           na.nonlocal_attention_bwd_dkv_cuda)
     for (n, c), kernel in (((6272, 256), 'wgmma'), ((784, 512), 'mma_sync')):
         q, k, v, do = _bwd_inputs(1, n, n, c, c, torch.bfloat16, cuda)
         q, k, v = (t.requires_grad_() for t in (q, k, v))
-        before = (dict(fwd.by_kernel), dq.launches, dict(dkv.by_kernel))
+        before = [dict(fn.by_kernel) for fn in fns]
         na.auto_nonlocal_attention(q, k, v).backward(do)
         torch.cuda.synchronize()
-        for counter, was in ((fwd.by_kernel, before[0]),
-                             (dkv.by_kernel, before[2])):
-            assert {key: counter[key] - was[key] for key in counter} == {
+        for fn, was in zip(fns, before):
+            assert {key: fn.by_kernel[key] - was[key]
+                    for key in fn.by_kernel} == {
                 key: int(key == kernel) for key in na.KERNELS}
-        assert dq.launches == before[1] + 1
 
 
 @pytest.mark.gpu
@@ -249,6 +272,9 @@ def test_wgmma_agrees_with_the_mma_sync_kernels(cuda):
     gm = na._launch_dkv(q, k, v, do, lm, delta, 1.0, 'mma_sync')
     for a, b in zip(gw, gm):
         assert _rel_err(a, b.float()) <= 2e-2
+    dqw = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lm, delta)
+    dqm = na._launch_dq(q, k, v, do, lm, delta, 1.0, 'mma_sync')
+    assert _rel_err(dqw, dqm.float()) <= 2e-2
 
 
 @pytest.mark.gpu
@@ -260,6 +286,11 @@ def test_wgmma_kernels_refuse_misaligned_tensors(cuda):
     assert q.is_contiguous() and q.data_ptr() % 16
     with pytest.raises(ValueError, match='16-byte aligned'):
         na.nonlocal_attention_cuda(q, q, q)
+    lse = torch.zeros(1, 64, device=cuda)
+    before = na.nonlocal_attention_bwd_dq_cuda.launches
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        na.nonlocal_attention_bwd_dq_cuda(q, q, q, q, lse, lse)
+    assert na.nonlocal_attention_bwd_dq_cuda.launches == before
 
 
 @pytest.mark.gpu
@@ -338,12 +369,118 @@ def test_fused_tail_kernel_matches_plain(cuda, dtype, tol, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize('case', K2_CASES[:4])
 def test_fused_tail_slice_shapes_take_the_tensor_cores(cuda, case):
-    """bf16 at the slice's shapes goes to the tensor-core path; f32 to the
-    CUDA-core one."""
-    for dtype, mma in ((torch.bfloat16, True), (torch.float32, False)):
+    """bf16 at the slice's shapes goes to the tensor cores (res2 and res3
+    to the TMA kernel, res4 to mma.sync); f32 to the CUDA-core one."""
+    bf16 = 'mma_sync' if case[6] > 64 else 'tma'
+    for dtype, kernel in ((torch.bfloat16, bf16),
+                          (torch.float32, 'cuda_cores')):
         args = _k2_inputs(case, dtype, cuda)
         with torch.no_grad():
-            assert fb_cuda.prepare_tail(*args)['mma'] is mma
+            p = fb_cuda.prepare_tail(*args)
+        assert p['kernel'] == kernel
+
+
+# K2's TMA kernel: chip_smoke.py's eight phase-8 shapes (N, T, H, W, Cin,
+# Cm, Cout, projection) with the kernel the dispatch gives each, then a
+# ragged last tile (H = 29 in tiles of 6 rows), frames that start off the
+# 16-byte grid (7 x 6 = 42 pixels), a projection on a frame narrower than a
+# TMA box, and a tiny input with fewer tiles than blocks. Fast res4 (Cout =
+# 128) stays on the mma.sync kernel, which is faster there
+K2_TMA_CASES = [
+    ((20, 32, 56, 56, 8, 8, 32, True), 'tma'),
+    ((20, 32, 56, 56, 32, 8, 32, False), 'tma'),
+    ((20, 32, 28, 28, 64, 16, 64, False), 'tma'),
+    ((20, 32, 14, 14, 128, 32, 128, False), 'mma_sync'),
+    ((20, 32, 7, 7, 256, 64, 256, False), 'mma_sync'),
+    ((20, 4, 56, 56, 80, 64, 256, True), 'cuda_cores'),
+    ((20, 4, 56, 56, 256, 64, 256, False), 'mma_sync'),
+    ((1, 3, 7, 7, 64, 16, 64, False), 'mma_sync'),
+    ((2, 5, 29, 32, 16, 8, 32, True), 'tma'),
+    ((3, 8, 7, 6, 32, 16, 32, False), 'tma'),
+    ((1, 8, 5, 24, 24, 8, 24, True), 'tma'),
+    ((1, 1, 8, 8, 16, 16, 16, False), 'tma'),
+]
+
+
+def _rel_to_max(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case,kernel', K2_TMA_CASES)
+def test_fused_tail_tma_kernel_matches_plain(cuda, case, kernel):
+    """bf16 through the kernel the dispatch picks against the plain version
+    on the same inputs: max error within 2e-2 of the largest |out| (both
+    round y2 and the output to bf16, so an element near a rounding boundary
+    lands one bf16 step, 2^-8 relative, apart), and bitwise the same on a
+    second run. The slice's shapes give the TMA kernel thousands of tiles,
+    many per persistent block (each block walks both ring slots many
+    times); the last case one tile, fewer than blocks."""
+    args = _k2_inputs(case, torch.bfloat16, cuda)
+    with torch.no_grad():
+        p = fb_cuda.prepare_tail(*args)
+        assert p['kernel'] == kernel
+        before = dict(fb_cuda.fused_bottleneck_tail_cuda.by_kernel)
+        out = fb_cuda.launch_tail(p).clone()
+        assert fb_cuda.fused_bottleneck_tail_cuda.by_kernel[kernel] == \
+            before[kernel] + 1
+        want = fb.fused_bottleneck_tail_reference(*args)
+        torch.cuda.synchronize()
+        assert _rel_to_max(out, want) <= 2e-2
+        again = fb_cuda.launch_tail(p)
+        torch.cuda.synchronize()
+        assert torch.equal(again, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', [c for c, k in K2_TMA_CASES if k == 'tma'])
+def test_fused_tail_tma_agrees_with_the_mma_sync_kernel(cuda, case):
+    """Where the TMA kernel takes a shape, the mma.sync kernel it replaced
+    (through the private ``_prepare``) computes the same products in the
+    same order per pixel: the two outputs are equal."""
+    args = _k2_inputs(case, torch.bfloat16, cuda)
+    with torch.no_grad():
+        layout = fb_cuda.TailLayout(*args[2:])
+        new = fb_cuda.launch_tail(fb_cuda._prepare(args[0], args[1], layout))
+        old = fb_cuda.launch_tail(fb_cuda._prepare(args[0], args[1], layout,
+                                                   'mma_sync'))
+        torch.cuda.synchronize()
+    assert torch.equal(new, old)
+    with pytest.raises(ValueError, match='does not take'):
+        fb_cuda._prepare(args[0], args[1], layout, 'cuda_cores')
+
+
+@pytest.mark.gpu
+def test_fused_tail_tma_refuses_misaligned_tensors(cuda):
+    case = (1, 8, 8, 8, 16, 16, 16, False)
+    y1, x, *weights = _k2_inputs(case, torch.bfloat16, cuda)
+    flat = torch.zeros(y1.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    odd = flat[1:].view(y1.shape).copy_(y1)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with torch.no_grad(), pytest.raises(ValueError, match='16-byte aligned'):
+        fb_cuda.fused_bottleneck_tail_cuda(odd, x, *weights)
+
+
+@pytest.mark.gpu
+def test_slowfast_block_cache_on_the_card(cuda):
+    """A fused block keeps its laid-out weights between forwards, and a BN
+    buffer changed in place reaches the kernel's output."""
+    from pretorched_tpu_torch.models.slowfast import Bottleneck
+
+    blk = Bottleneck(32, 8, 1, False, 3).to(cuda).eval().bfloat16()
+    blk.fuse = True
+    x = torch.randn(2, 32, 4, 16, 16, device=cuda).bfloat16()
+    with torch.no_grad():
+        first = blk(x)
+        layout = blk.tail_layout()
+        assert blk(x).equal(first) and blk.tail_layout() is layout
+        blk.bn3.running_mean.add_(1.0)
+        changed = blk(x)
+        y1 = torch.relu(blk.bn1(blk.conv1(x)))
+        want = fb.fused_bottleneck_tail_reference(y1, x, *blk.tail_weights())
+    assert blk.tail_layout() is not layout
+    assert _rel_to_max(changed, want) <= 2e-2
 
 
 @pytest.mark.gpu

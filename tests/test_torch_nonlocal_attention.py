@@ -120,10 +120,12 @@ def test_dispatch_takes_mma_sync_by_name_and_refuses_the_rest():
         na._check_kernel(torch.float32, 256, 256, 'mma_sync')
     with pytest.raises(ValueError, match='not supported'):
         na.attention_kernel(torch.float16, 256, 256)
-    for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dkv_cuda):
+    for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
+               na.nonlocal_attention_bwd_dkv_cuda):
         assert 'kernel' not in inspect.signature(fn).parameters
 
 
 def test_launch_counters_are_kept_per_kernel():
-    for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dkv_cuda):
+    for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
+               na.nonlocal_attention_bwd_dkv_cuda):
         assert set(fn.by_kernel) == set(na.KERNELS)

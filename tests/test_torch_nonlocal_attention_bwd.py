@@ -13,6 +13,8 @@ share the cores with XLA's threads still at work on the same process's
 computation.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +26,7 @@ from pretorched_tpu.ops.pallas.nonlocal_attention import (
     _nonlocal_attention_fwd_lse)
 from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
 
-from test_torch_nonlocal_attention import CASES, _inputs
+from test_torch_nonlocal_attention import CASES, DISPATCH, _inputs
 
 
 def _launches():
@@ -104,3 +106,47 @@ def test_plain_backward_keeps_bf16_dtypes():
     dq, dk, dv = na.nonlocal_attention_bwd_reference(q, k, v, o, lse, do)
     assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16,) * 3
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+
+
+@pytest.mark.parametrize('dtype,c,cv,kernel', DISPATCH)
+def test_dq_dispatch_routes_each_shape(monkeypatch, dtype, c, cv, kernel):
+    """K1-dq takes the kernel ``attention_kernel`` picks, as K1-fwd and
+    K1-dkv do: the wgmma entry (no dtype code) for bf16 with C and Cv
+    multiples of 64 up to 256, the generic entry with its dtype code
+    otherwise; the launch is counted under that kernel. The C entry is
+    replaced by a recorder, so no card is needed."""
+    entries = []
+    monkeypatch.setattr(na, '_launch_bwd',
+                        lambda entry, *args: entries.append((entry, args[-1])))
+    q = torch.zeros(1, 8, c, dtype=dtype)
+    v = torch.zeros(1, 8, cv, dtype=dtype)
+    stats = torch.zeros(1, 8)
+    fn = na.nonlocal_attention_bwd_dq_cuda
+    before = dict(fn.by_kernel)
+    dq = na._launch_dq(q, q, v, v, stats, stats, 1.0,
+                       na.attention_kernel(dtype, c, cv))
+    assert dq.shape == q.shape and dq.dtype == dtype
+    if kernel == 'wgmma':
+        assert entries == [('pt_nonlocal_attention_bwd_dq_wgmma', 1.0)]
+    else:
+        assert entries == [('pt_nonlocal_attention_bwd_dq',
+                            na._DTYPE_CODES[dtype])]
+    assert {k: fn.by_kernel[k] - before[k] for k in na.KERNELS} == {
+        k: int(k == kernel) for k in na.KERNELS}
+
+
+def test_dq_private_launch_takes_mma_sync_and_refuses_the_rest(monkeypatch):
+    """``_launch_dq`` runs the generic kernel at a wgmma shape (the A/B
+    against the kernel wgmma replaced) and refuses any other forced
+    choice; the public wrapper takes no kernel keyword."""
+    monkeypatch.setattr(na, '_launch_bwd', lambda *args: None)
+    q = torch.zeros(1, 8, 256, dtype=torch.bfloat16)
+    stats = torch.zeros(1, 8)
+    na._launch_dq(q, q, q, q, stats, stats, 1.0, 'mma_sync')
+    with pytest.raises(ValueError, match='does not take'):
+        na._launch_dq(q, q, q, q, stats, stats, 1.0, 'scalar')
+    wide = torch.zeros(1, 8, 512, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='does not take'):
+        na._launch_dq(wide, wide, wide, wide, stats, stats, 1.0, 'wgmma')
+    assert 'kernel' not in inspect.signature(
+        na.nonlocal_attention_bwd_dq_cuda).parameters

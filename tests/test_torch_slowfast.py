@@ -25,6 +25,8 @@ from pretorched_tpu.parallel.evaluate import \
     multi_clip_eval_step as jax_multi_clip_eval_step
 from pretorched_tpu_torch.models import slowfast
 from pretorched_tpu_torch.ops.cuda import fused_block as fb_cuda
+from pretorched_tpu_torch.ops.fused_block import \
+    fused_bottleneck_tail_reference
 from pretorched_tpu_torch.parallel.evaluate import multi_clip_eval_step
 
 from torch_port_helpers import port_state_dict, randomize_bn, to_nt
@@ -123,13 +125,13 @@ def test_fused_blocks_selects_the_jax_blocks(r50, monkeypatch):
     fast res5 x 2 and slow res2 x 3 (slow res2.0 projects 80 -> 256)."""
     _, clips, model = r50
     calls = []
-    real = slowfast.fused_bottleneck_tail
+    real = slowfast.fused_tail_with_layout
 
-    def counting(y1, x, *args):
-        calls.append((tuple(y1.shape), tuple(x.shape), args[-1] is not None))
-        return real(y1, x, *args)
+    def counting(y1, x, layout):
+        calls.append((tuple(y1.shape), tuple(x.shape), layout.proj))
+        return real(y1, x, layout)
 
-    monkeypatch.setattr(slowfast, 'fused_bottleneck_tail', counting)
+    monkeypatch.setattr(slowfast, 'fused_tail_with_layout', counting)
     x = torch.from_numpy(clips[:1])
     with torch.no_grad():
         model(x)
@@ -152,7 +154,7 @@ def test_train_mode_never_fuses(monkeypatch):
     model = slowfast.SlowFast(layers=(2, 1, 1, 1), num_classes=5, mode='f',
                               fused_blocks=32)
     x = torch.from_numpy(_clip(2, seed=6)[:, :, :8, :32, :32])
-    monkeypatch.setattr(slowfast, 'fused_bottleneck_tail', refuse)
+    monkeypatch.setattr(slowfast, 'fused_tail_with_layout', refuse)
     assert model(x).shape == (2, 5)
     model.eval()
     with pytest.raises(AssertionError, match='a fused tail ran'):
@@ -214,3 +216,82 @@ def test_factories_register_as_in_jax():
     assert v0.mode == 'sf' and v0.num_classes == 10
     assert v0.num_features == 2304 and v0.last_linear.bias is None
     assert pretorched_tpu_torch.models.SlowFastV0 is slowfast.SlowFastV0
+
+
+def _fused_block(proj, seed=0):
+    """A small eval-mode bottleneck (fused) with every BN randomized, and an
+    input for it."""
+    torch.manual_seed(seed)
+    blk = slowfast.Bottleneck(8 if proj else 32, 8, 1, proj, 3)
+    with torch.no_grad():
+        for m in blk.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.uniform_(-0.3, 0.3)
+                m.running_var.uniform_(0.5, 1.5)
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.uniform_(-0.2, 0.2)
+    blk.fuse = True
+    x = torch.randn(2, 8 if proj else 32, 3, 7, 9)
+    return blk.eval(), x
+
+
+def _plain_tail(blk, x):
+    """The plain tail on the block's weights, folded now."""
+    y1 = torch.relu(blk.bn1(blk.conv1(x)))
+    return fused_bottleneck_tail_reference(y1, x, *blk.tail_weights())
+
+
+@pytest.mark.parametrize('change', ['bn2_running_var', 'conv3_in_place',
+                                    'load_state_dict', 'downsample_bn'])
+def test_tail_cache_follows_the_weights(change):
+    """The fused block folds its BN once and keeps the layout; a change to
+    a source tensor (a BN buffer, a weight in place, a loaded state dict)
+    drops it, and the output follows the plain tail on the new weights."""
+    blk, x = _fused_block(proj=change == 'downsample_bn')
+    with torch.no_grad():
+        first = blk(x)
+        layout = blk.tail_layout()
+        assert blk(x).equal(first) and blk.tail_layout() is layout
+        if change == 'bn2_running_var':
+            blk.bn2.running_var.mul_(2.0)
+        elif change == 'conv3_in_place':
+            blk.conv3.weight.mul_(-1.0)
+        elif change == 'downsample_bn':
+            blk.downsample[1].bias.add_(0.5)
+        else:
+            other, _ = _fused_block(proj=False, seed=1)
+            blk.load_state_dict(other.state_dict())
+        got = blk(x)
+        assert blk.tail_layout() is not layout
+        want = _plain_tail(blk, x)
+    assert not torch.allclose(got, first, atol=1e-3)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_tail_cache_drops_on_train_and_dtype():
+    """``.train()`` drops the cached layout and ``.eval()`` rebuilds it at
+    the next forward; a cast to bf16 gives a layout of the new dtype."""
+    blk, x = _fused_block(proj=True)
+    with torch.no_grad():
+        blk(x)
+        layout = blk.tail_layout()
+        blk.train()
+        assert blk._tail_cache is None
+        blk.eval()
+        blk(x)
+        assert blk._tail_cache is not None and blk.tail_layout() is not layout
+        blk.bfloat16()
+        out = blk(x.bfloat16())
+        assert blk.tail_layout().folded[0].dtype == torch.bfloat16
+        torch.testing.assert_close(out, _plain_tail(blk, x.bfloat16()),
+                                   rtol=0, atol=0)
+
+
+def test_tail_of_a_block_made_in_inference_mode():
+    """Parameters made under ``inference_mode`` have no version counter:
+    such a block folds at every call, and still gives the plain tail."""
+    with torch.inference_mode():
+        blk, x = _fused_block(proj=False)
+        got = blk(x)
+        assert blk.tail_layout() is not blk.tail_layout()
+        torch.testing.assert_close(got, _plain_tail(blk, x), rtol=0, atol=0)

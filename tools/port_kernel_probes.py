@@ -1,0 +1,293 @@
+#!/usr/bin/env python3
+"""Probes behind the design choices of the port's K1-dq and K2 kernels, on
+one CUDA card (``pretorched_tpu_torch``; no JAX).
+
+    python3 tools/port_kernel_probes.py [k2] [dq] [lr]
+
+* ``k2``: builds variants of ``csrc/fused_block.cu`` (the source with one
+  textual change each) into their own libraries and times the TMA kernel
+  of each at the slice's four shapes, with the mma.sync kernel beside it:
+  ``base``; ``no_compute`` (no conv2, conv3 or epilogue: loads, staging,
+  stores and barriers alone); ``no_conv2``; ``no_conv3``; ``one_tile``
+  and ``two_tiles`` (a warp takes one, or two interleaved, 16-pixel tiles
+  whatever Cm and the residual); ``cout128`` (the TMA kernel also at Cout
+  = 128 with one block an SM, as fast res4 needs).
+* ``dq``: the same for ``csrc/nonlocal_attention_bwd.cu``'s wgmma K1-dq at
+  the train shapes: ``base`` against ``branch`` (the dq product guarded by
+  ``if (j < nw)``, which ptxas serializes).
+* ``lr``: 12 bf16 train steps of ``chip_smoke.py``'s phase 6 (same
+  fabricated checkpoint, batch and SGD) at lr 0.01 and 0.001, each with
+  K1-dq on wgmma, on the generic kernel, and with the plain backward.
+
+Variant libraries go to ``build/probes/``. Every line names the card.
+"""
+
+import ctypes
+import importlib.util
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+OUT = REPO / 'build' / 'probes'
+CSRC = REPO / 'pretorched_tpu_torch' / 'csrc'
+
+K2_LOOP = 'for (int m0 = warp; m0 < mt; m0 += NT * kWarps) {'
+K2_TAPS = ('      for (int tap = 0; tap < 9; ++tap) {\n'
+           '        const int shift')
+K2_CONV3 = ('            for (int e = 0; e < 4; ++e) acc3[u][j][e] = '
+            'accp[u][j][e] = 0.f;\n        for (int ks = 0; ks < k2; ++ks) {')
+K2_NT = 'constexpr int NT = CM <= 16 && !PROJ ? 2 : 1;'
+K2_VARIANTS = {
+    'base': [],
+    'no_compute': [(K2_LOOP, K2_LOOP.replace('m0 < mt', 'm0 < 0'))],
+    'no_conv2': [(K2_TAPS, K2_TAPS.replace('tap < 9', 'tap < 0'))],
+    'no_conv3': [(K2_CONV3, K2_CONV3.replace('ks < k2', 'ks < 0'))],
+    'one_tile': [(K2_NT, 'constexpr int NT = 1;')],
+    'two_tiles': [(K2_NT, 'constexpr int NT = 2;')],
+    'cout128': [('constexpr int kTmaMaxCout = 64;',
+                 'constexpr int kTmaMaxCout = 128;'),
+                ('kTwoBlocksSmem = 110 * 1024',
+                 'kTwoBlocksSmem = 200 * 1024')],
+}
+DQ_NB = """          wgmma_rs_n64(acc[j], pa[kk],
+                       wgmma_desc(kt + kk * 16 * 128 + (j < nw ? j : 0) * 8192,
+                                  0, 1024),
+                       1);"""
+DQ_BRANCH = """          if (j < nw)
+            wgmma_rs_n64(acc[j], pa[kk],
+                         wgmma_desc(kt + kk * 16 * 128 + j * 8192, 0, 1024),
+                         1);"""
+DQ_VARIANTS = {'base': [], 'branch': [(DQ_NB, DQ_BRANCH)]}
+K2_SHAPES = {'fast res2.0': (20, 32, 56, 56, 8, 8, 32, True),
+             'fast res2.1-2': (20, 32, 56, 56, 32, 8, 32, False),
+             'fast res3.1-3': (20, 32, 28, 28, 64, 16, 64, False),
+             'fast res4.1-5': (20, 32, 14, 14, 128, 32, 128, False)}
+DQ_SHAPES = [(8, 6272, 6272, 256, 256), (8, 6272, 784, 256, 256),
+             (4, 4096, 512, 64, 256), (2, 1000, 1000, 128, 192)]
+
+
+def card():
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps=30):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for e0, e1 in events:
+        e0.record()
+        fn()
+        e1.record()
+    torch.cuda.synchronize()
+    times = sorted(e0.elapsed_time(e1) for e0, e1 in events)
+    return times[len(times) // 2]
+
+
+def build_variants(source, variants, tag):
+    """One shared library per variant of ``source``, built side by side;
+    ptxas's wgmma notes of each are printed."""
+    from pretorched_tpu_torch.ops.cuda import build
+    procs = {}
+    for name, patches in variants.items():
+        d = OUT / tag / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for f in CSRC.glob('*.cuh'):
+            shutil.copy(f, d)
+        text = (CSRC / source).read_text()
+        for old, new in patches:
+            if text.count(old) != 1:
+                raise SystemExit(f'{tag} {name}: the patched text is not '
+                                 f'found once in {source}')
+            text = text.replace(old, new)
+        (d / source).write_text(text)
+        procs[name] = subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, '-shared', '-o',
+             str(d / 'lib.so'), str(d / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate(timeout=600)[0]
+        if proc.returncode:
+            raise SystemExit(f'{tag} {name}: nvcc failed\n{log}')
+        for line in log.splitlines():
+            if 'Potential Performance Loss' in line:
+                print(f'  {tag} {name}: ptxas: '
+                      + line.split('Loss: ')[1].split(' in the function')[0])
+        libs[name] = ctypes.CDLL(str(OUT / tag / name / 'lib.so'))
+    return libs
+
+
+def probe_k2(smi):
+    import torch
+    from pretorched_tpu_torch.ops.cuda import fused_block as fb_cuda
+    libs = build_variants('fused_block.cu', K2_VARIANTS, 'k2')
+    for lib in libs.values():
+        lib.pt_fused_bottleneck_tail_tma.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.pt_fused_bottleneck_tail_tma_rows.argtypes = [ctypes.c_int] * 7
+    g = torch.Generator(device='cuda').manual_seed(0)
+    print(f'K2, TMA kernel variants, CUDA-event medians of 30 ({smi})')
+    for name, (n, t, h, w, cin, cm, cout, proj) in K2_SHAPES.items():
+        y1 = torch.randn((n, cm, t, h, w), device='cuda',
+                         generator=g).relu_().bfloat16()
+        x = torch.randn((n, cin, t, h, w), device='cuda',
+                        generator=g).relu_().bfloat16()
+
+        def affine(c):
+            return torch.stack([torch.rand(c, device='cuda', generator=g)
+                                + 0.5, torch.rand(c, device='cuda',
+                                                  generator=g) * 0.4 - 0.2])
+
+        weights = (torch.randn(cm, cm, 3, 3, device='cuda', generator=g)
+                   * 0.1, affine(cm),
+                   torch.randn(cout, cm, device='cuda', generator=g) * 0.1,
+                   affine(cout),
+                   torch.randn(cout, cin, device='cuda', generator=g) * 0.1
+                   if proj else None, affine(cout) if proj else None)
+        with torch.no_grad():
+            layout = fb_cuda.TailLayout(*weights)
+            old = fb_cuda._prepare(y1, x, layout, 'mma_sync')
+            want = fb_cuda.launch_tail(old).clone()
+            old_ms = median_ms(lambda: fb_cuda.launch_tail(old))
+            row = [f'mma.sync {old_ms:.4f}']
+            stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+            for vname, lib in libs.items():
+                if lib.pt_fused_bottleneck_tail_tma_rows(
+                        t, h, w, cm, cin, cout, int(proj)) < 1:
+                    row.append(f'{vname} n/a')
+                    continue
+                out = torch.empty_like(want)
+                ptrs = [ctypes.c_void_p(None if v is None else v.data_ptr())
+                        for v in (old['y1'], old['x'], old['w2'], old['a2'],
+                                  old['w3'], old['a3'], old['wp'], old['ap'],
+                                  out)]
+
+                def run():
+                    err = lib.pt_fused_bottleneck_tail_tma(*ptrs, *old['dims'],
+                                                           stream)
+                    if err:
+                        raise RuntimeError(f'{vname}: CUDA error {err}')
+
+                ms = median_ms(run)
+                same = ('' if vname.startswith('no_')
+                        else f' ({"=" if torch.equal(out, want) else "!="})')
+                row.append(f'{vname} {ms:.4f}{same}')
+        print(f'  {name:14s} ms: ' + ', '.join(row), flush=True)
+        del y1, x, old, want
+        torch.cuda.empty_cache()
+
+
+def probe_dq(smi):
+    import torch
+    from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
+    libs = build_variants('nonlocal_attention_bwd.cu', DQ_VARIANTS, 'dq')
+    for lib in libs.values():
+        lib.pt_nonlocal_attention_bwd_dq_wgmma.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p])
+    g = torch.Generator(device='cuda').manual_seed(1)
+    print(f'K1-dq, wgmma kernel variants, CUDA-event medians of 30 ({smi})')
+    for b, n, nk, c, cv in DQ_SHAPES:
+        q = (torch.randn(b, n, c, device='cuda', generator=g)
+             / c ** 0.25).bfloat16()
+        k = (torch.randn(b, nk, c, device='cuda', generator=g)
+             / c ** 0.25).bfloat16()
+        v = torch.randn(b, nk, cv, device='cuda', generator=g).bfloat16()
+        do = torch.randn(b, n, cv, device='cuda', generator=g).bfloat16()
+        out, lse = na.nonlocal_attention_cuda(q, k, v)
+        delta = (do.float() * out.float()).sum(-1)
+        want = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        row = []
+        for vname, lib in libs.items():
+            dq = torch.empty_like(q)
+            ptrs = [ctypes.c_void_p(t.data_ptr())
+                    for t in (q, k, v, do, lse, delta, dq)]
+
+            def run():
+                err = lib.pt_nonlocal_attention_bwd_dq_wgmma(
+                    *ptrs, b, n, nk, c, cv, 1.0, stream)
+                if err:
+                    raise RuntimeError(f'{vname}: CUDA error {err}')
+
+            ms = median_ms(run)
+            row.append(f'{vname} {ms:.4f}'
+                       f' ({"=" if torch.equal(dq, want) else "!="})')
+        print(f'  {(b, n, nk, c, cv)} ms: ' + ', '.join(row), flush=True)
+
+
+def probe_lr(smi):
+    import numpy as np
+    import torch
+    import pretorched_tpu_torch as pretorched
+    from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
+    from pretorched_tpu_torch.parallel.train import (make_train_step,
+                                                     sgd_step_decay)
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    smoke = load('chip_smoke', REPO / 'chip_smoke.py')
+    cli = load('video_eval_torch', REPO / 'examples' / 'video_eval_torch.py')
+    smoke.WORK = OUT / 'lr'
+    shutil.rmtree(smoke.WORK, ignore_errors=True)
+    os.environ['PRETORCHED_HOME'] = str(smoke.WORK / 'zoo')
+    smoke.fabricate(pretorched, torch, np)
+
+    def generic_dq(q, k, v, do, lse, delta, scale=1.0):
+        return na._launch_dq(q, k, v, do, lse, delta, scale, 'mma_sync')
+
+    generic_dq.launches, generic_dq.by_kernel = 0, dict.fromkeys(na.KERNELS, 0)
+    backwards = {'wgmma': {}, 'generic': {'nonlocal_attention_bwd_dq_cuda':
+                                          generic_dq},
+                 'plain': {'nonlocal_attention_bwd_cuda':
+                           na.nonlocal_attention_bwd_reference}}
+    print(f'12 train steps of phase 6, the loss at each ({smi})')
+    for lr in (0.01, 0.001):
+        for name, patch in backwards.items():
+            saved = {k: getattr(na, k) for k in patch}
+            for k, fn in patch.items():
+                setattr(na, k, fn)
+            try:
+                model = pretorched.nonlocalresnet3d50(
+                    num_classes=400, pretrained='kinetics-400').cuda()
+                model.bfloat16()
+                opt, sched = sgd_step_decay(model.parameters(), lr=lr,
+                                            momentum=0.9, weight_decay=1e-4)
+                step = make_train_step(model, opt, sched, remat=(0,))
+                x, labels = smoke.train_batch(cli, model.settings, torch)
+                losses = [step(x, labels)['loss'].item() for _ in range(12)]
+            finally:
+                for k, fn in saved.items():
+                    setattr(na, k, fn)
+            print(f'  lr {lr:g}, {name} backward: '
+                  + ' '.join(f'{v:.4g}' for v in losses), flush=True)
+            del model, opt, step
+            torch.cuda.empty_cache()
+
+
+def main(argv):
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('port_kernel_probes: no CUDA card')
+    smi = card()
+    probes = {'k2': probe_k2, 'dq': probe_dq, 'lr': probe_lr}
+    for name in argv or list(probes):
+        probes[name](smi)
+
+
+if __name__ == '__main__':
+    main(sys.argv[1:])
