@@ -57,7 +57,26 @@ Drives the port's main path once on one CUDA card and checks it:
    and that the randomized BN moves the logits; it prints the forward A/B
    of fused_blocks 32 and 0, peak memory and a profiled forward, then runs
    ``examples/video_eval_torch.py -a slowfast_resnet50`` once;
-10. a line with each kernel's numbers and the card, then
+10. the serving path, ``serving.serve_model`` on the card: (a)
+    ``resnet50`` (seeded, every BN randomized) with the tensor payload,
+    served f32 rows against the direct batch-1 forward (TF32 off), then in
+    bf16 against the f32 rows, a load test of 8 clients x 64 single
+    requests (req/s, p50 / p90 / p99, buckets), the bare forward per
+    bucket 1-64 by CUDA events, the host's enqueue time and a profile of
+    a bucket-8 forward, and a load test of 64 clients x 8 requests; (b) the uint8 (256, 256, 3) and JPEG
+    payloads (``data/cat.jpg`` and seeded 375 x 500 JPEGs) against decode +
+    ``_fit_uint8`` + ``fused_preprocess`` + forward, each load-tested in
+    bf16, and the JPEG decoder that ran; (c) K1-fwd against its plain
+    version at B = 1, 2, 4, 8 at both non-local layer shapes, then
+    ``nonlocalresnet3d50`` (bf16, every BN randomized) serving uint8 clips
+    of (32, 240, 320, 3), 4 clients x 8 clips after warming buckets 1-8:
+    5 K1-fwd launches (2 wgmma + 3 mma.sync) per dispatched bucket,
+    served logits against the same model with the plain attention, and
+    that zeroing ``W.1`` moves them; (d) ``ServerOverloaded``, an expired
+    request and a clean ``close()`` on the card; (e)
+    ``examples/serve_torch.py`` and ``examples/imagenet_logits_torch.py``
+    as subprocesses;
+11. a line with each kernel's numbers and the card, then
     ``{"ok": true, "device": {...}}``. Every phase's heading names the card
     and its power limit.
 
@@ -148,6 +167,15 @@ SF_FRAMES, SF_CLIPS, SF_VIDEOS = 64, 10, 2
 CLI_SETTINGS = {'input_space': 'RGB', 'input_size': [3, 224, 224],
                 'input_range': [0, 1], 'mean': [0.485, 0.456, 0.406],
                 'std': [0.229, 0.224, 0.225]}
+# serving (phase 10): ResNet-50 load tests of 8 clients x 64 single
+# requests a payload; nonlocalresnet3d50 uint8 clips at phase 4's frame
+# geometry, 4 clients x 8 clips, buckets up to 8
+SERVE_CLIENTS, SERVE_PER_CLIENT = 8, 64
+CLIP_DECODE = (32, 240, 320, 3)
+CLIP_CLIENTS, CLIP_PER_CLIENT, CLIP_MAX_BATCH = 4, 8, 8
+# served rows against the direct forward of the same examples in f32, TF32
+# off (max |diff| / max |direct|); bf16 rows against f32 rows (rel L2)
+TOL_SERVED_F32, TOL_SERVED_BF16 = 1e-4, 5e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -361,11 +389,7 @@ def main_path(pretorched, na, torch, np):
     from pretorched_tpu_torch.datasets.native import decoder_name
     from pretorched_tpu_torch.models import nonlocalnet
 
-    spec = importlib.util.spec_from_file_location(
-        'video_eval_torch', REPO / 'examples' / 'video_eval_torch.py')
-    cli = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cli)
-
+    cli = load_cli('video_eval_torch')
     shutil.rmtree(WORK, ignore_errors=True)
     os.environ['PRETORCHED_HOME'] = str(WORK / 'zoo')
     os.environ['PRETORCHED_STRICT_WEIGHTS'] = '1'
@@ -441,9 +465,6 @@ def main_path(pretorched, na, torch, np):
                 return model(batch).float()
             finally:
                 nonlocalnet.auto_nonlocal_attention = orig
-
-        def rel_l2(a, b):
-            return ((a - b).norm() / b.norm()).item()
 
         # the bf16 model through the wgmma kernel (layer 2) against the same
         # model with the mma.sync kernel there and with the plain attention
@@ -1266,6 +1287,360 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
     return launched[3], k2_by_kernel
 
 
+def load_cli(name):
+    """The module of ``examples/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / 'examples' / f'{name}.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def rel_to_max(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def report_load(what, lat_ms, wall, srv, unit='req'):
+    n = len(lat_ms)
+    p = {'p50': float(lat_ms[n // 2]), 'p90': float(lat_ms[int(n * 0.9)]),
+         'p99': float(lat_ms[int(n * 0.99)])}
+    print(f'{what}: {n} {unit}s in {wall:.3f} s = {n / wall:.2f} {unit}/s; '
+          f"latency ms p50 {p['p50']:.2f} p90 {p['p90']:.2f} p99 "
+          f"{p['p99']:.2f}; buckets dispatched {sorted(srv.bucket_compiles)}",
+          flush=True)
+    return {f'{unit}_per_s': n / wall, **p,
+            'buckets': sorted(srv.bucket_compiles)}
+
+
+def served_rows_vs_direct(srv, model, requests, direct_input, torch):
+    """Serve ``requests`` (single examples submitted together, then one
+    batch), and hold every served row to ``model(direct_input(request))``
+    at batch 1; returns the worst max |diff| / max |direct|."""
+    singles, batch = requests
+    futs = [srv.submit(r) for r in singles]
+    rows = [f.result(timeout=300) for f in futs] + list(
+        srv.submit(batch).result(timeout=300))
+    worst = 0.0
+    with torch.inference_mode():
+        for req, row in zip(list(singles) + list(batch), rows):
+            want = model(direct_input(req))[0].float().cpu()
+            worst = max(worst, rel_to_max(row, want))
+    return worst, torch.stack(rows)
+
+
+def serving_path(pretorched, na, torch, np):
+    """Phase 10: the serving path (``serving.serve_model``) on the card.
+    Returns K1-fwd's serving launches, by kernel, and the per-bucket K1-fwd
+    times."""
+    from pretorched_tpu_torch import serving
+    from pretorched_tpu_torch.datasets.native import decoder_name
+    from pretorched_tpu_torch.models import nonlocalnet
+    from pretorched_tpu_torch.transforms.fused import fused_preprocess
+
+    cli = load_cli('serve_torch')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(7)
+    out = {}
+
+    print('(a) resnet50, 1000 classes, seeded, every BN randomized, tensor '
+          'payload (3, 224, 224)', flush=True)
+    model = pretorched.resnet50(num_classes=1000, pretrained=None)
+    randomize_bn(model, torch, seed=5)
+    x = rng.randn(67, 3, 224, 224).astype(np.float32)
+    with serving.serve_model(model, max_batch=64, max_wait_ms=20.0,
+                             example_shape=(3, 224, 224),
+                             example_dtype=np.float32) as srv:
+        err, rows_f32 = served_rows_vs_direct(
+            srv, model, (x[:3], x[3:]),
+            lambda r: torch.from_numpy(r[None]).cuda(), torch)
+    print(f'f32 served rows vs the direct batch-1 forward, 3 single '
+          f'requests + one batch of 64 (buckets '
+          f'{sorted(srv.bucket_compiles)}): max|diff|/max|direct| '
+          f'{err:.3e} (tol {TOL_SERVED_F32:g}, TF32 off)', flush=True)
+    check(err <= TOL_SERVED_F32 and 64 in srv.bucket_compiles,
+          f'served f32 rows off the direct forward: {err}')
+    model.bfloat16()
+    with serving.serve_model(model, max_batch=64, max_wait_ms=2.0,
+                             example_shape=(3, 224, 224),
+                             example_dtype=np.float32) as srv:
+        rows_bf16 = srv(x[3:]).float()
+        for b in (1, 2, 4, 8, 16, 32, 64):       # warm every bucket
+            srv(x[:b])
+        srv.bucket_compiles.clear()
+        lat, wall = cli.load_test(srv, SERVE_CLIENTS * SERVE_PER_CLIENT,
+                                  SERVE_CLIENTS,
+                                  lambda i, j: x[(i * 7 + j) % 67])
+    rel = rel_l2(rows_bf16, rows_f32[3:])
+    print(f'bf16 served rows vs f32 served rows: rel L2 {rel:.3e} (tol '
+          f'{TOL_SERVED_BF16:g})')
+    check(rel <= TOL_SERVED_BF16, f'bf16 served rows off f32: {rel}')
+    out['tensor'] = report_load(
+        f'resnet50 bf16 tensor payload, {SERVE_CLIENTS} clients x '
+        f'{SERVE_PER_CLIENT} single requests', lat, wall, srv)
+    fwd = cli.bucket_forward_ms(model, (3, 224, 224), 64, srv.device)
+    out['bucket_forward_ms'] = fwd
+    print('bare bf16 forward per bucket (CUDA events, median of 10): '
+          + ', '.join(f'{b}: {ms:.3f} ms' for b, ms in fwd.items())
+          + f'; bucket 64 = {64 / fwd[64] * 1e3:.1f} images/s, '
+          f"{64 / fwd[64] * 1e3 / out['tensor']['req_per_s']:.2f}x the "
+          'served req/s', flush=True)
+    x8 = torch.from_numpy(x[:8]).cuda()
+    with torch.inference_mode():
+        enqueue_ms = host_us(lambda: model(x8), reps=10) / 1e3
+        window, by_name = device_times(lambda: model(x8), torch)
+    busy = sum(by_name.values()) / 1e3
+    out['bucket8'] = {'enqueue_ms': enqueue_ms, 'window_ms': window,
+                      'kernels_ms': busy}
+    print(f'bucket 8: the host takes {enqueue_ms:.3f} ms to enqueue one '
+          f'forward (no synchronize); profiled: {window:.2f} ms window, '
+          f'{busy:.3f} ms of kernels, device idle '
+          f'{max(0.0, 1 - busy / window) if busy else float("nan"):.1%}',
+          flush=True)
+    if busy:
+        print_families(by_name, busy, {
+            'convolution': CONV_KEYS, 'batch norm': ('batch_norm', 'bn_fw'),
+            'pooling': ('pool',),
+            'elementwise': ('elementwise', 'vectorized', 'unrolled')})
+    with serving.serve_model(model, max_batch=64, max_wait_ms=2.0,
+                             example_shape=(3, 224, 224),
+                             example_dtype=np.float32) as srv:
+        srv(x[:1])
+        srv.bucket_compiles.clear()
+        lat, wall = cli.load_test(srv, 512, 64,
+                                  lambda i, j: x[(i * 7 + j) % 67])
+    out['tensor_64_clients'] = report_load(
+        'resnet50 bf16 tensor payload, 64 clients x 8 single requests',
+        lat, wall, srv)
+
+    print('\n(b) resnet50, uint8 (256, 256, 3) and JPEG payloads; JPEG '
+          f'decoder: {decoder_name()}', flush=True)
+    model.float()
+    settings = model.settings or model
+    raw = rng.randint(0, 256, (9, 256, 256, 3)).astype(np.uint8)
+
+    def via_uint8(u8):
+        return fused_preprocess(torch.from_numpy(u8[None]).cuda(), settings,
+                                channels_last=False)
+
+    with serving.serve_model(model, max_batch=64, max_wait_ms=20.0,
+                             payload='uint8') as srv:
+        check(srv._example_shape == (256, 256, 3),
+              f'uint8 decode shape {srv._example_shape}')
+        err, _ = served_rows_vs_direct(srv, model, (raw[:3], raw[3:]),
+                                       via_uint8, torch)
+    print(f'uint8 f32 served rows vs fused_preprocess + forward: '
+          f'{err:.3e} (tol {TOL_SERVED_F32:g})', flush=True)
+    check(err <= TOL_SERVED_F32, f'uint8 rows off: {err}')
+    jpegs = [(REPO / 'data' / 'cat.jpg').read_bytes()] + cli.synthetic_jpegs(7)
+    fit = serving._jpeg_transform((256, 256, 3), 4)
+    with serving.serve_model(model, max_batch=64, max_wait_ms=20.0,
+                             payload='jpeg') as srv:
+        err, _ = served_rows_vs_direct(srv, model, (jpegs[:3], jpegs[3:]),
+                                       lambda b: via_uint8(fit(b)), torch)
+    print(f'JPEG f32 served rows (cat.jpg 384 x 480 and 7 synthetic 375 x '
+          f'500) vs decode + _fit_uint8 + the uint8 path: {err:.3e} (tol '
+          f'{TOL_SERVED_F32:g})', flush=True)
+    check(err <= TOL_SERVED_F32, f'JPEG rows off: {err}')
+    model.bfloat16()
+    for payload, pool in (('uint8', raw), ('jpeg', jpegs)):
+        with serving.serve_model(model, max_batch=64, max_wait_ms=2.0,
+                                 payload=payload,
+                                 preprocess_dtype='bfloat16') as srv:
+            srv(pool[0])
+            srv.bucket_compiles.clear()
+            lat, wall = cli.load_test(
+                srv, SERVE_CLIENTS * SERVE_PER_CLIENT, SERVE_CLIENTS,
+                lambda i, j: pool[(i + j) % len(pool)])
+        out[payload] = report_load(
+            f'resnet50 bf16 {payload} payload, {SERVE_CLIENTS} clients x '
+            f'{SERVE_PER_CLIENT} single requests', lat, wall, srv)
+    out['decoder'] = decoder_name()
+    del model, srv
+    torch.cuda.empty_cache()
+
+    print(f'\n(c) nonlocalresnet3d50, 400 classes, bf16, every BN '
+          f'randomized, uint8 clips {CLIP_DECODE}, max_batch '
+          f'{CLIP_MAX_BATCH}', flush=True)
+    k1_batches = {}
+    g = torch.Generator(device='cuda').manual_seed(3)
+    for b in (1, 2, 4, 8):
+        for layer, (_, n, nk, c, cv) in (('layer2', SLICE_SHAPES['layer2']),
+                                         ('layer3', SLICE_SHAPES['layer3'])):
+            q = (torch.randn(b, n, c, device='cuda', generator=g)
+                 / c ** 0.25).bfloat16()
+            k = (torch.randn(b, nk, c, device='cuda', generator=g)
+                 / c ** 0.25).bfloat16()
+            v = torch.randn(b, nk, cv, device='cuda',
+                            generator=g).bfloat16()
+            got, lse = na.nonlocal_attention_cuda(q, k, v)
+            want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+                q.float(), k.float(), v.float())
+            err = (got.float() - want).abs().max().item()
+            err_rel = err / want.abs().max().item()
+            err_lse = (lse - want_lse).abs().max().item()
+            ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
+            bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
+                                                  'bfloat16')['fwd']
+            kernel = na.attention_kernel(torch.bfloat16, c, cv)
+            k1_batches[f'{layer} B={b}'] = {'kernel': kernel, 'ms': ms,
+                                            'bound_ms': bound_ms,
+                                            'max_abs_err': err}
+            tol, tol_lse = TOL['bfloat16']
+            print(f'K1-fwd {layer} B={b} [{kernel}]: max|out-plain| '
+                  f'{err:.3e} (tol {tol:g}), /max|plain| {err_rel:.3e} (tol '
+                  f'{TOL_REL_BF16:g}), max|lse-plain| {err_lse:.3e} (tol '
+                  f'{tol_lse:g}); {ms:.3f} ms, bound {bound_ms:.4f} ms '
+                  f'({bound_by})', flush=True)
+            check(err <= tol and err_rel <= TOL_REL_BF16
+                  and err_lse <= tol_lse,
+                  f'K1-fwd off its plain version at {layer} B={b}')
+            del q, k, v, got, lse, want, want_lse
+    torch.cuda.empty_cache()
+    out['k1_batches'] = k1_batches
+
+    model = pretorched.nonlocalresnet3d50(num_classes=400, pretrained=None)
+    randomize_bn(model, torch, seed=6)
+    model.bfloat16()
+    clips = rng.randint(0, 256, (CLIP_MAX_BATCH,) + CLIP_DECODE
+                        ).astype(np.uint8)
+    dispatches = [0]
+    hook = model.register_forward_pre_hook(
+        lambda *_: dispatches.__setitem__(0, dispatches[0] + 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(na, 0)
+    with serving.serve_model(model, max_batch=CLIP_MAX_BATCH,
+                             max_wait_ms=2.0, payload='uint8',
+                             decode_shape=CLIP_DECODE,
+                             preprocess_dtype='bfloat16') as srv:
+        for b in (1, 2, 4, 8):                  # warm every bucket
+            srv(clips[:b])
+        warmed = sorted(srv.bucket_compiles)
+        srv.bucket_compiles.clear()
+        lat, wall = cli.load_test(srv, CLIP_CLIENTS * CLIP_PER_CLIENT,
+                                  CLIP_CLIENTS,
+                                  lambda i, j: clips[(i + j) % len(clips)])
+        served = srv(clips[:4]).float()
+    hook.remove()
+    launches = counts(na)
+    by_kernel = kernel_counts(na)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    out['clips'] = report_load(
+        f'nonlocalresnet3d50 bf16 uint8 clips, {CLIP_CLIENTS} clients x '
+        f'{CLIP_PER_CLIENT} clips (warmed buckets {warmed})', lat, wall, srv,
+        unit='clip')
+    out['clips']['peak_gib'] = peak_gb
+    print(f'{dispatches[0]} buckets dispatched in all, K1-fwd launches '
+          f'{launches[0]} ({by_kernel}); peak device memory {peak_gb:.2f} '
+          'GiB', flush=True)
+    check(launches[0] == 5 * dispatches[0] and launches[1:] == (0, 0),
+          f'expected 5 K1-fwd launches per bucket, got {launches} for '
+          f'{dispatches[0]} buckets')
+    expect_kernels(na, EVAL_KERNELS, dispatches[0], 'video server')
+    out['launches'], out['by_kernel'] = launches[0], by_kernel
+    check(served.shape == (4, 400) and bool(torch.isfinite(served).all()),
+          'served clip logits not finite')
+
+    def plain_logits():
+        x = torch.from_numpy(clips[:4]).cuda()
+        with torch.inference_mode():
+            f = fused_preprocess(x.flatten(0, 1), model.settings or model,
+                                 dtype=torch.bfloat16)
+            f = f.reshape((4, 32) + f.shape[1:]).permute(0, 4, 1, 2, 3)
+            orig = nonlocalnet.auto_nonlocal_attention
+            nonlocalnet.auto_nonlocal_attention = \
+                na.nonlocal_attention_reference
+            try:
+                return model(f.contiguous()).float().cpu()
+            finally:
+                nonlocalnet.auto_nonlocal_attention = orig
+
+    rel = rel_l2(served, plain_logits())
+    print(f'served clip logits vs the same bf16 model with the plain '
+          f'attention: rel L2 {rel:.3e} (tol {TOL_LOGITS_BF16:g})')
+    check(rel <= TOL_LOGITS_BF16, f'served clips off plain attention: {rel}')
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nonlocalnet.NonLocalBlock):
+                m.W[1].weight.zero_()
+    with serving.serve_model(model, max_batch=CLIP_MAX_BATCH,
+                             payload='uint8', decode_shape=CLIP_DECODE,
+                             preprocess_dtype='bfloat16') as srv:
+        moved = rel_l2(srv(clips[:4]), served)
+    print(f'zeroing the 5 W.1 scales moves the served logits by rel L2 '
+          f'{moved:.3e}')
+    check(moved > 1e-2, 'the served logits do not depend on the attention')
+    del model, srv
+    torch.cuda.empty_cache()
+
+    print('\n(d) admission on the card', flush=True)
+    import threading
+    gate = threading.Event()
+
+    def gated(_, batch):
+        gate.wait(60)
+        return batch.float().sum(dim=(1, 2))
+
+    one = np.ones((4, 4), np.float32)
+    srv = serving.InferenceServer(gated, None, device='cuda', max_batch=1,
+                                  max_wait_ms=0.0, example_ndim=2,
+                                  max_queue=2, request_timeout_ms=100.0)
+    first = srv.submit(one)
+    time.sleep(0.05)                 # the batcher now waits at the gate
+    stale = srv.submit(one)
+    try:
+        srv.submit(one)
+        overloaded = False
+    except serving.ServerOverloaded:
+        overloaded = True
+    time.sleep(0.3)                  # stale passes request_timeout_ms
+    gate.set()
+    try:
+        stale.result(timeout=60)
+        expired = False
+    except TimeoutError:
+        expired = True
+    ok = float(first.result(timeout=60)) == 16.0
+    fresh = float(srv.submit(one).result(timeout=60)) == 16.0
+    srv.close()
+    alive = srv._thread.is_alive() or any(r.is_alive()
+                                          for r in srv._resolvers)
+    print(f'max_queue=2: third request refused with ServerOverloaded: '
+          f'{overloaded}; request_timeout_ms=100: the queued request '
+          f'expired: {expired}; served rows right: {ok and fresh}; close() '
+          f'clean: {not alive}')
+    check(overloaded and expired and ok and fresh and not alive,
+          'admission semantics failed on the card')
+
+    print('\n(e) the CLIs as subprocesses', flush=True)
+    cmds = [[sys.executable, 'examples/serve_torch.py', '--requests', '64',
+             '--clients', '8', '--bf16'],
+            [sys.executable, 'examples/imagenet_logits_torch.py',
+             'data/cat.jpg', '-a', 'resnet50', '--pretrained', 'none']]
+    env = dict(os.environ)
+    env.pop('PRETORCHED_STRICT_WEIGHTS', None)
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    for cmd, proc in zip(cmds, procs):
+        try:
+            text = proc.communicate(timeout=300)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        print(f"$ {' '.join(cmd[1:])}  (exit {proc.returncode})")
+        print('  ' + '\n  '.join(text.strip().splitlines()[-6:]), flush=True)
+        check(proc.returncode == 0, f'{cmd[1]} exited {proc.returncode}')
+    return out
+
+
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
@@ -1369,7 +1744,11 @@ def main():
     k2_launches, k2_by_kernel = slowfast_path(pretorched, torch, np, cli, na,
                                               fb_cuda)
 
-    phase('10. result')
+    phase('10. serving: resnet50 images and nonlocalresnet3d50 clips '
+          'through serving.serve_model')
+    served = serving_path(pretorched, na, torch, np)
+
+    phase('11. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -1381,10 +1760,13 @@ def main():
         {'name': 'nonlocal_attention_fwd', 'route': 'cuda',
          'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
          'launches': train_launches[0], 'launches_eval': eval_launches,
+         'launches_serving': served['launches'],
          'launches_by_kernel': {
              'train': {k[4:]: n for k, n in train_by_kernel.items()
                        if k.startswith('fwd')},
-             'eval': {k[4:]: n for k, n in eval_by_kernel.items()}},
+             'eval': {k[4:]: n for k, n in eval_by_kernel.items()},
+             'serving': {k[4:]: n for k, n in served['by_kernel'].items()}},
+         'serving_batches': served['k1_batches'],
          **k1, 'shape': list(SLICE_SHAPES['layer2']), 'dtype': 'bfloat16'},
         {'name': 'nonlocal_attention_bwd_dq', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
@@ -1410,6 +1792,10 @@ def main():
          'shape': list(K2_SHAPES['fast res2.1-2'][:7]), 'dtype': 'bfloat16',
          'per_forward': {**forward, 'launches': sum(K2_SLICE.values()),
                          'shapes': list(K2_SLICE)}}],
+        'serving': {k: served[k] for k in ('tensor', 'tensor_64_clients',
+                                           'uint8', 'jpeg', 'clips',
+                                           'bucket_forward_ms', 'bucket8',
+                                           'decoder')},
         'card': card}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

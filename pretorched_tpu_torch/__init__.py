@@ -1,11 +1,12 @@
 """pretorched_tpu_torch — the PyTorch and CUDA port of ``pretorched_tpu``.
 
 The JAX package stays the reference; this package imports no JAX. It covers
-the 3D ResNet, non-local ResNet and SlowFast families, their
-hosted-checkpoint loading, device-side preprocessing, multi-clip evaluation
-and training, with the JAX package's Pallas kernels as hand-written CUDA
-kernels for Hopper: the non-local attention forward and backward, and
-SlowFast's fused eval bottleneck tail.
+the 2D ResNet, 3D ResNet, non-local ResNet and SlowFast families, their
+hosted-checkpoint loading, host and device-side preprocessing, multi-clip
+evaluation, training and online serving (``serving.py``), with the JAX
+package's Pallas kernels as hand-written CUDA kernels for Hopper: the
+non-local attention forward and backward, and SlowFast's fused eval
+bottleneck tail.
 
 Public contract (the reference's, pretorched/__init__.py:11-83):
 

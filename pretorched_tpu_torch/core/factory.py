@@ -3,7 +3,8 @@
 Counterpart of ``pretorched_tpu/core/factory.py:52-93``: check the class
 count against the settings registry, initialize the parameters from
 ``torch.Generator().manual_seed(seed)`` (where JAX took a PRNG key), load the
-hosted ``.pth`` when ``pretrained`` names a dataset, and stamp the metadata.
+hosted ``.pth`` when ``pretrained`` names a dataset, and stamp the metadata
+and the input rank (``input_ndim``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from .wrapper import PretrainedModel
 def build_model(name: str, model: PretrainedModel, settings_map,
                 num_classes: int, pretrained: Optional[str], *,
                 torch_renames: Optional[dict] = None, strict: bool = True,
-                check_num_classes: bool = True,
+                check_num_classes: bool = True, video: bool = False,
                 seed: int = 0) -> PretrainedModel:
     settings = None
     if pretrained is not None:
@@ -41,4 +42,7 @@ def build_model(name: str, model: PretrainedModel, settings_map,
         ds = settings_map.get(name) or {}
         meta = ds.get('imagenet') or next(iter(ds.values()), None)
     model.stamp_metadata(meta)
+    # the batched input's rank: 5 = video (B, C, T, H, W), 4 = image
+    # (factory.py:86-89); serving reads it to tell a clip from an image
+    model.input_ndim = 5 if video else 4
     return model

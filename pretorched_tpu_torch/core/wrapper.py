@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..models.layers import torch_default_init
+from ..models.layers import torch_conv_init
 
 
 class PretrainedModel(nn.Module):
@@ -75,10 +75,11 @@ class PretrainedModel(nn.Module):
     def reset_classifier(self, num_classes: int,
                          generator: Optional[torch.Generator] = None):
         """Re-initialize ``last_linear`` for a new class count (fine-tuning),
-        on the device of the model's parameters."""
+        on the device of the model's parameters: weight uniform in
+        +-1/sqrt(fan_in), bias zero (``pretorched_tpu/core/wrapper.py:187-197``)."""
         generator = generator or torch.Generator().manual_seed(0)
         head = nn.Linear(self.num_features, num_classes)
-        torch_default_init(head.weight, head.bias, generator)
+        torch_conv_init(head.weight, head.bias, generator)
         self.last_linear = head.to(next(self.parameters()).device)
         self.num_classes = num_classes
 

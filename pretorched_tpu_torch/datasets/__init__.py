@@ -1,1 +1,1 @@
-"""Decoding."""
+"""Decoding and dataset helpers."""

@@ -6,7 +6,8 @@ port's own copy of the JAX package's decoder,
 -shared`` against libjpeg, at first use, into ``build/native/<hash>/``
 beside the package (git-ignored). When the toolchain or libjpeg is missing, every entry
 point falls back to PIL, so decoding never hard-depends on native code;
-``decoder_name()`` says which one runs.
+``decoder_name()`` says which one runs. The PIL fallback decodes on a pool
+of ``threads`` threads (PIL releases the interpreter lock while it decodes).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import hashlib
 import io
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional
 
@@ -79,25 +81,49 @@ def decoder_name() -> str:
     return 'native (libjpeg, C++ thread pool)' if native_available() else 'PIL'
 
 
-def _pil_decode(buffers, scale_denom):
+def jpeg_short_side(buffer: bytes) -> Optional[int]:
+    """Short side of a JPEG from its header alone (no pixel decode), or
+    None when it does not parse. Picks a batch-wide DCT ``scale_denom``."""
+    lib = _get_lib()
+    if lib is not None:
+        arr = np.frombuffer(buffer, np.uint8)
+        h, w = ctypes.c_int(), ctypes.c_int()
+        rc = lib.pt_jpeg_dims(arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                              len(buffer), 1, ctypes.byref(h), ctypes.byref(w))
+        return min(h.value, w.value) if rc == 0 else None
+    from PIL import Image, UnidentifiedImageError
+    try:
+        with Image.open(io.BytesIO(buffer)) as img:   # lazy: header only
+            return min(img.size)
+    except (OSError, UnidentifiedImageError):
+        return None
+
+
+def _pil_decode_one(buffer, scale_denom):
     from PIL import Image
 
-    out = []
-    for b in buffers:
-        img = Image.open(io.BytesIO(b))
-        if scale_denom > 1:
-            img.draft('RGB', (img.width // scale_denom,
-                              img.height // scale_denom))
-        out.append(np.asarray(img.convert('RGB')))
-    return out
+    img = Image.open(io.BytesIO(buffer))
+    if scale_denom > 1:
+        img.draft('RGB', (img.width // scale_denom,
+                          img.height // scale_denom))
+    return np.asarray(img.convert('RGB'))
+
+
+def _pil_decode(buffers, scale_denom, threads):
+    if threads <= 1 or len(buffers) <= 1:
+        return [_pil_decode_one(b, scale_denom) for b in buffers]
+    with ThreadPoolExecutor(min(threads, len(buffers))) as pool:
+        return list(pool.map(_pil_decode_one, buffers,
+                             [scale_denom] * len(buffers)))
 
 
 def decode_jpeg_batch(buffers: List[bytes], threads: int = 8,
                       scale_denom: int = 1) -> List[np.ndarray]:
-    """Decode JPEG byte strings to (H, W, 3) uint8 arrays."""
+    """Decode JPEG byte strings to (H, W, 3) uint8 arrays, on ``threads``
+    threads."""
     lib = _get_lib()
     if lib is None:
-        return _pil_decode(buffers, scale_denom)
+        return _pil_decode(buffers, scale_denom, threads)
     n = len(buffers)
     if n == 0:
         return []
@@ -116,7 +142,7 @@ def decode_jpeg_batch(buffers: List[bytes], threads: int = 8,
         rc = lib.pt_jpeg_dims(bufs[i], lens[i], scale_denom,
                               ctypes.byref(h), ctypes.byref(w))
         if rc != 0:
-            return _pil_decode(buffers, scale_denom)
+            return _pil_decode(buffers, scale_denom, threads)
         hs[i], ws[i] = h.value, w.value
     outs_np = [np.empty((hs[i], ws[i], 3), np.uint8) for i in range(n)]
     outs = (u8p * n)(*[o.ctypes.data_as(u8p) for o in outs_np])
@@ -124,7 +150,7 @@ def decode_jpeg_batch(buffers: List[bytes], threads: int = 8,
     fails = lib.pt_jpeg_decode_batch(bufs, lens, outs, hs, ws, scale_denom,
                                      n, threads, status)
     if fails:
-        return _pil_decode(buffers, scale_denom)
+        return _pil_decode(buffers, scale_denom, threads)
     return outs_np
 
 

@@ -8,6 +8,10 @@ build is reproducible from its seed:
 * ``kaiming_normal_out``: normal with std ``sqrt(2 / fan_out)`` (the JAX
   package's ``variance_scaling(2.0, 'fan_out', 'normal')``, layers.py:43),
   used by the ResNet convs (resnet3D.py:195-201);
+* ``torch_conv_init``: the JAX package's conv and dense init,
+  ``variance_scaling(1/3, 'fan_in', 'uniform')`` (layers.py:39-43, 111),
+  which is uniform in ``+-1/sqrt(fan_in)``, with a zero bias as flax's;
+  used by the layers ``conv2d`` and ``linear`` make (the 2D ResNet);
 * everything else gets torch's own default: weight and bias uniform in
   ``+-1/sqrt(fan_in)`` for convs and linears, BN scale 1 and shift 0.
 
@@ -94,6 +98,21 @@ def conv3d_kaiming_out(in_ch, out_ch, kernel_size, stride=1, padding=0):
     return conv
 
 
+def conv2d(in_ch, out_ch, kernel_size, stride=1, padding=0, bias=False):
+    """Conv2d that ``init_parameters`` fills with ``torch_conv_init``."""
+    conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                     padding=padding, bias=bias)
+    conv.jax_init = True
+    return conv
+
+
+def linear(in_features, out_features):
+    """Linear that ``init_parameters`` fills with ``torch_conv_init``."""
+    layer = nn.Linear(in_features, out_features)
+    layer.jax_init = True
+    return layer
+
+
 def _fans(weight):
     receptive = math.prod(weight.shape[2:]) if weight.dim() > 2 else 1
     return weight.shape[1] * receptive, weight.shape[0] * receptive
@@ -104,12 +123,27 @@ def kaiming_normal_out(weight, generator):
     weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
 
 
-def torch_default_init(weight, bias, generator):
-    """torch's ``reset_parameters`` for conv/linear: kaiming_uniform(a=sqrt(5))
-    is uniform in +-1/sqrt(fan_in), and so is the bias."""
+def _uniform_fan_in(weight, generator) -> float:
+    """Fill ``weight`` uniform in +-1/sqrt(fan_in); returns the bound."""
     fan_in, _ = _fans(weight)
     bound = 1.0 / math.sqrt(fan_in) if fan_in else 0.0
     weight.uniform_(-bound, bound, generator=generator)
+    return bound
+
+
+def torch_conv_init(weight, bias, generator):
+    """The JAX package's ``torch_conv_init``: ``variance_scaling(1/3,
+    'fan_in', 'uniform')``, i.e. uniform in +-sqrt(3 * (1/3) / fan_in); the
+    bias is zero, as flax's ``nn.Conv`` and ``nn.Dense`` start it."""
+    _uniform_fan_in(weight, generator)
+    if bias is not None:
+        bias.zero_()
+
+
+def torch_default_init(weight, bias, generator):
+    """torch's ``reset_parameters`` for conv/linear: kaiming_uniform(a=sqrt(5))
+    is uniform in +-1/sqrt(fan_in), and so is the bias."""
+    bound = _uniform_fan_in(weight, generator)
     if bias is not None:
         bias.uniform_(-bound, bound, generator=generator)
 
@@ -131,7 +165,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, _CONV_TYPES + (nn.Linear,)):
-            torch_default_init(m.weight, m.bias, generator)
+            init = (torch_conv_init if getattr(m, 'jax_init', False)
+                    else torch_default_init)
+            init(m.weight, m.bias, generator)
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_running_stats()
             m.weight.fill_(0.0 if getattr(m, 'zero_init', False) else 1.0)

@@ -171,7 +171,7 @@ def _build(name, num_classes, pretrained, nonlocal_layers, shortcut_type='A'):
     settings_map = pretrained_settings if name in pretrained_settings else {name: {}}
     return build_model(name, model, settings_map, num_classes, pretrained,
                        torch_renames={'last_linear': 'fc'}, strict=False,
-                       check_num_classes=False)
+                       check_num_classes=False, video=True)
 
 
 def _factory(name, nl=(0, 2, 3, 0)):

@@ -240,7 +240,7 @@ def _build(name, num_classes, pretrained, shortcut_type):
     model = VideoResNet(block, layers, num_classes=num_classes,
                         shortcut_type=shortcut_type)
     return build_model(name, model, pretrained_settings, num_classes,
-                       pretrained, torch_renames=TORCH_RENAMES)
+                       pretrained, torch_renames=TORCH_RENAMES, video=True)
 
 
 def _factory(name, default_nc=400, default_pt=_KINETICS, shortcut='B'):

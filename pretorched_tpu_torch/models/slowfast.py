@@ -313,7 +313,8 @@ def _factory(short):
         block, layers = _LAYERS[short]
         model = SlowFast(block=block, layers=layers, num_classes=num_classes,
                          mode=mode, dropout_rate=dropout, **kwargs)
-        return build_model(name, model, {name: {}}, num_classes, pretrained)
+        return build_model(name, model, {name: {}}, num_classes, pretrained,
+                           video=True)
     fn.__name__ = short
     fn.__doc__ = (f'SlowFast {short}: mode "sf" (two-pathway), '
                   f'"s" (SlowOnly), "f" (FastOnly).')

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -29,6 +30,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 LIB_NAME = 'libpretorched_kernels.so'
 
 _lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()     # one build per process, whichever thread asks
 build_seconds: Optional[float] = None    # wall time of this process's load
 build_log: str = ''                      # nvcc's output (ptxas -v report)
 
@@ -84,10 +86,16 @@ def _compile(out: Path) -> str:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
-    global _lib, build_seconds, build_log
+    """Build (if needed) and load the kernel library; cached per process.
+    Thread-safe: a server's batcher thread may be the first caller."""
     if _lib is not None:
         return _lib
+    with _lock:
+        return _lib if _lib is not None else _load()
+
+
+def _load() -> ctypes.CDLL:
+    global _lib, build_seconds, build_log
     t0 = time.perf_counter()
     path = library_path()
     if path.exists():

@@ -34,7 +34,8 @@ def _masked_metrics(logits, labels, topk):
     safe = labels.clamp(min=0)
     logp = F.log_softmax(logits.float(), dim=1)
     loss = -logp.gather(1, safe[:, None])[:, 0]
-    order = torch.topk(logits, max(topk), dim=1).indices
+    # stable: tied classes rank lowest index first, as JAX's argsort does
+    order = torch.argsort(-logits, dim=1, stable=True)[:, :max(topk)]
     correct = (order == safe[:, None]) & valid[:, None]
     out = {f'top{k}': correct[:, :k].any(dim=1).sum() for k in topk}
     out['loss'] = torch.where(valid, loss, torch.zeros_like(loss)).sum()

@@ -34,9 +34,13 @@ def _settings_tuple(settings) -> Tuple:
             get('scale') if has('scale') else 0.875)
 
 
-def _resize_target(h, w, crop, scale):
+def _resize_target(h, w, crop, scale, preserve_aspect_ratio, input_size):
     """Resized (nh, nw) before the center crop: the shorter side becomes
-    floor(crop/scale), like torchvision ``Resize(int)``."""
+    floor(crop/scale), like torchvision ``Resize(int)``; without
+    ``preserve_aspect_ratio``, (H, W) of ``input_size`` over ``scale``,
+    like ``Resize((h, w))``."""
+    if not preserve_aspect_ratio:
+        return int(input_size[1] / scale), int(input_size[2] / scale)
     target_short = int(math.floor(crop / scale))
     if h <= w:
         return target_short, int(round(target_short * w / h))
@@ -80,9 +84,12 @@ def resize_weights(in_size: int, out_size: int, scale: float,
 
 
 def fused_preprocess(batch_u8, settings, channels_last: bool = True,
-                     dtype: torch.dtype = torch.float32, device=None):
+                     dtype: torch.dtype = torch.float32, device=None,
+                     preserve_aspect_ratio: bool = True):
     """uint8 (B, H, W, 3) batch (numpy or tensor) -> normalized batch on
-    ``device`` (default: the tensor's own), (B, S, S, 3) or (B, 3, S, S)."""
+    ``device`` (default: the tensor's own), (B, S, S, 3) or (B, 3, S, S),
+    computed in ``dtype`` (bfloat16 halves the memory traffic; uint8 values
+    are exact in it)."""
     x = torch.as_tensor(batch_u8, device=device)
     if x.dim() == 3:
         x = x[None]
@@ -90,7 +97,8 @@ def fused_preprocess(batch_u8, settings, channels_last: bool = True,
         _settings_tuple(settings)
     crop = max(input_size)
     b, h, w, c = x.shape
-    nh, nw = _resize_target(h, w, crop, scale)
+    nh, nw = _resize_target(h, w, crop, scale, preserve_aspect_ratio,
+                            input_size)
     top = int(round((nh - crop) / 2.0))
     left = int(round((nw - crop) / 2.0))
     if (nh, nw) == (h, w):

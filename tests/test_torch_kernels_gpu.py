@@ -511,3 +511,52 @@ def test_slowfast_fused_blocks_on_the_card(cuda):
         model.fused_blocks = 0
         plain = model(x)
     assert ((fused - plain).norm() / plain.norm()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b', [1, 2, 4])
+@pytest.mark.parametrize('n,c', [(6272, 256), (784, 512)])
+def test_served_bucket_shapes_match_plain(cuda, b, n, c):
+    """K1-fwd at the video server's small buckets, both non-local layers of
+    nonlocalresnet3d50 at 32 frames x 224 px (at B = 1 layer 2's wgmma grid
+    is 98 query blocks, fewer than the card's SMs), bf16 against the plain
+    version in f32, at phase 3's tolerances."""
+    q, k, v, _ = _bwd_inputs(b, n, n, c, c, torch.bfloat16, cuda)
+    kernel = na.attention_kernel(torch.bfloat16, c, c)
+    before = na.nonlocal_attention_cuda.by_kernel[kernel]
+    out, lse = na.nonlocal_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert na.nonlocal_attention_cuda.by_kernel[kernel] == before + 1
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+        q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
+    assert _rel_err(out, want) <= 2e-2
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_served_resnet18_rows_match_the_direct_forward(cuda):
+    """``serve_model`` on the card (pinned staging, events, resolver): each
+    row equals the model's direct forward of that example (f32, TF32 off),
+    for single requests padded to a bucket and for a batch."""
+    import pretorched_tpu_torch
+    from pretorched_tpu_torch.serving import serve_model
+
+    model = pretorched_tpu_torch.resnet18(num_classes=10, pretrained=None)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    x = np.random.RandomState(0).randn(7, 3, 64, 64).astype(np.float32)
+    with serve_model(model, max_batch=8, max_wait_ms=5.0) as srv:
+        assert srv.device.type == 'cuda'
+        singles = [srv.submit(xi) for xi in x[:3]]
+        batch = srv.submit(x[3:])
+        got = torch.stack([f.result(timeout=120) for f in singles]
+                          + list(batch.result(timeout=120)))
+    assert got.device.type == 'cpu'
+    with torch.inference_mode():
+        want = model(torch.from_numpy(x).to(cuda)).cpu()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4

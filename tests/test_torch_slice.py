@@ -280,3 +280,43 @@ def test_jpeg_decode_matches_jax(tmp_path, scale_denom):
     for g, w in zip(got, want):
         assert g.shape == (48 // scale_denom, 48 // scale_denom, 3)
         np.testing.assert_array_equal(g, w)
+
+
+def test_masked_metrics_ties_rank_like_jax():
+    """Rows tied at the consensus clamp (one class at log 1, 399 at
+    log(1e-30)): both rank tied classes lowest index first, so labels 0-3
+    are all in the top 5."""
+    from pretorched_tpu.parallel.evaluate import \
+        _masked_metrics as jax_masked_metrics
+    from pretorched_tpu_torch.parallel.evaluate import _masked_metrics
+    logp = np.full((4, 400), np.log(1e-30), np.float32)
+    logp[:, 399] = 0.0
+    labels = np.arange(4)
+    want = {k: float(v) for k, v in jax_masked_metrics(
+        jnp.asarray(logp), jnp.asarray(labels), (1, 5)).items()}
+    got = {k: float(v) for k, v in _masked_metrics(
+        torch.from_numpy(logp), torch.from_numpy(labels), (1, 5)).items()}
+    assert want['top5'] == 4 and want['top1'] == 0
+    assert got == pytest.approx(want, rel=1e-6)
+
+
+def test_reset_classifier_zeroes_the_bias_like_jax():
+    """The new head's bias starts at zero, as the JAX package's
+    ``reset_classifier`` sets it (``pretorched_tpu/core/wrapper.py:197``)."""
+    model = pretorched_tpu_torch.resnet3d10(num_classes=5, pretrained=None)
+    model.reset_classifier(7, torch.Generator().manual_seed(1))
+    head = model.last_linear
+    assert head.weight.shape == (7, 512) and not head.bias.any()
+    bound = 512 ** -0.5
+    assert 0.9 * bound < head.weight.abs().max() <= bound
+
+
+@pytest.mark.parametrize('name,ndim,jax', [('resnet3d10', 5, True),
+                                           ('nonlocalresnet3d18', 5, False),
+                                           ('slowfast_resnet18', 5, False),
+                                           ('resnet18', 4, True)])
+def test_factories_stamp_input_ndim_like_jax(name, ndim, jax):
+    kw = {} if name.startswith('slowfast') else {'pretrained': None}
+    assert pretorched_tpu_torch.__dict__[name](**kw).input_ndim == ndim
+    if jax:
+        assert pretorched_tpu.__dict__[name](**kw).input_ndim == ndim
