@@ -8,31 +8,37 @@ Drives the port's main path once on one CUDA card and checks it:
 3. the non-local attention forward kernels against their plain PyTorch
    version at the video slice's shapes, in f32 (TF32 off) and bf16, each
    with the kernel the dispatch picks (``attention_kernel``: bf16 with C
-   and Cv multiples of 64 up to 256 on the wgmma kernel, other bf16 shapes
-   on mma.sync, f32 scalar), its time, its bound and one
+   and Cv multiples of 64 up to 512 on wgmma, past 256 its wide program,
+   other bf16 shapes on mma.sync, f32 scalar), its time, its bound and one
    ``scaled_dot_product_attention`` call's time, the plain version's at
-   layers 2 and 3, and at layer 2 the mma.sync kernel that wgmma replaced
-   and each one's host time per call;
+   layers 2 and 3, and at both layers the mma.sync kernel that wgmma
+   replaced (held to the plain version at the same tolerances) and each
+   one's host time per call;
 4. the eval path: a fabricated hosted ``kinetics-400`` checkpoint for
    ``nonlocalresnet3d50`` (seeded init, every BN randomized, non-local
    weights included), a frame folder of JPEGs, and the 10-clip, 32-frame,
    224 px eval of ``examples/video_eval_torch.py``. It checks that every
-   forward launched K1-fwd 5 times (layer 2's 2 on wgmma, layer 3's 3 on
-   mma.sync), that the logits are finite, that the bf16 logits through the
-   wgmma kernel match the same bf16 model with the plain attention, that the
+   forward launched K1-fwd 5 times, all on wgmma (layer 3's 3 on its wide
+   program), that the logits are finite, that the bf16 logits through the
+   wgmma kernels match the same bf16 model with the plain attention (and
+   come no further from it than twice the mma.sync kernel's), that the
    f32 logits with the kernel match those with the plain attention, and
    that the attention moves the logits; it profiles one bf16 forward by
    kernel family;
 5. the backward kernels (K1-dq, K1-dkv) against the plain backward at the
    training path's shapes, in f32 and bf16, with the same times per bf16
    shape and, at layer 2, the generic K1-dq and K1-dkv that wgmma replaced
-   (time and host time per call; K1-dq's two outputs held together);
+   (time and host time per call; K1-dq's two outputs held together), at
+   layer 3 the generic K1-dkv that the wide wgmma program replaced (the
+   generic K1-dkv held to the plain backward at both); K1-dkv must repeat
+   bitwise at every bf16 shape;
 6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
    ``remat=(0,)``, SGD, 12 steps of 8 clips x 32 frames x 224 px; it checks
-   15 attention launches a step (5 forward, 5 dq, 5 dkv; each at layer 2
-   on wgmma, at layer 3 on mma.sync) and a finite loss, prints each step's
-   host time and device time (CUDA events around the step) and their
-   medians over steps 2-12, clips/s and peak memory, profiles one more
+   15 attention launches a step (5 forward and 5 dkv on wgmma, 3 of each on
+   the wide program; 5 dq, at layer 2 on wgmma, at layer 3 on mma.sync)
+   and a finite loss, prints each step's host time and device time (CUDA
+   events around the step) and their medians over steps 2-12, clips/s and
+   peak memory, profiles one more
    step (device time by kernel family, K1-dq's share, idle share), and
    saves a checkpoint after step 3 that must restore exactly;
 7. gradient agreement: each non-local block's gradients with the kernels
@@ -67,10 +73,12 @@ Drives the port's main path once on one CUDA card and checks it:
     payloads (``data/cat.jpg`` and seeded 375 x 500 JPEGs) against decode +
     ``_fit_uint8`` + ``fused_preprocess`` + forward, each load-tested in
     bf16, and the JPEG decoder that ran; (c) K1-fwd against its plain
-    version at B = 1, 2, 4, 8 at both non-local layer shapes, then
+    version at B = 1, 2, 4, 8 at both non-local layer shapes, with its
+    time, SDPA's and at layer 3 the mma.sync kernel's (also held to the
+    plain version), then
     ``nonlocalresnet3d50`` (bf16, every BN randomized) serving uint8 clips
     of (32, 240, 320, 3), 4 clients x 8 clips after warming buckets 1-8:
-    5 K1-fwd launches (2 wgmma + 3 mma.sync) per dispatched bucket,
+    5 K1-fwd launches, all on wgmma, per dispatched bucket,
     served logits against the same model with the plain attention, and
     that zeroing ``W.1`` moves them; (d) ``ServerOverloaded``, an expired
     request and a clean ``close()`` on the card; (e)
@@ -121,12 +129,13 @@ TRAIN_SHAPES = {            # (B, N, Nk, C, Cv): 8 clips a step
     'ragged_n': (3, 1000, 1000, 64, 64),
     'gaussian': (2, 1000, 125, 1024, 512),
 }
-# K1-fwd and K1-dkv launches by kernel (the dispatch of
-# ops/cuda/nonlocal_attention.py): layer 2 (C = Cv = 256) on wgmma, 2 blocks
-# a pass; layer 3 (C = Cv = 512) on mma.sync, 3 blocks
-EVAL_KERNELS = {'fwd wgmma': 2, 'fwd mma_sync': 3}
+# K1 launches by program a pass (the dispatch of
+# ops/cuda/nonlocal_attention.py): layer 2 (C = Cv = 256, 2 blocks) on
+# wgmma; layer 3 (C = Cv = 512, 3 blocks) on the wide wgmma programs of
+# K1-fwd and K1-dkv (wgmma_wide), K1-dq on mma.sync
+EVAL_KERNELS = {'fwd wgmma': 2, 'fwd wgmma_wide': 3}
 TRAIN_KERNELS = {**EVAL_KERNELS, 'dq wgmma': 2, 'dq mma_sync': 3,
-                 'dkv wgmma': 2, 'dkv mma_sync': 3}
+                 'dkv wgmma': 2, 'dkv wgmma_wide': 3}
 # max |grad - plain| / max |plain grad|: f32 sums in another order; bf16
 # rounds p and ds for the products and stores bf16
 TOL_BWD = {'float32': 1e-4, 'bfloat16': 2e-2}
@@ -274,13 +283,22 @@ def fmt_ms(ms):
     return 'n/a' if ms is None else f'{ms:.3f} ms'
 
 
+def fwd_errors(out, lse, want, want_lse):
+    """K1-fwd's max |out - plain|, that over max |plain|, and max |lse -
+    plain|."""
+    err = (out.float() - want).abs().max().item()
+    return (err, err / want.abs().max().item(),
+            (lse - want_lse).abs().max().item())
+
+
 def kernel_vs_plain(na, torch):
     """Phase 3: every case in both dtypes, with the kernel the dispatch
-    picks; bf16 cases timed with their bound and SDPA's time, layer 2 also
-    on the mma.sync kernel that wgmma replaced. Returns the layer-2 bf16
-    row."""
+    picks; bf16 cases timed with their bound and SDPA's time, layers 2 and
+    3 also on the mma.sync kernel that wgmma replaced, which is held to the
+    plain version at the same tolerances. Returns the bf16 rows of layers 2
+    and 3."""
     g = torch.Generator(device='cuda').manual_seed(0)
-    result = None
+    result = {}
     for name, (b, n, nk, c, cv) in SLICE_SHAPES.items():
         for dt in (torch.float32, torch.bfloat16):
             dname = str(dt).split('.')[-1]
@@ -290,20 +308,29 @@ def kernel_vs_plain(na, torch):
             k = (torch.randn(b, nk, c, device='cuda', generator=g)
                  / c ** 0.25).to(dt)
             v = torch.randn(b, nk, cv, device='cuda', generator=g).to(dt)
-            kernel = na.attention_kernel(dt, c, cv)
+            kernel = na.attention_kernel(dt, c, cv, 'fwd')
             out, lse = na.nonlocal_attention_cuda(q, k, v)
             torch.cuda.synchronize()
             want, want_lse = na.nonlocal_attention_fwd_lse_reference(
                 q.float(), k.float(), v.float())
-            err = (out.float() - want).abs().max().item()
-            err_rel = err / want.abs().max().item()
-            err_lse = (lse - want_lse).abs().max().item()
+            err, err_rel, err_lse = fwd_errors(out, lse, want, want_lse)
             tol, tol_lse = TOL[dname]
             tol_rel = TOL_REL_BF16 if dt == torch.bfloat16 else float('inf')
             line = (f'{name:10s} {dname:8s} B={b} N={n} Nk={nk} C={c} '
                     f'Cv={cv} [{kernel}]: max|out-plain|={err:.3e} (tol '
                     f'{tol:g}), /max|plain| {err_rel:.3e} (tol {tol_rel:g}), '
                     f'max|lse-plain|={err_lse:.3e} (tol {tol_lse:g})')
+            earlier = (dt == torch.bfloat16 and name in ('layer2', 'layer3')
+                       and kernel != 'mma_sync')
+            errs_m = (0.0, 0.0, 0.0)
+            if earlier:
+                # the mma.sync kernel that wgmma replaced, at its tolerances
+                out_m, lse_m = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
+                errs_m = fwd_errors(out_m, lse_m, want, want_lse)
+                del out_m, lse_m
+                line += (f'\n    the mma.sync kernel: max|out-plain|='
+                         f'{errs_m[0]:.3e}, /max|plain| {errs_m[1]:.3e}, '
+                         f'max|lse-plain|={errs_m[2]:.3e}')
             del want, want_lse
             if dt == torch.bfloat16 or name in ('layer2', 'layer3'):
                 ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
@@ -318,7 +345,7 @@ def kernel_vs_plain(na, torch):
                                                       dname)['fwd']
                 line += (f', scaled_dot_product_attention {fmt_ms(lib_ms)} '
                          f'({backend}), bound {bound_ms:.4f} ms ({bound_by})')
-                if name == 'layer2':
+                if earlier:
                     earlier_ms = median_ms(lambda: na._launch_fwd(
                         q, k, v, 1.0, 'mma_sync'))
                     hosts = (host_us(lambda: na.nonlocal_attention_cuda(
@@ -328,18 +355,22 @@ def kernel_vs_plain(na, torch):
                     line += (f'; the mma.sync kernel {earlier_ms:.3f} ms; '
                              f'host per call {hosts[0]:.1f} us ({kernel}), '
                              f'{hosts[1]:.1f} us (mma.sync)')
-                    result = {'kernel': kernel, 'max_abs_err': err, 'ms': ms,
-                              'plain_ms': plain_ms, 'library_ms': lib_ms,
-                              'library': f'scaled_dot_product_attention '
-                                         f'({backend})',
-                              'bound_ms': bound_ms, 'bound_by': bound_by,
-                              'earlier_ms': earlier_ms,
-                              'earlier': 'mma.sync kernel (PR 1), same run',
-                              'host_us': hosts[0],
-                              'earlier_host_us': hosts[1]}
+                    result[name] = {
+                        'kernel': kernel, 'max_abs_err': err, 'ms': ms,
+                        'plain_ms': plain_ms, 'library_ms': lib_ms,
+                        'library': f'scaled_dot_product_attention '
+                                   f'({backend})',
+                        'bound_ms': bound_ms, 'bound_by': bound_by,
+                        'earlier_ms': earlier_ms,
+                        'earlier': 'mma.sync kernel, same run',
+                        'host_us': hosts[0], 'earlier_host_us': hosts[1]}
             print(line, flush=True)
             check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
                   f'kernel disagrees with the plain version: {line}')
+            check(errs_m[0] <= tol and errs_m[1] <= tol_rel
+                  and errs_m[2] <= tol_lse,
+                  f'the mma.sync kernel disagrees with the plain version: '
+                  f'{line}')
             del q, k, v, out, lse
             torch.cuda.empty_cache()
     return result
@@ -420,8 +451,10 @@ def main_path(pretorched, na, torch, np):
           f"{summary['steps']} forwards")
     check(dq_dkv == (0, 0), f'the eval run launched backward kernels {dq_dkv}')
     eval_by_kernel = kernel_counts(na)
-    print(f'eval run, K1-fwd launches by kernel: {eval_by_kernel}')
-    expect_kernels(na, EVAL_KERNELS, summary['steps'], 'eval run')
+    eval_layer3 = expect_kernels(na, EVAL_KERNELS, summary['steps'],
+                                 'eval run')[0]
+    print(f'eval run, K1-fwd launches by program: {eval_by_kernel} (layer '
+          f'3 on wgmma_wide)')
     check(totals['count'] == 4 and 0 <= totals['top1'] <= totals['top5'] <= 4
           and np.isfinite(totals['loss']), f'bad eval totals {totals}')
 
@@ -466,17 +499,19 @@ def main_path(pretorched, na, torch, np):
             finally:
                 nonlocalnet.auto_nonlocal_attention = orig
 
-        # the bf16 model through the wgmma kernel (layer 2) against the same
-        # model with the mma.sync kernel there and with the plain attention
+        # the bf16 model through the wgmma kernels (layers 2 and 3) against
+        # the same model with the mma.sync kernel there and with the plain
+        # attention
         logits_mma = with_attention(
             lambda q, k, v: na._launch_fwd(q, k, v, 1.0, 'mma_sync')[0])
         logits_pb = with_attention(na.nonlocal_attention_reference)
         rel_wp, rel_mp = rel_l2(logits_bf16, logits_pb), rel_l2(logits_mma,
                                                                 logits_pb)
         print(f'bf16 logits, rel L2 to the bf16 model with plain attention: '
-              f'wgmma at layer 2 {rel_wp:.3e} (tol {TOL_LOGITS_BF16:g} and '
-              f'2x mma.sync\'s), mma.sync there {rel_mp:.3e}; wgmma vs '
-              f'mma.sync {rel_l2(logits_bf16, logits_mma):.3e}', flush=True)
+              f'wgmma at layers 2 and 3 {rel_wp:.3e} (tol '
+              f'{TOL_LOGITS_BF16:g} and 2x mma.sync\'s), mma.sync there '
+              f'{rel_mp:.3e}; wgmma vs mma.sync '
+              f'{rel_l2(logits_bf16, logits_mma):.3e}', flush=True)
         check(rel_wp <= min(TOL_LOGITS_BF16, 2 * rel_mp),
               f'bf16 logits through wgmma off the plain attention: {rel_wp}')
         model.float()
@@ -495,16 +530,18 @@ def main_path(pretorched, na, torch, np):
         print(f'zeroing the 5 W.1 scales moves the f32 logits by rel L2 '
               f'{moved:.3e}')
         check(moved > 1e-2, 'the logits do not depend on the attention')
-    return launches, eval_by_kernel, cli
+    return launches, eval_by_kernel, eval_layer3, cli
 
 
 def backward_vs_plain(na, torch):
     """Phase 5: K1-dq and K1-dkv at every case in both dtypes, with the
     kernels the dispatch picks; bf16 cases timed with their bounds and
-    SDPA's backward, layer 2 also on the generic K1-dq and K1-dkv that wgmma
-    replaced. Returns the layer-2 bf16 numbers."""
+    SDPA's backward, K1-dkv repeated (bitwise), layer 2 also on the generic
+    K1-dq and K1-dkv that wgmma replaced, layer 3 on the generic K1-dkv that
+    the wide wgmma program replaced. Returns the bf16 numbers of layer 2
+    (dq, dkv) and layer 3 (dkv)."""
     g = torch.Generator(device='cuda').manual_seed(1)
-    result = None
+    result = {}
     for name, (b, n, nk, c, cv) in TRAIN_SHAPES.items():
         for dt in (torch.float32, torch.bfloat16):
             dname = str(dt).split('.')[-1]
@@ -523,15 +560,23 @@ def backward_vs_plain(na, torch):
             for gr, w in zip(got, want):
                 errs.append((gr.float() - w).abs().max().item())
                 rels.append(errs[-1] / w.abs().max().item())
-            del want
             tol = TOL_BWD[dname]
-            kernel = na.attention_kernel(dt, c, cv)
+            generic_rel = 0.0
+            dq_kernel = na.attention_kernel(dt, c, cv, 'dq')
+            kernel = na.attention_kernel(dt, c, cv, 'dkv')
             line = (f'{name:10s} {dname:8s} B={b} N={n} Nk={nk} C={c} '
-                    f'Cv={cv} [dq, dkv {kernel}]: max|d-plain|/max|d| dq '
-                    f'{rels[0]:.2e}, dk {rels[1]:.2e}, dv {rels[2]:.2e} (tol '
-                    f'{tol:g})')
+                    f'Cv={cv} [dq {dq_kernel}, dkv {kernel}]: '
+                    f'max|d-plain|/max|d| dq {rels[0]:.2e}, dk {rels[1]:.2e}, '
+                    f'dv {rels[2]:.2e} (tol {tol:g})')
             if dt == torch.bfloat16:
                 delta = (do.float() * out.float()).sum(-1)
+                again = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse,
+                                                           delta)
+                same = (torch.equal(again[0], got[1])
+                        and torch.equal(again[1], got[2]))
+                del again
+                line += f'; dk, dv of a second run bitwise equal: {same}'
+                check(same, f'K1-dkv ({kernel}) does not repeat at {name}')
                 dq_ms = median_ms(lambda: na.nonlocal_attention_bwd_dq_cuda(
                     q, k, v, do, lse, delta))
                 dkv_ms = median_ms(lambda: na.nonlocal_attention_bwd_dkv_cuda(
@@ -555,13 +600,39 @@ def backward_vs_plain(na, torch):
                         lambda: na.nonlocal_attention_bwd_reference(
                             q, k, v, out, lse, do))
                     line += f', plain {plain_ms:.3f} ms'
-                if name == 'layer2':
+                    library = (f'scaled_dot_product_attention backward '
+                               f'({backend}; dq, dk, dv together)')
+                    plain = ('nonlocal_attention_bwd_reference (dq, dk, dv '
+                             'together)')
+                    # the generic K1-dkv that wgmma replaced, held to the
+                    # plain backward as the kernel the dispatch picks is
+                    generic = na._launch_dkv(q, k, v, do, lse, delta, 1.0,
+                                             'mma_sync')
+                    generic_rel = max(rel_to_max(gr, w)
+                                      for gr, w in zip(generic, want[1:]))
+                    del generic
+                    line += (f'; the generic K1-dkv: max|d-plain|/max|d| '
+                             f'{generic_rel:.2e}')
                     earlier_ms = median_ms(lambda: na._launch_dkv(
                         q, k, v, do, lse, delta, 1.0, 'mma_sync'))
                     hosts = (host_us(lambda: na.nonlocal_attention_bwd_dkv_cuda(
                                  q, k, v, do, lse, delta)),
                              host_us(lambda: na._launch_dkv(
                                  q, k, v, do, lse, delta, 1.0, 'mma_sync')))
+                    line += (f'; the generic mma.sync K1-dkv {earlier_ms:.3f}'
+                             f' ms; host per call dkv {hosts[0]:.1f} us '
+                             f'({kernel}), {hosts[1]:.1f} us (mma.sync)')
+                    result[name] = {'dkv': {
+                        'kernel': kernel, 'max_abs_err': max(errs[1:]),
+                        'max_rel_err': max(rels[1:]), 'ms': dkv_ms,
+                        'plain_ms': plain_ms, 'plain': plain,
+                        'library_ms': lib_ms, 'library': library,
+                        'bound_ms': bounds['dkv'][0],
+                        'bound_by': bounds['dkv'][1],
+                        'earlier_ms': earlier_ms,
+                        'earlier': 'generic mma.sync kernel, same run',
+                        'host_us': hosts[0], 'earlier_host_us': hosts[1]}}
+                if name == 'layer2':
                     dq_earlier_ms = median_ms(lambda: na._launch_dq(
                         q, k, v, do, lse, delta, 1.0, 'mma_sync'))
                     dq_hosts = (host_us(lambda: na.nonlocal_attention_bwd_dq_cuda(
@@ -575,45 +646,28 @@ def backward_vs_plain(na, torch):
                     del dq_earlier
                     line += (f'; the generic mma.sync K1-dq {dq_earlier_ms:.3f}'
                              f' ms (max|wgmma-generic|/max|generic| '
-                             f'{dq_ab:.2e}), K1-dkv {earlier_ms:.3f} ms; host '
-                             f'per call dq {dq_hosts[0]:.1f} us ({kernel}), '
-                             f'{dq_hosts[1]:.1f} us (mma.sync), dkv '
-                             f'{hosts[0]:.1f} us ({kernel}), {hosts[1]:.1f} us '
-                             f'(mma.sync)')
+                             f'{dq_ab:.2e}); host per call dq '
+                             f'{dq_hosts[0]:.1f} us ({dq_kernel}), '
+                             f'{dq_hosts[1]:.1f} us (mma.sync)')
                     check(dq_ab <= TOL_BWD[dname],
                           f'K1-dq wgmma and generic disagree: {dq_ab}')
-                    library = (f'scaled_dot_product_attention backward '
-                               f'({backend}; dq, dk, dv together)')
-                    plain = ('nonlocal_attention_bwd_reference (dq, dk, dv '
-                             'together)')
-                    result = {
-                        'dq': {'kernel': kernel, 'max_abs_err': errs[0],
-                               'max_rel_err': rels[0], 'ms': dq_ms,
-                               'plain_ms': plain_ms, 'plain': plain,
-                               'library_ms': lib_ms, 'library': library,
-                               'bound_ms': bounds['dq'][0],
-                               'bound_by': bounds['dq'][1],
-                               'earlier_ms': dq_earlier_ms,
-                               'earlier': 'generic mma.sync kernel, same run',
-                               'host_us': dq_hosts[0],
-                               'earlier_host_us': dq_hosts[1]},
-                        'dkv': {'kernel': kernel,
-                                'max_abs_err': max(errs[1:]),
-                                'max_rel_err': max(rels[1:]),
-                                'ms': dkv_ms, 'plain_ms': plain_ms,
-                                'plain': plain, 'library_ms': lib_ms,
-                                'library': library,
-                                'bound_ms': bounds['dkv'][0],
-                                'bound_by': bounds['dkv'][1],
-                                'earlier_ms': earlier_ms,
-                                'earlier': 'generic mma.sync kernel (PR 2), '
-                                           'same run',
-                                'host_us': hosts[0],
-                                'earlier_host_us': hosts[1]}}
+                    result[name]['dq'] = {
+                        'kernel': dq_kernel, 'max_abs_err': errs[0],
+                        'max_rel_err': rels[0], 'ms': dq_ms,
+                        'plain_ms': plain_ms, 'plain': plain,
+                        'library_ms': lib_ms, 'library': library,
+                        'bound_ms': bounds['dq'][0],
+                        'bound_by': bounds['dq'][1],
+                        'earlier_ms': dq_earlier_ms,
+                        'earlier': 'generic mma.sync kernel, same run',
+                        'host_us': dq_hosts[0],
+                        'earlier_host_us': dq_hosts[1]}
             print(line, flush=True)
             check(max(rels) <= tol,
                   f'backward kernels disagree with the plain version: {line}')
-            del q, k, v, do, out, lse, got
+            check(generic_rel <= tol, f'the generic K1-dkv disagrees with '
+                  f'the plain backward: {line}')
+            del q, k, v, do, out, lse, got, want
             torch.cuda.empty_cache()
     return result
 
@@ -628,12 +682,12 @@ def set_counts(na, value):
     for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
                na.nonlocal_attention_bwd_dkv_cuda):
         fn.launches = value
-        fn.by_kernel = dict.fromkeys(na.KERNELS, value)
+        fn.by_kernel = dict.fromkeys(na.PROGRAMS, value)
 
 
 def kernel_counts(na):
-    """K1-fwd's, K1-dq's and K1-dkv's launches by kernel, e.g.
-    {'fwd wgmma': 2}."""
+    """K1-fwd's, K1-dq's and K1-dkv's launches by program, e.g.
+    {'fwd wgmma': 2, 'fwd wgmma_wide': 3}."""
     return {f'{name} {kernel}': n
             for name, fn in (('fwd', na.nonlocal_attention_cuda),
                              ('dq', na.nonlocal_attention_bwd_dq_cuda),
@@ -642,11 +696,13 @@ def kernel_counts(na):
 
 
 def expect_kernels(na, per_pass, passes, what):
-    """Each pass launched the kernels of ``per_pass`` ({'fwd wgmma': 2, ...})
-    and no other K1 kernel."""
+    """Each pass launched the programs of ``per_pass`` ({'fwd wgmma': 2,
+    ...}) and no other K1 program. Returns the launches of the wide
+    programs, layer 3's (fwd, dkv)."""
     got = kernel_counts(na)
     want = {k: n * passes for k, n in per_pass.items()}
-    check(got == want, f'{what}: launches by kernel {got}, expected {want}')
+    check(got == want, f'{what}: launches by program {got}, expected {want}')
+    return got.get('fwd wgmma_wide', 0), got.get('dkv wgmma_wide', 0)
 
 
 def train_batch(cli, settings, torch):
@@ -713,14 +769,17 @@ def profile_step(step, x, labels, torch):
     attn = {k: v / 1e3 for k, v in by_name.items()
             if 'nonlocal_attention' in k}
     dq = sum(v for k, v in attn.items() if 'bwd_dq_wgmma' in k)
+    fwd3 = sum(v for k, v in attn.items() if 'fwd_wide' in k)
+    dkv3 = sum(v for k, v in attn.items() if 'dkv_wide' in k)
     generic = sum(v for k, v in attn.items() if 'bwd_bf16_kernel' in k)
     print(f'profiled step (torch.profiler, one step after the timed ones): '
           f'{window:.1f} ms host window, {busy:.1f} ms of kernels, device '
           f'idle {max(0.0, 1 - busy / window):.1%}; attention kernels '
           f'{sum(attn.values()):.1f} ms ({sum(attn.values()) / busy:.1%}): '
-          f'K1-dq wgmma {dq:.2f} ms ({dq / busy:.1%}, 2 launches), the '
-          f'generic backward program {generic:.2f} ms (layer 3: 3 K1-dq + 3 '
-          f'K1-dkv)', flush=True)
+          f'K1-dq wgmma {dq:.2f} ms ({dq / busy:.1%}, 2 launches), at layer '
+          f'3 the wide K1-fwd {fwd3:.2f} ms and K1-dkv {dkv3:.2f} ms (3 '
+          f'launches each), the generic K1-dq {generic:.2f} ms (3 '
+          f'launches)', flush=True)
     print_families(by_name, busy, {
         'attention': ('nonlocal_attention',), 'convolution': CONV_KEYS,
         'batch norm': ('batch_norm', 'bn_fw', 'bn_bw'),
@@ -781,6 +840,7 @@ def train_path(pretorched, na, torch, np, cli):
                        [opt.state[p]['momentum_buffer'].clone()
                         for p in model.parameters()])
     launches = counts(na)
+    layer3 = expect_kernels(na, TRAIN_KERNELS, TRAIN_STEPS, 'train run')
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     step_s = sorted(times[1:])[len(times[1:]) // 2]
     step_dev = sorted(device_ms[1:])[len(device_ms[1:]) // 2]
@@ -792,7 +852,8 @@ def train_path(pretorched, na, torch, np, cli):
           f'{TRAIN_CLIPS / step_dev * 1e3:.2f} train clips/s; medians of '
           f'steps 2-{TRAIN_STEPS}; peak device memory {peak_gb:.2f} GiB; '
           f'launches fwd/dq/dkv {launches} in {TRAIN_STEPS} steps, by kernel '
-          f'{by_kernel}', flush=True)
+          f'{by_kernel}, K1-fwd and K1-dkv at layer 3 (the wide programs) '
+          f'{layer3}', flush=True)
 
     profile_step(step, x, labels, torch)
 
@@ -815,7 +876,7 @@ def train_path(pretorched, na, torch, np, cli):
           'the checkpoint did not restore exactly')
     del fresh, opt2, sched2, state, at_save, params, bufs, model, opt, x
     torch.cuda.empty_cache()
-    return launches, by_kernel
+    return launches, by_kernel, layer3
 
 
 def attention_f64(q, k, v, scale=1.0):
@@ -1481,25 +1542,40 @@ def serving_path(pretorched, na, torch, np):
             got, lse = na.nonlocal_attention_cuda(q, k, v)
             want, want_lse = na.nonlocal_attention_fwd_lse_reference(
                 q.float(), k.float(), v.float())
-            err = (got.float() - want).abs().max().item()
-            err_rel = err / want.abs().max().item()
-            err_lse = (lse - want_lse).abs().max().item()
+            err, err_rel, err_lse = fwd_errors(got, lse, want, want_lse)
             ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
             bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
                                                   'bfloat16')['fwd']
-            kernel = na.attention_kernel(torch.bfloat16, c, cv)
-            k1_batches[f'{layer} B={b}'] = {'kernel': kernel, 'ms': ms,
-                                            'bound_ms': bound_ms,
-                                            'max_abs_err': err}
+            lib_ms, backend = sdpa_ms(torch, q, k, v)
+            kernel = na.attention_kernel(torch.bfloat16, c, cv, 'fwd')
+            row = {'kernel': kernel, 'ms': ms, 'bound_ms': bound_ms,
+                   'max_abs_err': err, 'library_ms': lib_ms,
+                   'library': f'scaled_dot_product_attention ({backend})'}
+            line = (f'{ms:.3f} ms, scaled_dot_product_attention '
+                    f'{fmt_ms(lib_ms)} ({backend}), bound {bound_ms:.4f} ms '
+                    f'({bound_by})')
+            errs_m = (0.0, 0.0, 0.0)
+            if layer == 'layer3':
+                out_m, lse_m = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
+                errs_m = fwd_errors(out_m, lse_m, want, want_lse)
+                del out_m, lse_m
+                row['earlier_ms'] = median_ms(lambda: na._launch_fwd(
+                    q, k, v, 1.0, 'mma_sync'))
+                line += (f', the mma.sync kernel {row["earlier_ms"]:.3f} ms '
+                         f'(max|out-plain| {errs_m[0]:.3e}, /max|plain| '
+                         f'{errs_m[1]:.3e}, max|lse-plain| {errs_m[2]:.3e})')
+            k1_batches[f'{layer} B={b}'] = row
             tol, tol_lse = TOL['bfloat16']
             print(f'K1-fwd {layer} B={b} [{kernel}]: max|out-plain| '
                   f'{err:.3e} (tol {tol:g}), /max|plain| {err_rel:.3e} (tol '
                   f'{TOL_REL_BF16:g}), max|lse-plain| {err_lse:.3e} (tol '
-                  f'{tol_lse:g}); {ms:.3f} ms, bound {bound_ms:.4f} ms '
-                  f'({bound_by})', flush=True)
+                  f'{tol_lse:g}); {line}', flush=True)
             check(err <= tol and err_rel <= TOL_REL_BF16
                   and err_lse <= tol_lse,
                   f'K1-fwd off its plain version at {layer} B={b}')
+            check(errs_m[0] <= tol and errs_m[1] <= TOL_REL_BF16
+                  and errs_m[2] <= tol_lse, f'the mma.sync K1-fwd off its '
+                  f'plain version at {layer} B={b}')
             del q, k, v, got, lse, want, want_lse
     torch.cuda.empty_cache()
     out['k1_batches'] = k1_batches
@@ -1542,7 +1618,8 @@ def serving_path(pretorched, na, torch, np):
     check(launches[0] == 5 * dispatches[0] and launches[1:] == (0, 0),
           f'expected 5 K1-fwd launches per bucket, got {launches} for '
           f'{dispatches[0]} buckets')
-    expect_kernels(na, EVAL_KERNELS, dispatches[0], 'video server')
+    out['launches_layer3'] = expect_kernels(na, EVAL_KERNELS, dispatches[0],
+                                            'video server')[0]
     out['launches'], out['by_kernel'] = launches[0], by_kernel
     check(served.shape == (4, 400) and bool(torch.isfinite(served).all()),
           'served clip logits not finite')
@@ -1649,6 +1726,12 @@ def kernel_label(line):
     if m:
         return (f'{m.group(0)} (bf16, wgmma + TMA ring, 2 consumer '
                 'warpgroups at 240 registers, 1 producer at 24)')
+    m = re.search(r'(nonlocal_attention_(?:fwd|bwd_dkv)_wide_kernel)ILi(\d)E',
+                  line)
+    if m:
+        return (f'{m.group(1)} (bf16, wgmma + TMA, C, Cv <= 512, {m.group(2)} '
+                '64-column chunks a consumer, 2 consumer warpgroups at 240 '
+                'registers, 1 producer at 24)')
     m = re.search(r'nonlocal_attention_(?:fwd|bwd)_(?:bf16|f32)_kernel'
                   r'(?:ILi(\d+)ELb([01])E)?', line)
     if m:
@@ -1721,16 +1804,16 @@ def main():
     k1 = kernel_vs_plain(na, torch)
 
     phase('4. eval path: nonlocalresnet3d50, 10 clips x 32 frames x 224 px')
-    eval_launches, eval_by_kernel, cli = main_path(pretorched, na, torch,
-                                                   np)
+    eval_launches, eval_by_kernel, eval_layer3, cli = main_path(
+        pretorched, na, torch, np)
 
     phase('5. non-local attention backward kernels vs plain PyTorch')
     k1b = backward_vs_plain(na, torch)
 
     phase(f'6. training path: nonlocalresnet3d50, {TRAIN_STEPS} steps of '
           f'{TRAIN_CLIPS} clips x 32 frames x 224 px')
-    train_launches, train_by_kernel = train_path(pretorched, na, torch,
-                                                 np, cli)
+    train_launches, train_by_kernel, train_layer3 = train_path(
+        pretorched, na, torch, np, cli)
 
     phase('7. gradient agreement: f32 step with the kernels, with the plain '
           'attention, and in f64')
@@ -1756,30 +1839,52 @@ def main():
     forward['earlier_ms'] = sum((k2[s]['earlier_ms'] or k2[s]['ms']) * n
                                 for s, n in K2_SLICE.items())
     pallas = 'pretorched_tpu/ops/pallas/nonlocal_attention.py:'
+    fwd_by_kernel = {
+        'train': {k[4:]: n for k, n in train_by_kernel.items()
+                  if k.startswith('fwd')},
+        'eval': {k[4:]: n for k, n in eval_by_kernel.items()},
+        'serving': {k[4:]: n for k, n in served['by_kernel'].items()}}
+    dkv_by_kernel = {k[4:]: n for k, n in train_by_kernel.items()
+                     if k.startswith('dkv')}
+    # the layer-3 entries: the wide wgmma programs, launched 3 times a pass
+    # ('launches': the train run's, as for the other entries; the wrapper's
+    # launches by program stand in its layer-2 entry)
+    layer3 = (' at layer 3: the wide wgmma program (wgmma_wide in the '
+              'launches_by_kernel of the wrapper\'s entry)')
     print(json.dumps({'kernels': [
         {'name': 'nonlocal_attention_fwd', 'route': 'cuda',
          'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
          'launches': train_launches[0], 'launches_eval': eval_launches,
          'launches_serving': served['launches'],
-         'launches_by_kernel': {
-             'train': {k[4:]: n for k, n in train_by_kernel.items()
-                       if k.startswith('fwd')},
-             'eval': {k[4:]: n for k, n in eval_by_kernel.items()},
-             'serving': {k[4:]: n for k, n in served['by_kernel'].items()}},
+         'launches_by_kernel': fwd_by_kernel,
          'serving_batches': served['k1_batches'],
-         **k1, 'shape': list(SLICE_SHAPES['layer2']), 'dtype': 'bfloat16'},
+         **k1['layer2'], 'shape': list(SLICE_SHAPES['layer2']),
+         'dtype': 'bfloat16'},
+        {'name': 'nonlocal_attention_fwd_wide', 'route': 'cuda',
+         'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
+         'note': 'K1-fwd' + layer3,
+         'launches': train_layer3[0], 'launches_eval': eval_layer3,
+         'launches_serving': served['launches_layer3'],
+         'serving_batches': {k: v for k, v in served['k1_batches'].items()
+                             if k.startswith('layer3')},
+         **k1['layer3'], 'shape': list(SLICE_SHAPES['layer3']),
+         'dtype': 'bfloat16'},
         {'name': 'nonlocal_attention_bwd_dq', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
-         'launches': train_launches[1], **k1b['dq'],
+         'launches': train_launches[1], **k1b['layer2']['dq'],
          'launches_by_kernel': {k[3:]: n for k, n in train_by_kernel.items()
                                 if k.startswith('dq')},
          'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
         {'name': 'nonlocal_attention_bwd_dkv', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '172',
-         'launches': train_launches[2], **k1b['dkv'],
-         'launches_by_kernel': {k[4:]: n for k, n in train_by_kernel.items()
-                                if k.startswith('dkv')},
+         'launches': train_launches[2], **k1b['layer2']['dkv'],
+         'launches_by_kernel': dkv_by_kernel,
          'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
+        {'name': 'nonlocal_attention_bwd_dkv_wide', 'route': 'cuda',
+         'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '172',
+         'note': 'K1-dkv' + layer3,
+         'launches': train_layer3[1], **k1b['layer3']['dkv'],
+         'shape': list(TRAIN_SHAPES['layer3']), 'dtype': 'bfloat16'},
         {'name': 'fused_bottleneck_tail', 'route': 'cuda',
          'source': src + 'fused_block.cu',
          'replaces': 'pretorched_tpu/ops/pallas/fused_block.py:69',

@@ -45,7 +45,10 @@
 //   once and keep whole accumulators in registers
 //   (nonlocal_attention_bwd_dq_wgmma_kernel and
 //   nonlocal_attention_bwd_dkv_wgmma_kernel below, wgmma_tiles.cuh).
-// * bf16 otherwise (layer 3's and gaussian mode's widths):
+// * K1-dkv in bf16 with C and Cv multiples of 64 up to 512, one above 256
+//   (layer 3's C = Cv = 512): a wide wgmma kernel whose blocks each take
+//   one column half of dk and dv (nonlocal_attention_bwd_dkv_wide_kernel).
+// * bf16 otherwise (K1-dq at layer 3, gaussian mode's widths):
 //   tensor cores through mma.sync.m16n8k16, warps
 //   of 16 rows (mma_tiles.cuh), fragments read by ldmatrix. X goes from the
 //   C fragments straight into the A fragments of the accumulating product,
@@ -1071,6 +1074,308 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------- bf16, Hopper: the wide K1-dkv (layer 3)
+// C and Cv multiples of 64 up to 512, one of them above 256 (the dispatch
+// in ops/cuda/nonlocal_attention.py; the train step's layer 3, (B, N, Nk,
+// C, Cv) = (8, 784, 784, 512, 512)).
+//
+// What bounds it: operations. dk and dv need 2 B N Nk (2C + 2Cv) = 20.1
+// GFLOP there, 0.0204 ms at the bf16 peak. The kernel above cannot take the
+// width: dk and dv of 64 keys would be 2 x 64 x 512 f32, 256 KB, the
+// whole register file of an SM.
+//
+// Design. A block owns (64 keys, batch item, column half h): grid
+// (ceil(Nk / 64), B, 2). With W = max(ceil(C / 128), ceil(Cv / 128))
+// 64-column chunks a half, consumer warpgroup 0 accumulates dv[:, 64 W h ..
+// 64 W h + 64 W) and consumer 1 dk[:, the same columns], 64 x 256 f32 (128
+// registers a thread) each at C = Cv = 512; warpgroup 2 produces (one
+// thread issues every TMA copy). The block's k and v rows stay resident;
+// q and do stream through rings of kDkvWideTq queries. Per query tile:
+//   consumer 0: s^T = k q^T over all of C (SS), p^T = exp(s^T scale -
+//     lse), zero at queries past N, handed to consumer 1 through one of
+//     two shared slots (f32, in accumulator order: each thread reads back
+//     only its own words); then dv += p^T do[:, half] (A = p^T from
+//     registers, B = do MN-major);
+//   consumer 1: dp^T = v do^T over all of Cv (SS), ds^T = p^T (dp^T -
+//     delta) scale, then dk += ds^T q[:, half].
+// s^T and dp^T are formed once per half, so over the two halves the
+// products are 1.5x the minimal ones at C = Cv, against 3.5x at 512 for
+// the generic program's 128-column z-chunks (each of the 8 forms s again,
+// and each dk chunk dp). No atomics: dk and dv are the same every run. Each
+// product reads W chunks of its slot whether or not they all exist (a
+// slot holds 2W chunks), so no branch guards a wgmma.
+// Shared memory, each tile a stack of swizzled 64-channel chunks
+// (wgmma_tiles.cuh): k and v 64 KB each, the q and do rings one slot of
+// 32 queries x 2W chunks each (32 KB each), the two p^T slots 16 KB: 208
+// KB at C = Cv = 512, plus barriers and 1 KB of alignment. Against a 2-slot
+// ring of 16 queries (the same bytes): s^T and dp^T at N = 16 read their
+// A operand (k, v: 2 KB a k-step) for 8 clocks of products and wait on
+// shared memory 2.5x; at N = 32, 1.5x. `tools/port_kernel_probes.py wide`
+// times both (PERF.md: one slot of 32 is the faster).
+constexpr int kDkvWideTq = 32;      // queries per ring slot
+constexpr int kDkvWideStages = 1;   // ring slots
+static_assert(kDkvWideTq * kDkvWideStages >= 32,
+              "dk and dv are staged in the q and do rings: 64 rows x 2W "
+              "chunks");
+
+template <int W>
+size_t dkv_wide_smem(int c, int cv) {
+  return 128 * (size_t)(c + cv) +
+         2 * (size_t)kDkvWideStages * (2 * W * kDkvWideTq * 128) +
+         2 * (kDkvWideTq / 2 * 128 * 4) +
+         2 * sizeof(Ring<kDkvWideStages>) + sizeof(uint64_t) +
+         1024;   // + 1024: aligning the base
+}
+
+template <int W>
+__global__ void __launch_bounds__(kWThreads, 1)
+nonlocal_attention_bwd_dkv_wide_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap,
+    const __grid_constant__ CUtensorMap dkmap,
+    const __grid_constant__ CUtensorMap dvmap, const float* __restrict__ lse,
+    const float* __restrict__ delta, int n, int nk, int c, int cv,
+    float scale) {
+  constexpr int TQ = kDkvWideTq, ST = kDkvWideStages;
+  constexpr int kSlot = 2 * W * TQ * 128;     // one q or do slot
+  constexpr int kPWords = TQ / 2 * 128;       // one p^T slot, f32
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = align1024(smem_raw);
+  unsigned char* vs = ks + 128 * c;
+  unsigned char* qr = vs + 128 * cv;       // the q ring, then the do ring
+  unsigned char* dor = qr + ST * kSlot;
+  float* pbuf = reinterpret_cast<float*>(dor + ST * kSlot);
+  Ring<ST>* qring = reinterpret_cast<Ring<ST>*>(pbuf + 2 * kPWords);
+  Ring<ST>* doring = qring + 1;
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(doring + 1);
+
+  const int nc = c / 64, nv = cv / 64;
+  const int bi = blockIdx.y;
+  const int k0 = blockIdx.x * 64;
+  const int j0 = blockIdx.z * W;           // the half's first chunk
+  const int tiles = (n + TQ - 1) / TQ;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    qring->init(kWConsumerWarps);
+    doring->init(kWConsumerWarps);
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: k and v once, then q and do tiles through the rings
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kvbar, 64 * (c + cv) * 2);
+      for (int j = 0; j < nc; ++j)
+        tma_load(ks + j * 8192, &kmap, kvbar, 64 * j, k0, bi);
+      for (int j = 0; j < nv; ++j)
+        tma_load(vs + j * 8192, &vmap, kvbar, 64 * j, k0, bi);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<ST>::slot(t);
+        qring->wait_empty(t);
+        mbar_expect_tx(&qring->full[s], TQ * c * 2);
+        for (int j = 0; j < nc; ++j)
+          tma_load(qr + s * kSlot + j * TQ * 128, &qmap, &qring->full[s],
+                   64 * j, TQ * t, bi);
+        doring->wait_empty(t);
+        mbar_expect_tx(&doring->full[s], TQ * cv * 2);
+        for (int j = 0; j < nv; ++j)
+          tma_load(dor + s * kSlot + j * TQ * 128, &domap, &doring->full[s],
+                   64 * j, TQ * t, bi);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const float sl2 = scale * kLog2e;
+    const float* lse_b = lse + (size_t)bi * n;
+    const float* delta_b = delta + (size_t)bi * n;
+
+    float acc[W][32];
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+    // Named barriers: 1 + b "p^T slot b written", 3 + b "slot b read", over
+    // both consumers (256 threads).
+    mbar_wait(kvbar, 0);
+    if (wg == 0) {
+      // ---- dv[:, half] += p^T do[:, half]
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<ST>::slot(t), b = t & 1;
+        // this thread's TQ / 4 query columns: 8 (e / 2) + 2 qd + e % 2
+        float lcol[TQ / 4];
+#pragma unroll
+        for (int e = 0; e < TQ / 4; ++e) {
+          const int col = TQ * t + 8 * (e >> 1) + 2 * qd + (e & 1);
+          lcol[e] = col < n ? lse_b[col] * kLog2e : 0.f;
+        }
+        // zeroed and pinned before the products: left undefined, ptxas
+        // defines them inside the wgmma pipeline stage and serializes every
+        // product of the kernel (C7515), 28% slower (PERF.md)
+        float st[TQ / 2] = {};
+        reg_fence(st);
+        qring->wait_full(t);
+        wgmma_fence();
+        ss_scores(st, smem_addr(ks), 8192, smem_addr(qr) + s * kSlot, nc,
+                  TQ * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(st);
+        qring->release(t);
+#pragma unroll
+        for (int i = 0; i < TQ / 2; ++i) {
+          const int e = 2 * (i >> 2) + (i & 1);
+          const int col = TQ * t + 8 * (i >> 2) + 2 * qd + (i & 1);
+          st[i] = col < n ? exp2f(st[i] * sl2 - lcol[e]) : 0.f;
+        }
+        named_sync(3 + b, 256);
+        float* pb = pbuf + b * kPWords;
+#pragma unroll
+        for (int i = 0; i < TQ / 2; ++i) pb[i * 128 + tid] = st[i];
+        named_arrive(1 + b, 256);
+        uint32_t pa[TQ / 16][4];
+#pragma unroll
+        for (int j = 0; j < TQ / 16; ++j) acc_to_a(pa[j], st, j);
+        doring->wait_full(t);
+        const uint32_t dt = smem_addr(dor) + s * kSlot + j0 * TQ * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TQ / 16; ++kk)
+          rs_chunks(acc, pa[kk], dt + kk * 16 * 128, TQ * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int j = 0; j < W; ++j) reg_fence(acc[j]);
+#pragma unroll
+        for (int j = 0; j < TQ / 16; ++j) reg_fence(pa[j]);
+        doring->release(t);
+      }
+    } else {
+      // ---- dk[:, half] += ds^T q[:, half]; both p^T slots start free
+      named_arrive(3, 256);
+      if (tiles > 1) named_arrive(4, 256);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<ST>::slot(t), b = t & 1;
+        float dcol[TQ / 4];
+#pragma unroll
+        for (int e = 0; e < TQ / 4; ++e) {
+          const int col = TQ * t + 8 * (e >> 1) + 2 * qd + (e & 1);
+          dcol[e] = col < n ? delta_b[col] : 0.f;
+        }
+        float dp[TQ / 2] = {};   // as st above
+        reg_fence(dp);
+        doring->wait_full(t);
+        wgmma_fence();
+        ss_scores(dp, smem_addr(vs), 8192, smem_addr(dor) + s * kSlot, nv,
+                  TQ * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(dp);
+        doring->release(t);
+        named_sync(1 + b, 256);
+        const float* pb = pbuf + b * kPWords;
+#pragma unroll
+        for (int i = 0; i < TQ / 2; ++i)
+          dp[i] = pb[i * 128 + tid] * (dp[i] - dcol[2 * (i >> 2) + (i & 1)]) *
+                  scale;
+        if (t + 2 < tiles) named_arrive(3 + b, 256);
+        uint32_t pa[TQ / 16][4];
+#pragma unroll
+        for (int j = 0; j < TQ / 16; ++j) acc_to_a(pa[j], dp, j);
+        qring->wait_full(t);
+        const uint32_t qt = smem_addr(qr) + s * kSlot + j0 * TQ * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TQ / 16; ++kk)
+          rs_chunks(acc, pa[kk], qt + kk * 16 * 128, TQ * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int j = 0; j < W; ++j) reg_fence(acc[j]);
+#pragma unroll
+        for (int j = 0; j < TQ / 16; ++j) reg_fence(pa[j]);
+        qring->release(t);
+      }
+    }
+
+    // ---- epilogue: dv (consumer 0) and dk (consumer 1) of this half in
+    // bf16, staged in the rings (free once both are past their last
+    // product), one TMA store per existing 64-column chunk; keys past nk
+    // are clipped by the store
+    named_sync(5, 256);
+    unsigned char* stage = qr + wg * W * 8192;
+    const int nw = wg == 0 ? nv : nc;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (j0 + j >= nw) break;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = warp * 16 + g + 8 * ((i >> 1) & 1);
+        *reinterpret_cast<uint32_t*>(
+            stage + j * 8192 + swizzled_pair(r, 8 * (i >> 2) + 2 * qd)) =
+            pack_pair(acc[j][i], acc[j][i + 1]);
+      }
+    }
+    fence_proxy_async();
+    named_sync(6 + wg, 128);
+    if (tid == 0) {
+      for (int j = 0; j < W && j0 + j < nw; ++j)
+        tma_store(wg == 0 ? &dvmap : &dkmap, stage + j * 8192, 64 * (j0 + j),
+                  k0, bi);
+      tma_store_drain();
+    }
+  }
+}
+
+template <int W>
+int launch_dkv_wide(const CUtensorMap (&maps)[6], const void* lse,
+                    const void* delta, int b, int n, int nk, int c, int cv,
+                    float scale, cudaStream_t stream) {
+  const size_t smem = dkv_wide_smem<W>(c, cv);
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(nonlocal_attention_bwd_dkv_wide_kernel<W>,
+                                     smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((nk + 63) / 64, b, 2);
+  nonlocal_attention_bwd_dkv_wide_kernel<W><<<grid, kWThreads, smem,
+                                              stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+      static_cast<const float*>(lse), static_cast<const float*>(delta), n,
+      nk, c, cv, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_wgmma_wide(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int b, int n,
+                          int nk, int c, int cv, float scale,
+                          cudaStream_t stream) {
+  if (c % 64 || cv % 64 || c > 512 || cv > 512 || (c <= 256 && cv <= 256))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[6];   // q, k, v, do, dk, dv
+  if (!make_map(&maps[0], q, b, n, c, kDkvWideTq) ||
+      !make_map(&maps[1], k, b, nk, c, 64) ||
+      !make_map(&maps[2], v, b, nk, cv, 64) ||
+      !make_map(&maps[3], dout, b, n, cv, kDkvWideTq) ||
+      !make_map(&maps[4], dk, b, nk, c, 64) ||
+      !make_map(&maps[5], dv, b, nk, cv, 64))
+    return (int)cudaErrorNotSupported;
+  // one above 256, so the half is 3 or 4 chunks
+  const int w = (c > cv ? c : cv) / 64;
+  if ((w + 1) / 2 == 3)
+    return launch_dkv_wide<3>(maps, lse, delta, b, n, nk, c, cv, scale,
+                              stream);
+  return launch_dkv_wide<4>(maps, lse, delta, b, n, nk, c, cv, scale, stream);
+}
+
 bool bad_shape(int b, int n, int nk, int c, int cv) {
   return b < 1 || n < 1 || nk < 1 || c < 1 || cv < 1 || b > 65535;
 }
@@ -1125,6 +1430,22 @@ int pt_nonlocal_attention_bwd_dkv_wgmma(const void* q, const void* k,
   if (bad_shape(b, n, nk, c, cv)) return (int)cudaErrorInvalidValue;
   return launch_dkv_wgmma(q, k, v, dout, lse, delta, dk, dv, b, n, nk, c, cv,
                           scale, static_cast<cudaStream_t>(stream));
+}
+
+// The wide bf16 wgmma kernel: the same function as
+// pt_nonlocal_attention_bwd_dkv, for C and Cv multiples of 64 up to 512 with
+// one of them above 256, and 16-byte aligned tensors (the caller's
+// dispatch picks it).
+int pt_nonlocal_attention_bwd_dkv_wgmma_wide(const void* q, const void* k,
+                                             const void* v, const void* dout,
+                                             const void* lse,
+                                             const void* delta, void* dk,
+                                             void* dv, int b, int n, int nk,
+                                             int c, int cv, float scale,
+                                             void* stream) {
+  if (bad_shape(b, n, nk, c, cv)) return (int)cudaErrorInvalidValue;
+  return launch_dkv_wgmma_wide(q, k, v, dout, lse, delta, dk, dv, b, n, nk, c,
+                               cv, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 wgmma kernel: the same function as pt_nonlocal_attention_bwd_dq,

@@ -29,8 +29,13 @@
 //   two consumer warpgroups run wgmma with the whole (64, Cv) accumulator
 //   in registers, so q k^T is formed once and q is loaded once
 //   (nonlocal_attention_fwd_wgmma_kernel below, wgmma_tiles.cuh).
-// * other bf16 shapes (layer 3's C = Cv = 512, gaussian mode's C = 1024):
-//   tensor cores through mma.sync.m16n8k16 with f32
+// * bf16 with C and Cv multiples of 64 up to 512, one above 256 (layer 3's
+//   C = Cv = 512): the wide wgmma kernel. A 64 x 512 f32 O does not fit a
+//   warpgroup's registers, so the two consumer warpgroups share 64 query
+//   rows and each owns half of O's columns; both form the same q k^T
+//   (nonlocal_attention_fwd_wide_kernel below).
+// * other bf16 shapes (gaussian mode's C = 1024, channels that are no
+//   multiple of 64): tensor cores through mma.sync.m16n8k16 with f32
 //   accumulation, four warps of 16 query rows each (the FlashAttention-2
 //   layout). The score tile stays in registers; P is rounded to bf16 for
 //   P V, as in FlashAttention. The (16, Cv) accumulator of a warp would need
@@ -582,6 +587,265 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------- bf16, Hopper: the wide forward (layer 3)
+// C and Cv multiples of 64 up to 512, one of them above 256 (the dispatch
+// in ops/cuda/nonlocal_attention.py; layer 3 of nonlocalresnet3d50, C = Cv
+// = 512, N = Nk = 784 at 32 frames x 224 px).
+//
+// What bounds it. At (B, N, Nk, C, Cv) = (20, 784, 784, 512, 512) the
+// function needs 2 B N Nk (C + Cv) = 25.2 GFLOP, 0.0255 ms at the bf16
+// peak, against 0.0071 ms for its bytes. The kernel above cannot take the
+// width: its O (64 x Cv f32) would need 256 registers a thread, and q for
+// 128 rows plus two k and two v slots 384 KB of shared memory.
+//
+// Design. A block owns (batch item, 64 queries): ceil(N / 64) x B blocks,
+// 260 at B = 20, 13 at B = 1. Warpgroup 2 produces (one thread issues every
+// TMA copy); consumer warpgroups 0 and 1 both read the same 64 query rows
+// and consumer g owns O[:, 64 W g .. 64 W g + 64 W), W = ceil(Cv / 128)
+// 64-column chunks, 64 x 256 f32 (128 registers a thread) at Cv = 512.
+// Both form the whole S = q k^T over C (the products' A = q and B = k
+// from shared memory), so the same online softmax runs in both, and each
+// multiplies P into its half of v: 1.5x the minimal products at C = Cv,
+// with no exchange and no barrier between the consumers inside the loop.
+// Shared memory, each tile a stack of swizzled 64-channel chunks
+// (wgmma_tiles.cuh):
+//   q       64 x C, loaded once                 (128 C bytes)
+//   k ring  kFwdWideStages slots of kFwdWideTk keys x C
+//   v ring  the same of kFwdWideTk keys x 2W chunks (each consumer's
+//           product reads W chunks whether or not they all exist, so no
+//           branch guards a wgmma; O's staging at the end)
+// 192 KB at C = Cv = 512 with one slot of 64 keys each: S is m64n64k16,
+// whose operands the tensor cores read from shared memory no faster than
+// they multiply them (4 KB in 32 clocks); 2 slots of 32 keys would halve
+// S's N and make it wait on shared memory (`tools/port_kernel_probes.py
+// wide` times both, PERF.md). The ragged last key tile (784 =
+// 12 x 64 + 16) reads zeros past Nk, masked at -1e30; the last query band
+// reads zeros, and its rows past N are clipped by the TMA store. lse is
+// written once per row, by consumer 0.
+constexpr int kFwdWideTk = 64;      // keys per ring slot
+constexpr int kFwdWideStages = 1;   // ring slots
+static_assert(kFwdWideTk * kFwdWideStages >= 64,
+              "O is staged in the v ring: 64 rows x 2W chunks");
+
+template <int W>
+size_t fwd_wide_smem(int c) {
+  return 128 * (size_t)c +
+         (size_t)kFwdWideStages * kFwdWideTk * (2 * c + 2 * W * 128) +
+         2 * sizeof(Ring<kFwdWideStages>) + sizeof(uint64_t) + 1024;
+}
+
+template <int W>
+__global__ void __launch_bounds__(kWThreads, 1)
+nonlocal_attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                                   const __grid_constant__ CUtensorMap kmap,
+                                   const __grid_constant__ CUtensorMap vmap,
+                                   const __grid_constant__ CUtensorMap omap,
+                                   float* __restrict__ lse, int n, int nk,
+                                   int c, int cv, float scale) {
+  constexpr int TK = kFwdWideTk, ST = kFwdWideStages;
+  constexpr int kVSlot = 2 * W * TK * 128;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* ks = qs + 128 * c;
+  unsigned char* vs = ks + ST * TK * 2 * c;
+  Ring<ST>* kring = reinterpret_cast<Ring<ST>*>(vs + ST * kVSlot);
+  Ring<ST>* vring = kring + 1;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(vring + 1);
+
+  const int nc = c / 64, nv = cv / 64;
+  const int bi = blockIdx.y;
+  const int q0 = blockIdx.x * 64;
+  const int tiles = (nk + TK - 1) / TK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    kring->init(kWConsumerWarps);
+    vring->init(kWConsumerWarps);
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: q once, then k and v tiles through the rings
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, 64 * c * 2);
+      for (int j = 0; j < nc; ++j)
+        tma_load(qs + j * 8192, &qmap, qbar, 64 * j, q0, bi);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<ST>::slot(t);
+        kring->wait_empty(t);
+        mbar_expect_tx(&kring->full[s], TK * c * 2);
+        for (int j = 0; j < nc; ++j)
+          tma_load(ks + s * TK * 2 * c + j * TK * 128, &kmap, &kring->full[s],
+                   64 * j, t * TK, bi);
+        vring->wait_empty(t);
+        mbar_expect_tx(&vring->full[s], TK * cv * 2);
+        for (int j = 0; j < nv; ++j)
+          tma_load(vs + s * kVSlot + j * TK * 128, &vmap, &vring->full[s],
+                   64 * j, t * TK, bi);
+      }
+    }
+  } else {
+    // ---- consumers: the same 64 query rows, W chunks of O each
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const float sl2 = scale * kLog2e;   // scores in log2 units
+    const int j0 = wg * W;              // this consumer's first O chunk
+
+    float o[W][32];
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
+    float m_i[2] = {kNegInf, kNegInf};
+    float l_i[2] = {0.f, 0.f};
+
+    mbar_wait(qbar, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = Ring<ST>::slot(t);
+      // ---- S = q k^T over all of C
+      float sc[TK / 2];
+      kring->wait_full(t);
+      wgmma_fence();
+      ss_scores(sc, smem_addr(qs), 8192, smem_addr(ks) + s * TK * 2 * c, nc,
+                TK * 128);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+      kring->release(t);
+
+      // ---- online softmax; keys past nk (zero-filled) are masked
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) {
+        const int key = t * TK + 8 * (i >> 2) + 2 * qd + (i & 1);
+        sc[i] = key < nk ? sc[i] * sl2 : kNegInf;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_i[h], mx[h]);
+        alpha[h] = exp2f(m_i[h] - m_new);
+        m_i[h] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) {
+        sc[i] = exp2f(sc[i] - m_i[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l_i[h] = l_i[h] * alpha[h] + sum[h];
+      }
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[j][i] *= alpha[(i >> 1) & 1];
+      uint32_t pa[TK / 16][4];
+#pragma unroll
+      for (int j = 0; j < TK / 16; ++j) acc_to_a(pa[j], sc, j);
+
+      // ---- O[:, this consumer's chunks] += P v[:, the same chunks]
+      vring->wait_full(t);
+      const uint32_t vt = smem_addr(vs) + s * kVSlot + j0 * TK * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        rs_chunks(o, pa[kk], vt + kk * 16 * 128, TK * 128);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int j = 0; j < W; ++j) reg_fence(o[j]);
+#pragma unroll
+      for (int j = 0; j < TK / 16; ++j) reg_fence(pa[j]);
+      vring->release(t);
+    }
+
+    // ---- epilogue: O / l in bf16 through the v ring (free once both
+    // consumers are past their last product), one TMA store per existing
+    // 64-column chunk; lse in f32 from consumer 0
+    named_sync(1, 256);
+    float inv_l[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv_l[h] = 1.f / l_i[h];
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (j0 + j >= nv) break;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int h = (i >> 1) & 1;
+        const int r = warp * 16 + g + 8 * h;
+        *reinterpret_cast<uint32_t*>(
+            vs + (j0 + j) * 8192 + swizzled_pair(r, 8 * (i >> 2) + 2 * qd)) =
+            pack_pair(o[j][i] * inv_l[h], o[j][i + 1] * inv_l[h]);
+      }
+    }
+    fence_proxy_async();
+    named_sync(2 + wg, 128);
+    if (tid == 0) {
+      for (int j = j0; j < j0 + W && j < nv; ++j)
+        tma_store(&omap, vs + j * 8192, 64 * j, q0, bi);
+      tma_store_drain();
+    }
+    if (wg == 0 && qd == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = q0 + warp * 16 + g + 8 * h;
+        if (row < n)
+          lse[(size_t)bi * n + row] = (m_i[h] + log2f(l_i[h])) * kLn2;
+      }
+    }
+  }
+}
+
+template <int W>
+int launch_fwd_wide(const CUtensorMap& qm, const CUtensorMap& km,
+                    const CUtensorMap& vm, const CUtensorMap& om, float* lse,
+                    int b, int n, int nk, int c, int cv, float scale,
+                    cudaStream_t stream) {
+  const size_t smem = fwd_wide_smem<W>(c);
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(nonlocal_attention_fwd_wide_kernel<W>,
+                                     smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + 63) / 64, b);
+  nonlocal_attention_fwd_wide_kernel<W><<<grid, kWThreads, smem, stream>>>(
+      qm, km, vm, om, lse, n, nk, c, cv, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd_wgmma_wide(const void* q, const void* k, const void* v,
+                          void* out, float* lse, int b, int n, int nk, int c,
+                          int cv, float scale, cudaStream_t stream) {
+  if (c % 64 || cv % 64 || c > 512 || cv > 512 || (c <= 256 && cv <= 256))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm, om;
+  if (!make_map(&qm, q, b, n, c, 64) ||
+      !make_map(&km, k, b, nk, c, kFwdWideTk) ||
+      !make_map(&vm, v, b, nk, cv, kFwdWideTk) ||
+      !make_map(&om, out, b, n, cv, 64))
+    return (int)cudaErrorNotSupported;
+  switch ((cv / 64 + 1) / 2) {
+    case 1: return launch_fwd_wide<1>(qm, km, vm, om, lse, b, n, nk, c, cv,
+                                      scale, stream);
+    case 2: return launch_fwd_wide<2>(qm, km, vm, om, lse, b, n, nk, c, cv,
+                                      scale, stream);
+    case 3: return launch_fwd_wide<3>(qm, km, vm, om, lse, b, n, nk, c, cv,
+                                      scale, stream);
+    default: return launch_fwd_wide<4>(qm, km, vm, om, lse, b, n, nk, c, cv,
+                                       scale, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -631,6 +895,20 @@ int pt_nonlocal_attention_fwd_wgmma(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   return launch_fwd_wgmma(q, k, v, out, static_cast<float*>(lse), b, n, nk,
                           c, cv, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The wide bf16 wgmma kernel: the same function, for C and Cv multiples of
+// 64 up to 512 with one of them above 256, and 16-byte aligned tensors
+// (the caller's dispatch picks it).
+int pt_nonlocal_attention_fwd_wgmma_wide(const void* q, const void* k,
+                                         const void* v, void* out, void* lse,
+                                         int b, int n, int nk, int c, int cv,
+                                         float scale, void* stream) {
+  if (b < 1 || n < 1 || nk < 1 || c < 1 || cv < 1 || b > 65535)
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd_wgmma_wide(q, k, v, out, static_cast<float*>(lse), b, n,
+                               nk, c, cv, scale,
+                               static_cast<cudaStream_t>(stream));
 }
 
 const char* pt_cuda_error_string(int err) {

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the warp-specialised kernels of the
-// non-local attention (K1-fwd and K1-dkv, bf16): the TMA tensor maps, the
-// mbarrier ring, the wgmma descriptors and products, and setmaxnreg.
+// non-local attention (K1-fwd, K1-dq and K1-dkv, bf16; the wide K1-fwd and
+// K1-dkv of layer 3 too): the TMA tensor maps, the mbarrier ring, the wgmma
+// descriptors and products, and setmaxnreg.
 //
 // Shared-memory tiles. Every operand tile is a stack of 64-channel chunks,
 // each chunk `rows` rows of 128 bytes (64 bf16), written by TMA with the
@@ -296,8 +297,8 @@ __device__ __forceinline__ void reg_fence(uint32_t (&d)[N]) {
 
 // d (64 x 64) = (scale_d ? d : 0) + a (64 x 16) b (16 x 64), both in
 // shared memory, K-major (tnspA = tnspB = 0)
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
-                                              uint64_t desc_b, int scale_d) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -316,6 +317,40 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 16) = (scale_d ? d : 0) + a (64 x 16) b (16 x 16), both in
+// shared memory, K-major: the score tile of 16 columns
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// the same, 64 x 32
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -417,10 +452,11 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// The A fragment of k-step j (columns 16 j .. 16 j + 15) of a 64 x 64
-// accumulator, rounded to bf16: its column tiles 2 j and 2 j + 1, packed
-// as c_to_a packs them.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&s)[32],
+// The A fragment of k-step j (columns 16 j .. 16 j + 15) of a 64 x N
+// accumulator (R = N / 2 registers), rounded to bf16: its column tiles 2 j
+// and 2 j + 1, packed as c_to_a packs them.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&s)[R],
                                          int j) {
   a[0] = pack_pair(s[8 * j + 0], s[8 * j + 1]);
   a[1] = pack_pair(s[8 * j + 2], s[8 * j + 3]);
@@ -444,17 +480,36 @@ __device__ __forceinline__ void rs_product(float (&acc)[4][32],
   }
 }
 
-// s (64 x 64) = a b^T over nc 64-channel chunks, both K-major, 64 rows
-// each: a's chunks a_stride bytes apart, b's 8192.
-__device__ __forceinline__ void ss_scores(float (&s)[32], uint32_t a,
+// acc (W 64-column chunks) += a b for one k16 step, as rs_product with nv
+// = W fixed at compile time: b's chunks lie `lbo` bytes apart (the rows of
+// the tile times 128). No branch guards a product: ptxas serializes a
+// warpgroup's wgmmas behind one (C7520).
+template <int W>
+__device__ __forceinline__ void rs_chunks(float (&acc)[W][32],
+                                          const uint32_t (&a)[4], uint32_t b,
+                                          uint32_t lbo) {
+  if constexpr (W == 4) {
+    wgmma_rs_n256(acc, a, wgmma_desc(b, lbo, 1024), 1);
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      wgmma_rs_n64(acc[j], a, wgmma_desc(b + j * lbo, 0, 1024), 1);
+  }
+}
+
+// s (64 x N, R = N / 2 registers) = a b^T over nc 64-channel chunks, both
+// K-major: a has 64 rows, its chunks a_stride bytes apart; b has N rows,
+// its chunks b_stride bytes apart (N rows times 128).
+template <int R>
+__device__ __forceinline__ void ss_scores(float (&s)[R], uint32_t a,
                                           uint32_t a_stride, uint32_t b,
-                                          int nc) {
+                                          int nc, uint32_t b_stride = 8192) {
   for (int j = 0; j < nc; ++j) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(s, wgmma_desc(a + j * a_stride + kk * 32, 16, 1024),
-                   wgmma_desc(b + j * 8192 + kk * 32, 16, 1024),
-                   (j | kk) != 0);
+      wgmma_ss(s, wgmma_desc(a + j * a_stride + kk * 32, 16, 1024),
+               wgmma_desc(b + j * b_stride + kk * 32, 16, 1024),
+               (j | kk) != 0);
   }
 }
 

@@ -109,24 +109,29 @@ def _load() -> ctypes.CDLL:
     lib.pt_nonlocal_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    lib.pt_nonlocal_attention_fwd_wgmma.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p])
+    for fn in (lib.pt_nonlocal_attention_fwd_wgmma,
+               lib.pt_nonlocal_attention_fwd_wgmma_wide):
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
     # q, k, v, do, lse, delta, then dq (dk, dv); b, n, nk, c, cv; scale,
-    # dtype, stream (the wgmma entry: no dtype)
+    # dtype, stream (the wgmma entries: no dtype)
     for fn, outs, ints in ((lib.pt_nonlocal_attention_bwd_dq, 1, 1),
                            (lib.pt_nonlocal_attention_bwd_dq_wgmma, 1, 0),
                            (lib.pt_nonlocal_attention_bwd_dkv, 2, 1),
-                           (lib.pt_nonlocal_attention_bwd_dkv_wgmma, 2, 0)):
+                           (lib.pt_nonlocal_attention_bwd_dkv_wgmma, 2, 0),
+                           (lib.pt_nonlocal_attention_bwd_dkv_wgmma_wide, 2,
+                            0)):
         fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 5
                        + [ctypes.c_float] + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
     for fn in (lib.pt_nonlocal_attention_fwd,
                lib.pt_nonlocal_attention_fwd_wgmma,
+               lib.pt_nonlocal_attention_fwd_wgmma_wide,
                lib.pt_nonlocal_attention_bwd_dq,
                lib.pt_nonlocal_attention_bwd_dq_wgmma,
                lib.pt_nonlocal_attention_bwd_dkv,
-               lib.pt_nonlocal_attention_bwd_dkv_wgmma):
+               lib.pt_nonlocal_attention_bwd_dkv_wgmma,
+               lib.pt_nonlocal_attention_bwd_dkv_wgmma_wide):
         fn.restype = ctypes.c_int
     # y1, x, w2t, a2, w3t, a3, wpt, ap, out; n, t, h, w, cm, cin, cout,
     # dtype; stream

@@ -12,12 +12,14 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   (``csrc/nonlocal_attention_bwd.cu``, replacing ``_attn_dq_kernel`` and
   ``_attn_dkv_kernel``) behind ``nonlocal_attention_bwd_dq_cuda`` and
   ``nonlocal_attention_bwd_dkv_cuda``.
-* ``attention_kernel``: the one dispatch of K1-fwd, K1-dq and K1-dkv on
-  dtype and shape: ``'wgmma'`` (bf16, C and Cv multiples of 64 up to 256:
-  Hopper's warp-specialised wgmma + TMA kernels), ``'mma_sync'`` (every
-  other bf16 shape) or ``'scalar'`` (f32). The kernel wrappers take CUDA
-  tensors only and raise on anything they do not take; each counts its
-  launches in ``.launches`` and per kernel in ``.by_kernel``.
+* ``attention_kernel``: the dispatch of K1-fwd, K1-dq and K1-dkv on dtype,
+  shape and op: ``'wgmma'`` (bf16, C and Cv multiples of 64 up to
+  ``WGMMA_MAX_WIDTH[op]``: Hopper's warp-specialised wgmma + TMA kernels;
+  K1-fwd and K1-dkv take a second, wide program past 256, layer 3's 512),
+  ``'mma_sync'`` (every other bf16 shape) or ``'scalar'`` (f32). The
+  kernel wrappers take CUDA tensors only and raise on anything they do not
+  take; each counts its launches in ``.launches`` and per program in
+  ``.by_kernel`` (``PROGRAMS``: the wide wgmma program as ``'wgmma_wide'``).
 * ``nonlocal_attention_fwd_lse_reference`` / ``nonlocal_attention_reference``
   / ``nonlocal_attention_bwd_reference``: the plain PyTorch versions, N x N
   matrices in f32.
@@ -43,29 +45,46 @@ from . import build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CV_F32 = 512  # the f32 path keeps a (64, Cv) accumulator in shared memory
 KERNELS = ('wgmma', 'mma_sync', 'scalar')
-# the wgmma kernels hold a (64, width) f32 accumulator in 128 registers a
-# thread and read 64-channel TMA boxes
-WGMMA_MAX_WIDTH = 256
+# what ``.by_kernel`` counts: the kernels, wgmma's wide program apart
+PROGRAMS = ('wgmma', 'wgmma_wide', 'mma_sync', 'scalar')
+OPS = ('fwd', 'dq', 'dkv')
+# The widest C and Cv each op's wgmma kernels take (64-channel TMA boxes).
+# A warpgroup holds a (64, 256) f32 accumulator in 128 registers a thread:
+# up to 256 one block's consumers split the rows, past it (K1-fwd, K1-dkv)
+# the columns, in the wide programs. K1-dq's wide program is not written.
+WGMMA_MAX_WIDTH = {'fwd': 512, 'dq': 256, 'dkv': 512}
+WGMMA_NARROW_WIDTH = 256
 
 
-def attention_kernel(dtype, c: int, cv: int) -> str:
-    """The kernel K1-fwd, K1-dq and K1-dkv take for this dtype and C, Cv."""
+def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
+    """The kernel ``op`` (K1-fwd, K1-dq or K1-dkv) takes for this dtype
+    and C, Cv."""
+    if op not in WGMMA_MAX_WIDTH:
+        raise ValueError(f'op {op!r} is none of {OPS}')
     if dtype not in _DTYPE_CODES:
         raise ValueError(f'dtype {dtype} not supported (float32, bfloat16)')
     if dtype == torch.float32:
         return 'scalar'
-    fits = all(w % 64 == 0 and w <= WGMMA_MAX_WIDTH for w in (c, cv))
+    fits = all(w % 64 == 0 and w <= WGMMA_MAX_WIDTH[op] for w in (c, cv))
     return 'wgmma' if fits else 'mma_sync'
 
 
-def _check_kernel(dtype, c: int, cv: int, kernel: str):
-    """``kernel`` must be the dispatch's choice, or mma_sync where that is
-    wgmma: the mma.sync kernels take every bf16 shape, so a wgmma launch can
-    be held against the kernel it replaced."""
-    chosen = attention_kernel(dtype, c, cv)
+def _check_kernel(dtype, c: int, cv: int, kernel: str, op: str):
+    """``kernel`` must be the dispatch's choice for ``op``, or mma_sync
+    where that is wgmma: the mma.sync kernels take every bf16 shape, so a
+    wgmma launch can be held against the kernel it replaced."""
+    chosen = attention_kernel(dtype, c, cv, op)
     if kernel != chosen and (kernel, chosen) != ('mma_sync', 'wgmma'):
-        raise ValueError(f'kernel {kernel!r} does not take {dtype} with '
+        raise ValueError(f'{op} kernel {kernel!r} does not take {dtype} with '
                          f'C={c}, Cv={cv} (the dispatch picks {chosen!r})')
+
+
+def _program(kernel, c, cv):
+    """The program of ``kernel`` that runs C, Cv: wgmma's wide one past
+    256 (its C entry's suffix and its key in ``.by_kernel``)."""
+    if kernel == 'wgmma' and max(c, cv) > WGMMA_NARROW_WIDTH:
+        return 'wgmma_wide'
+    return kernel
 
 
 def _no_autocast(device_type):
@@ -152,22 +171,22 @@ def _check_tma(*tensors):
                              f'{t.data_ptr():#x}')
 
 
-def _count(fn, kernel):
+def _count(fn, program):
     fn.launches += 1
-    fn.by_kernel[kernel] += 1
+    fn.by_kernel[program] += 1
 
 
 def _reset(fn):
     fn.launches = 0
-    fn.by_kernel = dict.fromkeys(KERNELS, 0)
+    fn.by_kernel = dict.fromkeys(PROGRAMS, 0)
 
 
 def nonlocal_attention_cuda(q, k, v, scale: float = 1.0):
     """Launch the forward kernel that ``attention_kernel`` picks: returns
     (out (B, N, Cv), lse (B, N) f32)."""
     _check_inputs(q, k, v)
-    return _launch_fwd(q, k, v, scale,
-                       attention_kernel(q.dtype, q.shape[2], v.shape[2]))
+    return _launch_fwd(q, k, v, scale, attention_kernel(
+        q.dtype, q.shape[2], v.shape[2], 'fwd'))
 
 
 def _launch_fwd(q, k, v, scale, kernel):
@@ -176,25 +195,21 @@ def _launch_fwd(q, k, v, scale, kernel):
     if q.dtype == torch.float32 and v.shape[2] > MAX_CV_F32:
         raise ValueError(f'Cv={v.shape[2]} > {MAX_CV_F32} does not fit the '
                          'f32 kernel\'s shared-memory accumulator')
-    lib = build.load_library()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, n, c = q.shape
-    nk, cv = v.shape[1], v.shape[2]
-    _check_kernel(q.dtype, c, cv, kernel)
+    cv = v.shape[2]
+    _check_kernel(q.dtype, c, cv, kernel, 'fwd')
     out = torch.empty((b, n, cv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    args = (*map(_ptr, (q, k, v, out, lse)), b, n, nk, c, cv, float(scale))
+    program = _program(kernel, c, cv)
     if kernel == 'wgmma':
         _check_tma(q, k, v, out)
-        entry = lib.pt_nonlocal_attention_fwd_wgmma
+        _launch(f'pt_nonlocal_attention_fwd_{program}', q, v,
+                (q, k, v, out, lse), scale)
     else:
-        entry = lib.pt_nonlocal_attention_fwd
-        args += (_DTYPE_CODES[q.dtype],)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = entry(*args, ctypes.c_void_p(stream))
-    build.check(lib, err, f'nonlocal_attention_fwd ({kernel}) launch')
-    _count(nonlocal_attention_cuda, kernel)
+        _launch('pt_nonlocal_attention_fwd', q, v, (q, k, v, out, lse), scale,
+                _DTYPE_CODES[q.dtype])
+    _count(nonlocal_attention_cuda, program)
     return out, lse
 
 
@@ -210,17 +225,18 @@ def nonlocal_attention_fwd_lse(q, k, v, scale: float = 1.0):
     return nonlocal_attention_fwd_lse_reference(q, k, v, scale)
 
 
-def _launch_bwd(entry, q, k, v, do, lse, delta, outs, scale, *dtype):
-    """Launch a backward kernel on contiguous, checked tensors; ``dtype``
-    is its code, for the entries that take one."""
+def _launch(entry, q, v, tensors, scale, *dtype):
+    """Call the C entry ``entry`` on contiguous, checked ``tensors``, the
+    shape of q and v, ``scale`` and ``dtype`` (its code, for the entries
+    that take one), on the current stream; raise on a launch error."""
     lib = build.load_library()
     b, n, c = q.shape
     nk, cv = v.shape[1], v.shape[2]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, entry)(
-            *map(_ptr, (q, k, v, do, lse, delta, *outs)), b, n, nk, c, cv,
-            float(scale), *dtype, ctypes.c_void_p(stream))
+        err = getattr(lib, entry)(*map(_ptr, tensors), b, n, nk, c, cv,
+                                  float(scale), *dtype,
+                                  ctypes.c_void_p(stream))
     build.check(lib, err, f'{entry} launch')
 
 
@@ -229,23 +245,24 @@ def nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float = 1.0):
     C) in q's dtype."""
     _check_inputs(q, k, v)
     _check_rows(q, v, do, lse, delta)
-    return _launch_dq(q, k, v, do, lse, delta, scale,
-                      attention_kernel(q.dtype, q.shape[2], v.shape[2]))
+    return _launch_dq(q, k, v, do, lse, delta, scale, attention_kernel(
+        q.dtype, q.shape[2], v.shape[2], 'dq'))
 
 
 def _launch_dq(q, k, v, do, lse, delta, scale, kernel):
     """Launch K1-dq's ``kernel`` (checked by ``_check_kernel``) on checked
     inputs and count it on ``nonlocal_attention_bwd_dq_cuda``."""
     q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
-    _check_kernel(q.dtype, q.shape[2], v.shape[2], kernel)
+    c, cv = q.shape[2], v.shape[2]
+    _check_kernel(q.dtype, c, cv, kernel, 'dq')
     dq = torch.empty_like(q)
     if kernel == 'wgmma':
         _check_tma(q, k, v, do, dq)
-        _launch_bwd('pt_nonlocal_attention_bwd_dq_wgmma', q, k, v, do, lse,
-                    delta, (dq,), scale)
+        _launch('pt_nonlocal_attention_bwd_dq_wgmma', q, v,
+                (q, k, v, do, lse, delta, dq), scale)
     else:
-        _launch_bwd('pt_nonlocal_attention_bwd_dq', q, k, v, do, lse, delta,
-                    (dq,), scale, _DTYPE_CODES[q.dtype])
+        _launch('pt_nonlocal_attention_bwd_dq', q, v,
+                (q, k, v, do, lse, delta, dq), scale, _DTYPE_CODES[q.dtype])
     _count(nonlocal_attention_bwd_dq_cuda, kernel)
     return dq
 
@@ -256,24 +273,27 @@ def nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
     C), dv (B, Nk, Cv)) in k's and v's dtype."""
     _check_inputs(q, k, v)
     _check_rows(q, v, do, lse, delta)
-    return _launch_dkv(q, k, v, do, lse, delta, scale,
-                       attention_kernel(q.dtype, q.shape[2], v.shape[2]))
+    return _launch_dkv(q, k, v, do, lse, delta, scale, attention_kernel(
+        q.dtype, q.shape[2], v.shape[2], 'dkv'))
 
 
 def _launch_dkv(q, k, v, do, lse, delta, scale, kernel):
     """Launch K1-dkv's ``kernel`` (checked by ``_check_kernel``) on checked
     inputs and count it on ``nonlocal_attention_bwd_dkv_cuda``."""
     q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
-    _check_kernel(q.dtype, q.shape[2], v.shape[2], kernel)
+    c, cv = q.shape[2], v.shape[2]
+    _check_kernel(q.dtype, c, cv, kernel, 'dkv')
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    program = _program(kernel, c, cv)
     if kernel == 'wgmma':
         _check_tma(q, k, v, do, dk, dv)
-        _launch_bwd('pt_nonlocal_attention_bwd_dkv_wgmma', q, k, v, do, lse,
-                    delta, (dk, dv), scale)
+        _launch(f'pt_nonlocal_attention_bwd_dkv_{program}', q, v,
+                (q, k, v, do, lse, delta, dk, dv), scale)
     else:
-        _launch_bwd('pt_nonlocal_attention_bwd_dkv', q, k, v, do, lse, delta,
-                    (dk, dv), scale, _DTYPE_CODES[q.dtype])
-    _count(nonlocal_attention_bwd_dkv_cuda, kernel)
+        _launch('pt_nonlocal_attention_bwd_dkv', q, v,
+                (q, k, v, do, lse, delta, dk, dv), scale,
+                _DTYPE_CODES[q.dtype])
+    _count(nonlocal_attention_bwd_dkv_cuda, program)
     return dk, dv
 
 

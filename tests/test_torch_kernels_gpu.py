@@ -1,5 +1,6 @@
 """The port's CUDA kernels (the non-local attention forward K1-fwd, its
-backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16, and
+backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16 (the
+wide programs of K1-fwd and K1-dkv at layer 3's C = Cv = 512), and
 the fused bottleneck tail K2) against their plain PyTorch versions, on a
 card.
 
@@ -241,20 +242,101 @@ def test_wgmma_dq_matches_plain(cuda, b, n, nk, c, cv):
 @pytest.mark.gpu
 def test_layer2_shapes_take_the_wgmma_kernels(cuda):
     """The non-local model's layer-2 shapes (reduced B) go to the wgmma
-    kernels and layer 3's to mma.sync, by the counters of K1-fwd, K1-dq and
-    K1-dkv."""
+    kernels; at layer 3's K1-fwd and K1-dkv take their wide wgmma programs
+    (counted as ``wgmma_wide``) and K1-dq mma.sync, by the counters of
+    K1-fwd, K1-dq and K1-dkv."""
     fns = (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
            na.nonlocal_attention_bwd_dkv_cuda)
-    for (n, c), kernel in (((6272, 256), 'wgmma'), ((784, 512), 'mma_sync')):
+    for (n, c), kernels in (((6272, 256), ('wgmma', 'wgmma', 'wgmma')),
+                            ((784, 512), ('wgmma_wide', 'mma_sync',
+                                          'wgmma_wide'))):
         q, k, v, do = _bwd_inputs(1, n, n, c, c, torch.bfloat16, cuda)
         q, k, v = (t.requires_grad_() for t in (q, k, v))
         before = [dict(fn.by_kernel) for fn in fns]
         na.auto_nonlocal_attention(q, k, v).backward(do)
         torch.cuda.synchronize()
-        for fn, was in zip(fns, before):
+        for fn, was, kernel in zip(fns, before, kernels):
             assert {key: fn.by_kernel[key] - was[key]
                     for key in fn.by_kernel} == {
-                key: int(key == kernel) for key in na.KERNELS}
+                key: int(key == kernel) for key in na.PROGRAMS}
+
+
+# (B, N, Nk, C, Cv) for the wide wgmma programs of K1-fwd and K1-dkv (bf16,
+# C and Cv multiples of 64 up to 512, one above 256): layer 3 of the slice
+# at B = 1 and 8; sub_sample's 784 x 196; ragged N and Nk with C != Cv both
+# ways (384 / 320 and 320 / 512: 3 and 4 chunks a half); one side narrow
+# (Cv = 64: consumer 1's O chunk and dv's second half do not exist; C = 64
+# with Cv = 384)
+WIDE_CASES = [
+    (1, 784, 784, 512, 512),
+    (8, 784, 784, 512, 512),
+    (2, 784, 196, 512, 512),
+    (2, 1000, 1000, 384, 320),
+    (2, 300, 200, 320, 512),
+    (1, 100, 90, 512, 64),
+    (1, 130, 250, 64, 384),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv', WIDE_CASES)
+def test_wide_wgmma_forward_matches_plain(cuda, b, n, nk, c, cv):
+    """K1-fwd's wide wgmma program against the plain version in f32 on the
+    same bf16 inputs, at the wgmma tolerances: out 2e-2, and 2e-2 of the
+    largest |out|; lse 1e-2."""
+    q, k, v, _ = _bwd_inputs(b, n, nk, c, cv, torch.bfloat16, cuda)
+    before = na.nonlocal_attention_cuda.by_kernel['wgmma_wide']
+    out, lse = na.nonlocal_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert na.nonlocal_attention_cuda.by_kernel['wgmma_wide'] == before + 1
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+        q.float(), k.float(), v.float())
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n, cv)
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
+    assert _rel_err(out, want) <= 2e-2
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv', WIDE_CASES)
+def test_wide_wgmma_dkv_matches_plain(cuda, b, n, nk, c, cv):
+    """K1-dkv's wide wgmma program against the plain backward in f32 (max
+    error within 2e-2 of the largest gradient), and bitwise the same on a
+    second run (no atomics)."""
+    q, k, v, do = _bwd_inputs(b, n, nk, c, cv, torch.bfloat16, cuda)
+    out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+    out = out.to(torch.bfloat16)
+    delta = (do.float() * out.float()).sum(-1)
+    before = na.nonlocal_attention_bwd_dkv_cuda.by_kernel['wgmma_wide']
+    dk, dv = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    again = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (na.nonlocal_attention_bwd_dkv_cuda.by_kernel['wgmma_wide']
+            == before + 2)
+    _, want_dk, want_dv = na.nonlocal_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float())
+    for g, w, x in ((dk, want_dk, k), (dv, want_dv, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+        assert _rel_err(g, w) <= 2e-2
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b', [1, 8])
+def test_wide_wgmma_agrees_with_the_mma_sync_kernels(cuda, b):
+    """At layer 3 (C = Cv = 512, N = Nk = 784) the wide wgmma programs of
+    K1-fwd and K1-dkv and the mma.sync kernels they replaced (through the
+    private launch routes) compute the same function."""
+    q, k, v, do = _bwd_inputs(b, 784, 784, 512, 512, torch.bfloat16, cuda)
+    ow, lw = na.nonlocal_attention_cuda(q, k, v)
+    om, lm = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
+    assert _rel_err(ow, om.float()) <= 2e-2
+    torch.testing.assert_close(lw, lm, rtol=0, atol=1e-2)
+    delta = (do.float() * om.float()).sum(-1)
+    gw = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lm, delta)
+    gm = na._launch_dkv(q, k, v, do, lm, delta, 1.0, 'mma_sync')
+    for a, m in zip(gw, gm):
+        assert _rel_err(a, m.float()) <= 2e-2
 
 
 @pytest.mark.gpu
@@ -291,6 +373,15 @@ def test_wgmma_kernels_refuse_misaligned_tensors(cuda):
     with pytest.raises(ValueError, match='16-byte aligned'):
         na.nonlocal_attention_bwd_dq_cuda(q, q, q, q, lse, lse)
     assert na.nonlocal_attention_bwd_dq_cuda.launches == before
+    # the wide programs too (C = 320)
+    wide = torch.randn(64 * 320 + 1, device=cuda).to(torch.bfloat16)
+    q = wide[1:].view(1, 64, 320)
+    before = na.nonlocal_attention_bwd_dkv_cuda.launches
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        na.nonlocal_attention_cuda(q, q, q)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+        na.nonlocal_attention_bwd_dkv_cuda(q, q, q, q, lse, lse)
+    assert na.nonlocal_attention_bwd_dkv_cuda.launches == before
 
 
 @pytest.mark.gpu
@@ -522,11 +613,12 @@ def test_served_bucket_shapes_match_plain(cuda, b, n, c):
     is 98 query blocks, fewer than the card's SMs), bf16 against the plain
     version in f32, at phase 3's tolerances."""
     q, k, v, _ = _bwd_inputs(b, n, n, c, c, torch.bfloat16, cuda)
-    kernel = na.attention_kernel(torch.bfloat16, c, c)
-    before = na.nonlocal_attention_cuda.by_kernel[kernel]
+    program = na._program(na.attention_kernel(torch.bfloat16, c, c, 'fwd'),
+                          c, c)
+    before = na.nonlocal_attention_cuda.by_kernel[program]
     out, lse = na.nonlocal_attention_fwd_lse(q, k, v)
     torch.cuda.synchronize()
-    assert na.nonlocal_attention_cuda.by_kernel[kernel] == before + 1
+    assert na.nonlocal_attention_cuda.by_kernel[program] == before + 1
     want, want_lse = na.nonlocal_attention_fwd_lse_reference(
         q.float(), k.float(), v.float())
     torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)

@@ -26,7 +26,8 @@ from pretorched_tpu.ops.pallas.nonlocal_attention import (
     _nonlocal_attention_fwd_lse)
 from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
 
-from test_torch_nonlocal_attention import CASES, DISPATCH, _inputs
+from test_torch_nonlocal_attention import (CASES, DISPATCH, DISPATCH_IDS,
+                                           _inputs, kernels_by_op)
 
 
 def _launches():
@@ -108,15 +109,16 @@ def test_plain_backward_keeps_bf16_dtypes():
     assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
 
 
-@pytest.mark.parametrize('dtype,c,cv,kernel', DISPATCH)
+@pytest.mark.parametrize('dtype,c,cv,kernel', DISPATCH, ids=DISPATCH_IDS)
 def test_dq_dispatch_routes_each_shape(monkeypatch, dtype, c, cv, kernel):
-    """K1-dq takes the kernel ``attention_kernel`` picks, as K1-fwd and
-    K1-dkv do: the wgmma entry (no dtype code) for bf16 with C and Cv
-    multiples of 64 up to 256, the generic entry with its dtype code
-    otherwise; the launch is counted under that kernel. The C entry is
+    """K1-dq takes the kernel ``attention_kernel`` picks for it: the wgmma
+    entry (no dtype code) for bf16 with C and Cv multiples of 64 up to 256,
+    the generic entry with its dtype code otherwise (layer 3's 512
+    included); the launch is counted under that kernel. The C entry is
     replaced by a recorder, so no card is needed."""
+    kernel = kernels_by_op(kernel)['dq']
     entries = []
-    monkeypatch.setattr(na, '_launch_bwd',
+    monkeypatch.setattr(na, '_launch',
                         lambda entry, *args: entries.append((entry, args[-1])))
     q = torch.zeros(1, 8, c, dtype=dtype)
     v = torch.zeros(1, 8, cv, dtype=dtype)
@@ -124,22 +126,22 @@ def test_dq_dispatch_routes_each_shape(monkeypatch, dtype, c, cv, kernel):
     fn = na.nonlocal_attention_bwd_dq_cuda
     before = dict(fn.by_kernel)
     dq = na._launch_dq(q, q, v, v, stats, stats, 1.0,
-                       na.attention_kernel(dtype, c, cv))
+                       na.attention_kernel(dtype, c, cv, 'dq'))
     assert dq.shape == q.shape and dq.dtype == dtype
     if kernel == 'wgmma':
         assert entries == [('pt_nonlocal_attention_bwd_dq_wgmma', 1.0)]
     else:
         assert entries == [('pt_nonlocal_attention_bwd_dq',
                             na._DTYPE_CODES[dtype])]
-    assert {k: fn.by_kernel[k] - before[k] for k in na.KERNELS} == {
-        k: int(k == kernel) for k in na.KERNELS}
+    assert {k: fn.by_kernel[k] - before[k] for k in na.PROGRAMS} == {
+        k: int(k == kernel) for k in na.PROGRAMS}
 
 
 def test_dq_private_launch_takes_mma_sync_and_refuses_the_rest(monkeypatch):
     """``_launch_dq`` runs the generic kernel at a wgmma shape (the A/B
     against the kernel wgmma replaced) and refuses any other forced
     choice; the public wrapper takes no kernel keyword."""
-    monkeypatch.setattr(na, '_launch_bwd', lambda *args: None)
+    monkeypatch.setattr(na, '_launch', lambda *args: None)
     q = torch.zeros(1, 8, 256, dtype=torch.bfloat16)
     stats = torch.zeros(1, 8)
     na._launch_dq(q, q, q, q, stats, stats, 1.0, 'mma_sync')

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Probes behind the design choices of the port's K1-dq and K2 kernels, on
-one CUDA card (``pretorched_tpu_torch``; no JAX).
+"""Probes behind the design choices of the port's K1-dq, K2 and wide K1-fwd
+and K1-dkv kernels, on one CUDA card (``pretorched_tpu_torch``; no JAX).
 
-    python3 tools/port_kernel_probes.py [k2] [dq] [lr]
+    python3 tools/port_kernel_probes.py [k2] [dq] [lr] [wide] [host]
 
 * ``k2``: builds variants of ``csrc/fused_block.cu`` (the source with one
   textual change each) into their own libraries and times the TMA kernel
@@ -18,16 +18,30 @@ one CUDA card (``pretorched_tpu_torch``; no JAX).
 * ``lr``: 12 bf16 train steps of ``chip_smoke.py``'s phase 6 (same
   fabricated checkpoint, batch and SGD) at lr 0.01 and 0.001, each with
   K1-dq on wgmma, on the generic kernel, and with the plain backward.
+* ``wide``: the wide wgmma programs of K1-fwd and K1-dkv at layer 3 (C = Cv
+  = 512, N = Nk = 784): ``base`` (one ring slot of 64 keys, of 32 queries)
+  against ``tk32x2`` (K1-fwd: 2 slots of 32 keys), ``tq16x2`` (K1-dkv: 2
+  slots of 16 queries) and ``undefined_acc`` (K1-dkv's score accumulators
+  left undefined before their products, which ptxas serializes: C7515),
+  with the largest difference from ``base``.
+* ``host``: the host time of one K1-fwd wrapper call at layer 3's widths
+  (B = 1 and 8), step by step (checks, allocation, device context and
+  stream, pointers, the C entry with its four tensor maps and launch, the
+  count), beside the mma.sync C entry's, one SDPA call's, and the CUDA-
+  event times of the wrapper's call and of the bare C entry's.
 
-Variant libraries go to ``build/probes/``. Every line names the card.
+Variant libraries go to ``build/probes/``. Every line names the card, and
+every ptxas note the kernel it is about.
 """
 
 import ctypes
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -62,6 +76,21 @@ DQ_BRANCH = """          if (j < nw)
                          wgmma_desc(kt + kk * 16 * 128 + j * 8192, 0, 1024),
                          1);"""
 DQ_VARIANTS = {'base': [], 'branch': [(DQ_NB, DQ_BRANCH)]}
+WIDE_FWD_VARIANTS = {
+    'base': [],
+    'tk32x2': [('kFwdWideTk = 64;', 'kFwdWideTk = 32;'),
+               ('kFwdWideStages = 1;', 'kFwdWideStages = 2;')]}
+WIDE_DKV_VARIANTS = {
+    'base': [],
+    'tq16x2': [('kDkvWideTq = 32;', 'kDkvWideTq = 16;'),
+               ('kDkvWideStages = 1;', 'kDkvWideStages = 2;')],
+    'undefined_acc': [
+        ('float st[TQ / 2] = {};\n        reg_fence(st);', 'float st[TQ / 2];'),
+        ('float dp[TQ / 2] = {};   // as st above\n        reg_fence(dp);',
+         'float dp[TQ / 2];')]}
+WIDE_FWD_SHAPES = [(20, 784, 784, 512, 512), (8, 784, 784, 512, 512),
+                   (1, 784, 784, 512, 512)]
+WIDE_DKV_SHAPES = [(8, 784, 784, 512, 512), (2, 784, 196, 512, 512)]
 K2_SHAPES = {'fast res2.0': (20, 32, 56, 56, 8, 8, 32, True),
              'fast res2.1-2': (20, 32, 56, 56, 32, 8, 32, False),
              'fast res3.1-3': (20, 32, 28, 28, 64, 16, 64, False),
@@ -90,6 +119,19 @@ def median_ms(fn, reps=30):
     torch.cuda.synchronize()
     times = sorted(e0.elapsed_time(e1) for e0, e1 in events)
     return times[len(times) // 2]
+
+
+def kernel_name(mangled):
+    """The kernel's name and integer template arguments in a mangled
+    symbol, e.g. 'nonlocal_attention_fwd_wide_kernel<4>'. The name follows
+    its length's digits; the file's name in the anonymous namespace does
+    not."""
+    m = re.search(r'(?<=\d)((?:nonlocal_attention|fused_bottleneck_tail)_'
+                  r'[a-z0-9_]*?kernel)((?:I(?:L[ib]\d+E)+E)?)', mangled)
+    if not m:
+        return mangled.strip(" '")
+    args = re.findall(r'L[ib](\d+)E', m.group(2))
+    return m.group(1) + (f'<{", ".join(args)}>' if args else '')
 
 
 def build_variants(source, variants, tag):
@@ -121,8 +163,9 @@ def build_variants(source, variants, tag):
             raise SystemExit(f'{tag} {name}: nvcc failed\n{log}')
         for line in log.splitlines():
             if 'Potential Performance Loss' in line:
-                print(f'  {tag} {name}: ptxas: '
-                      + line.split('Loss: ')[1].split(' in the function')[0])
+                note, _, fn = line.split('Loss: ')[1].partition(
+                    ' in the function')
+                print(f'  {tag} {name}: ptxas on {kernel_name(fn)}: {note}')
         libs[name] = ctypes.CDLL(str(OUT / tag / name / 'lib.so'))
     return libs
 
@@ -226,6 +269,79 @@ def probe_dq(smi):
         print(f'  {(b, n, nk, c, cv)} ms: ' + ', '.join(row), flush=True)
 
 
+def probe_wide(smi):
+    import torch
+    from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
+    fwd_libs = build_variants('nonlocal_attention_fwd.cu', WIDE_FWD_VARIANTS,
+                              'wide_fwd')
+    dkv_libs = build_variants('nonlocal_attention_bwd.cu', WIDE_DKV_VARIANTS,
+                              'wide_dkv')
+    for lib in fwd_libs.values():
+        lib.pt_nonlocal_attention_fwd_wgmma_wide.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p])
+    for lib in dkv_libs.values():
+        lib.pt_nonlocal_attention_bwd_dkv_wgmma_wide.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p])
+    g = torch.Generator(device='cuda').manual_seed(2)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def inputs(b, n, nk, c, cv):
+        return ((torch.randn(b, n, c, device='cuda', generator=g)
+                 / c ** 0.25).bfloat16(),
+                (torch.randn(b, nk, c, device='cuda', generator=g)
+                 / c ** 0.25).bfloat16(),
+                torch.randn(b, nk, cv, device='cuda', generator=g).bfloat16(),
+                torch.randn(b, n, cv, device='cuda', generator=g).bfloat16())
+
+    def rel(got, want):
+        return ((got.float() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    print(f'K1-fwd, wide wgmma variants, CUDA-event medians of 30 ({smi})')
+    for b, n, nk, c, cv in WIDE_FWD_SHAPES:
+        q, k, v, _ = inputs(b, n, nk, c, cv)
+        want = na.nonlocal_attention_cuda(q, k, v)[0]
+        row = []
+        for vname, lib in fwd_libs.items():
+            out = torch.empty_like(want)
+            lse = torch.empty(b, n, device='cuda')
+            ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out, lse)]
+
+            def run():
+                err = lib.pt_nonlocal_attention_fwd_wgmma_wide(
+                    *ptrs, b, n, nk, c, cv, 1.0, stream)
+                if err:
+                    raise RuntimeError(f'{vname}: CUDA error {err}')
+
+            ms = median_ms(run)
+            row.append(f'{vname} {ms:.4f} (max|d|/max {rel(out, want):.1e})')
+        print(f'  {(b, n, nk, c, cv)} ms: ' + ', '.join(row), flush=True)
+    print(f'K1-dkv, wide wgmma variants, CUDA-event medians of 30 ({smi})')
+    for b, n, nk, c, cv in WIDE_DKV_SHAPES:
+        q, k, v, do = inputs(b, n, nk, c, cv)
+        out, lse = na.nonlocal_attention_cuda(q, k, v)
+        delta = (do.float() * out.float()).sum(-1)
+        want = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+        row = []
+        for vname, lib in dkv_libs.items():
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+            ptrs = [ctypes.c_void_p(t.data_ptr())
+                    for t in (q, k, v, do, lse, delta, dk, dv)]
+
+            def run():
+                err = lib.pt_nonlocal_attention_bwd_dkv_wgmma_wide(
+                    *ptrs, b, n, nk, c, cv, 1.0, stream)
+                if err:
+                    raise RuntimeError(f'{vname}: CUDA error {err}')
+
+            ms = median_ms(run)
+            err = max(rel(dk, want[0]), rel(dv, want[1]))
+            row.append(f'{vname} {ms:.4f} (max|d|/max {err:.1e})')
+        print(f'  {(b, n, nk, c, cv)} ms: ' + ', '.join(row), flush=True)
+
+
 def probe_lr(smi):
     import numpy as np
     import torch
@@ -279,12 +395,102 @@ def probe_lr(smi):
             torch.cuda.empty_cache()
 
 
+def host_us(fn, reps=100, rounds=7):
+    """Host microseconds a call of ``fn`` takes, no synchronize inside a
+    round: the median of ``rounds`` rounds of ``reps`` calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return sorted(per)[rounds // 2]
+
+
+def probe_host(smi):
+    import types
+    import torch
+    import torch.nn.functional as F
+    from pretorched_tpu_torch.ops.cuda import build
+    from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
+    lib = build.load_library()
+    g = torch.Generator(device='cuda').manual_seed(4)
+    print(f'K1-fwd wrapper, host us a call by step (median of 7 rounds of '
+          f'100 calls, no synchronize in a round), layer 3 ({smi})')
+    for b in (1, 8):
+        n = nk = 784
+        c = cv = 512
+        q, k = ((torch.randn(b, r, c, device='cuda', generator=g)
+                 / c ** 0.25).bfloat16() for r in (n, nk))
+        v = torch.randn(b, nk, cv, device='cuda', generator=g).bfloat16()
+        out = torch.empty(b, n, cv, device='cuda', dtype=torch.bfloat16)
+        lse = torch.empty(b, n, device='cuda')
+        ptrs = list(map(na._ptr, (q, k, v, out, lse)))
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        counter = types.SimpleNamespace(
+            launches=0, by_kernel=dict.fromkeys(na.PROGRAMS, 0))
+
+        def context():
+            with torch.cuda.device(q.device):
+                return torch.cuda.current_stream(q.device).cuda_stream
+
+        def wide():
+            return lib.pt_nonlocal_attention_fwd_wgmma_wide(
+                *ptrs, b, n, nk, c, cv, 1.0, stream)
+
+        def mma_sync():
+            return lib.pt_nonlocal_attention_fwd(
+                *ptrs, b, n, nk, c, cv, 1.0, 1, stream)
+
+        steps = {
+            '_check_inputs': lambda: na._check_inputs(q, k, v),
+            'attention_kernel + _check_kernel': lambda: na._check_kernel(
+                torch.bfloat16, c, cv,
+                na.attention_kernel(torch.bfloat16, c, cv, 'fwd'), 'fwd'),
+            'contiguous x3': lambda: (q.contiguous(), k.contiguous(),
+                                      v.contiguous()),
+            'allocate out, lse': lambda: (
+                torch.empty((b, n, cv), dtype=q.dtype, device=q.device),
+                torch.empty((b, n), dtype=torch.float32, device=q.device)),
+            '_check_tma': lambda: na._check_tma(q, k, v, out),
+            'load_library': build.load_library,
+            'device context + current stream': context,
+            'pointers': lambda: list(map(na._ptr, (q, k, v, out, lse))),
+            'C entry, wide wgmma (4 maps, launch)': wide,
+            'build.check + _count': lambda: (
+                build.check(lib, 0, 'probe'), na._count(counter, 'wgmma')),
+        }
+        times = {name: host_us(fn) for name, fn in steps.items()}
+        whole = host_us(lambda: na.nonlocal_attention_cuda(q, k, v))
+        entry_mma = host_us(mma_sync)
+        q4, k4, v4 = (t[:, None] for t in (q, k, v))
+        with torch.no_grad():
+            sdpa = host_us(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, scale=1.0))
+            sdpa_ms = median_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, scale=1.0))
+        call_ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
+        entry_ms = median_ms(wide)
+        print(f'  B={b}: the wrapper call {whole:.1f} us; by step: '
+              + ', '.join(f'{k} {t:.1f}' for k, t in times.items())
+              + f' (sum {sum(times.values()):.1f}); the mma.sync C entry '
+              f'{entry_mma:.1f} us; one SDPA call {sdpa:.1f} us', flush=True)
+        print(f'  B={b}, CUDA events (median of 30): the wrapper call '
+              f'{call_ms:.4f} ms, the bare wide C entry {entry_ms:.4f} ms, '
+              f'SDPA {sdpa_ms:.4f} ms', flush=True)
+
+
 def main(argv):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('port_kernel_probes: no CUDA card')
     smi = card()
-    probes = {'k2': probe_k2, 'dq': probe_dq, 'lr': probe_lr}
+    probes = {'k2': probe_k2, 'dq': probe_dq, 'lr': probe_lr,
+              'wide': probe_wide, 'host': probe_host}
     for name in argv or list(probes):
         probes[name](smi)
 
