@@ -27,19 +27,18 @@ Drives the port's main path once on one CUDA card and checks it:
    kernel family;
 5. the backward kernels (K1-dq, K1-dkv) against the plain backward at the
    training path's shapes, in f32 and bf16, with the same times per bf16
-   shape and, at layer 2, the generic K1-dq and K1-dkv that wgmma replaced
-   (time and host time per call; K1-dq's two outputs held together), at
-   layer 3 the generic K1-dkv that the wide wgmma program replaced (the
-   generic K1-dkv held to the plain backward at both); K1-dkv must repeat
-   bitwise at every bf16 shape;
+   shape and, at layers 2 and 3, the generic K1-dq and K1-dkv that wgmma
+   (at layer 3 its wide programs) replaced: time and host time per call,
+   each generic kernel held to the plain backward, K1-dq's two outputs
+   held together; K1-dq and K1-dkv must repeat bitwise at every bf16
+   shape;
 6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
    ``remat=(0,)``, SGD, 12 steps of 8 clips x 32 frames x 224 px; it checks
-   15 attention launches a step (5 forward and 5 dkv on wgmma, 3 of each on
-   the wide program; 5 dq, at layer 2 on wgmma, at layer 3 on mma.sync)
-   and a finite loss, prints each step's host time and device time (CUDA
-   events around the step) and their medians over steps 2-12, clips/s and
-   peak memory, profiles one more
-   step (device time by kernel family, K1-dq's share, idle share), and
+   15 attention launches a step (5 forward, 5 dq and 5 dkv on wgmma, 3 of
+   each on the wide program) and a finite loss, prints each step's host
+   time and device time (CUDA events around the step) and their medians
+   over steps 2-12, clips/s and peak memory, profiles one more step
+   (device time by kernel family, each K1 program's, idle share), and
    saves a checkpoint after step 3 that must restore exactly;
 7. gradient agreement: each non-local block's gradients with the kernels
    against those with the plain attention, and one step's loss and
@@ -132,9 +131,9 @@ TRAIN_SHAPES = {            # (B, N, Nk, C, Cv): 8 clips a step
 # K1 launches by program a pass (the dispatch of
 # ops/cuda/nonlocal_attention.py): layer 2 (C = Cv = 256, 2 blocks) on
 # wgmma; layer 3 (C = Cv = 512, 3 blocks) on the wide wgmma programs of
-# K1-fwd and K1-dkv (wgmma_wide), K1-dq on mma.sync
+# K1-fwd, K1-dq and K1-dkv (wgmma_wide)
 EVAL_KERNELS = {'fwd wgmma': 2, 'fwd wgmma_wide': 3}
-TRAIN_KERNELS = {**EVAL_KERNELS, 'dq wgmma': 2, 'dq mma_sync': 3,
+TRAIN_KERNELS = {**EVAL_KERNELS, 'dq wgmma': 2, 'dq wgmma_wide': 3,
                  'dkv wgmma': 2, 'dkv wgmma_wide': 3}
 # max |grad - plain| / max |plain grad|: f32 sums in another order; bf16
 # rounds p and ds for the products and stores bf16
@@ -536,10 +535,10 @@ def main_path(pretorched, na, torch, np):
 def backward_vs_plain(na, torch):
     """Phase 5: K1-dq and K1-dkv at every case in both dtypes, with the
     kernels the dispatch picks; bf16 cases timed with their bounds and
-    SDPA's backward, K1-dkv repeated (bitwise), layer 2 also on the generic
-    K1-dq and K1-dkv that wgmma replaced, layer 3 on the generic K1-dkv that
-    the wide wgmma program replaced. Returns the bf16 numbers of layer 2
-    (dq, dkv) and layer 3 (dkv)."""
+    SDPA's backward, K1-dq and K1-dkv repeated (bitwise), layers 2 and 3
+    also on the generic K1-dq and K1-dkv that wgmma (at layer 3 its wide
+    programs) replaced, each held to the plain backward. Returns the bf16
+    numbers of layers 2 and 3 (dq, dkv)."""
     g = torch.Generator(device='cuda').manual_seed(1)
     result = {}
     for name, (b, n, nk, c, cv) in TRAIN_SHAPES.items():
@@ -575,8 +574,13 @@ def backward_vs_plain(na, torch):
                 same = (torch.equal(again[0], got[1])
                         and torch.equal(again[1], got[2]))
                 del again
-                line += f'; dk, dv of a second run bitwise equal: {same}'
+                same_dq = torch.equal(na.nonlocal_attention_bwd_dq_cuda(
+                    q, k, v, do, lse, delta), got[0])
+                line += (f'; a second run bitwise equal: dk, dv {same}, dq '
+                         f'{same_dq}')
                 check(same, f'K1-dkv ({kernel}) does not repeat at {name}')
+                check(same_dq, f'K1-dq ({dq_kernel}) does not repeat at '
+                      f'{name}')
                 dq_ms = median_ms(lambda: na.nonlocal_attention_bwd_dq_cuda(
                     q, k, v, do, lse, delta))
                 dkv_ms = median_ms(lambda: na.nonlocal_attention_bwd_dkv_cuda(
@@ -632,7 +636,8 @@ def backward_vs_plain(na, torch):
                         'earlier_ms': earlier_ms,
                         'earlier': 'generic mma.sync kernel, same run',
                         'host_us': hosts[0], 'earlier_host_us': hosts[1]}}
-                if name == 'layer2':
+                    # the generic K1-dq that wgmma replaced: held to the
+                    # plain backward and to the kernel the dispatch picks
                     dq_earlier_ms = median_ms(lambda: na._launch_dq(
                         q, k, v, do, lse, delta, 1.0, 'mma_sync'))
                     dq_hosts = (host_us(lambda: na.nonlocal_attention_bwd_dq_cuda(
@@ -643,9 +648,12 @@ def backward_vs_plain(na, torch):
                                                'mma_sync')
                     dq_ab = ((got[0].float() - dq_earlier.float()).abs().max()
                              / dq_earlier.float().abs().max()).item()
+                    dq_generic_rel = rel_to_max(dq_earlier, want[0])
+                    generic_rel = max(generic_rel, dq_generic_rel)
                     del dq_earlier
                     line += (f'; the generic mma.sync K1-dq {dq_earlier_ms:.3f}'
-                             f' ms (max|wgmma-generic|/max|generic| '
+                             f' ms (max|d-plain|/max|d| {dq_generic_rel:.2e},'
+                             f' max|wgmma-generic|/max|generic| '
                              f'{dq_ab:.2e}); host per call dq '
                              f'{dq_hosts[0]:.1f} us ({dq_kernel}), '
                              f'{dq_hosts[1]:.1f} us (mma.sync)')
@@ -665,8 +673,8 @@ def backward_vs_plain(na, torch):
             print(line, flush=True)
             check(max(rels) <= tol,
                   f'backward kernels disagree with the plain version: {line}')
-            check(generic_rel <= tol, f'the generic K1-dkv disagrees with '
-                  f'the plain backward: {line}')
+            check(generic_rel <= tol, f'the generic K1-dq or K1-dkv '
+                  f'disagrees with the plain backward: {line}')
             del q, k, v, do, out, lse, got, want
             torch.cuda.empty_cache()
     return result
@@ -698,11 +706,11 @@ def kernel_counts(na):
 def expect_kernels(na, per_pass, passes, what):
     """Each pass launched the programs of ``per_pass`` ({'fwd wgmma': 2,
     ...}) and no other K1 program. Returns the launches of the wide
-    programs, layer 3's (fwd, dkv)."""
+    programs, layer 3's (fwd, dq, dkv)."""
     got = kernel_counts(na)
     want = {k: n * passes for k, n in per_pass.items()}
     check(got == want, f'{what}: launches by program {got}, expected {want}')
-    return got.get('fwd wgmma_wide', 0), got.get('dkv wgmma_wide', 0)
+    return tuple(got.get(f'{op} wgmma_wide', 0) for op in na.OPS)
 
 
 def train_batch(cli, settings, torch):
@@ -768,18 +776,21 @@ def profile_step(step, x, labels, torch):
         return
     attn = {k: v / 1e3 for k, v in by_name.items()
             if 'nonlocal_attention' in k}
-    dq = sum(v for k, v in attn.items() if 'bwd_dq_wgmma' in k)
-    fwd3 = sum(v for k, v in attn.items() if 'fwd_wide' in k)
-    dkv3 = sum(v for k, v in attn.items() if 'dkv_wide' in k)
-    generic = sum(v for k, v in attn.items() if 'bwd_bf16_kernel' in k)
+
+    def ms(key):
+        return sum(v for k, v in attn.items() if key in k)
+
+    generic = ms('bwd_bf16_kernel')
     print(f'profiled step (torch.profiler, one step after the timed ones): '
           f'{window:.1f} ms host window, {busy:.1f} ms of kernels, device '
           f'idle {max(0.0, 1 - busy / window):.1%}; attention kernels '
           f'{sum(attn.values()):.1f} ms ({sum(attn.values()) / busy:.1%}): '
-          f'K1-dq wgmma {dq:.2f} ms ({dq / busy:.1%}, 2 launches), at layer '
-          f'3 the wide K1-fwd {fwd3:.2f} ms and K1-dkv {dkv3:.2f} ms (3 '
-          f'launches each), the generic K1-dq {generic:.2f} ms (3 '
-          f'launches)', flush=True)
+          f'at layer 2 K1-fwd {ms("fwd_wgmma"):.2f} ms, K1-dq '
+          f'{ms("dq_wgmma"):.2f} ms, K1-dkv {ms("dkv_wgmma"):.2f} ms (2 '
+          f'launches each), at layer 3 the wide K1-fwd {ms("fwd_wide"):.2f} '
+          f'ms, K1-dq {ms("dq_wide"):.2f} ms and K1-dkv {ms("dkv_wide"):.2f} '
+          f'ms (3 launches each), the generic programs {generic:.2f} ms (no '
+          f'launch expected)', flush=True)
     print_families(by_name, busy, {
         'attention': ('nonlocal_attention',), 'convolution': CONV_KEYS,
         'batch norm': ('batch_norm', 'bn_fw', 'bn_bw'),
@@ -852,8 +863,8 @@ def train_path(pretorched, na, torch, np, cli):
           f'{TRAIN_CLIPS / step_dev * 1e3:.2f} train clips/s; medians of '
           f'steps 2-{TRAIN_STEPS}; peak device memory {peak_gb:.2f} GiB; '
           f'launches fwd/dq/dkv {launches} in {TRAIN_STEPS} steps, by kernel '
-          f'{by_kernel}, K1-fwd and K1-dkv at layer 3 (the wide programs) '
-          f'{layer3}', flush=True)
+          f'{by_kernel}, K1-fwd, K1-dq and K1-dkv at layer 3 (the wide '
+          f'programs) {layer3}', flush=True)
 
     profile_step(step, x, labels, torch)
 
@@ -1726,8 +1737,8 @@ def kernel_label(line):
     if m:
         return (f'{m.group(0)} (bf16, wgmma + TMA ring, 2 consumer '
                 'warpgroups at 240 registers, 1 producer at 24)')
-    m = re.search(r'(nonlocal_attention_(?:fwd|bwd_dkv)_wide_kernel)ILi(\d)E',
-                  line)
+    m = re.search(r'(nonlocal_attention_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel)'
+                  r'ILi(\d)E', line)
     if m:
         return (f'{m.group(1)} (bf16, wgmma + TMA, C, Cv <= 512, {m.group(2)} '
                 '64-column chunks a consumer, 2 consumer warpgroups at 240 '
@@ -1875,6 +1886,11 @@ def main():
          'launches_by_kernel': {k[3:]: n for k, n in train_by_kernel.items()
                                 if k.startswith('dq')},
          'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
+        {'name': 'nonlocal_attention_bwd_dq_wide', 'route': 'cuda',
+         'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
+         'note': 'K1-dq' + layer3,
+         'launches': train_layer3[1], **k1b['layer3']['dq'],
+         'shape': list(TRAIN_SHAPES['layer3']), 'dtype': 'bfloat16'},
         {'name': 'nonlocal_attention_bwd_dkv', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '172',
          'launches': train_launches[2], **k1b['layer2']['dkv'],
@@ -1883,7 +1899,7 @@ def main():
         {'name': 'nonlocal_attention_bwd_dkv_wide', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '172',
          'note': 'K1-dkv' + layer3,
-         'launches': train_layer3[1], **k1b['layer3']['dkv'],
+         'launches': train_layer3[2], **k1b['layer3']['dkv'],
          'shape': list(TRAIN_SHAPES['layer3']), 'dtype': 'bfloat16'},
         {'name': 'fused_bottleneck_tail', 'route': 'cuda',
          'source': src + 'fused_block.cu',

@@ -45,10 +45,12 @@
 //   once and keep whole accumulators in registers
 //   (nonlocal_attention_bwd_dq_wgmma_kernel and
 //   nonlocal_attention_bwd_dkv_wgmma_kernel below, wgmma_tiles.cuh).
-// * K1-dkv in bf16 with C and Cv multiples of 64 up to 512, one above 256
-//   (layer 3's C = Cv = 512): a wide wgmma kernel whose blocks each take
-//   one column half of dk and dv (nonlocal_attention_bwd_dkv_wide_kernel).
-// * bf16 otherwise (K1-dq at layer 3, gaussian mode's widths):
+// * bf16 with C and Cv multiples of 64 up to 512, one above 256 (layer 3's
+//   C = Cv = 512): wide wgmma kernels. K1-dkv's blocks each take one
+//   column half of dk and dv (nonlocal_attention_bwd_dkv_wide_kernel);
+//   K1-dq's two consumers split dq's columns
+//   (nonlocal_attention_bwd_dq_wide_kernel).
+// * bf16 otherwise (gaussian mode's widths, C = 1024):
 //   tensor cores through mma.sync.m16n8k16, warps
 //   of 16 rows (mma_tiles.cuh), fragments read by ldmatrix. X goes from the
 //   C fragments straight into the A fragments of the accumulating product,
@@ -1376,6 +1378,294 @@ int launch_dkv_wgmma_wide(const void* q, const void* k, const void* v,
   return launch_dkv_wide<4>(maps, lse, delta, b, n, nk, c, cv, scale, stream);
 }
 
+// -------------------------------- bf16, Hopper: the wide K1-dq (layer 3)
+// Replaces `_attn_dq_kernel` (pretorched_tpu/ops/pallas/
+// nonlocal_attention.py:141) where C and Cv are multiples of 64 up to 512,
+// one of them above 256 (the dispatch in ops/cuda/nonlocal_attention.py;
+// the train step's layer 3, (B, N, Nk, C, Cv) = (8, 784, 784, 512, 512)).
+//
+// What bounds it: operations. dq needs 2 B N Nk (2C + Cv) = 15.1 GFLOP
+// there, 0.0153 ms at the bf16 peak. The kernel above cannot take the
+// width: its q and do stay resident beside 2-slot rings of 64 keys, 384 (C
+// + Cv) bytes, 384 KB at 512.
+//
+// Design. A block owns (64 queries, batch item): grid (ceil(N / 64), B).
+// q and do of the band stay resident; k and v stream through one-slot
+// rings of kDqWideTk keys. Warpgroup 2 produces: one thread loads q, do and
+// the k ring, another the v ring, so v's next tile is not held behind k's
+// slot, which frees only after the dq product. Per key tile, the exchange
+// of the kernel above:
+//   consumer 0: s = q k^T over all of C (SS), p = exp(s scale - lse), zero
+//     at keys past Nk, handed to consumer 1 in the exchange slot (f32, in
+//     accumulator order: each thread reads back only its own words);
+//   consumer 1: dp = do v^T over all of Cv (SS), ds = p (dp - delta)
+//     scale, rounded to bf16 as A fragments and handed back in the same
+//     words;
+//   consumer g: dq[:, 64 W g .. 64 W g + 64 W) += ds k[:, the same columns]
+//     (A = ds from registers, B = k MN-major), with W = ceil(C / 128) a
+//     template argument: acc[W][32], 128 registers a thread at C = 512.
+// Every product once (1.0x the minimal ones, against 3x for the generic
+// program's four 128-column z-chunks at 512). No atomics: dq is the same
+// every run. A k slot holds 2W chunks and each dq product reads W of them
+// whether or not they all exist (C = 320: 5 of 6; C = 64: consumer 1 owns
+// none), into accumulators that are never stored, so no branch guards a
+// wgmma (C7520).
+// Shared memory at C = Cv = 512, each tile a stack of swizzled 64-channel
+// chunks (wgmma_tiles.cuh): q and do 64 KB each, the k and v slots of 32
+// keys 32 KB each, the exchange slot 8 KB: 200 KB, plus barriers and 1 KB
+// of alignment. Slots of 64 keys would take 256 KB beside q and do. s and
+// dp are m64n32k16 products, which wait on shared memory for their A
+// operand (q, do: 2 KB a k-step) 1.5x as long as they multiply; against
+// two slots of 16 keys (the same bytes, 2.5x)
+// `tools/port_kernel_probes.py wide` times both (PERF.md).
+constexpr int kDqWideTk = 32;       // keys per ring slot
+constexpr int kDqWideStages = 1;    // ring slots
+
+template <int W>
+size_t dq_wide_smem(int c, int cv) {
+  return 128 * (size_t)(c + cv) +
+         (size_t)kDqWideStages * (2 * W + cv / 64) * kDqWideTk * 128 +
+         kDqWideTk / 2 * 128 * 4 + 2 * sizeof(Ring<kDqWideStages>) +
+         sizeof(uint64_t) + 1024;   // + 1024: aligning the base
+}
+
+template <int W>
+__global__ void __launch_bounds__(kWThreads, 1)
+nonlocal_attention_bwd_dq_wide_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap,
+    const __grid_constant__ CUtensorMap dqmap, const float* __restrict__ lse,
+    const float* __restrict__ delta, int n, int nk, int c, int cv,
+    float scale) {
+  constexpr int TK = kDqWideTk, ST = kDqWideStages;
+  constexpr int kSlotK = 2 * W * TK * 128;    // one k slot: 2W chunks
+  constexpr int kXWords = TK / 2 * 128;       // the p / ds exchange slot
+  const int nc = c / 64, nv = cv / 64;
+  const int slot_v = nv * TK * 128;           // one v slot
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);
+  unsigned char* dos = qs + 128 * c;
+  unsigned char* kr = dos + 128 * cv;         // the k ring, then the v ring
+  unsigned char* vr = kr + ST * kSlotK;
+  float* xbuf = reinterpret_cast<float*>(vr + ST * slot_v);
+  Ring<ST>* kring = reinterpret_cast<Ring<ST>*>(xbuf + kXWords);
+  Ring<ST>* vring = kring + 1;
+  uint64_t* rowbar = reinterpret_cast<uint64_t*>(vring + 1);
+
+  const int bi = blockIdx.y;
+  const int q0 = blockIdx.x * 64;
+  const int tiles = (nk + TK - 1) / TK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    kring->init(kWConsumerWarps);          // both consumers read k
+    vring->init(kWConsumerWarps / 2);      // consumer 1 alone reads v
+    mbar_init(rowbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: q, do once and the k ring (thread 256); the v ring
+    // (thread 288)
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(rowbar, 64 * (c + cv) * 2);
+      for (int j = 0; j < nc; ++j)
+        tma_load(qs + j * 8192, &qmap, rowbar, 64 * j, q0, bi);
+      for (int j = 0; j < nv; ++j)
+        tma_load(dos + j * 8192, &domap, rowbar, 64 * j, q0, bi);
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<ST>::slot(t);
+        kring->wait_empty(t);
+        mbar_expect_tx(&kring->full[s], TK * c * 2);
+        for (int j = 0; j < nc; ++j)
+          tma_load(kr + s * kSlotK + j * TK * 128, &kmap, &kring->full[s],
+                   64 * j, TK * t, bi);
+      }
+    } else if (threadIdx.x == 288) {
+      for (int t = 0; t < tiles; ++t) {
+        const int s = Ring<ST>::slot(t);
+        vring->wait_empty(t);
+        mbar_expect_tx(&vring->full[s], TK * cv * 2);
+        for (int j = 0; j < nv; ++j)
+          tma_load(vr + s * slot_v + j * TK * 128, &vmap, &vring->full[s],
+                   64 * j, TK * t, bi);
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const float sl2 = scale * kLog2e;
+    // this thread's rows warp * 16 + g + 8 h: lse (in log2 units) for
+    // consumer 0, delta for consumer 1
+    float rowstat[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + warp * 16 + g + 8 * h;
+      const float* stat = wg == 0 ? lse : delta;
+      rowstat[h] = row < n ? stat[(size_t)bi * n + row] : 0.f;
+      if (wg == 0) rowstat[h] *= kLog2e;
+    }
+    const int j0 = wg * W;                 // this consumer's first dq chunk
+    uint32_t* xwords = reinterpret_cast<uint32_t*>(xbuf);
+
+    float acc[W][32];
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+    // Named barriers over both consumers (256 threads): 1 "p written", 2
+    // "ds written". One exchange slot suffices: consumer 0 writes p of tile
+    // t + 1 only after reading ds of tile t, consumer 1 writes ds only
+    // after reading p.
+    mbar_wait(rowbar, 0);
+    for (int t = 0; t < tiles; ++t) {
+      const int s = Ring<ST>::slot(t);
+      uint32_t pa[TK / 16][4];
+      if (wg == 0) {
+        // ---- s = q k^T, p. Zeroed and pinned before the products: left
+        // undefined, ptxas defines them inside the wgmma pipeline stage and
+        // serializes every product of the kernel (C7515, PERF.md)
+        float st[TK / 2] = {};
+        reg_fence(st);
+        kring->wait_full(t);
+        wgmma_fence();
+        ss_scores(st, smem_addr(qs), 8192, smem_addr(kr) + s * kSlotK, nc,
+                  TK * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(st);
+#pragma unroll
+        for (int i = 0; i < TK / 2; ++i) {
+          const int col = TK * t + 8 * (i >> 2) + 2 * qd + (i & 1);
+          xbuf[i * 128 + tid] =
+              col < nk ? exp2f(st[i] * sl2 - rowstat[(i >> 1) & 1]) : 0.f;
+        }
+        named_arrive(1, 256);
+        named_sync(2, 256);
+#pragma unroll
+        for (int j = 0; j < TK / 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pa[j][e] = xwords[(4 * j + e) * 128 + tid];
+      } else {
+        // ---- dp = do v^T, ds
+        float dp[TK / 2] = {};   // as st above
+        reg_fence(dp);
+        vring->wait_full(t);
+        wgmma_fence();
+        ss_scores(dp, smem_addr(dos), 8192, smem_addr(vr) + s * slot_v, nv,
+                  TK * 128);
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(dp);
+        vring->release(t);
+        named_sync(1, 256);
+#pragma unroll
+        for (int i = 0; i < TK / 2; ++i)
+          dp[i] = xbuf[i * 128 + tid] * (dp[i] - rowstat[(i >> 1) & 1]) *
+                  scale;
+#pragma unroll
+        for (int j = 0; j < TK / 16; ++j) {
+          acc_to_a(pa[j], dp, j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xwords[(4 * j + e) * 128 + tid] = pa[j][e];
+        }
+        named_arrive(2, 256);
+        kring->wait_full(t);
+      }
+      // ---- dq[:, this consumer's chunks] += ds k
+      const uint32_t kt = smem_addr(kr) + s * kSlotK + j0 * TK * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk)
+        rs_chunks(acc, pa[kk], kt + kk * 16 * 128, TK * 128);
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int j = 0; j < W; ++j) reg_fence(acc[j]);
+#pragma unroll
+      for (int j = 0; j < TK / 16; ++j) reg_fence(pa[j]);
+      kring->release(t);
+    }
+
+    // ---- epilogue: dq in bf16, staged swizzled over q (free once
+    // consumer 0's last s is done), one TMA store per existing 64-column
+    // chunk; rows past n are clipped by the store
+    named_sync(3, 256);
+    unsigned char* stage = qs + j0 * 8192;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      if (j0 + j >= nc) break;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = warp * 16 + g + 8 * ((i >> 1) & 1);
+        *reinterpret_cast<uint32_t*>(
+            stage + j * 8192 + swizzled_pair(r, 8 * (i >> 2) + 2 * qd)) =
+            pack_pair(acc[j][i], acc[j][i + 1]);
+      }
+    }
+    fence_proxy_async();
+    named_sync(4 + wg, 128);
+    if (tid == 0 && j0 < nc) {
+      for (int j = 0; j < W && j0 + j < nc; ++j)
+        tma_store(&dqmap, stage + j * 8192, 64 * (j0 + j), q0, bi);
+      tma_store_drain();
+    }
+  }
+}
+
+template <int W>
+int launch_dq_wide(const CUtensorMap (&maps)[5], const void* lse,
+                   const void* delta, int b, int n, int nk, int c, int cv,
+                   float scale, cudaStream_t stream) {
+  const size_t smem = dq_wide_smem<W>(c, cv);
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(nonlocal_attention_bwd_dq_wide_kernel<W>,
+                                     smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + 63) / 64, b);
+  nonlocal_attention_bwd_dq_wide_kernel<W><<<grid, kWThreads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4],
+      static_cast<const float*>(lse), static_cast<const float*>(delta), n, nk,
+      c, cv, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_dq_wgmma_wide(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int b, int n, int nk, int c, int cv,
+                         float scale, cudaStream_t stream) {
+  if (c % 64 || cv % 64 || c > 512 || cv > 512 || (c <= 256 && cv <= 256))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[5];   // q, k, v, do, dq
+  if (!make_map(&maps[0], q, b, n, c, 64) ||
+      !make_map(&maps[1], k, b, nk, c, kDqWideTk) ||
+      !make_map(&maps[2], v, b, nk, cv, kDqWideTk) ||
+      !make_map(&maps[3], dout, b, n, cv, 64) ||
+      !make_map(&maps[4], dq, b, n, c, 64))
+    return (int)cudaErrorNotSupported;
+  // W = ceil(C / 128) chunks a consumer
+  switch ((c / 64 + 1) / 2) {
+    case 1:
+      return launch_dq_wide<1>(maps, lse, delta, b, n, nk, c, cv, scale,
+                               stream);
+    case 2:
+      return launch_dq_wide<2>(maps, lse, delta, b, n, nk, c, cv, scale,
+                               stream);
+    case 3:
+      return launch_dq_wide<3>(maps, lse, delta, b, n, nk, c, cv, scale,
+                               stream);
+    default:
+      return launch_dq_wide<4>(maps, lse, delta, b, n, nk, c, cv, scale,
+                               stream);
+  }
+}
+
 bool bad_shape(int b, int n, int nk, int c, int cv) {
   return b < 1 || n < 1 || nk < 1 || c < 1 || cv < 1 || b > 65535;
 }
@@ -1459,6 +1749,22 @@ int pt_nonlocal_attention_bwd_dq_wgmma(const void* q, const void* k,
   if (bad_shape(b, n, nk, c, cv)) return (int)cudaErrorInvalidValue;
   return launch_dq_wgmma(q, k, v, dout, lse, delta, dq, b, n, nk, c, cv,
                          scale, static_cast<cudaStream_t>(stream));
+}
+
+// The wide bf16 wgmma kernel: the same function as
+// pt_nonlocal_attention_bwd_dq, for C and Cv multiples of 64 up to 512 with
+// one of them above 256, and 16-byte aligned tensors (the caller's dispatch
+// picks it).
+int pt_nonlocal_attention_bwd_dq_wgmma_wide(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const void* lse,
+                                            const void* delta, void* dq,
+                                            int b, int n, int nk, int c,
+                                            int cv, float scale,
+                                            void* stream) {
+  if (bad_shape(b, n, nk, c, cv)) return (int)cudaErrorInvalidValue;
+  return launch_dq_wgmma_wide(q, k, v, dout, lse, delta, dq, b, n, nk, c, cv,
+                              scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

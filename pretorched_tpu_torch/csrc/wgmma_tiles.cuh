@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the warp-specialised kernels of the
-// non-local attention (K1-fwd, K1-dq and K1-dkv, bf16; the wide K1-fwd and
-// K1-dkv of layer 3 too): the TMA tensor maps, the mbarrier ring, the wgmma
+// non-local attention (K1-fwd, K1-dq and K1-dkv, bf16; their wide programs
+// of layer 3 too): the TMA tensor maps, the mbarrier ring, the wgmma
 // descriptors and products, and setmaxnreg.
 //
 // Shared-memory tiles. Every operand tile is a stack of 64-channel chunks,

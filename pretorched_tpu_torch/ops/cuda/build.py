@@ -117,6 +117,8 @@ def _load() -> ctypes.CDLL:
     # dtype, stream (the wgmma entries: no dtype)
     for fn, outs, ints in ((lib.pt_nonlocal_attention_bwd_dq, 1, 1),
                            (lib.pt_nonlocal_attention_bwd_dq_wgmma, 1, 0),
+                           (lib.pt_nonlocal_attention_bwd_dq_wgmma_wide, 1,
+                            0),
                            (lib.pt_nonlocal_attention_bwd_dkv, 2, 1),
                            (lib.pt_nonlocal_attention_bwd_dkv_wgmma, 2, 0),
                            (lib.pt_nonlocal_attention_bwd_dkv_wgmma_wide, 2,
@@ -129,6 +131,7 @@ def _load() -> ctypes.CDLL:
                lib.pt_nonlocal_attention_fwd_wgmma_wide,
                lib.pt_nonlocal_attention_bwd_dq,
                lib.pt_nonlocal_attention_bwd_dq_wgmma,
+               lib.pt_nonlocal_attention_bwd_dq_wgmma_wide,
                lib.pt_nonlocal_attention_bwd_dkv,
                lib.pt_nonlocal_attention_bwd_dkv_wgmma,
                lib.pt_nonlocal_attention_bwd_dkv_wgmma_wide):

@@ -14,8 +14,8 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   ``nonlocal_attention_bwd_dkv_cuda``.
 * ``attention_kernel``: the dispatch of K1-fwd, K1-dq and K1-dkv on dtype,
   shape and op: ``'wgmma'`` (bf16, C and Cv multiples of 64 up to
-  ``WGMMA_MAX_WIDTH[op]``: Hopper's warp-specialised wgmma + TMA kernels;
-  K1-fwd and K1-dkv take a second, wide program past 256, layer 3's 512),
+  ``WGMMA_MAX_WIDTH``: Hopper's warp-specialised wgmma + TMA kernels; each
+  op takes a second, wide program past 256, layer 3's 512),
   ``'mma_sync'`` (every other bf16 shape) or ``'scalar'`` (f32). The
   kernel wrappers take CUDA tensors only and raise on anything they do not
   take; each counts its launches in ``.launches`` and per program in
@@ -48,24 +48,24 @@ KERNELS = ('wgmma', 'mma_sync', 'scalar')
 # what ``.by_kernel`` counts: the kernels, wgmma's wide program apart
 PROGRAMS = ('wgmma', 'wgmma_wide', 'mma_sync', 'scalar')
 OPS = ('fwd', 'dq', 'dkv')
-# The widest C and Cv each op's wgmma kernels take (64-channel TMA boxes).
-# A warpgroup holds a (64, 256) f32 accumulator in 128 registers a thread:
-# up to 256 one block's consumers split the rows, past it (K1-fwd, K1-dkv)
-# the columns, in the wide programs. K1-dq's wide program is not written.
-WGMMA_MAX_WIDTH = {'fwd': 512, 'dq': 256, 'dkv': 512}
+# The widest C and Cv the wgmma kernels take (64-channel TMA boxes). A
+# warpgroup holds a (64, 256) f32 accumulator in 128 registers a thread:
+# up to 256 one block's consumers split the rows, past it the columns, in
+# each op's wide program.
+WGMMA_MAX_WIDTH = 512
 WGMMA_NARROW_WIDTH = 256
 
 
 def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
     """The kernel ``op`` (K1-fwd, K1-dq or K1-dkv) takes for this dtype
     and C, Cv."""
-    if op not in WGMMA_MAX_WIDTH:
+    if op not in OPS:
         raise ValueError(f'op {op!r} is none of {OPS}')
     if dtype not in _DTYPE_CODES:
         raise ValueError(f'dtype {dtype} not supported (float32, bfloat16)')
     if dtype == torch.float32:
         return 'scalar'
-    fits = all(w % 64 == 0 and w <= WGMMA_MAX_WIDTH[op] for w in (c, cv))
+    fits = all(w % 64 == 0 and w <= WGMMA_MAX_WIDTH for w in (c, cv))
     return 'wgmma' if fits else 'mma_sync'
 
 
@@ -256,14 +256,15 @@ def _launch_dq(q, k, v, do, lse, delta, scale, kernel):
     c, cv = q.shape[2], v.shape[2]
     _check_kernel(q.dtype, c, cv, kernel, 'dq')
     dq = torch.empty_like(q)
+    program = _program(kernel, c, cv)
     if kernel == 'wgmma':
         _check_tma(q, k, v, do, dq)
-        _launch('pt_nonlocal_attention_bwd_dq_wgmma', q, v,
+        _launch(f'pt_nonlocal_attention_bwd_dq_{program}', q, v,
                 (q, k, v, do, lse, delta, dq), scale)
     else:
         _launch('pt_nonlocal_attention_bwd_dq', q, v,
                 (q, k, v, do, lse, delta, dq), scale, _DTYPE_CODES[q.dtype])
-    _count(nonlocal_attention_bwd_dq_cuda, kernel)
+    _count(nonlocal_attention_bwd_dq_cuda, program)
     return dq
 
 

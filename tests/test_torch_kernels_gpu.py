@@ -1,6 +1,6 @@
 """The port's CUDA kernels (the non-local attention forward K1-fwd, its
 backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16 (the
-wide programs of K1-fwd and K1-dkv at layer 3's C = Cv = 512), and
+wide programs of all three at layer 3's C = Cv = 512), and
 the fused bottleneck tail K2) against their plain PyTorch versions, on a
 card.
 
@@ -242,14 +242,13 @@ def test_wgmma_dq_matches_plain(cuda, b, n, nk, c, cv):
 @pytest.mark.gpu
 def test_layer2_shapes_take_the_wgmma_kernels(cuda):
     """The non-local model's layer-2 shapes (reduced B) go to the wgmma
-    kernels; at layer 3's K1-fwd and K1-dkv take their wide wgmma programs
-    (counted as ``wgmma_wide``) and K1-dq mma.sync, by the counters of
-    K1-fwd, K1-dq and K1-dkv."""
+    kernels; at layer 3's K1-fwd, K1-dq and K1-dkv take their wide wgmma
+    programs (counted as ``wgmma_wide``), by the counters of K1-fwd, K1-dq
+    and K1-dkv."""
     fns = (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
            na.nonlocal_attention_bwd_dkv_cuda)
     for (n, c), kernels in (((6272, 256), ('wgmma', 'wgmma', 'wgmma')),
-                            ((784, 512), ('wgmma_wide', 'mma_sync',
-                                          'wgmma_wide'))):
+                            ((784, 512), ('wgmma_wide',) * 3)):
         q, k, v, do = _bwd_inputs(1, n, n, c, c, torch.bfloat16, cuda)
         q, k, v = (t.requires_grad_() for t in (q, k, v))
         before = [dict(fn.by_kernel) for fn in fns]
@@ -261,12 +260,13 @@ def test_layer2_shapes_take_the_wgmma_kernels(cuda):
                 key: int(key == kernel) for key in na.PROGRAMS}
 
 
-# (B, N, Nk, C, Cv) for the wide wgmma programs of K1-fwd and K1-dkv (bf16,
-# C and Cv multiples of 64 up to 512, one above 256): layer 3 of the slice
-# at B = 1 and 8; sub_sample's 784 x 196; ragged N and Nk with C != Cv both
-# ways (384 / 320 and 320 / 512: 3 and 4 chunks a half); one side narrow
-# (Cv = 64: consumer 1's O chunk and dv's second half do not exist; C = 64
-# with Cv = 384)
+# (B, N, Nk, C, Cv) for the wide wgmma programs of K1-fwd, K1-dq and K1-dkv
+# (bf16, C and Cv multiples of 64 up to 512, one above 256): layer 3 of the
+# slice at B = 1 and 8; sub_sample's 784 x 196; ragged N and Nk with C !=
+# Cv both ways (384 / 320 and 320 / 512: 3 and 4 chunks a half; K1-dq's
+# consumer 1 owns 3 and 2 of 3 chunks); one side narrow (Cv = 64: consumer
+# 1's O chunk and dv's second half do not exist; C = 64 with Cv = 384: K1-dq's
+# consumer 1 owns no chunk)
 WIDE_CASES = [
     (1, 784, 784, 512, 512),
     (8, 784, 784, 512, 512),
@@ -322,11 +322,34 @@ def test_wide_wgmma_dkv_matches_plain(cuda, b, n, nk, c, cv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv', WIDE_CASES)
+def test_wide_wgmma_dq_matches_plain(cuda, b, n, nk, c, cv):
+    """K1-dq's wide wgmma program against the plain backward in f32 (max
+    error within 2e-2 of the largest |dq|), bitwise the same on a second
+    run (no atomics), counted as ``wgmma_wide``."""
+    q, k, v, do = _bwd_inputs(b, n, nk, c, cv, torch.bfloat16, cuda)
+    out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+    out = out.to(torch.bfloat16)
+    delta = (do.float() * out.float()).sum(-1)
+    before = na.nonlocal_attention_bwd_dq_cuda.by_kernel['wgmma_wide']
+    dq = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+    again = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (na.nonlocal_attention_bwd_dq_cuda.by_kernel['wgmma_wide']
+            == before + 2)
+    want_dq = na.nonlocal_attention_bwd_reference(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float())[0]
+    assert dq.dtype == torch.bfloat16 and dq.shape == q.shape
+    assert _rel_err(dq, want_dq) <= 2e-2
+    assert torch.equal(dq, again)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize('b', [1, 8])
 def test_wide_wgmma_agrees_with_the_mma_sync_kernels(cuda, b):
     """At layer 3 (C = Cv = 512, N = Nk = 784) the wide wgmma programs of
-    K1-fwd and K1-dkv and the mma.sync kernels they replaced (through the
-    private launch routes) compute the same function."""
+    K1-fwd, K1-dq and K1-dkv and the mma.sync kernels they replaced
+    (through the private launch routes) compute the same function."""
     q, k, v, do = _bwd_inputs(b, 784, 784, 512, 512, torch.bfloat16, cuda)
     ow, lw = na.nonlocal_attention_cuda(q, k, v)
     om, lm = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
@@ -337,6 +360,9 @@ def test_wide_wgmma_agrees_with_the_mma_sync_kernels(cuda, b):
     gm = na._launch_dkv(q, k, v, do, lm, delta, 1.0, 'mma_sync')
     for a, m in zip(gw, gm):
         assert _rel_err(a, m.float()) <= 2e-2
+    dqw = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lm, delta)
+    dqm = na._launch_dq(q, k, v, do, lm, delta, 1.0, 'mma_sync')
+    assert _rel_err(dqw, dqm.float()) <= 2e-2
 
 
 @pytest.mark.gpu
@@ -376,12 +402,16 @@ def test_wgmma_kernels_refuse_misaligned_tensors(cuda):
     # the wide programs too (C = 320)
     wide = torch.randn(64 * 320 + 1, device=cuda).to(torch.bfloat16)
     q = wide[1:].view(1, 64, 320)
-    before = na.nonlocal_attention_bwd_dkv_cuda.launches
+    before = (na.nonlocal_attention_bwd_dq_cuda.launches,
+              na.nonlocal_attention_bwd_dkv_cuda.launches)
     with pytest.raises(ValueError, match='16-byte aligned'):
         na.nonlocal_attention_cuda(q, q, q)
     with pytest.raises(ValueError, match='16-byte aligned'):
+        na.nonlocal_attention_bwd_dq_cuda(q, q, q, q, lse, lse)
+    with pytest.raises(ValueError, match='16-byte aligned'):
         na.nonlocal_attention_bwd_dkv_cuda(q, q, q, q, lse, lse)
-    assert na.nonlocal_attention_bwd_dkv_cuda.launches == before
+    assert (na.nonlocal_attention_bwd_dq_cuda.launches,
+            na.nonlocal_attention_bwd_dkv_cuda.launches) == before
 
 
 @pytest.mark.gpu

@@ -87,27 +87,26 @@ def test_plain_runs_f32_under_autocast():
 
 # (dtype, C, Cv, kernel): the kernel of K1-fwd, K1-dq and K1-dkv, or
 # 'fwd,dq,dkv' where they differ. bf16 with C and Cv multiples of 64 up to
-# 256 (the layer-2 and sub_sample shapes, Cv != C, the smallest) takes wgmma
-# everywhere; up to 512 (layer 3, Cv != C, one side narrow) K1-fwd and
-# K1-dkv take their wide wgmma programs and K1-dq mma.sync; gaussian mode
-# (1024), past 512 and channels that are no multiple of 64 stay on mma.sync;
-# f32 is scalar
+# 512 (the layer-2 and sub_sample shapes, Cv != C, the smallest; layer 3,
+# Cv != C, one side narrow, on each op's wide program) takes wgmma
+# everywhere; gaussian mode (1024), past 512 and channels that are no
+# multiple of 64 stay on mma.sync; f32 is scalar
 DISPATCH = [
     (torch.bfloat16, 256, 256, 'wgmma'),
     (torch.bfloat16, 64, 256, 'wgmma'),
     (torch.bfloat16, 256, 64, 'wgmma'),
     (torch.bfloat16, 64, 64, 'wgmma'),
     (torch.bfloat16, 128, 192, 'wgmma'),
-    (torch.bfloat16, 512, 512, 'wgmma,mma_sync,wgmma'),
+    (torch.bfloat16, 512, 512, 'wgmma'),
     (torch.bfloat16, 1024, 512, 'mma_sync'),
-    (torch.bfloat16, 256, 320, 'wgmma,mma_sync,wgmma'),
+    (torch.bfloat16, 256, 320, 'wgmma'),
     (torch.bfloat16, 32, 32, 'mma_sync'),
     (torch.bfloat16, 96, 64, 'mma_sync'),
     (torch.float32, 256, 256, 'scalar'),
     (torch.float32, 32, 24, 'scalar'),
-    (torch.bfloat16, 64, 512, 'wgmma,mma_sync,wgmma'),
-    (torch.bfloat16, 512, 64, 'wgmma,mma_sync,wgmma'),
-    (torch.bfloat16, 384, 320, 'wgmma,mma_sync,wgmma'),
+    (torch.bfloat16, 64, 512, 'wgmma'),
+    (torch.bfloat16, 512, 64, 'wgmma'),
+    (torch.bfloat16, 384, 320, 'wgmma'),
     (torch.bfloat16, 576, 512, 'mma_sync'),
     (torch.bfloat16, 512, 480, 'mma_sync'),
     (torch.float32, 512, 512, 'scalar'),
@@ -135,14 +134,14 @@ def test_dispatch_picks_kernel_by_dtype_and_shape(dtype, c, cv, kernel):
 def test_dispatch_takes_mma_sync_by_name_and_refuses_the_rest():
     """The private launch routes may send a wgmma shape to the mma.sync
     kernels (the A/B against the kernel wgmma replaced, at layer 3 too);
-    nothing else is forced: K1-dq has no wgmma program at 512. The public
+    nothing else is forced: no op has a wgmma program past 512. The public
     wrappers take no kernel choice."""
     for op in na.OPS:
         na._check_kernel(torch.bfloat16, 256, 256, 'mma_sync', op)
-    for op in ('fwd', 'dkv'):
         na._check_kernel(torch.bfloat16, 512, 512, 'mma_sync', op)
+        na._check_kernel(torch.bfloat16, 512, 512, 'wgmma', op)
     with pytest.raises(ValueError, match='dq kernel .* does not take'):
-        na._check_kernel(torch.bfloat16, 512, 512, 'wgmma', 'dq')
+        na._check_kernel(torch.bfloat16, 1024, 512, 'wgmma', 'dq')
     with pytest.raises(ValueError, match='does not take'):
         na._check_kernel(torch.bfloat16, 1024, 512, 'wgmma', 'fwd')
     with pytest.raises(ValueError, match='does not take'):

@@ -113,9 +113,9 @@ def test_plain_backward_keeps_bf16_dtypes():
 def test_dq_dispatch_routes_each_shape(monkeypatch, dtype, c, cv, kernel):
     """K1-dq takes the kernel ``attention_kernel`` picks for it: the wgmma
     entry (no dtype code) for bf16 with C and Cv multiples of 64 up to 256,
-    the generic entry with its dtype code otherwise (layer 3's 512
-    included); the launch is counted under that kernel. The C entry is
-    replaced by a recorder, so no card is needed."""
+    its wide entry past 256 up to 512 (layer 3's 512), counted as
+    ``wgmma_wide``; the generic entry with its dtype code otherwise. The C
+    entry is replaced by a recorder, so no card is needed."""
     kernel = kernels_by_op(kernel)['dq']
     entries = []
     monkeypatch.setattr(na, '_launch',
@@ -128,19 +128,21 @@ def test_dq_dispatch_routes_each_shape(monkeypatch, dtype, c, cv, kernel):
     dq = na._launch_dq(q, q, v, v, stats, stats, 1.0,
                        na.attention_kernel(dtype, c, cv, 'dq'))
     assert dq.shape == q.shape and dq.dtype == dtype
+    program = ('wgmma_wide' if kernel == 'wgmma' and max(c, cv) > 256
+               else kernel)
     if kernel == 'wgmma':
-        assert entries == [('pt_nonlocal_attention_bwd_dq_wgmma', 1.0)]
+        assert entries == [(f'pt_nonlocal_attention_bwd_dq_{program}', 1.0)]
     else:
         assert entries == [('pt_nonlocal_attention_bwd_dq',
                             na._DTYPE_CODES[dtype])]
     assert {k: fn.by_kernel[k] - before[k] for k in na.PROGRAMS} == {
-        k: int(k == kernel) for k in na.PROGRAMS}
+        k: int(k == program) for k in na.PROGRAMS}
 
 
 def test_dq_private_launch_takes_mma_sync_and_refuses_the_rest(monkeypatch):
-    """``_launch_dq`` runs the generic kernel at a wgmma shape (the A/B
-    against the kernel wgmma replaced) and refuses any other forced
-    choice; the public wrapper takes no kernel keyword."""
+    """``_launch_dq`` runs the generic kernel at a wgmma shape, layer 3's
+    512 included (the A/B against the kernel wgmma replaced), and refuses
+    any other forced choice; the public wrapper takes no kernel keyword."""
     monkeypatch.setattr(na, '_launch', lambda *args: None)
     q = torch.zeros(1, 8, 256, dtype=torch.bfloat16)
     stats = torch.zeros(1, 8)
@@ -148,7 +150,11 @@ def test_dq_private_launch_takes_mma_sync_and_refuses_the_rest(monkeypatch):
     with pytest.raises(ValueError, match='does not take'):
         na._launch_dq(q, q, q, q, stats, stats, 1.0, 'scalar')
     wide = torch.zeros(1, 8, 512, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match='does not take'):
-        na._launch_dq(wide, wide, wide, wide, stats, stats, 1.0, 'wgmma')
+    for kernel in ('wgmma', 'mma_sync'):
+        na._launch_dq(wide, wide, wide, wide, stats, stats, 1.0, kernel)
+    for c in (1024, 576):
+        x = torch.zeros(1, 8, c, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match='does not take'):
+            na._launch_dq(x, x, x, x, stats, stats, 1.0, 'wgmma')
     assert 'kernel' not in inspect.signature(
         na.nonlocal_attention_bwd_dq_cuda).parameters

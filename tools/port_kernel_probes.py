@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Probes behind the design choices of the port's K1-dq, K2 and wide K1-fwd
-and K1-dkv kernels, on one CUDA card (``pretorched_tpu_torch``; no JAX).
+"""Probes behind the design choices of the port's K1-dq, K2 and wide K1-fwd,
+K1-dq and K1-dkv kernels, on one CUDA card (``pretorched_tpu_torch``; no
+JAX).
 
     python3 tools/port_kernel_probes.py [k2] [dq] [lr] [wide] [host]
 
@@ -18,12 +19,14 @@ and K1-dkv kernels, on one CUDA card (``pretorched_tpu_torch``; no JAX).
 * ``lr``: 12 bf16 train steps of ``chip_smoke.py``'s phase 6 (same
   fabricated checkpoint, batch and SGD) at lr 0.01 and 0.001, each with
   K1-dq on wgmma, on the generic kernel, and with the plain backward.
-* ``wide``: the wide wgmma programs of K1-fwd and K1-dkv at layer 3 (C = Cv
-  = 512, N = Nk = 784): ``base`` (one ring slot of 64 keys, of 32 queries)
-  against ``tk32x2`` (K1-fwd: 2 slots of 32 keys), ``tq16x2`` (K1-dkv: 2
-  slots of 16 queries) and ``undefined_acc`` (K1-dkv's score accumulators
+* ``wide``: the wide wgmma programs of K1-fwd, K1-dkv and K1-dq at layer 3
+  (C = Cv = 512, N = Nk = 784): ``base`` (one ring slot of 64 keys, of 32
+  queries, of 32 keys) against ``tk32x2`` (K1-fwd: 2 slots of 32 keys),
+  ``tq16x2`` (K1-dkv: 2 slots of 16 queries), ``tk16x2`` (K1-dq: 2 slots of
+  16 keys) and ``undefined_acc`` (K1-dkv's or K1-dq's score accumulators
   left undefined before their products, which ptxas serializes: C7515),
-  with the largest difference from ``base``.
+  with the largest difference from ``base``; K1-dq also beside the generic
+  mma.sync program it replaced.
 * ``host``: the host time of one K1-fwd wrapper call at layer 3's widths
   (B = 1 and 8), step by step (checks, allocation, device context and
   stream, pointers, the C entry with its four tensor maps and launch, the
@@ -88,9 +91,18 @@ WIDE_DKV_VARIANTS = {
         ('float st[TQ / 2] = {};\n        reg_fence(st);', 'float st[TQ / 2];'),
         ('float dp[TQ / 2] = {};   // as st above\n        reg_fence(dp);',
          'float dp[TQ / 2];')]}
+WIDE_DQ_VARIANTS = {
+    'base': [],
+    'tk16x2': [('kDqWideTk = 32;', 'kDqWideTk = 16;'),
+               ('kDqWideStages = 1;', 'kDqWideStages = 2;')],
+    'undefined_acc': [
+        ('float st[TK / 2] = {};\n        reg_fence(st);', 'float st[TK / 2];'),
+        ('float dp[TK / 2] = {};   // as st above\n        reg_fence(dp);',
+         'float dp[TK / 2];')]}
 WIDE_FWD_SHAPES = [(20, 784, 784, 512, 512), (8, 784, 784, 512, 512),
                    (1, 784, 784, 512, 512)]
 WIDE_DKV_SHAPES = [(8, 784, 784, 512, 512), (2, 784, 196, 512, 512)]
+WIDE_DQ_SHAPES = WIDE_DKV_SHAPES
 K2_SHAPES = {'fast res2.0': (20, 32, 56, 56, 8, 8, 32, True),
              'fast res2.1-2': (20, 32, 56, 56, 32, 8, 32, False),
              'fast res3.1-3': (20, 32, 28, 28, 64, 16, 64, False),
@@ -276,6 +288,8 @@ def probe_wide(smi):
                               'wide_fwd')
     dkv_libs = build_variants('nonlocal_attention_bwd.cu', WIDE_DKV_VARIANTS,
                               'wide_dkv')
+    dq_libs = build_variants('nonlocal_attention_bwd.cu', WIDE_DQ_VARIANTS,
+                             'wide_dq')
     for lib in fwd_libs.values():
         lib.pt_nonlocal_attention_fwd_wgmma_wide.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -283,6 +297,10 @@ def probe_wide(smi):
     for lib in dkv_libs.values():
         lib.pt_nonlocal_attention_bwd_dkv_wgmma_wide.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p])
+    for lib in dq_libs.values():
+        lib.pt_nonlocal_attention_bwd_dq_wgmma_wide.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
             + [ctypes.c_float, ctypes.c_void_p])
     g = torch.Generator(device='cuda').manual_seed(2)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
@@ -339,6 +357,30 @@ def probe_wide(smi):
             ms = median_ms(run)
             err = max(rel(dk, want[0]), rel(dv, want[1]))
             row.append(f'{vname} {ms:.4f} (max|d|/max {err:.1e})')
+        print(f'  {(b, n, nk, c, cv)} ms: ' + ', '.join(row), flush=True)
+    print(f'K1-dq, wide wgmma variants, CUDA-event medians of 30 ({smi})')
+    for b, n, nk, c, cv in WIDE_DQ_SHAPES:
+        q, k, v, do = inputs(b, n, nk, c, cv)
+        out, lse = na.nonlocal_attention_cuda(q, k, v)
+        delta = (do.float() * out.float()).sum(-1)
+        want = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+        generic_ms = median_ms(lambda: na._launch_dq(q, k, v, do, lse, delta,
+                                                     1.0, 'mma_sync'))
+        row = [f'generic mma.sync {generic_ms:.4f}']
+        for vname, lib in dq_libs.items():
+            dq = torch.empty_like(q)
+            ptrs = [ctypes.c_void_p(t.data_ptr())
+                    for t in (q, k, v, do, lse, delta, dq)]
+
+            def run():
+                err = lib.pt_nonlocal_attention_bwd_dq_wgmma_wide(
+                    *ptrs, b, n, nk, c, cv, 1.0, stream)
+                if err:
+                    raise RuntimeError(f'{vname}: CUDA error {err}')
+
+            ms = median_ms(run)
+            row.append(f'{vname} {ms:.4f} (max|d|/max {rel(dq, want):.1e}'
+                       f'{", =" if torch.equal(dq, want) else ""})')
         print(f'  {(b, n, nk, c, cv)} ms: ' + ', '.join(row), flush=True)
 
 
