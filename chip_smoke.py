@@ -24,7 +24,14 @@ Drives the port's main path once on one CUDA card and checks it:
    come no further from it than twice the mma.sync kernel's), that the
    f32 logits with the kernel match those with the plain attention, and
    that the attention moves the logits; it profiles one bf16 forward by
-   kernel family;
+   kernel family. Then the same weights with the space-to-depth stem
+   (``s2d_stem=True``): the bf16 forward of both in turns, each stem's
+   kernels from the profiler, the stem conv alone at 3 and 8 channels
+   (plain) and 12 and 16 (folded), 5 K1-fwd launches in the folded
+   forward, and in f32 the stem's output held to the plain stem's, the
+   logits with the non-local blocks off (``W.1`` zeroed) too, and with
+   them on as the kernel is held to the plain attention (these random
+   weights amplify any rounding there);
 5. the backward kernels (K1-dq, K1-dkv) against the plain backward at the
    training path's shapes, in f32 and bf16, with the same times per bf16
    shape and, at layers 2 and 3, the generic K1-dq and K1-dkv that wgmma
@@ -60,7 +67,10 @@ Drives the port's main path once on one CUDA card and checks it:
    the TMA kernel, 5 on mma.sync) and none of K1, finite logits, the f32
    logits with K2 against fused_blocks=0,
    and that the randomized BN moves the logits; it prints the forward A/B
-   of fused_blocks 32 and 0, peak memory and a profiled forward, then runs
+   of fused_blocks 32 and 0, peak memory and a profiled forward, the same
+   weights with both stems folded (fast: fold 4, slow: fold 2) in turns
+   with the plain ones (clips/s, each stem's kernels, 11 K2 launches, the
+   f32 logits held together), then runs
    ``examples/video_eval_torch.py -a slowfast_resnet50`` once;
 10. the serving path, ``serving.serve_model`` on the card: (a)
     ``resnet50`` (seeded, every BN randomized) with the tensor payload,
@@ -83,7 +93,20 @@ Drives the port's main path once on one CUDA card and checks it:
     request and a clean ``close()`` on the card; (e)
     ``examples/serve_torch.py`` and ``examples/imagenet_logits_torch.py``
     as subprocesses;
-11. a line with each kernel's numbers and the card, then
+11. BASELINE config 4's video backbones: ``r2plus1d50`` at the JAX
+    bench's row-5 geometry (20 clips x 16 frames x 112 px, bf16) with the
+    plain and the folded factored stem on the same weights in turns
+    (clips/s, peak memory, the stems' kernels, f32 logits held together),
+    then one bf16 forward each of ``resnext3d101``, ``preact_resnet3d50``,
+    ``wideresnet3d50`` and ``resneti3d50``, held to its f32 forward;
+12. ``trn`` (MSTRN over ``resnet50``, 8 videos x 8 segments x 224 px,
+    bf16): videos/s, the backbone computing in bf16, the logits held to the
+    f32 forward, the generator path repeating from its seed;
+13. ``MNISTNonLocalNet`` on 64 images: K1-fwd on mma.sync in bf16 and on
+    the scalar kernel in f32, 2 launches a forward, each held to the plain
+    version, the f32 logits against the plain attention, ``W.1`` moving
+    them, and the bf16 launches timed;
+14. a line with each kernel's numbers and the card, then
     ``{"ok": true, "device": {...}}``. Every phase's heading names the card
     and its power limit.
 
@@ -171,6 +194,19 @@ K2_KERNELS = {'fast res2.0': 'tma', 'fast res2.1-2': 'tma',
 # lands one bf16 step (2^-8 relative) apart
 TOL_K2 = {'float32': 1e-4, 'bfloat16': 2e-2}
 SF_FRAMES, SF_CLIPS, SF_VIDEOS = 64, 10, 2
+# the f32 output of the space-to-depth stem, and the logits, against the
+# plain stem on the same weights (rel L2, TF32 off): the fold only sums the
+# stem's products in another order. The non-local model's logits with its
+# attention on are held as its kernel is held to the plain attention
+# (1e-3): those random weights amplify a 1e-6 change at the stem to 1e-4
+TOL_S2D = 1e-5
+# phase 11: the JAX bench's row-5 geometry, 20 clips x 16 frames x 112 px;
+# phase 12: its row 10 (MSTRN over resnet50, 8 segments x 224 px) at 8
+# videos, 64 backbone frames
+R2P1D_CLIPS = (20, 3, 16, 112, 112)
+# K1-fwd at MNISTNonLocalNet's blocks on 64 images: (B, N, Nk, C, Cv)
+MNIST_SHAPES = ((64, 196, 196, 16, 16), (64, 49, 49, 32, 32))
+TRN_VIDEOS = (8, 3, 8, 224, 224)
 # the eval CLI's metadata for a model with no settings (SlowFast has none)
 CLI_SETTINGS = {'input_space': 'RGB', 'input_size': [3, 224, 224],
                 'input_range': [0, 1], 'mean': [0.485, 0.456, 0.406],
@@ -461,6 +497,12 @@ def main_path(pretorched, na, torch, np):
     model = pretorched.nonlocalresnet3d50(num_classes=400,
                                           pretrained='kinetics-400')
     model.cuda().eval()
+    # the same weights with the space-to-depth stem (``conv1.weight`` is
+    # the plain stem's)
+    folded = nonlocalnet.NonLocalResNet3D(
+        'bottleneck', (3, 4, 6, 3), num_classes=400,
+        shortcut_type=model.shortcut_type, s2d_stem=True).cuda().eval()
+    folded.load_state_dict(model.state_dict(), strict=True)
     videos, _ = cli.list_videos(WORK / 'val')
     batch = torch.cat([cli.load_video(frames, 10, 32, model.settings, 'cuda',
                                       dtype=torch.float32)
@@ -489,6 +531,8 @@ def main_path(pretorched, na, torch, np):
         check(logits_bf16.shape == (20, 400)
               and bool(torch.isfinite(logits_bf16).all()),
               'bf16 logits not finite')
+        s2d = stem_ab(model, folded, batch, na, torch, 'eval forward',
+                      EVAL_KERNELS)
 
         def with_attention(fn):
             orig = nonlocalnet.auto_nonlocal_attention
@@ -522,14 +566,98 @@ def main_path(pretorched, na, torch, np):
               f'(tol 1e-3); bf16 vs f32-plain: rel L2 {rel_bf16:.3e}')
         check(bool(torch.isfinite(logits_k).all()) and rel <= 1e-3,
               f'kernel and plain paths disagree: rel L2 {rel:.3e}')
-        for m in model.modules():
+        folded.float()
+        stem = rel_l2(folded.conv1(batch), model.conv1(batch))
+        s2d['rel_l2_f32'] = rel_l2(folded(batch), logits_k)
+        print(f'f32, s2d stem vs plain stem: the stem\'s output rel L2 '
+              f'{stem:.3e} (tol {TOL_S2D:g}, TF32 off); the logits rel L2 '
+              f'{s2d["rel_l2_f32"]:.3e} (tol 1e-3: with these random '
+              'weights the non-local blocks amplify any f32 rounding, as '
+              'the kernel against the plain attention shows)')
+        check(stem <= TOL_S2D and s2d['rel_l2_f32'] <= 1e-3,
+              'the folded stem changes the f32 output')
+        for m in (*model.modules(), *folded.modules()):
             if isinstance(m, nonlocalnet.NonLocalBlock):
                 m.W[1].weight.zero_()
-        moved = ((model(batch) - logits_k).norm() / logits_k.norm()).item()
+        backbone = model(batch)
+        moved = ((backbone - logits_k).norm() / logits_k.norm()).item()
         print(f'zeroing the 5 W.1 scales moves the f32 logits by rel L2 '
               f'{moved:.3e}')
         check(moved > 1e-2, 'the logits do not depend on the attention')
-    return launches, eval_by_kernel, eval_layer3, cli
+        s2d['rel_l2_f32_no_attention'] = rel_l2(folded(batch), backbone)
+        print(f'with the 5 W.1 scales zeroed, the s2d stem vs the plain '
+              f'stem: f32 logits rel L2 '
+              f'{s2d["rel_l2_f32_no_attention"]:.3e} (tol {TOL_S2D:g})')
+        check(s2d['rel_l2_f32_no_attention'] <= TOL_S2D,
+              'the folded stem changes the f32 logits of the backbone')
+        del folded
+    return launches, eval_by_kernel, eval_layer3, cli, s2d
+
+
+def stem_ab(model, folded, batch, na, torch, what, k1_per_pass):
+    """The bf16 forward of ``model`` (plain stem) and ``folded`` (the same
+    weights, space-to-depth stem) in turns, each stem's kernels from the
+    profiler, and the folded stem at 12 input channels against the same
+    conv with zero channels to 16 (and the plain stem with zero channels
+    to 8); the folded forward launches the K1 programs of
+    ``k1_per_pass`` once each. Returns the numbers for the result line."""
+    nclips = batch.shape[0]
+    folded.bfloat16()
+    times = forward_turns({'s2d_stem=False': model, 's2d_stem=True': folded},
+                          batch, torch)
+    print_turns(times, nclips, f'{what}, {nclips} clips')
+    set_counts(na, 0)
+    folded(batch)
+    torch.cuda.synchronize()
+    expect_kernels(na, k1_per_pass, 1, f'{what} with s2d_stem')
+    launches = na.nonlocal_attention_cuda.launches
+    print(f'K1-fwd launches by program, s2d_stem=True: {kernel_counts(na)}')
+    x = batch.bfloat16()
+    prof = stem_profile({'plain': lambda: model.conv1(x),
+                         'folded': lambda: folded.conv1(x)}, torch)
+    print_stems(prof)
+    variants = stem_variants(model.conv1.weight, x, torch)
+    return {'forward_ms': {k: sum(v) / len(v) for k, v in times.items()},
+            'stem_ms': {k: v[0] for k, v in prof.items()},
+            'stem_kernels': {k: v[1][0][0] for k, v in prof.items()},
+            'stem_conv_variants_ms': variants, 'k1_launches': launches}
+
+
+def stem_variants(weight, x, torch):
+    """The stem conv alone in bf16 (CUDA events, median of 10) on inputs
+    folded beforehand: plain (3 channels), plain with zero channels to 8,
+    fold 2 (12 channels) and fold 2 with zero channels to 16: the same
+    function each, what cuDNN makes of the channel count."""
+    import torch.nn.functional as F
+
+    from pretorched_tpu_torch.ops import space_to_depth as s2d
+
+    w = weight.detach().bfloat16()
+    kt = w.shape[2]
+    xf, wf = s2d.space_to_depth_2d(x), s2d.fold_stem_kernel_3d(w)
+
+    def pad_c(t, c):
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, c - t.shape[1]))
+
+    cases = {
+        'plain 3 ch': (x, w, (1, 2, 2), (kt // 2, 3, 3)),
+        'plain 8 ch': (pad_c(x, 8), pad_c(w, 8), (1, 2, 2), (kt // 2, 3, 3)),
+        'fold2 12 ch': (xf, wf, 1, (kt // 2, 0, 0)),
+        'fold2 16 ch': (pad_c(xf, 16), pad_c(wf, 16), 1, (kt // 2, 0, 0)),
+    }
+    out = {}
+    want = None
+    for label, (xi, wi, stride, pad) in cases.items():
+        y = F.conv3d(xi, wi, stride=stride, padding=pad)
+        want = y.float() if want is None else want
+        err = (y.float() - want).abs().max().item() / want.abs().max().item()
+        out[label] = median_ms(lambda: F.conv3d(xi, wi, stride=stride,
+                                                padding=pad), reps=10)
+        print(f'  stem conv alone, {label}: {out[label]:.3f} ms (max error '
+              f'{err:.1e} of the largest |out|)', flush=True)
+        check(err <= TOL_K2['bfloat16'], f'stem variant {label} is off')
+        del y
+    return out
 
 
 def backward_vs_plain(na, torch):
@@ -764,6 +892,67 @@ def print_families(by_name, busy, groups):
 
 CONV_KEYS = ('conv', 'xmma', 'fprop', 'dgrad', 'wgrad', 'implicit', 'cudnn',
              'gemm')
+
+
+def forward_turns(models, x, torch, reps=5):
+    """Median forward ms (CUDA events, ``reps`` each) of the models of
+    ``models`` ({label: model}) on ``x``, in turns: a, b, b, a."""
+    labels = list(models)
+    times = {k: [] for k in labels}
+    for k in labels + labels[::-1]:
+        times[k].append(median_ms(lambda: models[k](x), reps=reps))
+    return times
+
+
+def profile_forward(fn, torch):
+    """One forward under ``torch.profiler``: kernel ms, the device's idle
+    share of the host window, and device time by family."""
+    window, by_name = device_times(fn, torch)
+    busy = sum(by_name.values()) / 1e3
+    if not busy:
+        print('profiled forward: the profiler saw no device time (not '
+              'measured)')
+        return None
+    idle = max(0.0, 1 - busy / window)
+    print(f'profiled forward (torch.profiler): {window:.1f} ms host window, '
+          f'{busy:.1f} ms of kernels, device idle {idle:.1%}', flush=True)
+    families = print_families(by_name, busy, {
+        'convolution': CONV_KEYS, 'batch norm': ('batch_norm', 'bn_fw'),
+        'pooling': ('pool',),
+        'elementwise': ('elementwise', 'vectorized', 'unrolled')})
+    return {'window_ms': window, 'kernel_ms': busy, 'idle': idle,
+            'families_ms': families}
+
+
+def stem_profile(stems, torch):
+    """Each stem of ``stems`` ({label: fn}) once under ``torch.profiler``
+    in bf16 autocast: {label: (device ms, [(kernel, ms), ...] largest
+    first)}, the stem's kernel time and what cuDNN picked for it."""
+    out = {}
+    for label, fn in stems.items():
+        with torch.autocast('cuda', dtype=torch.bfloat16):
+            fn()                                          # warm
+            _, by_name = device_times(fn, torch)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])
+        out[label] = (sum(by_name.values()) / 1e3,
+                      [(name, us / 1e3) for name, us in top[:3]])
+    return out
+
+
+def print_stems(profiles):
+    for label, (ms, top) in profiles.items():
+        print(f'  stem {label}: {ms:.3f} ms of kernels (torch.profiler); '
+              'largest: ' + '; '.join(f'{n[:70]} {t:.3f} ms'
+                                      for n, t in top), flush=True)
+
+
+def print_turns(times, nclips, what, unit='clips', reps=5):
+    for k, ts in times.items():
+        ms = sum(ts) / len(ts)
+        print(f'forward, bf16, {what}, {k}: '
+              + ' / '.join(f'{t:.3f}' for t in ts)
+              + f' ms (CUDA events, median of {reps}, two turns) = '
+              f'{nclips / ms * 1e3:.2f} {unit}/s', flush=True)
 
 
 def profile_step(step, x, labels, torch):
@@ -1222,6 +1411,7 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
     paths, and the effect of the randomized BN; last the eval CLI on the
     same videos. Returns K2's launches in the two steps, in all and by
     kernel."""
+    from pretorched_tpu_torch.models import slowfast
     from pretorched_tpu_torch.parallel.evaluate import multi_clip_eval_step
 
     root = WORK / 'val64'
@@ -1233,6 +1423,10 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
                                          fused_blocks=32)
     randomize_bn(model, torch, seed=1)
     model.cuda().eval().bfloat16()
+    # the same weights with both stems folded (fast: fold 4, slow: fold 2)
+    folded = slowfast.SlowFast(num_classes=400, s2d_stem=True,
+                               fused_blocks=32).cuda().eval().bfloat16()
+    folded.load_state_dict(model.state_dict(), strict=True)
     step = multi_clip_eval_step(model)
     videos, _ = cli.list_videos(root)
     check(len(videos) == 4, f'{len(videos)} videos')
@@ -1244,9 +1438,7 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
 
     torch.cuda.synchronize()
     set_counts(na, 0)
-    fb_cuda.fused_bottleneck_tail_cuda.launches = 0
-    fb_cuda.fused_bottleneck_tail_cuda.by_kernel = dict.fromkeys(
-        fb_cuda.KERNELS, 0)
+    reset_k2(fb_cuda)
     t0 = time.perf_counter()
     totals = {}
     for i in range(0, len(videos), SF_VIDEOS):
@@ -1300,6 +1492,31 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
         model.fused_blocks = 32
         print(f'peak device memory of one forward: fused_blocks=32 '
               f'{peak[32]:.2f} GiB, fused_blocks=0 {peak[0]:.2f} GiB')
+        s2d_times = forward_turns({'s2d_stem=False': model,
+                                   's2d_stem=True': folded}, batch, torch)
+        print_turns(s2d_times, nclips, f'fused_blocks=32, {nclips} clips')
+        reset_k2(fb_cuda)
+        folded(batch)
+        torch.cuda.synchronize()
+        k2_s2d = dict(fb_cuda.fused_bottleneck_tail_cuda.by_kernel)
+        print(f'K2 launches by kernel, s2d_stem=True: {k2_s2d}', flush=True)
+        check(k2_s2d == {'tma': 6, 'mma_sync': 5, 'cuda_cores': 0},
+              f'the s2d forward launched K2 {k2_s2d}')
+        fast_x, slow_x = batch[:, :, ::2], batch[:, :, ::16]
+        check(folded.fast.conv1.fold == 4 and fast_x.shape[-1] % 4 == 0,
+              'the fast stem is not on fold 4')
+        prof = stem_profile({
+            'fast plain': lambda: model.fast.conv1(fast_x),
+            'fast folded (fold 4)': lambda: folded.fast.conv1(fast_x),
+            'slow plain': lambda: model.slow.conv1(slow_x),
+            'slow folded (fold 2)': lambda: folded.slow.conv1(slow_x)},
+            torch)
+        print_stems(prof)
+        s2d = {'forward_ms': {k: sum(v) / len(v)
+                              for k, v in s2d_times.items()},
+               'stem_ms': {k: v[0] for k, v in prof.items()},
+               'stem_kernels': {k: v[1][0][0] for k, v in prof.items()},
+               'k2_launches': sum(k2_s2d.values())}
         window, by_name = device_times(lambda: model(batch), torch)
         busy = sum(by_name.values()) / 1e3
         if busy:
@@ -1331,7 +1548,13 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
               f'1e-3); bf16 fused vs f32 unfused: rel L2 {rel_bf16:.3e}')
         check(bool(torch.isfinite(logits_k).all()) and rel <= 1e-3,
               f'fused and unfused paths disagree: rel L2 {rel:.3e}')
-        del model
+        s2d['rel_l2_f32'] = rel_l2(folded.float()(batch32), logits_k)
+        print(f'f32 logits, s2d stems vs plain stems (fused_blocks=32 '
+              f'both): rel L2 {s2d["rel_l2_f32"]:.3e} (tol {TOL_S2D:g}, '
+              'TF32 off)')
+        check(s2d['rel_l2_f32'] <= TOL_S2D, 'the folded stems change the '
+              f'f32 logits: rel L2 {s2d["rel_l2_f32"]:.3e}')
+        del model, folded
         plain_bn = pretorched.slowfast_resnet50(num_classes=400,
                                                 pretrained=None,
                                                 fused_blocks=32)
@@ -1356,7 +1579,13 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
     check(summary['steps'] == 2 and summary['totals']['count'] == 4,
           f'CLI summary {summary}')
     torch.cuda.empty_cache()
-    return launched[3], k2_by_kernel
+    return launched[3], k2_by_kernel, s2d
+
+
+def reset_k2(fb_cuda):
+    fb_cuda.fused_bottleneck_tail_cuda.launches = 0
+    fb_cuda.fused_bottleneck_tail_cuda.by_kernel = dict.fromkeys(
+        fb_cuda.KERNELS, 0)
 
 
 def load_cli(name):
@@ -1729,6 +1958,241 @@ def serving_path(pretorched, na, torch, np):
     return out
 
 
+def video_models_path(pretorched, torch, na, fb_cuda):
+    """Phase 11: ``r2plus1d50`` (the JAX bench's row 5: 20 clips x 16
+    frames x 112 px, 400 classes, seeded, every BN randomized) with the
+    plain and the folded factored stem on the same weights in turns: bf16
+    clips/s, peak memory, the stems' kernels, f32 logits held together;
+    then one bf16 forward of each of BASELINE config 4's other new
+    backbones on the same clips, held to its f32 forward. None launches K1
+    or K2. Returns the numbers for the result line."""
+    from pretorched_tpu_torch.models.resnet3d import VideoResNet
+
+    g = torch.Generator(device='cuda').manual_seed(0)
+    x = torch.randn(*R2P1D_CLIPS, device='cuda', generator=g)
+    model = pretorched.r2plus1d50(num_classes=400, pretrained=None)
+    randomize_bn(model, torch, seed=1)
+    folded = VideoResNet('bottleneck', (3, 4, 6, 3), num_classes=400,
+                         factored=True, s2d_stem=True)
+    folded.load_state_dict(model.state_dict(), strict=True)
+    out = {}
+    set_counts(na, 0)
+    reset_k2(fb_cuda)
+    with torch.inference_mode():
+        for m in (model, folded):
+            m.cuda().eval().bfloat16()
+        nclips = x.shape[0]
+        times = forward_turns({'s2d_stem=False': model,
+                               's2d_stem=True': folded}, x, torch, reps=10)
+        print_turns(times, nclips, f'r2plus1d50, {nclips} clips x 16 x 112',
+                    reps=10)
+        out['r2plus1d50_profile'] = profile_forward(lambda: model(x), torch)
+        peak = {}
+        for label, m in (('s2d_stem=False', model), ('s2d_stem=True',
+                                                     folded)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            logits = m(x)
+            torch.cuda.synchronize()
+            peak[label] = torch.cuda.max_memory_allocated() / 2 ** 30
+            check(logits.shape == (nclips, 400)
+                  and bool(torch.isfinite(logits).all()),
+                  f'r2plus1d50 {label}: bf16 logits not finite')
+        print(f'peak device memory of one forward: {peak}', flush=True)
+        prof = stem_profile({
+            'factored plain': lambda: model.conv1(x),
+            'factored folded': lambda: folded.conv1(x),
+            'spatial half plain': lambda: model.conv1.spatial_conv(x),
+            'spatial half folded': lambda: folded.conv1.spatial_conv(x)},
+            torch)
+        print_stems(prof)
+        rel = rel_l2(folded.float()(x), model.float()(x))
+        print(f'f32 logits, s2d stem vs plain stem: rel L2 {rel:.3e} (tol '
+              f'{TOL_S2D:g}, TF32 off)', flush=True)
+        check(rel <= TOL_S2D, f'r2plus1d50: the folded stem changes the f32 '
+              f'logits: rel L2 {rel:.3e}')
+        out['r2plus1d50'] = {
+            'forward_ms': {k: sum(v) / len(v) for k, v in times.items()},
+            'clips_per_s': {k: nclips / (sum(v) / len(v)) * 1e3
+                            for k, v in times.items()},
+            'peak_gib': peak, 'rel_l2_f32': rel,
+            'stem_ms': {k: v[0] for k, v in prof.items()},
+            'stem_kernels': {k: v[1][0][0] for k, v in prof.items()}}
+        del model, folded
+        torch.cuda.empty_cache()
+        for name in ('resnext3d101', 'preact_resnet3d50', 'wideresnet3d50',
+                     'resneti3d50'):
+            m = pretorched.__dict__[name](num_classes=400, pretrained=None)
+            randomize_bn(m, torch, seed=2)
+            m.cuda().eval().bfloat16()
+            ms = median_ms(lambda: m(x), reps=3)
+            got = m(x).float()
+            want = m.float()(x)
+            rel = rel_l2(got, want)
+            print(f'{name}: bf16 forward of {nclips} clips x 16 x 112 '
+                  f'{ms:.3f} ms (CUDA events, median of 3) = '
+                  f'{nclips / ms * 1e3:.2f} clips/s; bf16 vs f32 logits rel '
+                  f'L2 {rel:.3e} (tol {TOL_LOGITS_BF16:g})', flush=True)
+            check(bool(torch.isfinite(got).all()) and rel <= TOL_LOGITS_BF16,
+                  f'{name}: bf16 logits off the f32 ones: rel L2 {rel:.3e}')
+            out[name] = {'forward_ms': ms, 'rel_l2_bf16_f32': rel}
+            del m, got, want
+            torch.cuda.empty_cache()
+    launched = k_counts(na, fb_cuda)
+    check(launched == (0, 0, 0, 0), f'phase 11 launched K1 / K2 {launched}')
+    return out
+
+
+def trn_path(pretorched, torch):
+    """Phase 12: ``trn`` (MSTRN over ``resnet50``, 8 segments x 224 px, the
+    JAX bench's row 10 at 8 videos = 64 backbone frames), seeded, every BN
+    randomized, bf16: videos/s by CUDA events, the backbone's first conv
+    seen computing in bf16, the logits held to the f32 forward, and the
+    generator path's draw repeated from its seed."""
+    model = pretorched.trn(num_classes=400, num_segments=8,
+                           consensus='MSTRN', arch='resnet50')
+    randomize_bn(model, torch, seed=3)
+    model.cuda().eval().bfloat16()
+    g = torch.Generator(device='cuda').manual_seed(0)
+    x = torch.randn(*TRN_VIDEOS, device='cuda', generator=g)
+    seen = []
+    hook = model.base_module.conv1.register_forward_hook(
+        lambda m, i, o: seen.append(o.dtype))
+    with torch.inference_mode():
+        logits = model(x).float()
+        hook.remove()
+        check(seen == [torch.bfloat16], f'the backbone computed in {seen}')
+        ms = median_ms(lambda: model(x), reps=10)
+        videos = x.shape[0]
+        print(f'trn (MSTRN, resnet50), bf16, {videos} videos x 8 segments x '
+              f'224 px: {ms:.3f} ms (CUDA events, median of 10) = '
+              f'{videos / ms * 1e3:.2f} videos/s; the backbone conv1 ran in '
+              f'{seen[0]}', flush=True)
+        draws = [model(x, torch.Generator(device='cuda').manual_seed(5))
+                 for _ in range(2)]
+        check(torch.equal(draws[0], draws[1]),
+              'MSTRN draws differ from one seed')
+        prof = profile_forward(lambda: model(x), torch)
+        want = model.float()(x)
+        rel = rel_l2(logits, want)
+        print(f'bf16 vs f32 logits: rel L2 {rel:.3e} (tol '
+              f'{TOL_LOGITS_BF16:g}); the generator path repeats from its '
+              'seed', flush=True)
+        check(logits.shape == (videos, 400)
+              and bool(torch.isfinite(logits).all())
+              and rel <= TOL_LOGITS_BF16,
+              f'trn: bf16 logits off the f32 ones: rel L2 {rel:.3e}')
+    return {'forward_ms': ms, 'videos_per_s': videos / ms * 1e3,
+            'rel_l2_bf16_f32': rel, 'profile': prof}
+
+
+def mnist_path(na, torch):
+    """Phase 13: ``MNISTNonLocalNet`` on 64 seeded 28 x 28 images, every BN
+    randomized (its blocks' ``W.1`` included): a bf16 forward (K1-fwd on
+    mma.sync) and an f32 one (scalar), each with the counts set to 0 just
+    before it: 2 K1-fwd launches, each launch's out and lse held to the
+    plain version at phase 3's tolerances; the f32 logits with the kernels
+    against the plain attention; zeroing each ``W.1`` moves them; the bf16
+    launches timed against the plain version, SDPA and the bound. Returns
+    the numbers for the result line."""
+    from pretorched_tpu_torch.models import nonlocalnet
+
+    model = nonlocalnet.MNISTNonLocalNet()
+    randomize_bn(model, torch, seed=4)
+    model.cuda().eval()
+    g = torch.Generator(device='cuda').manual_seed(0)
+    x = torch.randn(64, 1, 28, 28, device='cuda', generator=g)
+    orig = nonlocalnet.auto_nonlocal_attention
+    runs = {}
+    with torch.inference_mode():
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split('.')[-1]
+            calls = []
+
+            def recording(q, k, v, scale=1.0):
+                out, lse = na.nonlocal_attention_fwd_lse(q, k, v, scale)
+                calls.append((q, k, v, out, lse))
+                return out
+
+            nonlocalnet.auto_nonlocal_attention = recording
+            set_counts(na, 0)
+            try:
+                with torch.autocast('cuda', dtype=torch.bfloat16,
+                                    enabled=dt == torch.bfloat16):
+                    logits = model(x).float()
+                torch.cuda.synchronize()
+            finally:
+                nonlocalnet.auto_nonlocal_attention = orig
+            by_kernel = kernel_counts(na)
+            kernel = na.attention_kernel(dt, 16, 16, 'fwd')
+            check(na.nonlocal_attention_cuda.launches == 2
+                  and by_kernel == {f'fwd {kernel}': 2},
+                  f'MNIST {dname}: K1-fwd launches {by_kernel}, expected 2 '
+                  f'on {kernel}')
+            check(bool(torch.isfinite(logits).all()),
+                  f'MNIST {dname}: logits not finite')
+            rows = []
+            for q, k, v, out, lse in calls:
+                check(q.dtype == dt, f'MNIST {dname}: q is {q.dtype}')
+                want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+                    q.float(), k.float(), v.float())
+                err, err_rel, err_lse = fwd_errors(out, lse, want, want_lse)
+                tol, tol_lse = TOL[dname]
+                tol_rel = (TOL_REL_BF16 if dt == torch.bfloat16
+                           else float('inf'))
+                shape = (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                         v.shape[2])
+                line = (f'MNIST {dname} K1-fwd {shape} [{kernel}]: '
+                        f'max|out-plain|={err:.3e} (tol {tol:g}), /max|plain| '
+                        f'{err_rel:.3e} (tol {tol_rel:g}), max|lse-plain|='
+                        f'{err_lse:.3e} (tol {tol_lse:g})')
+                print(line, flush=True)
+                check(err <= tol and err_rel <= tol_rel
+                      and err_lse <= tol_lse,
+                      f'kernel disagrees with the plain version: {line}')
+                rows.append((shape, q, k, v, err))
+            runs[dname] = {'logits': logits, 'rows': rows,
+                           'by_kernel': {kernel: 2}}
+        nonlocalnet.auto_nonlocal_attention = na.nonlocal_attention_reference
+        try:
+            plain = model(x)
+        finally:
+            nonlocalnet.auto_nonlocal_attention = orig
+        rel = rel_l2(runs['float32']['logits'], plain)
+        print(f'f32 logits, kernels vs plain attention: rel L2 {rel:.3e} '
+              f'(tol 1e-3); bf16 vs f32-plain: rel L2 '
+              f'{rel_l2(runs["bfloat16"]["logits"], plain):.3e}', flush=True)
+        check(rel <= 1e-3, f'MNIST: kernel and plain paths disagree: {rel}')
+        for name in ('nonlocal1', 'nonlocal2'):
+            block = getattr(model, name)
+            scale = block.W[1].weight.clone()
+            block.W[1].weight.zero_()
+            moved = rel_l2(model(x), plain)
+            block.W[1].weight.copy_(scale)
+            print(f'zeroing {name}.W.1 moves the f32 logits by rel L2 '
+                  f'{moved:.3e}')
+            check(moved > 1e-3, f'the logits do not depend on {name}')
+        timed = {}
+        for shape, q, k, v, err in runs['bfloat16']['rows']:
+            ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
+            plain_ms = median_ms(
+                lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v))
+            lib_ms, backend = sdpa_ms(torch, q, k, v)
+            bound_ms, bound_by = attention_bounds(*shape, 'bfloat16')['fwd']
+            print(f'MNIST bf16 K1-fwd {shape}: kernel {ms:.4f} ms, plain '
+                  f'{plain_ms:.4f} ms, scaled_dot_product_attention '
+                  f'{fmt_ms(lib_ms)} ({backend}), bound {bound_ms:.5f} ms '
+                  f'({bound_by})', flush=True)
+            timed[shape] = {'max_abs_err': err, 'ms': ms,
+                            'plain_ms': plain_ms, 'library_ms': lib_ms,
+                            'library': f'scaled_dot_product_attention '
+                                       f'({backend})',
+                            'bound_ms': bound_ms, 'bound_by': bound_by}
+    check(set(timed) == set(MNIST_SHAPES), f'MNIST shapes {list(timed)}')
+    return {'timed': timed,
+            'launches_by_kernel': {k: v['by_kernel'] for k, v in runs.items()}}
+
+
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
@@ -1815,8 +2279,11 @@ def main():
     k1 = kernel_vs_plain(na, torch)
 
     phase('4. eval path: nonlocalresnet3d50, 10 clips x 32 frames x 224 px')
-    eval_launches, eval_by_kernel, eval_layer3, cli = main_path(
+    eval_launches, eval_by_kernel, eval_layer3, cli, s2d_eval = main_path(
         pretorched, na, torch, np)
+    # the s2d A/B's buffers (f32 stem outputs of 2 GB) go back to the card
+    # before the training phases allocate
+    torch.cuda.empty_cache()
 
     phase('5. non-local attention backward kernels vs plain PyTorch')
     k1b = backward_vs_plain(na, torch)
@@ -1835,14 +2302,26 @@ def main():
 
     phase(f'9. eval path: slowfast_resnet50, fused_blocks=32, {SF_CLIPS} '
           f'clips x {SF_FRAMES} frames x 224 px')
-    k2_launches, k2_by_kernel = slowfast_path(pretorched, torch, np, cli, na,
-                                              fb_cuda)
+    k2_launches, k2_by_kernel, s2d_sf = slowfast_path(pretorched, torch, np,
+                                                      cli, na, fb_cuda)
 
     phase('10. serving: resnet50 images and nonlocalresnet3d50 clips '
           'through serving.serve_model')
     served = serving_path(pretorched, na, torch, np)
 
-    phase('11. result')
+    phase('11. eval path: r2plus1d50, 20 clips x 16 frames x 112 px, '
+          'plain and s2d stems; resnext3d101, preact_resnet3d50, '
+          'wideresnet3d50, resneti3d50')
+    videos = video_models_path(pretorched, torch, na, fb_cuda)
+
+    phase('12. eval path: trn (MSTRN over resnet50), 8 videos x 8 segments '
+          'x 224 px')
+    trn = trn_path(pretorched, torch)
+
+    phase('13. MNISTNonLocalNet: K1-fwd on mma.sync (bf16) and scalar (f32)')
+    mnist = mnist_path(na, torch)
+
+    phase('14. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -1866,7 +2345,10 @@ def main():
         {'name': 'nonlocal_attention_fwd', 'route': 'cuda',
          'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
          'launches': train_launches[0], 'launches_eval': eval_launches,
+         'launches_eval_s2d_forward': s2d_eval['k1_launches'],
          'launches_serving': served['launches'],
+         'launches_mnist': mnist['launches_by_kernel'],
+         'shapes_mnist': [list(x) for x in MNIST_SHAPES],
          'launches_by_kernel': fwd_by_kernel,
          'serving_batches': served['k1_batches'],
          **k1['layer2'], 'shape': list(SLICE_SHAPES['layer2']),
@@ -1880,6 +2362,16 @@ def main():
                              if k.startswith('layer3')},
          **k1['layer3'], 'shape': list(SLICE_SHAPES['layer3']),
          'dtype': 'bfloat16'},
+        {'name': 'nonlocal_attention_fwd_mnist', 'route': 'cuda',
+         'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
+         'note': 'K1-fwd at MNISTNonLocalNet\'s shapes: the mma.sync program '
+                 'in bf16 (the scalar one in f32, launches_by_kernel)',
+         'launches': sum(mnist['launches_by_kernel']['bfloat16'].values()),
+         'launches_by_kernel': mnist['launches_by_kernel'],
+         **mnist['timed'][MNIST_SHAPES[0]], 'shape': list(MNIST_SHAPES[0]),
+         'dtype': 'bfloat16',
+         'other_shapes': {str(list(k)): v for k, v in mnist['timed'].items()
+                          if k != MNIST_SHAPES[0]}},
         {'name': 'nonlocal_attention_bwd_dq', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
          'launches': train_launches[1], **k1b['layer2']['dq'],
@@ -1905,6 +2397,7 @@ def main():
          'source': src + 'fused_block.cu',
          'replaces': 'pretorched_tpu/ops/pallas/fused_block.py:69',
          'launches': k2_launches, 'launches_by_kernel': k2_by_kernel,
+         'launches_s2d_forward': s2d_sf['k2_launches'],
          **k2['fast res2.1-2'], 'earlier': 'mma.sync kernel, same run',
          'plain': 'fused_bottleneck_tail_reference',
          'library': 'the unfused tail: cuDNN conv2, BN, ReLU, cuDNN conv3, '
@@ -1917,6 +2410,8 @@ def main():
                                            'uint8', 'jpeg', 'clips',
                                            'bucket_forward_ms', 'bucket8',
                                            'decoder')},
+        's2d': {'nonlocalresnet3d50': s2d_eval, 'slowfast_resnet50': s2d_sf},
+        'video_models': videos, 'trn': trn,
         'card': card}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

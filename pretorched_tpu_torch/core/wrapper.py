@@ -62,13 +62,20 @@ class PretrainedModel(nn.Module):
         with self._autocast(x):
             return self._logits(self._features(x))
 
+    def _set_compute_dtype(self, dtype):
+        """On this model and every model nested in it (TRN's backbone), as
+        the JAX wrapper's ``_replace_dtype`` recurses (wrapper.py:32-53)."""
+        for m in self.modules():
+            if isinstance(m, PretrainedModel):
+                m.compute_dtype = dtype
+
     def bfloat16(self):
         """Compute in bfloat16; parameters stay float32."""
-        self.compute_dtype = torch.bfloat16
+        self._set_compute_dtype(torch.bfloat16)
         return self
 
     def float(self):
-        self.compute_dtype = None
+        self._set_compute_dtype(None)
         return super().float()
 
     @torch.no_grad()

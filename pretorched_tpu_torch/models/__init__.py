@@ -4,9 +4,21 @@ from .layers import Identity  # noqa: F401
 from .resnet import (resnet18, resnet34, resnet50, resnet101,  # noqa: F401
                      resnet152)
 from .resnet3d import (resnet3d10, resnet3d18, resnet3d34, resnet3d50,  # noqa: F401
-                       resnet3d101, resnet3d152, resnet3d200)
-from .nonlocalnet import (nonlocalresnet3d18, nonlocalresnet3d34,  # noqa: F401
+                       resnet3d101, resnet3d152, resnet3d200, resneti3d50)
+from .resnext3d import (resnext3d10, resnext3d18, resnext3d34,  # noqa: F401
+                        resnext3d50, resnext3d101, resnext3d152, resnext3d200)
+from .wideresnet3d import wideresnet3d50  # noqa: F401
+from .preact_resnet3d import (preact_resnet3d10, preact_resnet3d18,  # noqa: F401
+                              preact_resnet3d34, preact_resnet3d50,
+                              preact_resnet3d101, preact_resnet3d152,
+                              preact_resnet3d200)
+from .r2plus1d import (r2plus1d10, r2plus1d18, r2plus1d34, r2plus1d50,  # noqa: F401
+                       r2plus1d101, r2plus1d152, r2plus1d200)
+from .nonlocalnet import (MNISTNonLocalNet, NonLocalBlock,  # noqa: F401
+                          NonLocalBlock1D, NonLocalBlock2D, NonLocalBlock3D,
+                          nonlocalresnet3d18, nonlocalresnet3d34,
                           nonlocalresnet3d50, nonlocalresnet3d101,
                           nonlocalresnet3d152)
 from . import slowfast  # noqa: F401  (the reference's pretorched.slowfast)
 from .slowfast import SlowFastV0  # noqa: F401
+from .trn import TRN, trn  # noqa: F401

@@ -18,8 +18,9 @@ build is reproducible from its seed:
 ``BatchNorm`` is the port's batch norm: torch's, except that its train-mode
 update of ``running_var`` uses the biased batch variance, as flax does.
 
-``SpaceToDepthConv`` is not ported: it is a re-indexing of the stem for the
-TPU's matrix unit, and cuDNN takes the plain strided conv.
+``SpaceToDepthConv`` is the stride-(.,2,2) stem conv evaluated through the
+exact space-to-depth fold of ``ops/space_to_depth.py``: it stores the plain
+torch-shaped ``weight`` and folds it at every call.
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ import threading
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import space_to_depth as s2d
 
 _CONV_TYPES = (nn.Conv1d, nn.Conv2d, nn.Conv3d)
 # per thread: the recompute runs on the autograd engine's thread
@@ -90,12 +94,78 @@ class Identity(nn.Module):
         return x
 
 
-def conv3d_kaiming_out(in_ch, out_ch, kernel_size, stride=1, padding=0):
+def conv3d_kaiming_out(in_ch, out_ch, kernel_size, stride=1, padding=0,
+                       groups=1):
     """Bias-free Conv3d that ``init_parameters`` fills kaiming-normal fan_out."""
     conv = nn.Conv3d(in_ch, out_ch, kernel_size, stride=stride,
-                     padding=padding, bias=False)
+                     padding=padding, groups=groups, bias=False)
     conv.kaiming_normal_out = True
     return conv
+
+
+class SpaceToDepthConv(nn.Module):
+    """Bias-free stride-(1, 2, 2) (``ndim=3``) or stride-2 (``ndim=2``) stem
+    conv with padding k // 2, evaluated through the exact space-to-depth
+    fold (``ops/space_to_depth.py``). The stored ``weight`` keeps the plain
+    conv's shape ``(O, C, [kt,] k, k)``, so checkpoints stay interchangeable
+    with the plain stem; the fold is a re-indexing done at every call.
+
+    The rules of ``pretorched_tpu/models/layers.py:126-205``:
+    * ``fold=4`` (``ndim=3``, spatial kernel 7, H and W multiples of 4): a
+      4x4 space-to-depth of the input, the output computed in its 2x2 parity
+      layout (4 O channels) and put back by ``depth_to_space_2``;
+    * otherwise fold 2: a stride-1 conv over 4 C channels;
+    * an odd padded size cannot be tiled by 2x2 cells: the plain strided
+      conv on the same weight runs instead.
+
+    Under autocast the input is cast to the autocast dtype before it is
+    folded, as the JAX module casts it to its compute dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=7,
+                 ndim: int = 3, fold: int = 2):
+        super().__init__()
+        ks = ((kernel_size,) * ndim if isinstance(kernel_size, int)
+              else tuple(kernel_size))
+        if ndim not in (2, 3) or len(ks) != ndim:
+            raise ValueError(f'kernel {ks} for ndim={ndim}')
+        if ks[-2] != ks[-1] or ks[-1] % 2 == 0:
+            raise ValueError('space-to-depth folding needs a square odd '
+                             f'spatial kernel, got {ks}')
+        if fold not in (2, 4):
+            raise ValueError(f'fold must be 2 or 4, got {fold}')
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size, self.ndim, self.fold = ks, ndim, fold
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *ks))
+        # torch's conv default until ``init_parameters`` (kaiming-normal
+        # fan-out, the JAX module's init) runs
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+        self.kaiming_normal_out = True
+
+    def extra_repr(self):
+        return (f'{self.in_channels}, {self.out_channels}, '
+                f'kernel_size={self.kernel_size}, fold={self.fold}')
+
+    def forward(self, x):
+        if torch.is_autocast_enabled(x.device.type):
+            x = x.to(torch.get_autocast_dtype(x.device.type))
+        k = self.kernel_size[-1]
+        h, w = x.shape[-2:]
+        conv = F.conv3d if self.ndim == 3 else F.conv2d
+        tpad = (self.kernel_size[0] // 2,) if self.ndim == 3 else ()
+        if (self.fold == 4 and self.ndim == 3 and k == 7 and h % 4 == 0
+                and w % 4 == 0):
+            y = conv(s2d.space_to_depth_4(x),
+                     s2d.fold4_stem_kernel_3d(self.weight),
+                     padding=tpad + (0, 0))
+            return s2d.depth_to_space_2(y)
+        lpad, rpad = k // 2 + 1, k // 2 - 1
+        if (h + lpad + rpad) % 2 or (w + lpad + rpad) % 2:
+            return conv(x, self.weight, stride=(1,) * len(tpad) + (2, 2),
+                        padding=tpad + (k // 2, k // 2))
+        return conv(s2d.space_to_depth_2d(x, lpad, rpad),
+                    s2d.fold_stem_kernel_3d(self.weight) if self.ndim == 3
+                    else s2d.fold_stem_kernel_2d(self.weight),
+                    padding=tpad + (0, 0))
 
 
 def conv2d(in_ch, out_ch, kernel_size, stride=1, padding=0, bias=False):
@@ -159,10 +229,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             m.weight.zero_()
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, _CONV_TYPES) and getattr(m, 'kaiming_normal_out',
-                                                    False):
+        elif (isinstance(m, _CONV_TYPES + (SpaceToDepthConv,))
+              and getattr(m, 'kaiming_normal_out', False)):
             kaiming_normal_out(m.weight, generator)
-            if m.bias is not None:
+            if getattr(m, 'bias', None) is not None:
                 m.bias.zero_()
         elif isinstance(m, _CONV_TYPES + (nn.Linear,)):
             init = (torch_conv_init if getattr(m, 'jax_init', False)

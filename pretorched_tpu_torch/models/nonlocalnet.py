@@ -12,11 +12,14 @@ T*H*W positions:
   split into its theta and phi halves, so no N x N x 2C concat exists.
 
 The output BN (``W.1``) is zero-initialized, so a fresh block is the identity
-(nonlocalnet.py:94-101). ``NonLocalResNet3D`` places blocks every
-``blocks // nonlocal_blocks`` residual blocks of a stage (5 blocks ->
-[0, 2, 3, 0]), and loads the plain resnet3d50 Kinetics checkpoint with
+(nonlocalnet.py:94-101). ``NonLocalBlock1D/2D/3D`` fix its dimension;
+``MNISTNonLocalNet`` is the reference's 2D tutorial net.
+``NonLocalResNet3D`` places blocks every ``blocks // nonlocal_blocks``
+residual blocks of a stage (5 blocks -> [0, 2, 3, 0]), and loads the plain resnet3d50 Kinetics checkpoint with
 strict=False (nonlocalnet.py:564): that checkpoint carries no non-local
-weights and uses shortcut B, where this model defaults to A.
+weights and uses shortcut B, where this model defaults to A. Its stem
+takes ``s2d_stem`` as ``VideoResNet`` does (the JAX class accepts the field
+and runs the plain stem; the fold is exact, so the two agree).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from ..core.registry import register_model, register_settings
 from ..ops.cuda.nonlocal_attention import (auto_nonlocal_attention,
                                            linear_nonlocal_attention)
 from ..ops.pooling import max_pool
-from .layers import batch_norm
+from .layers import batch_norm, conv2d, init_parameters, linear
 from .resnet3d import VideoResNet, video_settings
 
 _NL_URLS = {
@@ -128,6 +131,52 @@ class NonLocalBlock(nn.Module):
         return torch.bmm(f, g) / f.shape[-1]
 
 
+def NonLocalBlock1D(in_channels, **kw):
+    return NonLocalBlock(in_channels, dimension=1, **kw)
+
+
+def NonLocalBlock2D(in_channels, **kw):
+    return NonLocalBlock(in_channels, dimension=2, **kw)
+
+
+def NonLocalBlock3D(in_channels, **kw):
+    return NonLocalBlock(in_channels, dimension=3, **kw)
+
+
+class MNISTNonLocalNet(nn.Module):
+    """The tutorial 2D non-local net (reference: nonlocalnet.py:273-305;
+    ``pretorched_tpu/models/nonlocalnet.py:140-160``) on (B, 1, 28, 28)
+    images: three conv -> BN -> ReLU -> 2x2 max pool stages, a non-local
+    block before the second and the third (attention at N = 196, C = 16
+    and N = 49, C = 32), then ``fc1`` (256) and ``fc2`` (10). The conv
+    features are flattened in (H, W, C) order, as the JAX module flattens
+    its channels-last map, so ``fc1`` carries across unchanged. Its
+    parameters start from ``generator`` (seed 0 by default)."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        in_ch = 1
+        for i, ch in enumerate((32, 64, 128)):
+            if i > 0:
+                setattr(self, f'nonlocal{i}', NonLocalBlock2D(in_ch))
+            setattr(self, f'conv{i}', conv2d(in_ch, ch, 3, padding=1,
+                                             bias=True))
+            setattr(self, f'bn{i}', batch_norm(ch))
+            in_ch = ch
+        self.fc1 = linear(128 * 3 * 3, 256)
+        self.fc2 = linear(256, 10)
+        init_parameters(self, generator or torch.Generator().manual_seed(0))
+
+    def forward(self, x):
+        for i in range(3):
+            if i > 0:
+                x = getattr(self, f'nonlocal{i}')(x)
+            x = getattr(self, f'bn{i}')(getattr(self, f'conv{i}')(x))
+            x = max_pool(F.relu(x), 2, 2)
+        x = x.permute(0, 2, 3, 1).flatten(1)
+        return self.fc2(F.relu(self.fc1(x)))
+
+
 class NonLocalResNet3D(VideoResNet):
     """VideoResNet with non-local blocks after chosen residual blocks
     (reference: nonlocalnet.py:423-508). Block ``layer{s}.{i}`` carries its
@@ -143,9 +192,7 @@ class NonLocalResNet3D(VideoResNet):
             freq = blocks // nl if nl else 0
             for i, blk in enumerate(getattr(self, f'layer{stage}')):
                 if freq and i % freq == 0:
-                    width = (blk.conv3 if hasattr(blk, 'conv3')
-                             else blk.conv2).out_channels
-                    blk.nonlocalblock = NonLocalBlock(width, dimension=3)
+                    blk.nonlocalblock = NonLocalBlock(blk.out_ch, dimension=3)
 
     def _after_block(self, x, stage, i):
         blk = getattr(self, f'layer{stage}')[i]

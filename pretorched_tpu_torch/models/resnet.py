@@ -17,7 +17,10 @@ The other fields carry the later families' variants: ``conv_bias``
 BN-free net with conv biases), ``width_per_stage``. ``remat`` checkpoints
 each residual block (``torch.utils.checkpoint``) when a gradient is taken.
 Every conv and the head start from the JAX package's init
-(``layers.torch_conv_init``). ``s2d_stem`` is not ported yet.
+(``layers.torch_conv_init``). ``s2d_stem`` evaluates a bias-free stem
+through the exact space-to-depth fold (``layers.SpaceToDepthConv``, the same
+``conv1.weight``, started kaiming-normal as the JAX module's); a stem with
+a bias stays plain (resnet.py:132-137).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch.nn.functional as F
 from ..core.registry import image_settings, register_model, register_settings
 from ..core.wrapper import PretrainedModel
 from ..ops.pooling import avg_pool, global_avg_pool, max_pool
-from .layers import batch_norm, conv2d, linear
+from .layers import SpaceToDepthConv, batch_norm, conv2d, linear
 from .resnet3d import checkpointed
 
 model_urls = {
@@ -117,10 +120,6 @@ class ResNet(PretrainedModel):
                  stem_pool: str = 'pad', logits_pool: str = 'global',
                  inner_width_mult: float = 1.0, no_bn: bool = False,
                  s2d_stem: bool = False, remat: bool = False):
-        if s2d_stem:
-            raise NotImplementedError(
-                's2d_stem is not ported yet (ops/space_to_depth.py, '
-                'ROADMAP.md section 1, item 2)')
         if block not in ('basic', 'bottleneck'):
             raise ValueError(f'unknown block {block!r}')
         for name, value, allowed in (('stride_on', stride_on,
@@ -138,7 +137,10 @@ class ResNet(PretrainedModel):
         self.stem_pool = stem_pool
         self.logits_pool = logits_pool
         self.remat = remat
-        self.conv1 = conv2d(3, 64, 7, stride=2, padding=3, bias=conv_bias)
+        if s2d_stem and not conv_bias:
+            self.conv1 = SpaceToDepthConv(3, 64, 7, ndim=2)
+        else:
+            self.conv1 = conv2d(3, 64, 7, stride=2, padding=3, bias=conv_bias)
         self.bn1 = _bn(64, no_bn)
         block_cls = BasicBlock if block == 'basic' else Bottleneck
         # the bottleneck's variants (the JAX basic block has neither)

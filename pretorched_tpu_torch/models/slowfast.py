@@ -21,9 +21,13 @@ through ``ops/fused_block.fused_tail_with_layout``: the CUDA kernel K2 on
 the card, the plain version on the CPU. The block folds its BN and lays the
 weights out for the kernel once, and keeps them until a parameter or buffer
 of conv2, bn2, conv3, bn3 or the downsample changes (its version, storage,
-device or dtype) or ``train()`` is called. ``s2d_stem`` is accepted and
-changes nothing (the JAX package's fold is an exact re-indexing for the
-TPU).
+device or dtype) or ``train()`` is called.
+
+``s2d_stem`` evaluates both stems through the exact space-to-depth fold
+(``layers.SpaceToDepthConv``, the same ``conv1.weight``): the fast stem
+(5, 7, 7), O = 8, on fold 4 when H and W are multiples of 4 (else fold 2),
+its BN, ReLU and pool on the natural layout; the slow stem (1, 7, 7) on
+fold 2 (slowfast.py:155-205).
 
 Module names follow the JAX package's flat names (``fast.res2.0.conv1``,
 ``fast.lateral_p1``, ``slow.res2.0.downsample.1``), so
@@ -40,7 +44,7 @@ from ..core.registry import register_model
 from ..core.wrapper import PretrainedModel
 from ..ops.fused_block import TailLayout, fold_bn, fused_tail_with_layout
 from ..ops.pooling import global_avg_pool, max_pool
-from .layers import batch_norm
+from .layers import SpaceToDepthConv, batch_norm
 
 
 def _conv(cin, cout, kernel, stride=1, padding=0, bias=False):
@@ -169,10 +173,11 @@ def _lateral(ch):
 
 
 class FastPathway(nn.Module):
-    def __init__(self, block, layers, laterals: bool):
+    def __init__(self, block, layers, laterals: bool, s2d_stem: bool = False):
         super().__init__()
         self.laterals = laterals
-        self.conv1 = _conv(3, 8, (5, 7, 7), (1, 2, 2), (2, 3, 3))
+        self.conv1 = (SpaceToDepthConv(3, 8, (5, 7, 7), fold=4) if s2d_stem
+                      else _conv(3, 8, (5, 7, 7), (1, 2, 2), (2, 3, 3)))
         self.bn1 = batch_norm(8)
         if laterals:
             self.lateral_p1 = _lateral(8)
@@ -199,9 +204,10 @@ class FastPathway(nn.Module):
 
 
 class SlowPathway(nn.Module):
-    def __init__(self, block, layers, lateral_channels):
+    def __init__(self, block, layers, lateral_channels, s2d_stem=False):
         super().__init__()
-        self.conv1 = _conv(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3))
+        self.conv1 = (SpaceToDepthConv(3, 64, (1, 7, 7)) if s2d_stem
+                      else _conv(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3)))
         self.bn1 = batch_norm(64)
         res3_stride = 2 if block is Bottleneck else 1
         inp = 64
@@ -239,12 +245,13 @@ class SlowFast(PretrainedModel):
         blk = Bottleneck if block == 'bottleneck' else BasicBlock
         fast = slow = None
         if mode in ('sf', 'f'):
-            fast = FastPathway(blk, layers, laterals=mode == 'sf')
+            fast = FastPathway(blk, layers, laterals=mode == 'sf',
+                               s2d_stem=s2d_stem)
         if mode in ('sf', 's'):
             # the laterals' widths: 2 x the fast stem's and stages' outputs
             lat = ((16, 16 * blk.expansion, 32 * blk.expansion,
                     64 * blk.expansion) if mode == 'sf' else (0,) * 4)
-            slow = SlowPathway(blk, layers, lat)
+            slow = SlowPathway(blk, layers, lat, s2d_stem)
         features = sum(p.out_channels for p in (slow, fast) if p is not None)
         super().__init__(num_classes, features)
         self.block, self.layers, self.mode = block, tuple(layers), mode

@@ -14,6 +14,10 @@ plus the layout transposes (HWIO -> OIHW, THWIO -> OITHW, (in, out) ->
 checkpoint format, key for key what ``PretrainedModel.export_torch_state_dict``
 of the JAX package writes; with no renames it loads straight into the port.
 No JAX import: the leaves only need ``np.asarray``.
+
+``inflate_kernel`` is the I3D inflation of the JAX converter
+(``pretorched_tpu/zoo/convert.py:93-98``): a 2D conv weight broadcast over
+the time axis of a 3D one, without rescaling.
 """
 
 from __future__ import annotations
@@ -73,6 +77,17 @@ def _to_torch_layout(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
         if value.ndim == 5:                       # THWIO -> OITHW
             return np.transpose(value, (4, 3, 0, 1, 2))
     return value
+
+
+def inflate_kernel(weight, shape):
+    """A 4-D conv weight tensor (O, I, kh, kw) broadcast to the 5-D
+    ``shape`` (O, I, kt, kh, kw), each time tap a copy, not rescaled
+    (reference: torchvision_models.py:170-191); any other pair of shapes
+    comes back unchanged."""
+    if weight.dim() != 4 or len(shape) != 5 or \
+            tuple(shape[:2]) + tuple(shape[3:]) != tuple(weight.shape):
+        return weight
+    return weight[:, :, None].expand(*shape).contiguous()
 
 
 def state_dict_from_flax(variables: Mapping,

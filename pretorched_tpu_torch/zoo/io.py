@@ -5,9 +5,10 @@ cache directory (``$PRETORCHED_HOME``, then ``$TORCH_MODEL_ZOO``, then
 ``~/.cache/pretorched_tpu``). The hosted ``.pth`` already is the port's
 format, so it loads straight into the module: the ``{'state_dict': ...}``
 wrapper and DataParallel's ``module.`` prefix are stripped, checkpoint
-prefixes are renamed to the port's (``fc`` -> ``last_linear``), and
-``load_state_dict`` runs with the factory's ``strict`` flag. There is no
-converted cache.
+prefixes are renamed to the port's (``fc`` -> ``last_linear``), a 2D conv
+weight meeting a 3D parameter is inflated over time (``resneti3d50`` loads
+a 2D ``resnet50`` checkpoint), and ``load_state_dict`` runs with the
+factory's ``strict`` flag. There is no converted cache.
 
 Offline behaviour: with no ``.pth`` found, the model keeps its seeded random
 init with a warning, or raises when ``PRETORCHED_STRICT_WEIGHTS`` is set.
@@ -21,6 +22,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+
+from .convert import inflate_kernel
 
 
 def cache_dir() -> Path:
@@ -73,8 +76,9 @@ def load_state_dict_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
     ``(missing_keys, unexpected_keys)`` of ``load_state_dict``, with
     mismatched shapes counted as unexpected."""
     inverse = {v: k for k, v in (torch_renames or {}).items()}
-    sd = {_rename(k, inverse): v for k, v in sd.items()}
     own = model.state_dict()
+    sd = {k: inflate_kernel(v, own[k].shape) if k in own else v
+          for k, v in ((_rename(k, inverse), v) for k, v in sd.items())}
     mismatched = sorted(k for k, v in sd.items()
                         if k in own and tuple(v.shape) != tuple(own[k].shape))
     if mismatched and strict:

@@ -682,3 +682,83 @@ def test_served_resnet18_rows_match_the_direct_forward(cuda):
     with torch.inference_mode():
         want = model(torch.from_numpy(x).to(cuda)).cpu()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,kernel,tol_out,tol_lse', [
+    (torch.float32, 'scalar', 2e-4, 1e-4),
+    (torch.bfloat16, 'mma_sync', 2e-2, 1e-2)])
+@pytest.mark.parametrize('b,n,c', [(64, 196, 16), (64, 49, 32)])
+def test_mnist_nonlocal_shapes_match_plain(cuda, dtype, kernel, tol_out,
+                                           tol_lse, b, n, c):
+    """K1-fwd at ``MNISTNonLocalNet``'s two attention shapes (64 images:
+    N = 196, C = 16 and N = 49, C = 32), on the kernel the dispatch picks
+    (C is no multiple of 64, so bf16 takes mma.sync), against the plain
+    version at phase 3's tolerances."""
+    q, k, v, _ = _bwd_inputs(b, n, n, c, c, dtype, cuda)
+    assert na.attention_kernel(dtype, c, c, 'fwd') == kernel
+    before = na.nonlocal_attention_cuda.by_kernel[kernel]
+    out, lse = na.nonlocal_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert na.nonlocal_attention_cuda.by_kernel[kernel] == before + 1
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+        q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=tol_out)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=tol_lse)
+
+
+@pytest.mark.gpu
+def test_mnist_nonlocal_net_launches_k1_twice(cuda):
+    """The tutorial net on the card: two K1-fwd launches a forward, and
+    the logits of the plain attention (f32, TF32 off)."""
+    from pretorched_tpu_torch.models import nonlocalnet
+
+    model = nonlocalnet.MNISTNonLocalNet().to(cuda).eval()
+    for block in (model.nonlocal1, model.nonlocal2):
+        torch.nn.init.uniform_(block.W[1].weight, 0.5, 1.5)
+    x = torch.randn(8, 1, 28, 28, device=cuda)
+    before = na.nonlocal_attention_cuda.launches
+    with torch.no_grad():
+        got = model(x)
+        assert na.nonlocal_attention_cuda.launches == before + 2
+        orig = nonlocalnet.auto_nonlocal_attention
+        nonlocalnet.auto_nonlocal_attention = na.nonlocal_attention_reference
+        try:
+            want = model(x)
+        finally:
+            nonlocalnet.auto_nonlocal_attention = orig
+    assert ((got - want).norm() / want.norm()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kernel,ndim,fold,shape', [
+    (7, 3, 2, (2, 3, 16, 112, 112)),
+    ((5, 7, 7), 3, 4, (2, 3, 32, 224, 224)),
+    ((1, 7, 7), 3, 2, (2, 3, 4, 224, 224)),
+    (7, 2, 2, (4, 3, 224, 224)),
+    (7, 3, 2, (1, 3, 8, 57, 59)),
+])
+def test_space_to_depth_conv_matches_strided_conv_on_the_card(
+        cuda, kernel, ndim, fold, shape):
+    """The folded stem on the card (cuDNN on the folded conv) against the
+    plain strided conv on the same weight, f32 with TF32 off, 1e-4; the
+    last case takes the plain conv (odd sizes)."""
+    from pretorched_tpu_torch.models.layers import (SpaceToDepthConv,
+                                                    init_parameters)
+    import torch.nn.functional as F
+
+    mod = SpaceToDepthConv(3, 64 if fold == 2 else 8, kernel, ndim=ndim,
+                           fold=fold)
+    init_parameters(mod, torch.Generator().manual_seed(0))
+    mod.to(cuda)
+    x = torch.randn(*shape, device=cuda)
+    ks = mod.kernel_size
+    with torch.no_grad():
+        got = mod(x)
+        if ndim == 3:
+            want = F.conv3d(x, mod.weight, stride=(1, 2, 2),
+                            padding=tuple(k // 2 for k in ks))
+        else:
+            want = F.conv2d(x, mod.weight, stride=2, padding=ks[-1] // 2)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

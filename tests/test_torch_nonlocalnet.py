@@ -88,3 +88,35 @@ def test_nonlocalresnet3d50_matches_jax_and_attention_matters():
             blk.W[1].weight.zero_()
         zeroed = model(torch.from_numpy(x)).numpy()
     assert np.abs(zeroed - got).max() > 10 * 2e-3
+
+
+def test_mnist_nonlocal_net_matches_jax():
+    """The tutorial net: two 2D non-local blocks (attention at N = 196,
+    C = 16 and N = 49, C = 32), ``fc1`` on the (H, W, C)-ordered flatten;
+    f32 at 1e-4, the attention's tolerance. Zeroing a block's ``W.1`` moves
+    the logits, so the attention reaches them."""
+    from pretorched_tpu.models.nonlocalnet import \
+        MNISTNonLocalNet as JaxMNISTNonLocalNet
+    from pretorched_tpu_torch.models.nonlocalnet import MNISTNonLocalNet
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(3, 1, 28, 28).astype(np.float32)
+    jm = JaxMNISTNonLocalNet()
+    variables = randomize_bn(jax.jit(jm.init)(jax.random.key(0), to_nt(x)))
+    for name in ('conv0', 'conv1', 'conv2', 'fc1'):
+        b = variables['params'][name]['bias']
+        variables['params'][name]['bias'] = rng.uniform(
+            -0.2, 0.2, b.shape).astype(np.float32)
+    want = np.asarray(jm.apply(variables, to_nt(x)))
+    model = MNISTNonLocalNet().eval()
+    model.load_state_dict(port_state_dict(variables), strict=True)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+        assert got.shape == (3, 10)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+        for block in (model.nonlocal1, model.nonlocal2):
+            scale = block.W[1].weight.clone()
+            block.W[1].weight.zero_()
+            moved = (model(torch.from_numpy(x)) - got).norm() / got.norm()
+            block.W[1].weight.copy_(scale)
+            assert moved > 1e-3, moved

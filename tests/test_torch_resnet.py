@@ -20,6 +20,7 @@ import pretorched_tpu
 import pretorched_tpu_torch
 from pretorched_tpu.models.resnet import ResNet as JaxResNet
 from pretorched_tpu.zoo.convert import save_torch_checkpoint
+from pretorched_tpu_torch.models.layers import SpaceToDepthConv
 from pretorched_tpu_torch.models.resnet import ResNet
 
 from torch_port_helpers import port_state_dict, randomize_bn, to_numpy_tree
@@ -73,8 +74,10 @@ def test_factory_contract():
                 == pretorched_tpu.pretrained_settings[name])
     assert sorted(pretorched_tpu_torch.pretrained_settings['resnet50']) == [
         'imagenet', 'moments', 'places365']
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ResNet('basic', (1, 1, 1, 1), s2d_stem=True)
+    assert isinstance(ResNet('basic', (1, 1, 1, 1), s2d_stem=True).conv1,
+                      SpaceToDepthConv)
+    assert isinstance(ResNet('basic', (1, 1, 1, 1), s2d_stem=True,
+                             conv_bias=True).conv1, torch.nn.Conv2d)
     with pytest.raises(ValueError, match='num_classes'):
         pretorched_tpu_torch.resnet18(num_classes=10, pretrained='imagenet')
 
@@ -102,6 +105,7 @@ VARIANTS = {
     'inner_width_mult': (dict(inner_width_mult=2), 64),
     'no_bn': (dict(no_bn=True, conv_bias=True), 64),
     'basic': (dict(block='basic'), 64),
+    's2d_stem': (dict(s2d_stem=True), 64),
 }
 
 

@@ -10,7 +10,6 @@ import pytest
 import torch
 
 import pretorched_tpu
-from pretorched_tpu_torch.models.resnet3d import VideoResNet
 from pretorched_tpu_torch.zoo.convert import state_dict_from_flax
 
 from torch_port_helpers import carry_model, randomize_bn
@@ -39,10 +38,3 @@ def test_state_dict_from_flax_equals_jax_export():
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-
-
-def test_unported_variants_raise():
-    for kw in ({'cardinality': 32}, {'preact': True}, {'factored': True},
-               {'s2d_stem': True}):
-        with pytest.raises(NotImplementedError):
-            VideoResNet('bottleneck', (1, 1, 1, 1), **kw)

@@ -190,14 +190,26 @@ def test_multi_clip_eval_step_matches_jax(r50):
     np.testing.assert_allclose(got['loss'], want['loss'], rtol=TOL)
 
 
-def test_s2d_stem_is_a_no_op():
-    x = torch.from_numpy(_clip(seed=4)[:, :, :16, :32, :32])
+def test_s2d_stem_matches_plain_stem():
+    """Both stems folded (the fast one on fold 4: 32 px is a multiple of
+    4; the slow one on fold 2) on the plain model's weights: the same f32
+    logits up to the fold's other summation order (2e-5, as
+    ``tests/test_space_to_depth.py`` holds the JAX fold), and the JAX s2d
+    SlowFast's on carried weights."""
+    clip = _clip(seed=4)[:, :, :16, :32, :32]
+    x = torch.from_numpy(clip)
     folded = slowfast.SlowFast(layers=(1, 1, 1, 1), num_classes=10,
                                s2d_stem=True).eval()
     plain = slowfast.SlowFast(layers=(1, 1, 1, 1), num_classes=10).eval()
     plain.load_state_dict(folded.state_dict(), strict=True)
     with torch.no_grad():
-        torch.testing.assert_close(folded(x), plain(x), rtol=0, atol=0)
+        torch.testing.assert_close(folded(x), plain(x), rtol=2e-5, atol=2e-5)
+    assert folded.fast.conv1.fold == 4 and folded.slow.conv1.fold == 2
+    module = JaxSlowFast(block='bottleneck', layers=(1, 1, 1, 1),
+                         num_classes=10, s2d_stem=True)
+    want, model = _carry(module, clip, seed=6, s2d_stem=True)
+    np.testing.assert_allclose(_logits(model, clip), want, rtol=TOL,
+                               atol=TOL)
 
 
 def test_factories_register_as_in_jax():
