@@ -106,7 +106,26 @@ Drives the port's main path once on one CUDA card and checks it:
     the scalar kernel in f32, 2 launches a forward, each held to the plain
     version, the f32 logits against the plain attention, ``W.1`` moving
     them, and the bf16 launches timed;
-14. a line with each kernel's numbers and the card, then
+14. BASELINE config 2 through ``examples/imagenet_eval_torch.py`` in
+    this process, on fabricated hosted ``imagenet`` files (seeded, every
+    BN randomized; ``nasnetalarge``'s with its 1001st class) and 512 JPEGs
+    around 500 x 375 px in 8 classes: ``se_resnext101_32x4d`` with ``-e
+    --bf16 -b 256`` (the PIL pipeline, ``--fast-pipeline``,
+    ``--ten-crop``) and ``nasnetamobile``; each bf16 forward of 256 images
+    timed, profiled by family, with the kernels of a grouped and a
+    depthwise conv; the eval step's f32 logits against a direct forward,
+    bf16 against f32; ``ten_crop``'s shape and center crop;
+    ``nasnetalarge`` with the background row dropped, at 331 px; 4 train
+    steps at ``-b 64``, the checkpoint and ``.meta``, the checkpoint
+    evaluated again, 8 steps more from it (``--resume``), and the train
+    step by CUDA events and host clock; no K1 or K2 launch;
+15. ``examples/video_eval_torch.py --frames native`` on phase 4's weights
+    and videos of 20, 32, 40, 56 and 80 frames (buckets 24 to 64): 5
+    K1-fwd launches a forward on wgmma (3 wide), each bucket's forward
+    timed, the 32-frame video as with ``--frames 32``, and K1-fwd against
+    its plain version at every bucket's layer-2 and layer-3 shapes in f32
+    and bf16, with its time, the plain version's, SDPA's and the bound;
+16. a line with each kernel's numbers and the card, then
     ``{"ok": true, "device": {...}}``. Every phase's heading names the card
     and its power limit.
 
@@ -221,6 +240,24 @@ CLIP_CLIENTS, CLIP_PER_CLIENT, CLIP_MAX_BATCH = 4, 8, 8
 # off (max |diff| / max |direct|); bf16 rows against f32 rows (rel L2)
 TOL_SERVED_F32, TOL_SERVED_BF16 = 1e-4, 5e-2
 
+# phase 14: BASELINE config 2 through examples/imagenet_eval_torch.py, on
+# an image folder of 8 classes x (32 train + 32 val) JPEGs at sizes around
+# 500 x 375: eval at -b 256 in bf16, then 4 train steps at -b 64 and, from
+# the checkpoint, 8 more (--resume); nasnetalarge's hosted file has the
+# 1001st (background) class
+IMAGENET_MODELS = {'se_resnext101_32x4d': 1000, 'nasnetamobile': 1000,
+                   'nasnetalarge': 1001}
+IMAGENET_CLASSES, IMAGENET_PER_CLASS = 8, 32
+IMAGENET_SIZES = ((375, 500), (500, 375), (333, 500), (400, 500),
+                  (375, 499), (480, 360))
+IMAGENET_BATCH, IMAGENET_TRAIN_BATCH, TRAIN_TIMED_STEPS = 256, 64, 6
+LARGE_BATCH = 32
+# phase 15: native-length eval of phase 4's weights; videos of these
+# lengths fall into the buckets 24, 32, 40, 56 and 64 (80 is capped at
+# --max-frames 64), one video a bucket, so every forward is 10 clips
+NATIVE_LENGTHS = (20, 32, 40, 56, 80)
+NATIVE_BUCKETS = {24: 1, 32: 1, 40: 1, 56: 1, 64: 1}
+NATIVE_CLIPS = 10
 
 class SmokeFailure(RuntimeError):
     pass
@@ -232,9 +269,15 @@ def check(cond, msg):
 
 
 CARD = ''    # nvidia-smi's name and power limit, printed with every phase
+PHASE_START = []    # when the running phase began (host clock)
 
 
 def phase(title):
+    now = time.perf_counter()
+    if PHASE_START:
+        print(f'(the phase took {now - PHASE_START[0]:.1f} s)')
+        PHASE_START.clear()
+    PHASE_START.append(now)
     print(f'\n== {title}' + (f' ({CARD})' if CARD else ''), flush=True)
 
 
@@ -2193,6 +2236,446 @@ def mnist_path(na, torch):
             'launches_by_kernel': {k: v['by_kernel'] for k, v in runs.items()}}
 
 
+def fabricate_imagenet(pretorched, torch, np):
+    """Phase 14's hosted ``imagenet`` files (seeded init, every BN
+    randomized, the reference key layout; ``nasnetalarge``'s with its 1001
+    classes) and an image folder of smooth random JPEGs at sizes around
+    500 x 375: 8 classes x 32 in ``train/`` and in ``val/``."""
+    from PIL import Image
+
+    for seed, (name, classes) in enumerate(IMAGENET_MODELS.items()):
+        donor = pretorched.__dict__[name](num_classes=classes,
+                                          pretrained=None)
+        randomize_bn(donor, torch, seed=10 + seed)
+        url = pretorched.pretrained_settings[name]['imagenet']['url']
+        torch.save(donor.state_dict(),
+                   WORK / 'zoo' / 'weights' / url.rsplit('/', 1)[-1])
+        del donor
+    rng = np.random.RandomState(1)
+    for split in ('train', 'val'):
+        for c in range(IMAGENET_CLASSES):
+            d = WORK / 'imagenet' / split / f'n{c:08d}'
+            d.mkdir(parents=True)
+            for i in range(IMAGENET_PER_CLASS):
+                h, w = IMAGENET_SIZES[(c + i) % len(IMAGENET_SIZES)]
+                small = rng.randint(0, 256, (h // 25, w // 25, 3))
+                Image.fromarray(small.astype(np.uint8)).resize(
+                    (w, h), Image.BILINEAR).save(d / f'{i:04d}.jpg',
+                                                 quality=90)
+
+
+def val_batch(settings, torch, np):
+    """Every val image through the fast pipeline at ``settings``' size,
+    f32, NCHW on the card, with the labels."""
+    from pretorched_tpu_torch.datasets.folder import fast_eval_batches
+
+    batches = list(fast_eval_batches(str(WORK / 'imagenet' / 'val'),
+                                     settings, IMAGENET_BATCH,
+                                     channels_last=False, device='cuda'))
+    return (torch.cat([b for b, _ in batches]),
+            torch.from_numpy(np.concatenate([lab for _, lab in batches]))
+            .cuda())
+
+
+def captured_input(model, module, x):
+    """The input ``module`` sees in ``model(x)``."""
+    seen = []
+    hook = module.register_forward_hook(lambda m, i, o: seen.append(i[0]))
+    try:
+        model(x)
+    finally:
+        hook.remove()
+    return seen[0]
+
+
+def conv_kernels(convs, torch, reps=5):
+    """Each conv of ``convs`` ({label: fn}) in bf16 autocast: its time by
+    CUDA events (median of 20) and, from ``reps`` calls under
+    ``torch.profiler``, each kernel it launched with its time a call."""
+    out = {}
+    for label, fn in convs.items():
+        with torch.autocast('cuda', dtype=torch.bfloat16):
+            ms = median_ms(fn)
+            _, by_name = device_times(lambda: [fn() for _ in range(reps)],
+                                      torch)
+        kernels = sorted(((name, us / 1e3 / reps)
+                          for name, us in by_name.items()),
+                         key=lambda kv: -kv[1])
+        print(f'  {label}: {ms:.3f} ms (CUDA events); kernels a call '
+              '(torch.profiler): ' + ('; '.join(
+                  f'{n[:100]} {t:.3f} ms' for n, t in kernels)
+                  or 'none seen (not measured)'), flush=True)
+        out[label] = {'ms': ms, 'kernels': kernels}
+    return out
+
+
+def imagenet_forward(model, x, torch, what):
+    """bf16 forward of ``model`` on ``x``: images/s by CUDA events (median
+    of 5), peak memory, the profiled forward by family; returns the bf16
+    logits and the numbers."""
+    model.bfloat16()
+    ms = median_ms(lambda: model(x), reps=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits = model(x).float()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = x.shape[0]
+    print(f'{what}: bf16 forward of {n} images x {x.shape[-1]} px '
+          f'{ms:.3f} ms (CUDA events, median of 5) = {n / ms * 1e3:.2f} '
+          f'images/s; peak device memory {peak:.2f} GiB', flush=True)
+    check(bool(torch.isfinite(logits).all()), f'{what}: logits not finite')
+    return logits, {'forward_ms': ms, 'images_per_s': n / ms * 1e3,
+                    'peak_gib': peak,
+                    'profile': profile_forward(lambda: model(x), torch)}
+
+
+def imagenet_path(pretorched, torch, np, na, fb_cuda):
+    """Phase 14: BASELINE config 2 (``se_resnext101_32x4d``,
+    ``nasnetamobile``) through ``examples/imagenet_eval_torch.py`` in this
+    process, on fabricated hosted files and JPEGs: ``-e --bf16 -b 256``
+    with the PIL pipeline, ``--fast-pipeline`` and ``--ten-crop``; the bf16
+    forwards timed and profiled, with the kernels cuDNN takes for a grouped
+    and a depthwise conv; the CLI's f32 eval step against a direct forward,
+    bf16 against f32, ``ten_crop``'s shape and center crop;
+    ``nasnetalarge`` loaded with its background row dropped and run at 331
+    px; 4 train steps at ``-b 64``, the checkpoint and its ``.meta``, an
+    eval of the checkpoint, 8 more steps from it (``--resume``), and the
+    train step timed by CUDA events and host clock. No K1 or K2 launch.
+    Returns the numbers for the result line."""
+    from pretorched_tpu_torch.parallel.evaluate import make_eval_step
+    from pretorched_tpu_torch.parallel.train import (make_train_step,
+                                                     sgd_step_decay)
+    from pretorched_tpu_torch.transforms.fused import ten_crop
+
+    cli = load_cli('imagenet_eval_torch')
+    t0 = time.perf_counter()
+    fabricate_imagenet(pretorched, torch, np)
+    n_val = IMAGENET_CLASSES * IMAGENET_PER_CLASS
+    print(f'fabricated {len(IMAGENET_MODELS)} hosted checkpoints and '
+          f'{2 * n_val} JPEGs in {time.perf_counter() - t0:.1f} s', flush=True)
+    data = str(WORK / 'imagenet')
+    out = {'cli': {}}
+    set_counts(na, 0)
+    reset_k2(fb_cuda)
+    for arch, extra in (('se_resnext101_32x4d', []),
+                        ('se_resnext101_32x4d', ['--fast-pipeline']),
+                        ('se_resnext101_32x4d', ['--ten-crop']),
+                        ('nasnetamobile', [])):
+        argv = [data, '-a', arch, '-e', '--bf16', '-b', str(IMAGENET_BATCH),
+                '-p', '1', '--device', 'cuda'] + extra
+        print('examples/imagenet_eval_torch.py ' + ' '.join(argv[1:]),
+              flush=True)
+        summary = cli.main(argv)
+        label = ' '.join([arch] + extra)
+        totals = summary['totals']
+        rate = totals['count'] / summary['seconds']
+        print(f'{label}: {totals["count"]:.0f} images in '
+              f'{summary["seconds"]:.3f} s = {rate:.2f} images/s (JPEG '
+              'decode + preprocess + forward, host clock, the first run)',
+              flush=True)
+        check(totals['count'] == n_val and np.isfinite(totals['loss']),
+              f'{label}: bad totals {totals}')
+        out['cli'][label] = {'images_per_s_path': rate,
+                             'seconds': summary['seconds']}
+
+    with torch.inference_mode():
+        model = pretorched.se_resnext101_32x4d().cuda().eval()
+        x, labels = val_batch(model.settings, torch, np)
+        check(x.shape == (n_val, 3, 224, 224), f'val batch {tuple(x.shape)}')
+        logits_bf16, out['se_resnext101_32x4d'] = imagenet_forward(
+            model, x, torch, 'se_resnext101_32x4d')
+        grouped = model.layer3[0].conv2
+        grouped_in = captured_input(model, grouped, x)
+        model.float()
+        seen = []
+        hook = model.register_forward_hook(lambda m, i, o: seen.append(o))
+        metrics = make_eval_step(model)(x, labels)
+        hook.remove()
+        direct = model(x)
+        step_err = (seen[0] - direct).abs().max().item()
+        rel = rel_l2(logits_bf16, direct)
+        print(f'f32 logits of the eval step vs a direct forward: max |diff| '
+              f'{step_err:.3e} (tol 0); bf16 vs f32 logits rel L2 {rel:.3e} '
+              f'(tol {TOL_LOGITS_BF16:g}); step {float(metrics["count"]):.0f} '
+              'images', flush=True)
+        check(step_err == 0 and float(metrics['count']) == n_val,
+              "the eval step's logits differ from the direct forward")
+        check(bool(torch.isfinite(direct).all()) and rel <= TOL_LOGITS_BF16,
+              f'se_resnext101_32x4d: bf16 logits off the f32 ones: {rel}')
+        out['se_resnext101_32x4d']['rel_l2_bf16_f32'] = rel
+        del model, direct, logits_bf16, seen
+
+        mobile = pretorched.nasnetamobile().cuda().eval()
+        logits_m, out['nasnetamobile'] = imagenet_forward(
+            mobile, x, torch, 'nasnetamobile')
+        depthwise = mobile.cell_0.comb_iter_0_left.separable_1.depthwise_conv2d
+        depthwise_in = captured_input(mobile, depthwise, x)
+        rel = rel_l2(logits_m, mobile.float()(x))
+        print(f'nasnetamobile: bf16 vs f32 logits rel L2 {rel:.3e} (tol '
+              f'{TOL_LOGITS_BF16:g})', flush=True)
+        check(rel <= TOL_LOGITS_BF16, f'nasnetamobile: bf16 logits off: {rel}')
+        out['nasnetamobile']['rel_l2_bf16_f32'] = rel
+        out['conv_kernels'] = conv_kernels({
+            'grouped 3x3 conv, 32 groups, 512 channels, stride 2 (se_resnext'
+            '101 layer3.0.conv2)': lambda: grouped(grouped_in),
+            'depthwise 5x5 conv, 44 channels (nasnetamobile cell_0)':
+                lambda: depthwise(depthwise_in)}, torch)
+        del mobile, grouped_in, depthwise_in
+
+        # the CLI's 10-crop input: the 256 px square resize, channels last
+        square = torch.randn(8, 256, 256, 3, device='cuda')
+        crops = ten_crop(square, 224)
+        check(crops.shape == (8, 10, 224, 224, 3) and torch.equal(
+            crops[:, 4], square[:, 16:240, 16:240]),
+            f'ten_crop: shape {tuple(crops.shape)} or its center crop')
+        del x, labels, crops, square
+
+        large = pretorched.nasnetalarge().cuda().eval()
+        url = pretorched.pretrained_settings['nasnetalarge']['imagenet']['url']
+        hosted = torch.load(WORK / 'zoo' / 'weights' / url.rsplit('/', 1)[-1],
+                            map_location='cuda', weights_only=True)
+        check(large.last_linear.weight.shape[0] == 1000 and torch.equal(
+            large.last_linear.weight, hosted['last_linear.weight'][1:]),
+            'nasnetalarge: the background row was not dropped')
+        del hosted
+        x331, _ = val_batch(large.settings, torch, np)
+        x331 = x331[:LARGE_BATCH]
+        check(x331.shape[-1] == 331, f'nasnetalarge input {tuple(x331.shape)}')
+        logits_l, out['nasnetalarge'] = imagenet_forward(
+            large, x331, torch, 'nasnetalarge (imagenet, background row '
+            'dropped)')
+        rel = rel_l2(logits_l, large.float()(x331))
+        print(f'nasnetalarge: bf16 vs f32 logits rel L2 {rel:.3e} (tol '
+              f'{TOL_LOGITS_BF16:g})', flush=True)
+        check(rel <= TOL_LOGITS_BF16, f'nasnetalarge: bf16 logits off: {rel}')
+        out['nasnetalarge']['rel_l2_bf16_f32'] = rel
+        del large, x331
+    torch.cuda.empty_cache()
+
+    run_dir = WORK / 'imagenet_run'
+    run_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        base = [data, '-a', 'se_resnext101_32x4d', '--bf16', '-b',
+                str(IMAGENET_TRAIN_BATCH), '-p', '1', '--lr', '0.001',
+                '--device', 'cuda']
+        print('examples/imagenet_eval_torch.py ' + ' '.join(base[1:])
+              + ' --epochs 1, then -e --resume, then --epochs 3 --resume',
+              flush=True)
+        first = cli.main(base + ['--epochs', '1'])
+        meta = cli.read_meta('checkpoint.pth.meta')
+        again = cli.main(base + ['-e', '--resume', 'checkpoint.pth'])
+        resumed = cli.main(base + ['--epochs', '3', '--resume',
+                                   'checkpoint.pth'])
+        final_meta = cli.read_meta('checkpoint.pth.meta')
+    finally:
+        os.chdir(cwd)
+    losses = [first['last_train']['loss'], resumed['last_train']['loss']]
+    print(f'train: {first["train_steps"]} + {resumed["train_steps"]} steps, '
+          f'loss sums {losses}; .meta {meta} then {final_meta}; the '
+          f'checkpoint re-evaluated: {again["totals"]} vs {first["totals"]}',
+          flush=True)
+    per_epoch = n_val // IMAGENET_TRAIN_BATCH
+    check(first['train_steps'] == per_epoch
+          and resumed['train_steps'] == 2 * per_epoch
+          and all(np.isfinite(v) for v in losses),
+          f'train: steps or loss {first} {resumed}')
+    check(meta == {'epoch': 0, 'arch': 'se_resnext101_32x4d',
+                   'best_prec1': first['best_prec1']}
+          and final_meta['epoch'] == 2, f'.meta {meta} {final_meta}')
+    check(all(again['totals'][k] == first['totals'][k]
+              for k in ('top1', 'top5', 'count'))
+          and abs(again['totals']['loss'] - first['totals']['loss'])
+          <= 1e-5 * abs(first['totals']['loss']),
+          'the checkpoint does not evaluate as the model it saved')
+
+    model = pretorched.se_resnext101_32x4d().cuda().bfloat16()
+    x, labels = val_batch(model.settings, torch, np)
+    x, labels = x[:IMAGENET_TRAIN_BATCH], labels[:IMAGENET_TRAIN_BATCH]
+    optimizer, scheduler = sgd_step_decay(model.parameters(), lr=1e-3)
+    step = make_train_step(model, optimizer, scheduler)
+    torch.manual_seed(0)
+    host, dev = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_TIMED_STEPS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        metrics = step(x, labels)
+        e1.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(e0.elapsed_time(e1))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host_ms = sorted(host[1:])[len(host[1:]) // 2]
+    dev_ms = sorted(dev[1:])[len(dev[1:]) // 2]
+    print(f'train step, bf16, {IMAGENET_TRAIN_BATCH} images x 224 px: '
+          f'{dev_ms:.3f} ms by CUDA events, {host_ms:.3f} ms by host clock '
+          f'(medians of steps 2-{TRAIN_TIMED_STEPS}) = '
+          f'{IMAGENET_TRAIN_BATCH / dev_ms * 1e3:.2f} train images/s; peak '
+          f'{peak:.2f} GiB; loss {float(metrics["loss"]):.4f}', flush=True)
+    check(np.isfinite(float(metrics['loss'])), 'train step loss not finite')
+    out['train_step'] = {'device_ms': dev_ms, 'host_ms': host_ms,
+                         'images_per_s': IMAGENET_TRAIN_BATCH / dev_ms * 1e3,
+                         'peak_gib': peak, 'steps_device_ms': dev,
+                         'steps_host_ms': host}
+    del model, optimizer, step, x
+    torch.cuda.empty_cache()
+    launched = k_counts(na, fb_cuda)
+    check(launched == (0, 0, 0, 0), f'phase 14 launched K1 / K2 {launched}')
+    return out
+
+
+def fabricate_native(np):
+    """One video a length of ``NATIVE_LENGTHS``, 240 x 320 JPEG frames
+    (numpy seed 2), alternating between 2 classes."""
+    from PIL import Image
+
+    rng = np.random.RandomState(2)
+    for i, n in enumerate(NATIVE_LENGTHS):
+        d = WORK / 'native' / ('applauding', 'boxing')[i % 2] / f'v{i}'
+        d.mkdir(parents=True)
+        base = rng.randint(0, 256, (240, 320, 3)).astype(np.int16)
+        for f in range(n):
+            frame = base + rng.randint(-20, 21, base.shape)
+            Image.fromarray(np.clip(frame, 0, 255).astype(np.uint8)).save(
+                d / f'frame_{f:05d}.jpg', quality=90)
+
+
+def native_kernel_rows(na, torch, frames):
+    """K1-fwd against its plain version at each bucket's layer-2 and
+    layer-3 shapes (10 clips), f32 and bf16, at phase 3's tolerances; the
+    bf16 kernel's time beside the plain version's, SDPA's and the bound."""
+    g = torch.Generator(device='cuda').manual_seed(3)
+    rows = {}
+    for t in frames:
+        for layer, (n, c) in (('layer2', (t // 4 * 784, 256)),
+                              ('layer3', (t // 8 * 196, 512))):
+            b = NATIVE_CLIPS
+            for dt in (torch.float32, torch.bfloat16):
+                dname = str(dt).split('.')[-1]
+                q = (torch.randn(b, n, c, device='cuda', generator=g)
+                     / c ** 0.25).to(dt)
+                k = (torch.randn(b, n, c, device='cuda', generator=g)
+                     / c ** 0.25).to(dt)
+                v = torch.randn(b, n, c, device='cuda', generator=g).to(dt)
+                program = na._program(na.attention_kernel(dt, c, c, 'fwd'),
+                                      c, c)
+                out, lse = na.nonlocal_attention_cuda(q, k, v)
+                torch.cuda.synchronize()
+                want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+                    q.float(), k.float(), v.float())
+                err, err_rel, err_lse = fwd_errors(out, lse, want, want_lse)
+                del out, lse, want, want_lse
+                tol, tol_lse = TOL[dname]
+                tol_rel = TOL_REL_BF16 if dt == torch.bfloat16 else float(
+                    'inf')
+                line = (f'T={t} {layer} {dname} B={b} N=Nk={n} C=Cv={c} '
+                        f'[{program}]: max|out-plain|={err:.3e} (tol '
+                        f'{tol:g}), /max|plain| {err_rel:.3e} (tol '
+                        f'{tol_rel:g}), max|lse-plain|={err_lse:.3e} (tol '
+                        f'{tol_lse:g})')
+                if dt == torch.bfloat16:
+                    ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
+                    plain_ms = median_ms(
+                        lambda: na.nonlocal_attention_fwd_lse_reference(
+                            q, k, v), reps=5)
+                    lib_ms, backend = sdpa_ms(torch, q, k, v)
+                    bound_ms, bound_by = attention_bounds(b, n, n, c, c,
+                                                          dname)['fwd']
+                    line += (f'\n    kernel {ms:.3f} ms, plain {plain_ms:.3f} '
+                             f'ms, scaled_dot_product_attention '
+                             f'{fmt_ms(lib_ms)} ({backend}), bound '
+                             f'{bound_ms:.4f} ms ({bound_by})')
+                    rows[f'T={t} {layer}'] = {
+                        'shape': [b, n, n, c, c], 'program': program,
+                        'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                        'library_ms': lib_ms, 'bound_ms': bound_ms,
+                        'bound_by': bound_by}
+                print(line, flush=True)
+                check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
+                      f'kernel disagrees with the plain version: {line}')
+                del q, k, v
+                torch.cuda.empty_cache()
+    return rows
+
+
+def native_path(pretorched, na, torch, np, cli):
+    """Phase 15: ``examples/video_eval_torch.py --frames native -b 4
+    --clips 10`` on phase 4's hosted ``nonlocalresnet3d50`` weights (bf16)
+    and videos of 20, 32, 40, 56 and 80 frames: one forward a bucket, each
+    with 5 K1-fwd launches (2 wgmma, 3 wgmma_wide), finite totals; each
+    bucket's forward timed by CUDA events; the 32-frame video's clips and
+    logits the same as with ``--frames 32``; K1-fwd against its plain
+    version at every bucket's shapes. Returns the numbers for the result
+    line."""
+    fabricate_native(np)
+    argv = [str(WORK / 'native'), '-a', 'nonlocalresnet3d50', '--pretrained',
+            'kinetics-400', '--num-classes', '400', '--frames', 'native',
+            '--batch-size', '4', '--clips', str(NATIVE_CLIPS),
+            '--print-freq', '1', '--device', 'cuda']
+    print('examples/video_eval_torch.py ' + ' '.join(argv), flush=True)
+    set_counts(na, 0)
+    summary = cli.main(argv)
+    launches = counts(na)
+    totals = summary['totals']
+    print(f"native-length eval: {summary['steps']} forwards, buckets "
+          f"{summary['buckets']}, K1 launches {launches}, "
+          f"{summary['clips']} clips in {summary['seconds']:.3f} s = "
+          f"{summary['clips'] / summary['seconds']:.2f} clips/s (decode + "
+          'preprocess + forward, host clock)', flush=True)
+    check(summary['buckets'] == NATIVE_BUCKETS and summary['steps'] == 5
+          and launches == (5 * summary['steps'], 0, 0),
+          f'native-length eval: buckets {summary["buckets"]}, launches '
+          f'{launches}')
+    by_kernel = kernel_counts(na)
+    expect_kernels(na, EVAL_KERNELS, summary['steps'], 'native-length eval')
+    check(totals['count'] == len(NATIVE_LENGTHS)
+          and np.isfinite(totals['loss']), f'bad totals {totals}')
+
+    model = pretorched.nonlocalresnet3d50(num_classes=400,
+                                          pretrained='kinetics-400')
+    model.cuda().eval().bfloat16()
+    args = cli.parse_args(argv)
+    videos, _ = cli.list_videos(args.data)
+    buckets = {}
+    with torch.inference_mode():
+        for clips, _ in cli.eval_batches(videos, args, model.settings,
+                                         'cuda'):
+            t = clips.shape[3]
+            flat = clips.flatten(0, 1)
+            ms = median_ms(lambda: model(flat), reps=3)
+            logits = model(flat).float()
+            check(bool(torch.isfinite(logits).all()),
+                  f'bucket {t}: logits not finite')
+            buckets[t] = {'clips': flat.shape[0], 'forward_ms': ms,
+                          'clips_per_s': flat.shape[0] / ms * 1e3}
+            print(f'bucket T={t}: bf16 forward of {flat.shape[0]} clips x '
+                  f'{t} x 224 px {ms:.3f} ms (CUDA events, median of 3) = '
+                  f'{flat.shape[0] / ms * 1e3:.2f} clips/s', flush=True)
+            if t == 32:
+                frames32 = next(f for f, _ in videos if len(f) == 32)
+                fixed = cli.load_video(frames32, NATIVE_CLIPS, 32,
+                                       model.settings, 'cuda')
+                same = torch.equal(fixed, clips[0])
+                diff = (model(fixed).float() - logits).abs().max().item()
+                print(f'bucket 32 against --frames 32: clips equal {same}, '
+                      f'logits max |diff| {diff:.3e} (tol 0)', flush=True)
+                check(same and diff == 0,
+                      'the 32-frame video scores differently in native mode')
+            del clips, flat, logits
+    del model
+    torch.cuda.empty_cache()
+    rows = native_kernel_rows(na, torch, sorted(buckets))
+    return {'launches': launches[0], 'launches_by_kernel': by_kernel,
+            'buckets': buckets, 'kernel_rows': rows,
+            'path_clips_per_s': summary['clips'] / summary['seconds']}
+
+
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
@@ -2321,7 +2804,17 @@ def main():
     phase('13. MNISTNonLocalNet: K1-fwd on mma.sync (bf16) and scalar (f32)')
     mnist = mnist_path(na, torch)
 
-    phase('14. result')
+    phase('14. BASELINE config 2 through examples/imagenet_eval_torch.py: '
+          'se_resnext101_32x4d and nasnetamobile (eval, fast pipeline, '
+          'ten-crop, train, resume), nasnetalarge at 331 px')
+    torch.cuda.empty_cache()
+    imagenet = imagenet_path(pretorched, torch, np, na, fb_cuda)
+
+    phase('15. native-length eval: nonlocalresnet3d50, --frames native, '
+          f'{NATIVE_CLIPS} clips, buckets {sorted(NATIVE_BUCKETS)}')
+    native = native_path(pretorched, na, torch, np, cli)
+
+    phase('16. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -2348,6 +2841,9 @@ def main():
          'launches_eval_s2d_forward': s2d_eval['k1_launches'],
          'launches_serving': served['launches'],
          'launches_mnist': mnist['launches_by_kernel'],
+         'launches_native': native['launches'],
+         'launches_by_kernel_native': native['launches_by_kernel'],
+         'native_buckets': native['kernel_rows'],
          'shapes_mnist': [list(x) for x in MNIST_SHAPES],
          'launches_by_kernel': fwd_by_kernel,
          'serving_batches': served['k1_batches'],
@@ -2411,7 +2907,8 @@ def main():
                                            'bucket_forward_ms', 'bucket8',
                                            'decoder')},
         's2d': {'nonlocalresnet3d50': s2d_eval, 'slowfast_resnet50': s2d_sf},
-        'video_models': videos, 'trn': trn,
+        'video_models': videos, 'trn': trn, 'imagenet': imagenet,
+        'native': {k: native[k] for k in ('buckets', 'path_clips_per_s')},
         'card': card}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

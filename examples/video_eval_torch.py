@@ -9,7 +9,11 @@ device. Expects the common frame-folder layout:
 Each video is sampled as ``--clips`` clips of ``--frames`` frames (uniform
 temporal stride), decoded with the native JPEG decoder, preprocessed on the
 device in bf16, run through the model in bf16 and scored by softmax
-consensus over clips.
+consensus over clips. ``--frames native`` takes each video's own length
+(capped by ``--max-frames``), re-sampled up to a multiple of
+``--frame-multiple`` (``utils.bucketing``); each such temporal bucket
+gathers its own batch of ``--batch-size`` videos, and what is left of each
+bucket runs at the end, in bucket order.
 
 Usage:
     python examples/video_eval_torch.py /data/kinetics/val \
@@ -33,7 +37,14 @@ def parse_args(argv=None):
     p.add_argument('--arch', '-a', default='resnet3d50')
     p.add_argument('--pretrained', default='kinetics-400')
     p.add_argument('--num-classes', default=400, type=int)
-    p.add_argument('--frames', default=16, type=int, help='frames per clip')
+    p.add_argument('--frames', default='16',
+                   help="frames per clip (int), or 'native': each video's "
+                        'own length (capped by --max-frames), bucketed up '
+                        'to a multiple of --frame-multiple')
+    p.add_argument('--max-frames', default=64, type=int,
+                   help='native-mode cap on frames per clip')
+    p.add_argument('--frame-multiple', default=8, type=int,
+                   help='native-mode temporal bucket size')
     p.add_argument('--clips', default=10, type=int)
     p.add_argument('--batch-size', '-b', default=4, type=int,
                    help='videos per step (x clips = clip batch)')
@@ -87,6 +98,37 @@ def load_video(frames, num_clips, clip_len, settings, device, workers=8,
         for c in range(num_clips)])
 
 
+def eval_batches(videos, args, settings, device):
+    """(clips (B, N_clips, 3, T, S, S), labels) on ``device``, in the CLI's
+    order: with a fixed ``--frames``, ``--batch-size`` videos at a time
+    and the rest at the end; with ``--frames native``, one accumulator per
+    temporal bucket, each run when it holds ``--batch-size`` videos, then
+    what is left of each bucket in bucket order (as
+    ``examples/video_eval.py`` flushes them)."""
+    from pretorched_tpu_torch.utils.bucketing import \
+        resample_frames_to_bucket
+
+    native = args.frames == 'native'
+    buckets = {}        # frames a clip -> (clips list, labels list)
+    for frames, label in videos:
+        clip_len = (min(len(frames), args.max_frames) if native
+                    else int(args.frames))
+        video = load_video(frames, args.clips, clip_len, settings, device,
+                           args.workers)
+        if native:
+            video = resample_frames_to_bucket(video, args.frame_multiple,
+                                              time_axis=2)
+        clips, labels = buckets.setdefault(video.shape[2], ([], []))
+        clips.append(video)
+        labels.append(label)
+        if len(clips) == args.batch_size:
+            yield torch.stack(clips), torch.as_tensor(labels, device=device)
+            del buckets[video.shape[2]]
+    for tb in sorted(buckets):
+        clips, labels = buckets[tb]
+        yield torch.stack(clips), torch.as_tensor(labels, device=device)
+
+
 def main(argv=None):
     """Runs the eval; returns a summary dict (videos, steps, clips, the
     eval loop's seconds and the metric totals)."""
@@ -125,10 +167,10 @@ def main(argv=None):
     meters = DeviceRunningSums()
     n_batches = -(-len(videos) // args.batch_size)
 
-    def flush(batch_clips, batch_labels):
-        nonlocal t_last, batch_idx
-        meters.update(step(torch.stack(batch_clips),
-                           torch.as_tensor(batch_labels, device=device)))
+    buckets = {}        # frames a clip -> videos
+    for clips, labels in eval_batches(videos, args, settings, device):
+        meters.update(step(clips, labels))
+        buckets[clips.shape[3]] = buckets.get(clips.shape[3], 0) + len(labels)
         batch_time.update(time.time() - t_last)
         t_last = time.time()
         if batch_idx % args.print_freq == 0:
@@ -144,17 +186,6 @@ def main(argv=None):
                   f"Acc@5 {100 * o['top5'] / n:.3f} "
                   f"({100 * s['top5'] / nt:.3f})")
         batch_idx += 1
-
-    clips_list, labels_list = [], []
-    for frames, label in videos:
-        clips_list.append(load_video(frames, args.clips, args.frames,
-                                     settings, device, args.workers))
-        labels_list.append(label)
-        if len(clips_list) == args.batch_size:
-            flush(clips_list, labels_list)
-            clips_list, labels_list = [], []
-    if clips_list:
-        flush(clips_list, labels_list)
     if not meters:                             # no videos found
         print(' * Acc@1 0.000 Acc@5 0.000')
         return {'videos': 0, 'steps': 0, 'clips': 0,
@@ -166,7 +197,7 @@ def main(argv=None):
           f"Acc@5 {100.0 * s['top5'] / nt:.3f}")
     return {'videos': len(videos), 'steps': batch_idx,
             'clips': len(videos) * args.clips, 'seconds': seconds,
-            'totals': s}
+            'totals': s, 'buckets': buckets}
 
 
 if __name__ == '__main__':

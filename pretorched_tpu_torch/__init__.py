@@ -1,9 +1,11 @@
 """pretorched_tpu_torch — the PyTorch and CUDA port of ``pretorched_tpu``.
 
 The JAX package stays the reference; this package imports no JAX. It covers
-the 2D ResNet, 3D ResNet, non-local ResNet and SlowFast families, their
-hosted-checkpoint loading, host and device-side preprocessing, multi-clip
-evaluation, training and online serving (``serving.py``), with the JAX
+the 2D ResNet, SENet, NASNet-A, 3D ResNet, non-local ResNet, SlowFast and
+TRN families, their hosted-checkpoint loading, host and device-side
+preprocessing, the image-folder loader, image and multi-clip evaluation
+(shape buckets for native-length clips), training and online serving
+(``serving.py``), with the JAX
 package's Pallas kernels as hand-written CUDA kernels for Hopper: the
 non-local attention forward and backward, and SlowFast's fused eval
 bottleneck tail.

@@ -20,8 +20,8 @@ from .wrapper import PretrainedModel
 def build_model(name: str, model: PretrainedModel, settings_map,
                 num_classes: int, pretrained: Optional[str], *,
                 torch_renames: Optional[dict] = None, strict: bool = True,
-                check_num_classes: bool = True, video: bool = False,
-                seed: int = 0) -> PretrainedModel:
+                background_class_keys=(), check_num_classes: bool = True,
+                video: bool = False, seed: int = 0) -> PretrainedModel:
     settings = None
     if pretrained is not None:
         settings = settings_map[name][pretrained]
@@ -33,7 +33,8 @@ def build_model(name: str, model: PretrainedModel, settings_map,
     if pretrained is not None:
         from ..zoo import io as zoo_io
         zoo_io.load_pretrained(model, name, pretrained, settings,
-                               torch_renames=torch_renames, strict=strict)
+                               torch_renames=torch_renames, strict=strict,
+                               background_class_keys=background_class_keys)
     model.settings = settings
     # Even with pretrained=None, stamp the registry's default-dataset
     # metadata so preprocessing can always read it (factory.py:77-85).

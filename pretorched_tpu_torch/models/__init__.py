@@ -19,6 +19,9 @@ from .nonlocalnet import (MNISTNonLocalNet, NonLocalBlock,  # noqa: F401
                           nonlocalresnet3d18, nonlocalresnet3d34,
                           nonlocalresnet3d50, nonlocalresnet3d101,
                           nonlocalresnet3d152)
+from .senet import (senet154, se_resnet50, se_resnet101,  # noqa: F401
+                    se_resnet152, se_resnext50_32x4d, se_resnext101_32x4d)
+from .nasnet import nasnetalarge, nasnetamobile  # noqa: F401
 from . import slowfast  # noqa: F401  (the reference's pretorched.slowfast)
 from .slowfast import SlowFastV0  # noqa: F401
 from .trn import TRN, trn  # noqa: F401

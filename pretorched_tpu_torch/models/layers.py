@@ -168,10 +168,11 @@ class SpaceToDepthConv(nn.Module):
                     padding=tpad + (0, 0))
 
 
-def conv2d(in_ch, out_ch, kernel_size, stride=1, padding=0, bias=False):
+def conv2d(in_ch, out_ch, kernel_size, stride=1, padding=0, bias=False,
+           groups=1):
     """Conv2d that ``init_parameters`` fills with ``torch_conv_init``."""
     conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                     padding=padding, bias=bias)
+                     padding=padding, bias=bias, groups=groups)
     conv.jax_init = True
     return conv
 

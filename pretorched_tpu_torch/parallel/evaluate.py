@@ -1,4 +1,4 @@
-"""Multi-clip evaluation on one device.
+"""Image and multi-clip evaluation steps on one device.
 
 Counterpart of ``pretorched_tpu/parallel/evaluate.py:27-99`` without the
 mesh: the JAX steps shard the batch over a device mesh; here the batch runs
@@ -41,6 +41,19 @@ def _masked_metrics(logits, labels, topk):
     out['loss'] = torch.where(valid, loss, torch.zeros_like(loss)).sum()
     out['count'] = valid.sum()
     return out
+
+
+def make_eval_step(model, topk=(1, 5)):
+    """One-crop image evaluation (the JAX ``make_eval_step`` /
+    ``sharded_accuracy_step``). ``step(x, labels)``: x (B, C, H, W) on the
+    model's device, labels (B,) with -1 for padding; returns a dict of
+    device scalars (``top1``, ``top5``, ``loss``, ``count``)."""
+
+    @torch.inference_mode()
+    def step(x, labels):
+        return _masked_metrics(model(x), torch.as_tensor(labels), topk)
+
+    return step
 
 
 def multi_clip_eval_step(model, topk=(1, 5)):

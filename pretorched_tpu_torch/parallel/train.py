@@ -95,15 +95,17 @@ def finetune_mask(model: torch.nn.Module, trainable_prefixes) -> Dict[str, bool]
 
 def sgd_step_decay(params, lr: float = 0.1, momentum: float = 0.9,
                    weight_decay: float = 1e-4, decay_epochs: int = 30,
-                   steps_per_epoch: int = 1):
+                   steps_per_epoch: int = 1, start_step: int = 0):
     """``(optimizer, scheduler)``: SGD with momentum, whose ``weight_decay``
     adds ``weight_decay * p`` to the gradient before the momentum trace (the
     JAX ``add_decayed_weights`` then ``sgd``), and the reference's 0.1x every
     ``decay_epochs`` epochs as a per-step staircase (train.py:159-167). Call
-    ``scheduler.step()`` once per optimizer step (``make_train_step`` does)."""
+    ``scheduler.step()`` once per optimizer step (``make_train_step`` does).
+    ``start_step``: the schedule's position at the first step (a resumed
+    run's, as the JAX step is passed its ``step_idx``)."""
     optimizer = torch.optim.SGD(params, lr=lr, momentum=momentum,
                                 weight_decay=weight_decay)
     period = decay_epochs * steps_per_epoch
     scheduler = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda step: 0.1 ** (step // period))
+        optimizer, lambda step: 0.1 ** ((start_step + step) // period))
     return optimizer, scheduler

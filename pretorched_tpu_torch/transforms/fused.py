@@ -12,7 +12,10 @@ the tensor's device:
 * range scaling and mean/std fold into one FMA (``_affine_consts``);
 * when the resize is the identity, the uint8 window is cropped first.
 
-The train chain and ``ten_crop`` are not ported yet.
+The train chain (``fused_train_preprocess``, l.141-198) draws its crop
+offsets and flips from a ``torch.Generator`` and hands them to a
+deterministic core, ``fused_train_apply``, which a test can feed the draws
+of JAX's ``_fused_train``. ``ten_crop`` (l.201-213) is the 10-crop eval.
 """
 
 from __future__ import annotations
@@ -111,6 +114,13 @@ def fused_preprocess(batch_u8, settings, channels_last: bool = True,
         x = x.to(dtype)
         x = torch.einsum('oh,bhwc->bowc', wh, x)
         x = torch.einsum('pw,bowc->bopc', ww, x)
+    return _finalize(x, input_space, input_range, mean, std, dtype,
+                     channels_last)
+
+
+def _finalize(x, input_space, input_range, mean, std, dtype, channels_last):
+    """The tail of the eval and train chains: channel order, the normalize
+    FMA and the layout."""
     if input_space == 'BGR':
         x = x.flip(-1)
     mul, add = _affine_consts(input_range, mean, std, dtype, x.device)
@@ -118,6 +128,105 @@ def fused_preprocess(batch_u8, settings, channels_last: bool = True,
     if not channels_last:
         x = x.permute(0, 3, 1, 2)
     return x.contiguous()
+
+
+def _window(starts, crop, flip, device):
+    """(B, crop) indices of each sample's window, reversed where
+    ``flip``."""
+    idx = starts[:, None] + torch.arange(crop)
+    if flip is not None:
+        idx = torch.where(flip[:, None], idx.flip(1), idx)
+    return idx.to(device)
+
+
+def fused_train_apply(batch_u8, settings, tops, lefts, hflip, vflip=None,
+                      channels_last: bool = True,
+                      dtype: torch.dtype = torch.float32, device=None,
+                      preserve_aspect_ratio: bool = True):
+    """The deterministic core of ``fused_train_preprocess``: each image of
+    the uint8 (B, H, W, 3) batch resized to the eval chain's (nh, nw) (the
+    weights of ``jax.image.resize``), its crop x crop window at row
+    ``tops[i]`` and column ``lefts[i]`` taken, mirrored where ``hflip[i]``
+    and turned upside down where ``vflip[i]``, then normalized.
+
+    Only the window's pixels are computed: each sample's rows of the two
+    resize matrices are gathered, so the resize and the crop are one pair
+    of batched matmuls. When the resize is the identity the uint8 window
+    is gathered first, as the JAX chain does (fused.py:155-175)."""
+    x = torch.as_tensor(batch_u8, device=device)
+    if x.dim() == 3:
+        x = x[None]
+    (input_size, input_space, input_range, mean, std, scale) = \
+        _settings_tuple(settings)
+    crop = max(input_size)
+    b, h, w, c = x.shape
+    nh, nw = _resize_target(h, w, crop, scale, preserve_aspect_ratio,
+                            input_size)
+    tops, lefts = (torch.tensor(np.asarray(t), dtype=torch.long)
+                   for t in (tops, lefts))
+    hflip = torch.tensor(np.asarray(hflip), dtype=torch.bool)
+    if vflip is not None:
+        vflip = torch.tensor(np.asarray(vflip), dtype=torch.bool)
+    for name, t, hi in (('tops', tops, nh - crop), ('lefts', lefts,
+                                                   nw - crop)):
+        if t.shape != (b,) or int(t.min()) < 0 or int(t.max()) > hi:
+            raise ValueError(f'{name} must be {b} offsets in [0, {hi}], got '
+                             f'{t.tolist()}')
+    rows = _window(tops, crop, vflip, x.device)
+    cols = _window(lefts, crop, hflip, x.device)
+    if (nh, nw) == (h, w):
+        x = x[torch.arange(b, device=x.device)[:, None, None],
+              rows[:, :, None], cols[:, None, :]].to(dtype)
+    else:
+        wh = resize_weights(h, nh, nh / h, 0.0, x.device)[rows].to(dtype)
+        ww = resize_weights(w, nw, nw / w, 0.0, x.device)[cols].to(dtype)
+        x = torch.einsum('boh,bhwc->bowc', wh, x.to(dtype))
+        x = torch.einsum('bpw,bowc->bopc', ww, x)
+    return _finalize(x, input_space, input_range, mean, std, dtype,
+                     channels_last)
+
+
+def fused_train_preprocess(batch_u8, settings, generator: torch.Generator,
+                           channels_last: bool = True,
+                           dtype: torch.dtype = torch.float32, device=None,
+                           preserve_aspect_ratio: bool = True,
+                           random_vflip: bool = False):
+    """The training twin of ``fused_preprocess``: a uniform crop position
+    per sample and a horizontal flip with p = 0.5 (a vertical one too with
+    ``random_vflip``), drawn on the host from ``generator`` (a CPU
+    ``torch.Generator``; the same seed gives the same batch), then
+    ``fused_train_apply`` on ``device``."""
+    shape = tuple(np.shape(batch_u8))
+    h, w = shape[-3:-1]
+    (input_size, _, _, _, _, scale) = _settings_tuple(settings)
+    crop = max(input_size)
+    b = shape[0] if len(shape) == 4 else 1
+    nh, nw = _resize_target(h, w, crop, scale, preserve_aspect_ratio,
+                            input_size)
+    tops = torch.randint(0, nh - crop + 1, (b,), generator=generator)
+    lefts = torch.randint(0, nw - crop + 1, (b,), generator=generator)
+    hflip = torch.rand(b, generator=generator) < 0.5
+    vflip = (torch.rand(b, generator=generator) < 0.5 if random_vflip
+             else None)
+    return fused_train_apply(batch_u8, settings, tops, lefts, hflip, vflip,
+                             channels_last=channels_last, dtype=dtype,
+                             device=device,
+                             preserve_aspect_ratio=preserve_aspect_ratio)
+
+
+def ten_crop(x: torch.Tensor, crop: int, channels_last: bool = True):
+    """The 10-crop eval: the 4 corners and the center, then each of them
+    mirrored. (B, H, W, C) -> (B, 10, crop, crop, C), or (B, C, H, W) ->
+    (B, 10, C, crop, crop) when not ``channels_last``."""
+    h, w = x.shape[1:3] if channels_last else x.shape[2:4]
+    positions = [(0, 0), (0, w - crop), (h - crop, 0),
+                 (h - crop, w - crop), ((h - crop) // 2, (w - crop) // 2)]
+    if channels_last:
+        crops = [x[:, t:t + crop, l:l + crop] for t, l in positions]
+    else:
+        crops = [x[:, :, t:t + crop, l:l + crop] for t, l in positions]
+    crops = torch.stack(crops, dim=1)
+    return torch.cat([crops, crops.flip(3 if channels_last else 4)], dim=1)
 
 
 def preprocess_clip(frames_u8, settings, channels_last: bool = True,

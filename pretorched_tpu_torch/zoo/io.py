@@ -7,8 +7,11 @@ format, so it loads straight into the module: the ``{'state_dict': ...}``
 wrapper and DataParallel's ``module.`` prefix are stripped, checkpoint
 prefixes are renamed to the port's (``fc`` -> ``last_linear``), a 2D conv
 weight meeting a 3D parameter is inflated over time (``resneti3d50`` loads
-a 2D ``resnet50`` checkpoint), and ``load_state_dict`` runs with the
-factory's ``strict`` flag. There is no converted cache.
+a 2D ``resnet50`` checkpoint), the tensors under a prefix of
+``background_class_keys`` lose their first row (the TF ports' extra
+background class, which the JAX converter slices off,
+``pretorched_tpu/zoo/convert.py:143-144``), and ``load_state_dict`` runs
+with the factory's ``strict`` flag. There is no converted cache.
 
 Offline behaviour: with no ``.pth`` found, the model keeps its seeded random
 init with a warning, or raises when ``PRETORCHED_STRICT_WEIGHTS`` is set.
@@ -66,11 +69,13 @@ def _rename(key: str, inverse: Dict[str, str]) -> str:
 
 def load_state_dict_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
                          *, torch_renames: Optional[dict] = None,
-                         strict: bool = True):
+                         strict: bool = True, background_class_keys=()):
     """Load a checkpoint-format state_dict into ``model``.
 
     ``torch_renames`` maps port prefixes to checkpoint prefixes (as the JAX
-    factories pass them, ``{'last_linear': 'fc'}``). With ``strict=False``,
+    factories pass them, ``{'last_linear': 'fc'}``). The tensors under a
+    port prefix of ``background_class_keys`` drop their first row (the
+    background class). With ``strict=False``,
     keys the model lacks, keys the checkpoint lacks and tensors of the wrong
     shape are skipped, and the warning names every one. Returns the
     ``(missing_keys, unexpected_keys)`` of ``load_state_dict``, with
@@ -79,6 +84,9 @@ def load_state_dict_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
     own = model.state_dict()
     sd = {k: inflate_kernel(v, own[k].shape) if k in own else v
           for k, v in ((_rename(k, inverse), v) for k, v in sd.items())}
+    for k in sd:
+        if k.rsplit('.', 1)[0] in background_class_keys:
+            sd[k] = sd[k][1:]
     mismatched = sorted(k for k, v in sd.items()
                         if k in own and tuple(v.shape) != tuple(own[k].shape))
     if mismatched and strict:
@@ -98,7 +106,8 @@ def load_state_dict_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
 
 
 def load_pretrained(model, name: str, dataset: str, settings: dict, *,
-                    torch_renames: Optional[dict] = None, strict: bool = True):
+                    torch_renames: Optional[dict] = None, strict: bool = True,
+                    background_class_keys=()):
     """Find the hosted ``.pth`` for (name, dataset) and load it into
     ``model``; returns ``(missing, unexpected)`` or None when no file was
     found."""
@@ -112,4 +121,5 @@ def load_pretrained(model, name: str, dataset: str, settings: dict, *,
         warnings.warn(msg)
         return None
     return load_state_dict_into(model, load_torch_state_dict(tpath),
-                                torch_renames=torch_renames, strict=strict)
+                                torch_renames=torch_renames, strict=strict,
+                                background_class_keys=background_class_keys)

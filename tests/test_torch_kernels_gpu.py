@@ -656,6 +656,43 @@ def test_served_bucket_shapes_match_plain(cuda, b, n, c):
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-2)
 
 
+# K1-fwd at the native-length eval's buckets (video_eval_torch.py --frames
+# native, --frame-multiple 8): a bucket of T frames runs layer 2 at
+# N = Nk = T/4 * 784, C = Cv = 256 and layer 3 at T/8 * 196, C = Cv = 512,
+# for one video's 10 clips (B = 10); most N are no multiple of 64, and
+# layer 3's at T = 24 (588) is under ten query blocks
+NATIVE_FRAMES = (24, 32, 40, 56, 64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,tol_out,tol_lse', [
+    (torch.float32, 2e-4, 1e-4), (torch.bfloat16, 2e-2, 1e-2)])
+@pytest.mark.parametrize('layer', [2, 3])
+@pytest.mark.parametrize('frames', NATIVE_FRAMES)
+def test_native_length_shapes_match_plain(cuda, frames, layer, dtype,
+                                          tol_out, tol_lse):
+    """The program the dispatch picks (bf16: wgmma at layer 2, the wide
+    wgmma program at layer 3; f32: scalar) against the plain version in
+    f32 on the same inputs, at phase 3's tolerances (bf16 out also within
+    2e-2 of the largest |out|)."""
+    n, c = ((frames // 4 * 784, 256) if layer == 2
+            else (frames // 8 * 196, 512))
+    q, k, v, _ = _bwd_inputs(10, n, n, c, c, dtype, cuda)
+    program = na._program(na.attention_kernel(dtype, c, c, 'fwd'), c, c)
+    assert program == ('scalar' if dtype == torch.float32 else
+                       'wgmma' if layer == 2 else 'wgmma_wide')
+    before = na.nonlocal_attention_cuda.by_kernel[program]
+    out, lse = na.nonlocal_attention_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert na.nonlocal_attention_cuda.by_kernel[program] == before + 1
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+        q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=tol_out)
+    if dtype == torch.bfloat16:
+        assert _rel_err(out, want) <= 2e-2
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=tol_lse)
+
+
 @pytest.mark.gpu
 def test_served_resnet18_rows_match_the_direct_forward(cuda):
     """``serve_model`` on the card (pinned staging, events, resolver): each

@@ -47,7 +47,8 @@ from pretorched_tpu_torch.parallel.train import (cross_entropy, finetune_mask,
 from pretorched_tpu_torch.utils import PreemptionGuard
 from pretorched_tpu_torch.zoo.checkpoint import load_checkpoint, save_checkpoint
 
-from torch_port_helpers import port_state_dict, randomize_bn, to_nt
+from torch_port_helpers import (assert_state_matches as _assert_state_matches,
+                                port_state_dict, randomize_bn, to_nt)
 
 ARCH = dict(block='basic', layers=(1, 1, 1, 1), num_classes=5,
             shortcut_type='B', nonlocal_layers=(0, 1, 1, 0))
@@ -117,23 +118,6 @@ def _port_run(variables, x, labels, steps=STEPS, dtype=torch.float32, **kw):
     losses = [float(step(xt, torch.from_numpy(labels))['loss'])
               for _ in range(steps)]
     return losses, model
-
-
-def _assert_state_matches(model, final, initial, tol=5e-2):
-    """Each tensor's change over the steps agrees within ``tol`` of the
-    JAX change's largest element (1e-6 at least: the biases that feed a BN
-    or a softmax have no gradient, and move by weight decay alone)."""
-    want, start = port_state_dict(final), port_state_dict(initial)
-    got = model.state_dict()
-    assert sorted(got) == sorted(want)
-    for key, w in want.items():
-        if key.endswith('num_batches_tracked'):
-            continue
-        moved = (w - start[key]).double().numpy()
-        scale = max(float(np.abs(moved).max()), 1e-6)
-        np.testing.assert_allclose(
-            (got[key].double() - start[key].double()).numpy(), moved, rtol=0,
-            atol=tol * scale, err_msg=key)
 
 
 def test_train_steps_match_jax(variables, jax_plain):

@@ -4,6 +4,7 @@ checks every layer (the non-local blocks' output BN is zero-initialized, so
 without this the attention never reaches the output)."""
 
 import numpy as np
+import pytest
 import torch
 
 import pretorched_tpu
@@ -58,3 +59,60 @@ def carry_model(name, x, num_classes=10):
                                                 pretrained=None).eval()
     model.load_state_dict(port_state_dict(jmodel.variables), strict=True)
     return jmodel, model, want
+
+
+def assert_state_matches(model, final, initial, tol=5e-2):
+    """Each tensor's change over the steps agrees within ``tol`` of the
+    JAX change's largest element (1e-6 at least: the biases that feed a BN
+    or a softmax have no gradient, and move by weight decay alone)."""
+    want, start = port_state_dict(final), port_state_dict(initial)
+    got = model.state_dict()
+    assert sorted(got) == sorted(want)
+    for key, w in want.items():
+        if key.endswith('num_batches_tracked'):
+            continue
+        moved = (w - start[key]).double().numpy()
+        scale = max(float(np.abs(moved).max()), 1e-6)
+        np.testing.assert_allclose(
+            (got[key].double() - start[key].double()).numpy(), moved, rtol=0,
+            atol=tol * scale, err_msg=key)
+
+
+def randomize_port_bn(model, seed=0):
+    """Every BN of a port model with its running stats, scale and shift
+    drawn at random (the ranges of ``randomize_bn``), in place."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.2, 0.2, generator=g)
+    return model
+
+
+def jax_variables_from_port(module, state_dict, input_shape, **convert_kw):
+    """Flax variables of ``module`` (built on a template from
+    ``jax.eval_shape``, so nothing is compiled) holding the port's
+    ``state_dict``, through the JAX package's own converter."""
+    import jax
+
+    from pretorched_tpu.zoo.convert import convert_state_dict
+    shapes = jax.eval_shape(module.init, jax.random.key(0),
+                            jax.ShapeDtypeStruct(input_shape, np.float32))
+    template = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype), dict(shapes))
+    sd = {k: v.detach().numpy() for k, v in state_dict.items()}
+    return convert_state_dict(sd, template, **convert_kw)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run the test on one torch thread. The suite runs several workers on
+    a few cores, and torch's default of a thread a core oversubscribes
+    them: small ops then wait on each other (10x slower under load)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
