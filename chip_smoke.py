@@ -125,7 +125,27 @@ Drives the port's main path once on one CUDA card and checks it:
     timed, the 32-frame video as with ``--frames 32``, and K1-fwd against
     its plain version at every bucket's layer-2 and layer-3 shapes in f32
     and bf16, with its time, the plain version's, SDPA's and the bound;
-16. a line with each kernel's numbers and the card, then
+16. BASELINE config 5: ``biggan256(num_classes=1000, ch=96)`` (seeded,
+    every BN's statistics randomized, SAGAN's ``gamma`` 0.5) sampling 32
+    seeded labels through ``gan.biggan.sample`` in bf16: (32, 256, 256, 3)
+    images, finite, in [-1, 1], one K1-fwd launch a forward on mma.sync
+    (scalar in f32), the bf16 images against the f32 images of the same
+    weights and z; at batch 4 in f32 the images with the kernel against the
+    plain attention, and ``gamma`` 0 moving them; images/s, peak memory, a
+    profiled forward by family with K1-fwd's share and the idle share; one
+    bf16 ``biggan128(ch=96)`` forward; K1-fwd alone at (32, 4096, 1024, 96,
+    384), (32, 4096, 1024, 48, 192) and (2, 4096, 1024, 16, 64), f32 and
+    bf16, against its plain version with its time, the plain version's,
+    SDPA's and the bound;
+17. the 2D families on phase 14's JPEGs: ``resnext101_32x4d``,
+    ``resnext101_64x4d``, ``fbresnet152``, ``cafferesnet101``,
+    ``densenet121``, ``vgg16_bn``, ``alexnet`` and ``squeezenet1_1`` (seeded,
+    every BN randomized), one bf16 forward of 256 images each at its
+    ``input_size``, timed, profiled and held to its f32 forward; then
+    ``examples/imagenet_eval_torch.py -e --bf16 -b 256 -a
+    resnext101_64x4d`` on a hosted file fabricated in Lambda order, which
+    the ordered loader restores exactly; no K1 or K2 launch;
+18. a line with each kernel's numbers and the card, then
     ``{"ok": true, "device": {...}}``. Every phase's heading names the card
     and its power limit.
 
@@ -258,6 +278,17 @@ LARGE_BATCH = 32
 NATIVE_LENGTHS = (20, 32, 40, 56, 80)
 NATIVE_BUCKETS = {24: 1, 32: 1, 40: 1, 56: 1, 64: 1}
 NATIVE_CLIPS = 10
+# phase 16: BASELINE config 5 as the JAX bench's row 12 runs it (biggan256,
+# ch 96, 1000 classes, batch 32, bf16); K1-fwd at SAGAN's shapes (keys
+# pooled 2x2, Cv = 4 C): (B, N, Nk, C, Cv) at 64 px
+BIGGAN_BATCH = 32
+BIGGAN_SHAPES = {'biggan256 ch96': (32, 4096, 1024, 96, 384),
+                 'biggan128 ch96': (32, 4096, 1024, 48, 192),
+                 'golden lock ch16': (2, 4096, 1024, 16, 64)}
+# phase 17: the 2D families, each at its input_size on phase 14's JPEGs
+FAMILY_MODELS = ('resnext101_32x4d', 'resnext101_64x4d', 'fbresnet152',
+                 'cafferesnet101', 'densenet121', 'vgg16_bn', 'alexnet',
+                 'squeezenet1_1')
 
 class SmokeFailure(RuntimeError):
     pass
@@ -461,8 +492,9 @@ def randomize_bn(model, torch, seed):
             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
                 m.running_mean.uniform_(-0.3, 0.3, generator=g)
                 m.running_var.uniform_(0.5, 1.5, generator=g)
-                m.weight.uniform_(0.5, 1.5, generator=g)
-                m.bias.uniform_(-0.2, 0.2, generator=g)
+                if m.affine:    # BigGAN's conditional BNs have no affine
+                    m.weight.uniform_(0.5, 1.5, generator=g)
+                    m.bias.uniform_(-0.2, 0.2, generator=g)
 
 
 def fabricate(pretorched, torch, np):
@@ -662,7 +694,7 @@ def stem_ab(model, folded, batch, na, torch, what, k1_per_pass):
     variants = stem_variants(model.conv1.weight, x, torch)
     return {'forward_ms': {k: sum(v) / len(v) for k, v in times.items()},
             'stem_ms': {k: v[0] for k, v in prof.items()},
-            'stem_kernels': {k: v[1][0][0] for k, v in prof.items()},
+            'stem_kernels': stem_kernels(prof),
             'stem_conv_variants_ms': variants, 'k1_launches': launches}
 
 
@@ -977,13 +1009,25 @@ def stem_profile(stems, torch):
             fn()                                          # warm
             _, by_name = device_times(fn, torch)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])
-        out[label] = (sum(by_name.values()) / 1e3,
+        # None: the profiler saw no device time for it (not measured)
+        out[label] = (sum(by_name.values()) / 1e3 or None,
                       [(name, us / 1e3) for name, us in top[:3]])
     return out
 
 
+def stem_kernels(profiles):
+    """The largest kernel of each stem's profile, or 'not measured' where
+    the profiler saw no device time for it."""
+    return {label: top[0][0] if top else 'not measured'
+            for label, (_, top) in profiles.items()}
+
+
 def print_stems(profiles):
     for label, (ms, top) in profiles.items():
+        if ms is None:
+            print(f'  stem {label}: the profiler saw no device time (not '
+                  'measured)', flush=True)
+            continue
         print(f'  stem {label}: {ms:.3f} ms of kernels (torch.profiler); '
               'largest: ' + '; '.join(f'{n[:70]} {t:.3f} ms'
                                       for n, t in top), flush=True)
@@ -1558,7 +1602,7 @@ def slowfast_path(pretorched, torch, np, cli, na, fb_cuda):
         s2d = {'forward_ms': {k: sum(v) / len(v)
                               for k, v in s2d_times.items()},
                'stem_ms': {k: v[0] for k, v in prof.items()},
-               'stem_kernels': {k: v[1][0][0] for k, v in prof.items()},
+               'stem_kernels': stem_kernels(prof),
                'k2_launches': sum(k2_s2d.values())}
         window, by_name = device_times(lambda: model(batch), torch)
         busy = sum(by_name.values()) / 1e3
@@ -2060,7 +2104,7 @@ def video_models_path(pretorched, torch, na, fb_cuda):
                             for k, v in times.items()},
             'peak_gib': peak, 'rel_l2_f32': rel,
             'stem_ms': {k: v[0] for k, v in prof.items()},
-            'stem_kernels': {k: v[1][0][0] for k, v in prof.items()}}
+            'stem_kernels': stem_kernels(prof)}
         del model, folded
         torch.cuda.empty_cache()
         for name in ('resnext3d101', 'preact_resnet3d50', 'wideresnet3d50',
@@ -2676,6 +2720,284 @@ def native_path(pretorched, na, torch, np, cli):
             'path_clips_per_s': summary['clips'] / summary['seconds']}
 
 
+def sagan_kernel_rows(na, torch):
+    """K1-fwd alone at SAGAN's shapes, f32 and bf16, against its plain
+    version at phase 3's tolerances; each with its time, the plain
+    version's, one SDPA call's and the bound."""
+    g = torch.Generator(device='cuda').manual_seed(5)
+    rows = {}
+    for name, (b, n, nk, c, cv) in BIGGAN_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            dname = str(dt).split('.')[-1]
+            q = (torch.randn(b, n, c, device='cuda', generator=g)
+                 / c ** 0.25).to(dt)
+            k = (torch.randn(b, nk, c, device='cuda', generator=g)
+                 / c ** 0.25).to(dt)
+            v = torch.randn(b, nk, cv, device='cuda', generator=g).to(dt)
+            kernel = na.attention_kernel(dt, c, cv, 'fwd')
+            out, lse = na.nonlocal_attention_cuda(q, k, v)
+            torch.cuda.synchronize()
+            want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+                q.float(), k.float(), v.float())
+            err, err_rel, err_lse = fwd_errors(out, lse, want, want_lse)
+            del out, lse, want, want_lse
+            tol, tol_lse = TOL[dname]
+            tol_rel = TOL_REL_BF16 if dt == torch.bfloat16 else float('inf')
+            ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
+            plain_ms = median_ms(
+                lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v),
+                reps=5)
+            lib_ms, backend = sdpa_ms(torch, q, k, v)
+            bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
+                                                  dname)['fwd']
+            line = (f'{name} {dname} B={b} N={n} Nk={nk} C={c} Cv={cv} '
+                    f'[{kernel}]: max|out-plain|={err:.3e} (tol {tol:g}), '
+                    f'/max|plain| {err_rel:.3e} (tol {tol_rel:g}), '
+                    f'max|lse-plain|={err_lse:.3e} (tol {tol_lse:g})\n'
+                    f'    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                    f'scaled_dot_product_attention {fmt_ms(lib_ms)} '
+                    f'({backend}), bound {bound_ms:.4f} ms ({bound_by})')
+            print(line, flush=True)
+            check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
+                  f'kernel disagrees with the plain version: {line}')
+            rows[f'{name} {dname}'] = {
+                'shape': [b, n, nk, c, cv], 'dtype': dname,
+                'program': kernel, 'max_abs_err': err, 'ms': ms,
+                'plain_ms': plain_ms, 'library_ms': lib_ms,
+                'library': f'scaled_dot_product_attention ({backend})',
+                'bound_ms': bound_ms, 'bound_by': bound_by}
+            del q, k, v
+            torch.cuda.empty_cache()
+    return rows
+
+
+def biggan_path(na, torch):
+    """Phase 16: BASELINE config 5, ``biggan256(num_classes=1000, ch=96)``
+    (seeded, every BN's statistics randomized, ``gamma`` 0.5) sampling
+    32 seeded labels in bf16 through ``gan.biggan.sample``: (32, 256, 256,
+    3) images, finite, in [-1, 1], one K1-fwd launch on mma.sync a
+    forward; the bf16 images against the f32 images of the same weights
+    and z; at batch 4 in f32 (TF32 off) the images with the kernel
+    (scalar) against the plain attention, and ``gamma`` 0 moving them;
+    images/s by CUDA events, peak memory and a profiled forward by family
+    with K1-fwd's share; one bf16 ``biggan128(ch=96)`` forward; K1-fwd
+    alone at SAGAN's shapes. Returns the numbers for the result line."""
+    from pretorched_tpu_torch.gan import biggan
+
+    model = biggan.biggan256(num_classes=1000, ch=96)
+    randomize_bn(model, torch, seed=20)
+    with torch.no_grad():
+        model.attention.gamma.fill_(0.5)
+    model.cuda()
+    labels = torch.randint(0, 1000, (BIGGAN_BATCH,), device='cuda',
+                           generator=torch.Generator(
+                               device='cuda').manual_seed(1))
+
+    def draw(m, n, dtype):
+        gz = torch.Generator(device='cuda').manual_seed(2)
+        with torch.autocast('cuda', dtype=torch.bfloat16,
+                            enabled=dtype == torch.bfloat16):
+            return biggan.sample(m, gz, labels[:n], truncation=1.0)
+
+    out = {}
+    runs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split('.')[-1]
+        set_counts(na, 0)
+        img = draw(model, BIGGAN_BATCH, dt)
+        torch.cuda.synchronize()
+        program = na.attention_kernel(dt, 96, 384, 'fwd')
+        by_kernel = kernel_counts(na)
+        if dt == torch.bfloat16:
+            out['launches'] = na.nonlocal_attention_cuda.launches
+            out['launches_by_kernel'] = by_kernel
+        print(f'biggan256 {dname}: images {tuple(img.shape)} {img.dtype}, '
+              f'range [{img.min().item():.4f}, {img.max().item():.4f}], '
+              f'K1 launches {by_kernel}', flush=True)
+        check(tuple(img.shape) == (BIGGAN_BATCH, 256, 256, 3)
+              and bool(torch.isfinite(img).all())
+              and img.abs().max().item() <= 1.0,
+              f'biggan256 {dname}: bad images')
+        check(by_kernel == {f'fwd {program}': 1},
+              f'biggan256 {dname}: K1 launches {by_kernel}, expected one '
+              f'on {program}')
+        runs[dname] = img.float()
+    rel = rel_l2(runs['bfloat16'], runs['float32'])
+    print(f'bf16 images vs f32 images (same weights and z): rel L2 '
+          f'{rel:.3e} (tol {TOL_LOGITS_BF16:g})', flush=True)
+    check(rel <= TOL_LOGITS_BF16, f'biggan256: bf16 images off f32: {rel}')
+    out['rel_l2_bf16_f32'] = rel
+    del runs
+
+    # f32 at batch 4: the kernel (scalar) against the plain attention
+    orig = biggan.auto_nonlocal_attention
+    kernel_img = draw(model, 4, torch.float32)
+    biggan.auto_nonlocal_attention = na.nonlocal_attention_reference
+    try:
+        plain_img = draw(model, 4, torch.float32)
+    finally:
+        biggan.auto_nonlocal_attention = orig
+    rel = rel_l2(kernel_img, plain_img)
+    with torch.no_grad():
+        model.attention.gamma.zero_()
+        moved = rel_l2(draw(model, 4, torch.float32), plain_img)
+        model.attention.gamma.fill_(0.5)
+    print(f'f32 images at batch 4, kernel vs plain attention: rel L2 '
+          f'{rel:.3e} (tol 1e-3); gamma 0 moves them by rel L2 {moved:.3e}',
+          flush=True)
+    check(rel <= 1e-3, f'biggan256: kernel and plain attention disagree: '
+          f'{rel}')
+    check(moved > 1e-3, 'biggan256: the images do not depend on the '
+          'attention')
+    out['rel_l2_kernel_plain_f32'], out['gamma0_moves'] = rel, moved
+
+    ms = median_ms(lambda: draw(model, BIGGAN_BATCH, torch.bfloat16),
+                   reps=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    draw(model, BIGGAN_BATCH, torch.bfloat16)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = BIGGAN_BATCH / ms * 1e3
+    print(f'biggan256 bf16 sample of {BIGGAN_BATCH}: {ms:.3f} ms (CUDA '
+          f'events, median of 5) = {rate:.2f} images/s; peak device memory '
+          f'{peak:.2f} GiB', flush=True)
+    window, by_name = device_times(
+        lambda: draw(model, BIGGAN_BATCH, torch.bfloat16), torch)
+    busy = sum(by_name.values()) / 1e3
+    profile = None
+    if busy:
+        idle = max(0.0, 1 - busy / window)
+        print(f'profiled sample (torch.profiler): {window:.1f} ms host '
+              f'window, {busy:.1f} ms of kernels, device idle {idle:.1%}',
+              flush=True)
+        families = print_families(by_name, busy, {
+            'K1-fwd': ('nonlocal_attention',),
+            'convolution': CONV_KEYS,
+            'batch norm': ('batch_norm', 'bn_fw'),
+            'upsample': ('upsample',), 'pooling': ('pool',),
+            'elementwise': ('elementwise', 'vectorized', 'unrolled')})
+        profile = {'window_ms': window, 'kernel_ms': busy, 'idle': idle,
+                   'families_ms': families,
+                   'k1_share': families['K1-fwd'] / busy}
+    else:
+        print('profiled sample: the profiler saw no device time (not '
+              'measured)')
+    out.update({'batch': BIGGAN_BATCH, 'sample_ms': ms, 'images_per_s': rate,
+                'peak_gib': peak, 'profile': profile})
+    del model
+    torch.cuda.empty_cache()
+
+    small = biggan.biggan128(num_classes=1000, ch=96)
+    randomize_bn(small, torch, seed=21)
+    with torch.no_grad():
+        small.attention.gamma.fill_(0.5)
+    small.cuda()
+    set_counts(na, 0)
+    img = draw(small, BIGGAN_BATCH, torch.bfloat16)
+    torch.cuda.synchronize()
+    by_kernel = kernel_counts(na)
+    ms128 = median_ms(lambda: draw(small, BIGGAN_BATCH, torch.bfloat16),
+                      reps=5)
+    print(f'biggan128 bf16 sample of {BIGGAN_BATCH}: {tuple(img.shape)}, '
+          f'K1 launches {by_kernel}, {ms128:.3f} ms (CUDA events, median of '
+          f'5) = {BIGGAN_BATCH / ms128 * 1e3:.2f} images/s', flush=True)
+    check(tuple(img.shape) == (BIGGAN_BATCH, 128, 128, 3)
+          and bool(torch.isfinite(img).all())
+          and by_kernel == {'fwd mma_sync': 1},
+          f'biggan128: images {tuple(img.shape)} or launches {by_kernel}')
+    out['biggan128'] = {'sample_ms': ms128,
+                        'images_per_s': BIGGAN_BATCH / ms128 * 1e3,
+                        'launches_by_kernel': by_kernel}
+    del small, img
+    torch.cuda.empty_cache()
+    out['kernel_rows'] = sagan_kernel_rows(na, torch)
+    return out
+
+
+def lambda_ordered(state_dict, leaves):
+    """``state_dict`` re-keyed as the reference's Lambda-graph files are:
+    auto-index names (``features.{i}``) in the graph's creation order, the
+    classifier last as ``last_linear``."""
+    out = {}
+    for i, prefix in enumerate(leaves):
+        name = 'last_linear' if prefix == 'last_linear' else f'features.{i}'
+        for key, value in state_dict.items():
+            if key.rsplit('.', 1)[0] == prefix:
+                out[f'{name}.{key.rsplit(".", 1)[1]}'] = value
+    return out
+
+
+def families_path(pretorched, torch, np, na, fb_cuda):
+    """Phase 17: the 2D families on phase 14's JPEGs. Each of
+    ``FAMILY_MODELS`` seeded, every BN randomized: one bf16 forward of the
+    256 val images at its ``input_size``, timed, held to its f32 forward.
+    Then ``examples/imagenet_eval_torch.py -e --bf16 -b 256 -a
+    resnext101_64x4d`` on a hosted file fabricated in Lambda order (the
+    ordered loader runs), which loads the donor's weights exactly. No K1
+    or K2 launch. Returns the numbers for the result line."""
+    from pretorched_tpu_torch.models.resnext import ordered_leaves
+
+    set_counts(na, 0)
+    reset_k2(fb_cuda)
+    out = {}
+    with torch.inference_mode():
+        for seed, name in enumerate(FAMILY_MODELS):
+            t0 = time.perf_counter()
+            model = pretorched.__dict__[name](pretrained=None)
+            randomize_bn(model, torch, seed=30 + seed)
+            model.cuda().eval()
+            built = time.perf_counter() - t0
+            settings = pretorched.pretrained_settings[name]['imagenet']
+            x, _ = val_batch(settings, torch, np)
+            check(x.shape[-1] == settings['input_size'][-1],
+                  f'{name}: input {tuple(x.shape)}')
+            logits, row = imagenet_forward(model, x, torch, name)
+            rel = rel_l2(logits, model.float()(x))
+            print(f'{name}: built in {built:.1f} s (host); bf16 vs f32 '
+                  f'logits rel L2 {rel:.3e} (tol {TOL_LOGITS_BF16:g})',
+                  flush=True)
+            check(rel <= TOL_LOGITS_BF16, f'{name}: bf16 logits off: {rel}')
+            out[name] = {**row, 'rel_l2_bf16_f32': rel}
+            del model, x, logits
+            torch.cuda.empty_cache()
+
+    name = 'resnext101_64x4d'
+    donor = pretorched.__dict__[name](pretrained=None)
+    randomize_bn(donor, torch, seed=40)
+    url = pretorched.pretrained_settings[name]['imagenet']['url']
+    hosted = lambda_ordered(donor.state_dict(), ordered_leaves())
+    check(not any(k.startswith('layer') for k in hosted),
+          'the fabricated file is not in Lambda order')
+    torch.save(hosted, WORK / 'zoo' / 'weights' / url.rsplit('/', 1)[-1])
+    loaded = pretorched.__dict__[name]()
+    same = all(torch.equal(v, donor.state_dict()[k])
+               for k, v in loaded.state_dict().items())
+    print(f'{name}: a Lambda-ordered file of {len(hosted)} tensors loads by '
+          f'position: every tensor equal to the donor\'s: {same}', flush=True)
+    check(same, f'{name}: the ordered loader did not restore the donor')
+    del donor, loaded, hosted
+    cli = load_cli('imagenet_eval_torch')
+    argv = [str(WORK / 'imagenet'), '-a', name, '-e', '--bf16', '-b',
+            str(IMAGENET_BATCH), '-p', '1', '--device', 'cuda']
+    print('examples/imagenet_eval_torch.py ' + ' '.join(argv[1:]),
+          flush=True)
+    summary = cli.main(argv)
+    totals = summary['totals']
+    rate = totals['count'] / summary['seconds']
+    print(f'{name} CLI: {totals["count"]:.0f} images in '
+          f'{summary["seconds"]:.3f} s = {rate:.2f} images/s (JPEG decode + '
+          'preprocess + forward, host clock, the first run)', flush=True)
+    check(totals['count'] == IMAGENET_CLASSES * IMAGENET_PER_CLASS
+          and np.isfinite(totals['loss']), f'{name} CLI: totals {totals}')
+    out['cli'] = {'arch': name, 'images_per_s_path': rate,
+                  'seconds': summary['seconds']}
+    torch.cuda.empty_cache()
+    launched = k_counts(na, fb_cuda)
+    check(launched == (0, 0, 0, 0), f'phase 17 launched K1 / K2 {launched}')
+    return out
+
+
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
@@ -2814,7 +3136,15 @@ def main():
           f'{NATIVE_CLIPS} clips, buckets {sorted(NATIVE_BUCKETS)}')
     native = native_path(pretorched, na, torch, np, cli)
 
-    phase('16. result')
+    phase('16. BASELINE config 5: biggan256 (ch 96, 1000 classes) sampling '
+          f'{BIGGAN_BATCH} images in bf16, K1-fwd at SAGAN\'s shapes')
+    gan = biggan_path(na, torch)
+
+    phase('17. the 2D families: ' + ', '.join(FAMILY_MODELS)
+          + '; examples/imagenet_eval_torch.py -a resnext101_64x4d')
+    families = families_path(pretorched, torch, np, na, fb_cuda)
+
+    phase('18. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -2868,6 +3198,16 @@ def main():
          'dtype': 'bfloat16',
          'other_shapes': {str(list(k)): v for k, v in mnist['timed'].items()
                           if k != MNIST_SHAPES[0]}},
+        {'name': 'nonlocal_attention_fwd_sagan', 'route': 'cuda',
+         'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
+         'note': 'K1-fwd at SAGAN\'s shapes in biggan256 sampling: the '
+                 'mma.sync program in bf16 (the scalar one in f32, '
+                 'other_shapes)',
+         'launches': gan['launches'],
+         'launches_by_kernel': gan['launches_by_kernel'],
+         **gan['kernel_rows']['biggan256 ch96 bfloat16'],
+         'other_shapes': {k: v for k, v in gan['kernel_rows'].items()
+                          if k != 'biggan256 ch96 bfloat16'}},
         {'name': 'nonlocal_attention_bwd_dq', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
          'launches': train_launches[1], **k1b['layer2']['dq'],
@@ -2908,6 +3248,8 @@ def main():
                                            'decoder')},
         's2d': {'nonlocalresnet3d50': s2d_eval, 'slowfast_resnet50': s2d_sf},
         'video_models': videos, 'trn': trn, 'imagenet': imagenet,
+        'biggan': {k: v for k, v in gan.items() if k != 'kernel_rows'},
+        'families': families,
         'native': {k: native[k] for k in ('buckets', 'path_clips_per_s')},
         'card': card}))
     print(json.dumps({'ok': True, 'device': {

@@ -21,7 +21,8 @@ def build_model(name: str, model: PretrainedModel, settings_map,
                 num_classes: int, pretrained: Optional[str], *,
                 torch_renames: Optional[dict] = None, strict: bool = True,
                 background_class_keys=(), check_num_classes: bool = True,
-                video: bool = False, seed: int = 0) -> PretrainedModel:
+                video: bool = False, seed: int = 0, key_rewrite=None,
+                ordered_leaves=None) -> PretrainedModel:
     settings = None
     if pretrained is not None:
         settings = settings_map[name][pretrained]
@@ -34,7 +35,9 @@ def build_model(name: str, model: PretrainedModel, settings_map,
         from ..zoo import io as zoo_io
         zoo_io.load_pretrained(model, name, pretrained, settings,
                                torch_renames=torch_renames, strict=strict,
-                               background_class_keys=background_class_keys)
+                               background_class_keys=background_class_keys,
+                               key_rewrite=key_rewrite,
+                               ordered_leaves=ordered_leaves)
     model.settings = settings
     # Even with pretrained=None, stamp the registry's default-dataset
     # metadata so preprocessing can always read it (factory.py:77-85).

@@ -22,6 +22,16 @@ from .nonlocalnet import (MNISTNonLocalNet, NonLocalBlock,  # noqa: F401
 from .senet import (senet154, se_resnet50, se_resnet101,  # noqa: F401
                     se_resnet152, se_resnext50_32x4d, se_resnext101_32x4d)
 from .nasnet import nasnetalarge, nasnetamobile  # noqa: F401
+from .resnext import resnext101_32x4d, resnext101_64x4d  # noqa: F401
+from .fbresnet import (fbresnet18, fbresnet34, fbresnet50,  # noqa: F401
+                       fbresnet101, fbresnet152)
+from .cafferesnet import cafferesnet101  # noqa: F401
+from .densenet import (densenet121, densenet161, densenet169,  # noqa: F401
+                       densenet201)
+from .vgg import (vgg11, vgg11_bn, vgg13, vgg13_bn, vgg16,  # noqa: F401
+                  vgg16_bn, vgg19, vgg19_bn)
+from .alexnet import alexnet  # noqa: F401
+from .squeezenet import squeezenet1_0, squeezenet1_1  # noqa: F401
 from . import slowfast  # noqa: F401  (the reference's pretorched.slowfast)
 from .slowfast import SlowFastV0  # noqa: F401
 from .trn import TRN, trn  # noqa: F401

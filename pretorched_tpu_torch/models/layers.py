@@ -82,8 +82,9 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         return y
 
 
-def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1):
-    return BatchNorm(channels, eps=eps, momentum=momentum)
+def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1,
+               affine: bool = True):
+    return BatchNorm(channels, eps=eps, momentum=momentum, affine=affine)
 
 
 class Identity(nn.Module):
@@ -92,6 +93,13 @@ class Identity(nn.Module):
 
     def forward(self, x):
         return x
+
+
+def register_features(model: nn.Module, module: nn.Module) -> None:
+    """Register ``module`` as ``model``'s submodule ``features`` (the
+    torchvision key prefix ``features.``) without hiding the model's
+    ``features()`` method, which attribute lookup finds first."""
+    model._modules['features'] = module
 
 
 def conv3d_kaiming_out(in_ch, out_ch, kernel_size, stride=1, padding=0,
@@ -241,5 +249,6 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             init(m.weight, m.bias, generator)
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_running_stats()
-            m.weight.fill_(0.0 if getattr(m, 'zero_init', False) else 1.0)
-            m.bias.zero_()
+            if m.affine:
+                m.weight.fill_(0.0 if getattr(m, 'zero_init', False) else 1.0)
+                m.bias.zero_()

@@ -69,14 +69,15 @@ class SEModule(nn.Module):
 class Bottleneck(nn.Module):
     def __init__(self, block: str, inplanes: int, planes: int, groups: int,
                  reduction: int, stride: int, downsample: bool,
-                 down_kernel: int, down_padding: int, se_identity: bool):
+                 down_kernel: int, down_padding: int, se_identity: bool,
+                 base_width: int = 4):
         super().__init__()
         if block == 'se':                 # senet154 (senet.py:134-156)
             w1, w2, g, s1, s2 = planes * 2, planes * 4, groups, 1, stride
         elif block == 'se_resnet':        # caffe: the stride on conv1
             w1, w2, g, s1, s2 = planes, planes, 1, stride, 1
-        else:                             # se_resnext
-            w1 = w2 = math.floor(planes * (4 / 64)) * groups
+        else:                             # se_resnext (and ResNeXt's)
+            w1 = w2 = math.floor(planes * (base_width / 64)) * groups
             g, s1, s2 = groups, 1, stride
         self.conv1 = conv2d(inplanes, w1, 1, stride=s1)
         self.bn1 = batch_norm(w1)

@@ -76,16 +76,15 @@ def resize_to_bucket(x: torch.Tensor, multiple: int = 32):
 
 def frame_indices(t: int, tb: int) -> np.ndarray:
     """The ``tb`` source frames of a ``t``-frame clip: ``round(linspace(0,
-    t - 1, tb))`` in float32, rounding half to even, with the arithmetic of
-    ``jnp.linspace`` (``(t - 1) * (i / (tb - 1))``, the last one exact).
-    Where ``(t - 1) * i / (tb - 1)`` is exactly half-way between two frames
-    (possible only for an odd ``tb``), XLA's float32 rounding picks the
-    JAX package's frame and may pick the other one; an even ``tb`` (any
-    even ``multiple``) has no such ties."""
+    t - 1, tb))`` rounded half to even and clipped, as the JAX package's
+    ``resample_frames_to_bucket`` picks them. The positions are computed
+    in float32 in the order XLA evaluates ``jnp.linspace``:
+    ``i * ((t - 1) * (1 / (tb - 1)))``, the last one exactly ``t - 1``, so
+    a position that lies half-way between two frames rounds the same way."""
     if tb == 1:
         return np.zeros(1, np.int64)
-    div = np.float32(tb - 1)
-    pos = np.float32(t - 1) * (np.arange(tb, dtype=np.float32) / div)
+    step = np.float32(t - 1) * (np.float32(1) / np.float32(tb - 1))
+    pos = np.arange(tb, dtype=np.float32) * step
     pos[-1] = np.float32(t - 1)
     return np.clip(np.round(pos).astype(np.int64), 0, t - 1)
 

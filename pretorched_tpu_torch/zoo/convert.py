@@ -7,6 +7,7 @@ with the torch key prefixes, so the mapping is mechanical:
     ('params', 'layer1.0.conv1', 'kernel')  ->  'layer1.0.conv1.weight'
     ('params', 'bn1', 'scale')              ->  'bn1.weight'
     ('batch_stats', 'bn1', 'mean')          ->  'bn1.running_mean'
+    ('params', 'attention', 'gamma')        ->  'attention.gamma'
 
 plus the layout transposes (HWIO -> OIHW, THWIO -> OITHW, (in, out) ->
 (out, in)) and ``renames`` (port prefix -> checkpoint prefix, exact or a
@@ -49,7 +50,9 @@ def _flatten(tree, prefix=()):
 def torch_key_for(path: Tuple[str, ...], renames: Optional[dict] = None) -> Optional[str]:
     """Map a flax variable path to its torch state-dict key."""
     collection, leaf = path[0], path[-1]
-    suffix = _LEAF_TO_TORCH.get((collection, leaf))
+    # a parameter of a module's own (SAGAN's scalar ``gamma``) keeps its name
+    suffix = _LEAF_TO_TORCH.get((collection, leaf),
+                                leaf if collection == 'params' else None)
     if suffix is None:
         return None
     prefix = '.'.join(path[1:-1])
@@ -105,7 +108,9 @@ def state_dict_from_flax(variables: Mapping,
         value = np.asarray(leaf)
         if value.dtype not in (np.float32, np.float64, np.int32, np.int64):
             value = value.astype(np.float32)
-        sd[tkey] = np.ascontiguousarray(_to_torch_layout(value, path))
+        value = _to_torch_layout(value, path)
+        # ascontiguousarray makes a 0-d leaf (gamma) 1-d: keep its shape
+        sd[tkey] = np.ascontiguousarray(value).reshape(value.shape)
         if path[0] == 'batch_stats':
             bn_prefixes.add(tkey.rsplit('.', 1)[0] if '.' in tkey else '')
     for tprefix in bn_prefixes:
@@ -113,3 +118,76 @@ def state_dict_from_flax(variables: Mapping,
             else 'num_batches_tracked'
         sd[key] = np.asarray(0, np.int64)
     return sd
+
+
+IGNORED_TORCH_SUFFIXES = ('num_batches_tracked',)
+
+
+def group_state_dict_in_order(state_dict) -> list:
+    """A state_dict as ``[(module prefix, {leaf: value}), ...]`` in its
+    insertion (registration) order, BN counters left out (the JAX
+    converter's ``group_state_dict_in_order``, l.165). For checkpoints
+    whose key names are auto-generated graph indices (the reference's
+    ResNeXt Lambda-graph ports): there the order of the modules that hold
+    parameters is the stable contract."""
+    groups, order = {}, []
+    for k, v in state_dict.items():
+        if k.endswith(IGNORED_TORCH_SUFFIXES):
+            continue
+        prefix, leaf = k.rsplit('.', 1)
+        if prefix not in groups:
+            groups[prefix] = {}
+            order.append(prefix)
+        groups[prefix][leaf] = v
+    return [(p, groups[p]) for p in order]
+
+
+def convert_state_dict_ordered(state_dict, own_state, ordered_leaves) -> dict:
+    """Positional conversion (the JAX ``convert_state_dict_ordered``,
+    l.187): the port's leaf prefixes ``ordered_leaves``, in the order the
+    model creates them, zipped with the checkpoint's modules in
+    registration order. ``own_state`` is the model's ``state_dict()``.
+    Returns ``{port key: value}`` with the model's own BN counters; raises
+    when the counts, a leaf or a shape disagree."""
+    torch_groups = group_state_dict_in_order(state_dict)
+    if len(torch_groups) != len(ordered_leaves):
+        raise ValueError(
+            f'leaf count mismatch: checkpoint has {len(torch_groups)} '
+            f'param-bearing modules, model has {len(ordered_leaves)}')
+    own = {}
+    for key, value in own_state.items():
+        prefix, leaf = key.rsplit('.', 1)
+        own.setdefault(prefix, {})[leaf] = value
+    out = {}
+    for ours, (tprefix, tgroup) in zip(ordered_leaves, torch_groups):
+        if ours not in own:
+            # a typo'd entry would otherwise consume a checkpoint module
+            raise ValueError(f'ordered leaf {ours!r} matches no model '
+                             f'variable (checkpoint module {tprefix!r} would '
+                             'be dropped)')
+        for leaf, target in own[ours].items():
+            if leaf in IGNORED_TORCH_SUFFIXES:
+                out[f'{ours}.{leaf}'] = target
+                continue
+            if leaf not in tgroup:
+                raise ValueError(f'{tprefix} has no {leaf} for {ours}')
+            value = tgroup[leaf]
+            if tuple(value.shape) != tuple(target.shape):
+                raise ValueError(f'shape mismatch {tprefix} -> {ours}.{leaf}: '
+                                 f'{tuple(value.shape)} vs '
+                                 f'{tuple(target.shape)}')
+            out[f'{ours}.{leaf}'] = value
+    return out
+
+
+_DENSENET_OLD_KEY = re.compile(
+    r'^(.*denselayer\d+\.(?:norm|relu|conv))\.'
+    r'((?:[12])\.(?:weight|bias|running_mean|running_var))$')
+
+
+def densenet_key_rewrite(key: str) -> str:
+    """Old densenet checkpoints' dotted keys (``denselayer1.norm.1.weight``)
+    -> the current ones (``denselayer1.norm1.weight``) (reference:
+    torchvision_models.py:288-297)."""
+    m = _DENSENET_OLD_KEY.match(key)
+    return m.group(1) + m.group(2) if m else key

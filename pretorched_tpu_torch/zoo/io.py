@@ -11,7 +11,10 @@ a 2D ``resnet50`` checkpoint), the tensors under a prefix of
 ``background_class_keys`` lose their first row (the TF ports' extra
 background class, which the JAX converter slices off,
 ``pretorched_tpu/zoo/convert.py:143-144``), and ``load_state_dict`` runs
-with the factory's ``strict`` flag. There is no converted cache.
+with the factory's ``strict`` flag. Densenet's old dotted keys are
+rewritten first (``key_rewrite``), and ResNeXt's Lambda-graph files, whose
+keys are auto-indices, load by position (``ordered_leaves``). There is no
+converted cache.
 
 Offline behaviour: with no ``.pth`` found, the model keeps its seeded random
 init with a warning, or raises when ``PRETORCHED_STRICT_WEIGHTS`` is set.
@@ -22,11 +25,11 @@ from __future__ import annotations
 import os
 import warnings
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
-from .convert import inflate_kernel
+from .convert import convert_state_dict_ordered, inflate_kernel
 
 
 def cache_dir() -> Path:
@@ -69,17 +72,21 @@ def _rename(key: str, inverse: Dict[str, str]) -> str:
 
 def load_state_dict_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
                          *, torch_renames: Optional[dict] = None,
-                         strict: bool = True, background_class_keys=()):
+                         strict: bool = True, background_class_keys=(),
+                         key_rewrite: Optional[Callable[[str], str]] = None):
     """Load a checkpoint-format state_dict into ``model``.
 
-    ``torch_renames`` maps port prefixes to checkpoint prefixes (as the JAX
-    factories pass them, ``{'last_linear': 'fc'}``). The tensors under a
+    ``key_rewrite`` first rewrites each checkpoint key (densenet's old
+    dotted keys). ``torch_renames`` maps port prefixes to checkpoint
+    prefixes (as the JAX factories pass them, ``{'last_linear': 'fc'}``). The tensors under a
     port prefix of ``background_class_keys`` drop their first row (the
     background class). With ``strict=False``,
     keys the model lacks, keys the checkpoint lacks and tensors of the wrong
     shape are skipped, and the warning names every one. Returns the
     ``(missing_keys, unexpected_keys)`` of ``load_state_dict``, with
     mismatched shapes counted as unexpected."""
+    if key_rewrite is not None:
+        sd = {key_rewrite(k): v for k, v in sd.items()}
     inverse = {v: k for k, v in (torch_renames or {}).items()}
     own = model.state_dict()
     sd = {k: inflate_kernel(v, own[k].shape) if k in own else v
@@ -107,10 +114,15 @@ def load_state_dict_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
 
 def load_pretrained(model, name: str, dataset: str, settings: dict, *,
                     torch_renames: Optional[dict] = None, strict: bool = True,
-                    background_class_keys=()):
+                    background_class_keys=(),
+                    key_rewrite: Optional[Callable[[str], str]] = None,
+                    ordered_leaves: Optional[list] = None):
     """Find the hosted ``.pth`` for (name, dataset) and load it into
     ``model``; returns ``(missing, unexpected)`` or None when no file was
-    found."""
+    found. With ``ordered_leaves`` (ResNeXt's Lambda-graph files, whose
+    keys are auto-indices) the file's modules are matched to the port's by
+    position (``convert.convert_state_dict_ordered``), as the JAX
+    ``load_pretrained_variables`` does."""
     tpath = find_torch_checkpoint(settings.get('url', '') or '')
     if tpath is None:
         msg = (f'pretrained weights for {name}/{dataset} not found locally '
@@ -120,6 +132,10 @@ def load_pretrained(model, name: str, dataset: str, settings: dict, *,
             raise FileNotFoundError(msg)
         warnings.warn(msg)
         return None
-    return load_state_dict_into(model, load_torch_state_dict(tpath),
-                                torch_renames=torch_renames, strict=strict,
-                                background_class_keys=background_class_keys)
+    sd = load_torch_state_dict(tpath)
+    if ordered_leaves is not None:
+        sd = convert_state_dict_ordered(sd, model.state_dict(), ordered_leaves)
+    return load_state_dict_into(model, sd, torch_renames=torch_renames,
+                                strict=strict,
+                                background_class_keys=background_class_keys,
+                                key_rewrite=key_rewrite)

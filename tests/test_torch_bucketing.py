@@ -3,7 +3,10 @@ and the native-length video eval against the JAX package's, on the CPU.
 
 The shape math equals JAX's exactly; the frame re-sampling picks the same
 frames for every clip length up to 72 at multiple 8 and up to 24 at 4 (an index
-selection: the clips are equal bitwise); the bucket resize uses JAX's
+selection: the clips are equal bitwise), and ``frame_indices`` equals
+``round(jnp.linspace(0, t - 1, tb))`` for every t <= 512 that the odd
+multiples 3, 5, 15 and 31 re-sample (where a position falls half-way
+between two frames, XLA's float32 arithmetic decides which); the bucket resize uses JAX's
 triangle weights and is held at 1e-4 of the values' range (the JAX resize
 sums in another order on the CPU). ``BucketedModel`` against the JAX
 wrapper on carried weights at 2e-3 (whole nets). ``video_eval_torch.py
@@ -63,6 +66,25 @@ def test_frame_resampling_matches_jax(multiple, longest):
     want = np.asarray(jb.resample_frames_to_bucket(
         np.moveaxis(video.numpy(), 1, -1), 8))
     np.testing.assert_array_equal(got.permute(0, 2, 3, 4, 1).numpy(), want)
+
+
+@pytest.mark.parametrize('multiple', [3, 5, 15, 31])
+def test_frame_indices_match_jax_at_odd_multiples(multiple):
+    """Every t <= 512 that ``bucket_frames`` re-samples at this multiple:
+    the indices of ``resample_frames_to_bucket`` (round half to even of
+    ``jnp.linspace`` in float32, clipped) equal the port's."""
+    checked = 0
+    for t in range(1, 513):
+        b = tb.bucket_frames(t, multiple)
+        if b == t:
+            continue
+        # jnp.linspace compiles once per b; round and clip as JAX does
+        want = np.clip(np.round(np.asarray(jax.numpy.linspace(0, t - 1, b)))
+                       .astype(np.int64), 0, t - 1)
+        np.testing.assert_array_equal(tb.frame_indices(t, b), want,
+                                      err_msg=f't={t} tb={b}')
+        checked += 1
+    assert checked > 100
 
 
 @pytest.mark.parametrize('shape', [(2, 230, 300, 3), (1, 20, 33, 2)])

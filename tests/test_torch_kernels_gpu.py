@@ -19,6 +19,13 @@ from pretorched_tpu_torch.ops import fused_block as fb
 from pretorched_tpu_torch.ops.cuda import fused_block as fb_cuda
 from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
 
+# SAGAN attention in BigGAN at 64 px (keys pooled 2x2, Cv = 4 C):
+# biggan256 ch 96, biggan128 ch 96 (C = 48) and the golden lock's ch 16
+SAGAN_CASES = [
+    (2, 4096, 1024, 96, 384, 1.0),
+    (2, 4096, 1024, 48, 192, 1.0),
+    (2, 4096, 1024, 16, 64, 1.0),
+]
 # (B, N, Nk, C, Cv, scale), as in test_torch_nonlocal_attention.py, plus
 # gaussian mode's wide C with a wide Cv, C not a multiple of 8, and a C and
 # Cv (one not a multiple of 8) too wide for the backward's resident rows
@@ -32,7 +39,7 @@ CASES = [
     (2, 1000, 125, 1024, 512, 1.0),
     (2, 100, 90, 20, 150, 1.0),
     (1, 150, 100, 392, 260, 1.0),
-]
+] + SAGAN_CASES
 
 
 @pytest.fixture
@@ -65,6 +72,23 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol_out, tol_lse,
     assert out.dtype == dtype and out.shape == (b, n, cv)
     torch.testing.assert_close(out.float(), want, rtol=0, atol=tol_out)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=tol_lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype,program', [(torch.bfloat16, 'mma_sync'),
+                                           (torch.float32, 'scalar')])
+def test_sagan_shapes_take_their_programs(cuda, dtype, program):
+    """C is no multiple of 64 at SAGAN's shapes: bf16 runs the mma.sync
+    program, f32 the scalar one, one launch each."""
+    for b, n, nk, c, cv, _ in SAGAN_CASES:
+        q = torch.randn(b, n, c, device=cuda, dtype=dtype)
+        k = torch.randn(b, nk, c, device=cuda, dtype=dtype)
+        v = torch.randn(b, nk, cv, device=cuda, dtype=dtype)
+        before = dict(na.nonlocal_attention_cuda.by_kernel)
+        na.nonlocal_attention_cuda(q, k, v)
+        assert {key: n - before[key] for key, n in
+                na.nonlocal_attention_cuda.by_kernel.items()} == {
+            p: int(p == program) for p in na.PROGRAMS}, (b, n, nk, c, cv)
 
 
 @pytest.mark.gpu

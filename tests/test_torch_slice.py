@@ -56,7 +56,7 @@ def hosted(tmp_path_factory):
 
 
 def test_import_pulls_in_no_jax():
-    code = ('import sys, pretorched_tpu_torch\n'
+    code = ('import sys, pretorched_tpu_torch, pretorched_tpu_torch.gan\n'
             'bad = sorted(m for m in sys.modules\n'
             "             if m == 'jax' or m.startswith(('jax.', 'flax', \n"
             "                                            'pretorched_tpu.')))\n"

@@ -31,9 +31,11 @@ def to_numpy_tree(tree):
 
 def randomize_bn(variables, seed=0):
     """Numpy copy of flax ``variables`` with every BN's running stats, scale
-    and shift drawn at random (ranges of ``torch_twins.randomize_bn``)."""
+    and shift drawn at random (ranges of ``torch_twins.randomize_bn``); a
+    model without BN comes back as it was."""
     out = to_numpy_tree(variables)
-    _randomize(out['params'], out['batch_stats'], np.random.RandomState(seed))
+    _randomize(out['params'], out.get('batch_stats', {}),
+               np.random.RandomState(seed))
     return out
 
 
