@@ -145,7 +145,19 @@ Drives the port's main path once on one CUDA card and checks it:
     ``examples/imagenet_eval_torch.py -e --bf16 -b 256 -a
     resnext101_64x4d`` on a hosted file fabricated in Lambda order, which
     the ordered loader restores exactly; no K1 or K2 launch;
-18. a line with each kernel's numbers and the card, then
+18. the rest of the 2D zoo on phase 14's JPEGs: the Inception family
+    (``inceptionv3``, ``inceptionv4``, ``inceptionresnetv2``,
+    ``bninception``), ``xception``, the six DPNs, ``mobilenetv2``,
+    ``pnasnet5large``, ``polynet``, ``vggm`` and ``wideresnet50`` (seeded,
+    every BN randomized), one bf16 forward each at its ``input_size`` (64
+    images at 299 and 331 px, 256 below), timed and held to its f32
+    forward, ``inceptionv4`` and ``dpn92`` profiled by family with cuDNN's
+    layout copies apart; ``examples/imagenet_eval_torch.py -e --bf16 -a
+    inceptionv4`` on a fabricated 1001-class hosted file, whose
+    ``imagenet`` load keeps the donor's 1000 classes exactly; one CLI train
+    step of ``dpn68b`` at ``-b 64``; ``wideresnet50`` from an ``.npz`` in
+    the hosted export's keys, every tensor the donor's; no K1 or K2 launch;
+19. a line with each kernel's numbers and the card, then
     ``{"ok": true, "device": {...}}``. Every phase's heading names the card
     and its power limit.
 
@@ -289,6 +301,19 @@ BIGGAN_SHAPES = {'biggan256 ch96': (32, 4096, 1024, 96, 384),
 FAMILY_MODELS = ('resnext101_32x4d', 'resnext101_64x4d', 'fbresnet152',
                  'cafferesnet101', 'densenet121', 'vgg16_bn', 'alexnet',
                  'squeezenet1_1')
+
+# phase 18: the rest of the 2D zoo, each at its input_size on phase 14's
+# JPEGs (64 images at 299 and 331 px, all 256 at 221 and 224), two of them
+# profiled; a 1001-class hosted inceptionv4 through the eval CLI, one CLI
+# train step of dpn68b at -b 64, wideresnet50 from an .npz in the hosted
+# export's keys
+ZOO_MODELS = ('inceptionv3', 'inceptionv4', 'inceptionresnetv2',
+              'bninception', 'xception', 'dpn68', 'dpn68b', 'dpn92', 'dpn98',
+              'dpn107', 'dpn131', 'mobilenetv2', 'pnasnet5large', 'polynet',
+              'vggm', 'wideresnet50')
+ZOO_PROFILED = ('inceptionv4', 'dpn92')
+ZOO_LARGE_BATCH = 64
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -979,9 +1004,20 @@ def forward_turns(models, x, torch, reps=5):
     return times
 
 
-def profile_forward(fn, torch):
+FORWARD_FAMILIES = {
+    'convolution': CONV_KEYS, 'batch norm': ('batch_norm', 'bn_fw'),
+    'pooling': ('pool',),
+    'elementwise': ('elementwise', 'vectorized', 'unrolled')}
+# phase 18 also splits cuDNN's NCHW <-> NHWC copies from the convolutions
+ZOO_FAMILIES = {'layout copies': ('nchwtonhwc', 'nhwctonchw'),
+                **FORWARD_FAMILIES}
+
+
+def profile_forward(fn, torch, groups=None):
     """One forward under ``torch.profiler``: kernel ms, the device's idle
-    share of the host window, and device time by family."""
+    share of the host window, and device time by family (``groups``, the
+    first family whose keys a kernel's name holds; default
+    ``FORWARD_FAMILIES``)."""
     window, by_name = device_times(fn, torch)
     busy = sum(by_name.values()) / 1e3
     if not busy:
@@ -991,10 +1027,7 @@ def profile_forward(fn, torch):
     idle = max(0.0, 1 - busy / window)
     print(f'profiled forward (torch.profiler): {window:.1f} ms host window, '
           f'{busy:.1f} ms of kernels, device idle {idle:.1%}', flush=True)
-    families = print_families(by_name, busy, {
-        'convolution': CONV_KEYS, 'batch norm': ('batch_norm', 'bn_fw'),
-        'pooling': ('pool',),
-        'elementwise': ('elementwise', 'vectorized', 'unrolled')})
+    families = print_families(by_name, busy, groups or FORWARD_FAMILIES)
     return {'window_ms': window, 'kernel_ms': busy, 'idle': idle,
             'families_ms': families}
 
@@ -2353,10 +2386,11 @@ def conv_kernels(convs, torch, reps=5):
     return out
 
 
-def imagenet_forward(model, x, torch, what):
+def imagenet_forward(model, x, torch, what, profile=True, groups=None):
     """bf16 forward of ``model`` on ``x``: images/s by CUDA events (median
-    of 5), peak memory, the profiled forward by family; returns the bf16
-    logits and the numbers."""
+    of 5), peak memory, with ``profile`` the profiled forward by family
+    (``groups``: profile_forward's); returns the bf16 logits and the
+    numbers."""
     model.bfloat16()
     ms = median_ms(lambda: model(x), reps=5)
     torch.cuda.synchronize()
@@ -2371,7 +2405,8 @@ def imagenet_forward(model, x, torch, what):
     check(bool(torch.isfinite(logits).all()), f'{what}: logits not finite')
     return logits, {'forward_ms': ms, 'images_per_s': n / ms * 1e3,
                     'peak_gib': peak,
-                    'profile': profile_forward(lambda: model(x), torch)}
+                    'profile': profile_forward(lambda: model(x), torch,
+                                               groups) if profile else None}
 
 
 def imagenet_path(pretorched, torch, np, na, fb_cuda):
@@ -2998,6 +3033,154 @@ def families_path(pretorched, torch, np, na, fb_cuda):
     return out
 
 
+def rescaled(model, torch, factor=1.01):
+    """Every parameter of ``model`` times ``factor``, in place: a donor
+    that differs from the factory's seeded init (a BN-free net has no
+    statistics to randomize), so a load that did nothing shows."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(factor)
+    return model
+
+
+def zoo_path(pretorched, torch, np, na, fb_cuda):
+    """Phase 18: the rest of the 2D zoo on phase 14's JPEGs. Each of
+    ``ZOO_MODELS`` seeded, every BN randomized: one bf16 forward at its
+    ``input_size`` (``ZOO_LARGE_BATCH`` images at 299 and 331 px, the 256
+    val images below), timed, held to its f32 forward; ``ZOO_PROFILED``
+    profiled by family with the layout copies apart. Then
+    ``examples/imagenet_eval_torch.py -e --bf16 -a inceptionv4`` on a
+    fabricated 1001-class hosted file, whose ``imagenet`` load keeps the
+    donor's 1000 classes exactly; one CLI train step of ``dpn68b`` at
+    ``-b 64`` in bf16 (DPN's train-mode head); ``wideresnet50`` from an
+    ``.npz`` in the hosted export's keys through the loader with
+    ``hkl_renames``, every tensor the donor's. No K1 or K2 launch. Returns
+    the numbers for the result line."""
+    from pretorched_tpu_torch.models.wideresnet import hkl_renames
+    from pretorched_tpu_torch.zoo import io as zoo_io
+
+    set_counts(na, 0)
+    reset_k2(fb_cuda)
+    out, batches = {}, {}
+    with torch.inference_mode():
+        for seed, name in enumerate(ZOO_MODELS):
+            t0 = time.perf_counter()
+            model = pretorched.__dict__[name](pretrained=None)
+            randomize_bn(model, torch, seed=50 + seed)
+            model.cuda().eval()
+            built = time.perf_counter() - t0
+            settings = model.metadata
+            key = json.dumps({k: settings.get(k) for k in (
+                'input_space', 'input_size', 'input_range', 'mean', 'std',
+                'scale')})
+            if key not in batches:
+                batches[key] = val_batch(settings, torch, np)[0]
+            x = batches[key]
+            if settings['input_size'][-1] >= 299:
+                x = x[:ZOO_LARGE_BATCH]
+            check(x.shape[-1] == settings['input_size'][-1],
+                  f'{name}: input {tuple(x.shape)}')
+            logits, row = imagenet_forward(model, x, torch, name,
+                                           profile=name in ZOO_PROFILED,
+                                           groups=ZOO_FAMILIES)
+            rel = rel_l2(logits, model.float()(x))
+            print(f'{name}: built in {built:.1f} s (host); bf16 vs f32 '
+                  f'logits rel L2 {rel:.3e} (tol {TOL_LOGITS_BF16:g})',
+                  flush=True)
+            check(logits.shape == (x.shape[0], 1000)
+                  and rel <= TOL_LOGITS_BF16,
+                  f'{name}: logits {tuple(logits.shape)}, bf16 off: {rel}')
+            out[name] = {**row, 'rel_l2_bf16_f32': rel,
+                         'images': x.shape[0], 'px': x.shape[-1]}
+            del model, x, logits
+            torch.cuda.empty_cache()
+    del batches
+
+    name = 'inceptionv4'
+    donor = pretorched.inceptionv4(num_classes=1001, pretrained=None)
+    randomize_bn(donor, torch, seed=70)
+    url = pretorched.pretrained_settings[name]['imagenet']['url']
+    torch.save(donor.state_dict(),
+               WORK / 'zoo' / 'weights' / url.rsplit('/', 1)[-1])
+    loaded = pretorched.inceptionv4().state_dict()
+    want = donor.state_dict()
+    same = all(torch.equal(v, want[k][1:] if k.startswith('last_linear')
+                           else want[k]) for k, v in loaded.items())
+    print(f'{name}: a 1001-class hosted file loads as imagenet with its '
+          f'background row dropped, every tensor the donor\'s: {same}',
+          flush=True)
+    check(same and loaded['last_linear.weight'].shape[0] == 1000,
+          f'{name}: the background row was not dropped as expected')
+    del donor, loaded, want
+    cli = load_cli('imagenet_eval_torch')
+    argv = [str(WORK / 'imagenet'), '-a', name, '-e', '--bf16', '-b',
+            str(ZOO_LARGE_BATCH), '-p', '1', '--device', 'cuda']
+    print('examples/imagenet_eval_torch.py ' + ' '.join(argv[1:]),
+          flush=True)
+    summary = cli.main(argv)
+    totals = summary['totals']
+    rate = totals['count'] / summary['seconds']
+    print(f'{name} CLI: {totals["count"]:.0f} images in '
+          f'{summary["seconds"]:.3f} s = {rate:.2f} images/s (JPEG decode + '
+          'preprocess + forward, host clock, the first run)', flush=True)
+    check(totals['count'] == IMAGENET_CLASSES * IMAGENET_PER_CLASS
+          and np.isfinite(totals['loss']), f'{name} CLI: totals {totals}')
+    out['cli'] = {'arch': name, 'images_per_s_path': rate,
+                  'seconds': summary['seconds']}
+
+    # one train step: 8 JPEGs a class of phase 14's train split
+    data = WORK / 'zoo_train'
+    for split in ('train', 'val'):
+        for d in sorted((WORK / 'imagenet' / split).iterdir()):
+            (data / split / d.name).mkdir(parents=True)
+            for f in sorted(d.iterdir())[:ZOO_LARGE_BATCH // IMAGENET_CLASSES]:
+                (data / split / d.name / f.name).symlink_to(f)
+    run_dir = WORK / 'zoo_run'
+    run_dir.mkdir()
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        argv = [str(data), '-a', 'dpn68b', '--pretrained', 'none', '--bf16',
+                '-b', str(ZOO_LARGE_BATCH), '-p', '1', '--lr', '0.001',
+                '--epochs', '1', '--device', 'cuda']
+        print('examples/imagenet_eval_torch.py ' + ' '.join(argv[1:]),
+              flush=True)
+        t0 = time.perf_counter()
+        summary = cli.main(argv)
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    loss = summary['last_train']['loss']
+    print(f'dpn68b: {summary["train_steps"]} train step of '
+          f'{ZOO_LARGE_BATCH} images, loss {loss:.4f}, then eval of '
+          f'{summary["totals"]["count"]:.0f}; {seconds:.1f} s (host clock, '
+          'the first run)', flush=True)
+    check(summary['train_steps'] == 1 and np.isfinite(loss)
+          and summary['totals']['count'] == ZOO_LARGE_BATCH,
+          f'dpn68b train: {summary}')
+    out['train_step'] = {'arch': 'dpn68b', 'loss': loss, 'seconds': seconds}
+
+    donor = rescaled(pretorched.wideresnet50(num_classes=1000), torch)
+    renames = hkl_renames()
+    npz = WORK / 'zoo' / 'wide-resnet-50-2-export.npz'
+    np.savez(npz, **{f'{renames[k.rsplit(".", 1)[0]]}.{k.rsplit(".", 1)[1]}':
+                     v.numpy() for k, v in donor.state_dict().items()})
+    model = pretorched.wideresnet50(num_classes=1000)
+    result = zoo_io.load_state_dict_into(
+        model, zoo_io.load_torch_state_dict(npz), torch_renames=renames)
+    same = all(torch.equal(v, donor.state_dict()[k])
+               for k, v in model.state_dict().items())
+    print(f'wideresnet50: an .npz of {len(renames)} modules in the hosted '
+          f'export\'s keys (conv0, group0.block0.conv_dim, fc, ...) loads '
+          f'with hkl_renames: every tensor the donor\'s: {same}', flush=True)
+    check(result == ([], []) and same, 'wideresnet50: the .npz load differs')
+    del donor, model
+    torch.cuda.empty_cache()
+    launched = k_counts(na, fb_cuda)
+    check(launched == (0, 0, 0, 0), f'phase 18 launched K1 / K2 {launched}')
+    return out
+
+
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
@@ -3144,7 +3327,12 @@ def main():
           + '; examples/imagenet_eval_torch.py -a resnext101_64x4d')
     families = families_path(pretorched, torch, np, na, fb_cuda)
 
-    phase('18. result')
+    phase('18. the rest of the 2D zoo: ' + ', '.join(ZOO_MODELS)
+          + '; examples/imagenet_eval_torch.py -a inceptionv4 (eval), '
+          '-a dpn68b (a train step)')
+    zoo = zoo_path(pretorched, torch, np, na, fb_cuda)
+
+    phase('19. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -3249,7 +3437,7 @@ def main():
         's2d': {'nonlocalresnet3d50': s2d_eval, 'slowfast_resnet50': s2d_sf},
         'video_models': videos, 'trn': trn, 'imagenet': imagenet,
         'biggan': {k: v for k, v in gan.items() if k != 'kernel_rows'},
-        'families': families,
+        'families': families, 'zoo': zoo,
         'native': {k: native[k] for k in ('buckets', 'path_clips_per_s')},
         'card': card}))
     print(json.dumps({'ok': True, 'device': {

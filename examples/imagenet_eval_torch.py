@@ -129,8 +129,9 @@ def main(argv=None):
     if args.bf16:
         model.bfloat16()
 
-    settings = (model.settings if model.settings is not None else
-                pretorched.pretrained_settings[args.arch]['imagenet'])
+    # the loaded dataset's settings, else the factory's default dataset's
+    # (dpn68b has only 'imagenet+5k'; vggm is not in pretrained_settings)
+    settings = model.metadata
     # explicit --scale wins; otherwise the model's own metadata, else 0.875
     scale = (args.scale if args.scale is not None
              else settings.get('scale', 0.875))

@@ -50,8 +50,9 @@ def main(argv=None):
                                            pretrained=pretrained)
     model.to(device).eval()
 
-    settings = (model.settings if model.settings is not None
-                else pretorched.pretrained_settings[args.arch]['imagenet'])
+    # the loaded dataset's settings, else the factory's default dataset's
+    # (dpn68b has only 'imagenet+5k'; vggm is not in pretrained_settings)
+    settings = model.metadata
     x = TransformImage(settings)(LoadImage()(args.path_img))[None]
     with torch.inference_mode():
         logits = model(x.to(device))[0].float().cpu()

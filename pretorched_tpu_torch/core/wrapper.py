@@ -31,6 +31,9 @@ class PretrainedModel(nn.Module):
         super().__init__()
         self.name: Optional[str] = None
         self.settings: Optional[dict] = None     # the loaded dataset's, or None
+        # what stamp_metadata stamped: the loaded dataset's settings, else
+        # the registry's default dataset's (what preprocessing reads)
+        self.metadata: Optional[dict] = None
         self.num_classes = num_classes
         self.num_features = num_features
         self.compute_dtype: Optional[torch.dtype] = None
@@ -93,6 +96,7 @@ class PretrainedModel(nn.Module):
     def stamp_metadata(self, meta: Optional[dict]) -> None:
         if meta is None:
             return
+        self.metadata = meta
         self.input_space = meta['input_space']
         self.input_size = meta['input_size']
         self.input_range = meta['input_range']

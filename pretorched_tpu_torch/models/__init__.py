@@ -32,6 +32,17 @@ from .vgg import (vgg11, vgg11_bn, vgg13, vgg13_bn, vgg16,  # noqa: F401
                   vgg16_bn, vgg19, vgg19_bn)
 from .alexnet import alexnet  # noqa: F401
 from .squeezenet import squeezenet1_0, squeezenet1_1  # noqa: F401
+from .inception_v3 import inceptionv3  # noqa: F401
+from .inceptionv4 import inceptionv4  # noqa: F401
+from .inceptionresnetv2 import inceptionresnetv2  # noqa: F401
+from .bninception import bninception  # noqa: F401
+from .xception import xception  # noqa: F401
+from .dpn import dpn68, dpn68b, dpn92, dpn98, dpn107, dpn131  # noqa: F401
+from .mobilenet import mobilenetv2  # noqa: F401
+from .pnasnet import pnasnet5large  # noqa: F401
+from .polynet import polynet  # noqa: F401
+from .vggm import vggm  # noqa: F401
+from .wideresnet import wideresnet50  # noqa: F401
 from . import slowfast  # noqa: F401  (the reference's pretorched.slowfast)
 from .slowfast import SlowFastV0  # noqa: F401
 from .trn import TRN, trn  # noqa: F401

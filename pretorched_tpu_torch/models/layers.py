@@ -185,6 +185,54 @@ def conv2d(in_ch, out_ch, kernel_size, stride=1, padding=0, bias=False,
     return conv
 
 
+class BasicConv2d(nn.Module):
+    """Bias-free conv -> BN -> ReLU under the keys ``conv`` and ``bn``: the
+    ``BasicConv2d`` of the Inception nets and PolyNet (BN eps 1e-3 in the
+    TF ports, torch's 1e-5 in PolyNet; PolyNet's block outputs skip the
+    ReLU, ``relu=False``)."""
+
+    def __init__(self, cin, cout, kernel_size, stride=1, padding=0,
+                 eps=1e-3, relu=True):
+        super().__init__()
+        self.conv = conv2d(cin, cout, kernel_size, stride, padding)
+        self.bn = batch_norm(cout, eps=eps)
+        self.relu = relu
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.relu else x
+
+
+def conv_seq(cin, specs, eps=1e-3):
+    """A Sequential of ``BasicConv2d`` from (cout, kernel, stride, padding)
+    rows, each on the one before."""
+    layers = []
+    for cout, k, stride, padding in specs:
+        layers.append(BasicConv2d(cin, cout, k, stride, padding, eps=eps))
+        cin = cout
+    return nn.Sequential(*layers)
+
+
+class Concat(nn.Module):
+    """Its branches on one input, concatenated along the channels, and a
+    3x3/2 max pool of the input last with ``pool``. The branches keep the
+    hosted files' keys, ``{prefix}0``, ``{prefix}1``, ... (the Inception
+    nets' ``branch``, PolyNet's ``path``)."""
+
+    def __init__(self, *branches, prefix='branch', pool=False):
+        super().__init__()
+        self.names = [f'{prefix}{i}' for i in range(len(branches))]
+        for name, branch in zip(self.names, branches):
+            setattr(self, name, branch)
+        self.pool = pool
+
+    def forward(self, x):
+        outs = [getattr(self, name)(x) for name in self.names]
+        if self.pool:
+            outs.append(F.max_pool2d(x, 3, 2))
+        return torch.cat(outs, dim=1)
+
+
 def linear(in_features, out_features):
     """Linear that ``init_parameters`` fills with ``torch_conv_init``."""
     layer = nn.Linear(in_features, out_features)

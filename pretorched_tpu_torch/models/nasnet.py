@@ -123,9 +123,9 @@ class BranchSeparables(nn.Module):
 
 
 class ReluConvBn(nn.Module):
-    def __init__(self, cin, cout):
+    def __init__(self, cin, cout, stride=1):
         super().__init__()
-        self.conv = conv2d(cin, cout, 1)
+        self.conv = conv2d(cin, cout, 1, stride=stride)
         self.bn = _bn(cout)
 
     def forward(self, x):

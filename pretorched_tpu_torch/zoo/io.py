@@ -2,7 +2,9 @@
 
 Counterpart of ``pretorched_tpu/zoo/io.py``. Checkpoints live in a local
 cache directory (``$PRETORCHED_HOME``, then ``$TORCH_MODEL_ZOO``, then
-``~/.cache/pretorched_tpu``). The hosted ``.pth`` already is the port's
+``~/.cache/pretorched_tpu``). A hosted file is a ``.pth``, a hickle / HDF5
+export (``.hkl``, ``.h5``, ``.hdf5``: the WRN-50-2 export; read with
+``h5py``, imported only then) or an ``.npz``. It already is the port's
 format, so it loads straight into the module: the ``{'state_dict': ...}``
 wrapper and DataParallel's ``module.`` prefix are stripped, checkpoint
 prefixes are renamed to the port's (``fc`` -> ``last_linear``), a 2D conv
@@ -16,7 +18,7 @@ rewritten first (``key_rewrite``), and ResNeXt's Lambda-graph files, whose
 keys are auto-indices, load by position (``ordered_leaves``). There is no
 converted cache.
 
-Offline behaviour: with no ``.pth`` found, the model keeps its seeded random
+Offline behaviour: with no hosted file found, the model keeps its seeded random
 init with a warning, or raises when ``PRETORCHED_STRICT_WEIGHTS`` is set.
 """
 
@@ -27,6 +29,7 @@ import warnings
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from .convert import convert_state_dict_ordered, inflate_kernel
@@ -53,14 +56,55 @@ def find_torch_checkpoint(url: str) -> Optional[Path]:
 
 
 def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
-    """``.pth`` -> {key: tensor}, unwrapping ``{'state_dict': ...}`` and
-    stripping DataParallel ``module.`` prefixes. Tensors only
-    (``weights_only=True``): a checkpoint is data, not code."""
+    """Checkpoint file -> {key: tensor}, by its suffix, as the JAX loader
+    reads them (``pretorched_tpu/zoo/io.py:50-95``):
+
+    * ``.hkl`` / ``.h5`` / ``.hdf5``: every numeric dataset of the HDF5
+      tree (``_load_h5_state_dict``); needs ``h5py``;
+    * ``.npz``: every array, under its own name;
+    * anything else is a ``.pth``: ``{'state_dict': ...}`` unwrapped and
+      DataParallel ``module.`` prefixes stripped. Tensors only
+      (``weights_only=True``): a checkpoint is data, not code."""
+    suffix = Path(path).suffix.lower()
+    if suffix in ('.hkl', '.h5', '.hdf5'):
+        return _load_h5_state_dict(path)
+    if suffix == '.npz':
+        with np.load(str(path)) as z:
+            return {k: torch.from_numpy(np.array(z[k])) for k in z.files}
     obj = torch.load(str(path), map_location='cpu', weights_only=True)
     if isinstance(obj, dict) and 'state_dict' in obj:
         obj = obj['state_dict']
     return {(k[len('module.'):] if k.startswith('module.') else k): v
             for k, v in obj.items()}
+
+
+def _load_h5_state_dict(path) -> Dict[str, torch.Tensor]:
+    """Every numeric dataset of an HDF5 / hickle file as {key: tensor}.
+    hickle versions lay the dict out differently (datasets at the root, or
+    under a ``data`` group), so the whole tree is walked, hickle's
+    ``data/`` or ``data.`` wrapper stripped and the path joined with
+    ``.``."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f'reading {path} needs the h5py package, which is '
+                          'not installed') from e
+    out = {}
+
+    def visit(name, obj):
+        if not isinstance(obj, h5py.Dataset):
+            return
+        value = np.asarray(obj)
+        if value.dtype.kind not in 'biuf':      # hickle's type strings
+            return
+        for wrapper in ('data/', 'data.'):
+            if name.startswith(wrapper):
+                name = name[len(wrapper):]
+        out[name.replace('/', '.')] = torch.from_numpy(np.array(value))
+
+    with h5py.File(str(path), 'r') as f:
+        f.visititems(visit)
+    return out
 
 
 def _rename(key: str, inverse: Dict[str, str]) -> str:
@@ -117,7 +161,7 @@ def load_pretrained(model, name: str, dataset: str, settings: dict, *,
                     background_class_keys=(),
                     key_rewrite: Optional[Callable[[str], str]] = None,
                     ordered_leaves: Optional[list] = None):
-    """Find the hosted ``.pth`` for (name, dataset) and load it into
+    """Find the hosted file for (name, dataset) and load it into
     ``model``; returns ``(missing, unexpected)`` or None when no file was
     found. With ``ordered_leaves`` (ResNeXt's Lambda-graph files, whose
     keys are auto-indices) the file's modules are matched to the port's by
@@ -126,7 +170,7 @@ def load_pretrained(model, name: str, dataset: str, settings: dict, *,
     tpath = find_torch_checkpoint(settings.get('url', '') or '')
     if tpath is None:
         msg = (f'pretrained weights for {name}/{dataset} not found locally '
-               f"(the .pth from {settings.get('url')!r} under "
+               f"(the file from {settings.get('url')!r} under "
                f'{cache_dir()}/weights). Proceeding with random initialization.')
         if os.environ.get('PRETORCHED_STRICT_WEIGHTS'):
             raise FileNotFoundError(msg)

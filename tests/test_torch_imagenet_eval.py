@@ -314,6 +314,68 @@ def test_eval_cli_matches_jax_cli(hosted_nasnet, extra, monkeypatch, capsys):
     assert summary['totals']['count'] == 4
 
 
+@pytest.fixture(scope='module')
+def hosted_mobilenet(tmp_path_factory):
+    """PRETORCHED_HOME holding a seeded ``mobilenetv2`` imagenet .pth."""
+    home = tmp_path_factory.mktemp('zoo_mobilenet')
+    model = randomize_port_bn(pretorched_tpu_torch.mobilenetv2(
+        num_classes=1000, pretrained=None), seed=8)
+    url = pretorched_tpu_torch.pretrained_settings['mobilenetv2'][
+        'imagenet']['url']
+    (home / 'weights').mkdir()
+    torch.save(model.state_dict(), home / 'weights' / url.rsplit('/', 1)[-1])
+    return home
+
+
+def test_eval_cli_matches_jax_cli_on_mobilenetv2(hosted_mobilenet,
+                                                 hosted_nasnet, monkeypatch,
+                                                 capsys):
+    """A net of the rest of the 2D zoo through both CLIs (``-e``, batches
+    of 2, the JAX CLI on a one-device mesh): the same metric lines, times
+    aside, at 224 px."""
+    from pretorched_tpu import parallel as jparallel
+    from pretorched_tpu.core import factory as jfactory
+    _, data = hosted_nasnet
+    monkeypatch.setenv('PRETORCHED_HOME', str(hosted_mobilenet))
+    monkeypatch.setenv('PRETORCHED_STRICT_WEIGHTS', '1')
+    monkeypatch.setattr(jfactory, 'init_variables', _zeros_init)
+    one_device = jparallel.make_mesh
+    monkeypatch.setattr(jparallel, 'make_mesh', lambda: one_device(
+        devices=jax.devices()[:1]))
+    argv = [str(data), '-a', 'mobilenetv2', '-b', '2', '-e', '-j', '2',
+            '-p', '1']
+    want = _metric_lines(_run_jax_cli(argv, capsys))
+    summary = _load_cli()['main'](argv + ['--device', 'cpu'])
+    got = _metric_lines(capsys.readouterr().out)
+    assert len(got) == 3 and got == want, (got, want)
+    assert summary['totals']['count'] == 4
+
+
+@pytest.mark.parametrize('arch,size,scale', [('dpn68b', 224, 0.875),
+                                             ('vggm', 221, 0.875),
+                                             ('xception', 299, 0.8975)])
+def test_cli_takes_new_names_at_their_own_size(arch, size, scale, tmp_path,
+                                               monkeypatch):
+    """``-a`` with ``--pretrained none`` resizes to the model's own
+    ``input_size`` and ``scale``: ``dpn68b``'s settings have only
+    ``imagenet+5k``, ``vggm`` is outside ``pretrained_settings``."""
+    from pretorched_tpu_torch import transforms
+    _jpegs(tmp_path / 'val', [(120, 150)])
+    seen = []
+    real = transforms.TransformImage
+
+    def spy(settings, **kw):
+        seen.append((list(settings['input_size']), kw['scale']))
+        return real(settings, **kw)
+
+    monkeypatch.setattr(transforms, 'TransformImage', spy)
+    summary = _load_cli()['main']([str(tmp_path), '-a', arch, '--pretrained',
+                                   'none', '-e', '-b', '2', '-j', '1',
+                                   '--device', 'cpu'])
+    assert seen == [([3, size, size], scale)]
+    assert summary['totals']['count'] == 2
+
+
 def test_train_mode_checkpoints_and_resumes(tmp_path, monkeypatch, capsys):
     """One epoch of ``resnet18`` at 64 x 80 px JPEGs, batches of 2: the
     ``Epoch:`` lines, ``checkpoint.pth`` with its ``.meta`` and

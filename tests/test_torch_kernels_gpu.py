@@ -2,7 +2,8 @@
 backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16 (the
 wide programs of all three at layer 3's C = Cv = 512), and
 the fused bottleneck tail K2) against their plain PyTorch versions, on a
-card.
+card; and each factory of the rest of the 2D zoo built there, its bf16
+forward held to its f32 one.
 
 Every test here is marked ``gpu`` and skips without CUDA. The file imports
 no JAX, so it runs on a machine that has only PyTorch (the suite's
@@ -823,3 +824,40 @@ def test_space_to_depth_conv_matches_strided_conv_on_the_card(
             want = F.conv2d(x, mod.weight, stride=2, padding=ks[-1] // 2)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# the rest of the 2D zoo: no kernel of the port, cuDNN and PyTorch ops only
+IMAGE_ZOO = ('inceptionv3', 'inceptionv4', 'inceptionresnetv2',
+             'bninception', 'xception', 'dpn68', 'dpn68b', 'dpn92', 'dpn98',
+             'dpn107', 'dpn131', 'mobilenetv2', 'pnasnet5large', 'polynet',
+             'vggm', 'wideresnet50')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', IMAGE_ZOO)
+def test_image_zoo_bf16_forward_on_the_card(cuda, name):
+    """Each factory built on the card (seeded, every BN randomized): a bf16
+    forward of 2 images at its own ``input_size``, finite, within 5e-2 (rel
+    L2) of the f32 forward (TF32 off), and no K1 or K2 launch."""
+    import pretorched_tpu_torch
+
+    model = pretorched_tpu_torch.__dict__[name](num_classes=1000,
+                                                pretrained=None)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    model.to(cuda).eval()
+    x = torch.randn(2, *model.input_size, generator=g).to(cuda)
+    launches = (na.nonlocal_attention_cuda.launches,
+                fb_cuda.fused_bottleneck_tail_cuda.launches)
+    with torch.no_grad():
+        want = model(x)
+        got = model.bfloat16()(x).float()
+    torch.cuda.synchronize()
+    assert got.shape == (2, 1000) and bool(torch.isfinite(got).all())
+    assert ((got - want).norm() / want.norm()).item() <= 5e-2
+    assert (na.nonlocal_attention_cuda.launches,
+            fb_cuda.fused_bottleneck_tail_cuda.launches) == launches

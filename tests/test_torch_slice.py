@@ -56,11 +56,18 @@ def hosted(tmp_path_factory):
 
 
 def test_import_pulls_in_no_jax():
+    new = ', '.join(f'pretorched_tpu_torch.models.{m}' for m in (
+        'inception_v3', 'inceptionv4', 'inceptionresnetv2', 'bninception',
+        'xception', 'dpn', 'mobilenet', 'pnasnet', 'polynet', 'vggm',
+        'wideresnet'))
     code = ('import sys, pretorched_tpu_torch, pretorched_tpu_torch.gan\n'
+            f'import pretorched_tpu_torch.ops.lrn, {new}\n'
+            'import pretorched_tpu_torch.zoo.io\n'
             'bad = sorted(m for m in sys.modules\n'
             "             if m == 'jax' or m.startswith(('jax.', 'flax', \n"
             "                                            'pretorched_tpu.')))\n"
             'assert not bad, bad\n'
+            "assert 'h5py' not in sys.modules   # only an .hkl read needs it\n"
             "print('NO-JAX')\n")
     r = subprocess.run([sys.executable, '-c', code], cwd=REPO, text=True,
                        capture_output=True, timeout=300)

@@ -94,19 +94,94 @@ def randomize_port_bn(model, seed=0):
     return model
 
 
-def jax_variables_from_port(module, state_dict, input_shape, **convert_kw):
+def jax_variables_from_port(module, state_dict, input_shape,
+                            init_kwargs=None, **convert_kw):
     """Flax variables of ``module`` (built on a template from
     ``jax.eval_shape``, so nothing is compiled) holding the port's
-    ``state_dict``, through the JAX package's own converter."""
+    ``state_dict``, through the JAX package's own converter.
+    ``init_kwargs`` go to ``module.init`` (``train=True`` builds
+    Inception-v3's aux head)."""
     import jax
 
     from pretorched_tpu.zoo.convert import convert_state_dict
-    shapes = jax.eval_shape(module.init, jax.random.key(0),
-                            jax.ShapeDtypeStruct(input_shape, np.float32))
+    key = jax.random.key(0)
+    shapes = jax.eval_shape(
+        lambda x: module.init({'params': key, 'dropout': key}, x,
+                              **(init_kwargs or {})),
+        jax.ShapeDtypeStruct(input_shape, np.float32))
     template = jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, s.dtype), dict(shapes))
-    sd = {k: v.detach().numpy() for k, v in state_dict.items()}
+    # copies: JAX may read a numpy buffer when its asynchronous dispatch
+    # runs, after a train-mode torch forward has moved the BN statistics
+    sd = {k: v.detach().numpy().copy() for k, v in state_dict.items()}
     return convert_state_dict(sd, template, **convert_kw)
+
+
+def run_jax(fn, *args):
+    """``fn(*args)`` jitted at XLA's backend optimization level 0: a parity
+    test runs each program once, so compiling is most of its cost, and
+    level 0 compiles faster (PolyNet's features: a fifth less)."""
+    import jax
+
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={'xla_backend_optimization_level': 0})(*args)
+
+
+def features_and_head(model, jmodule, size, head, template_size=None,
+                      seed=0, init_kwargs=None, **convert_kw):
+    """A net with a fixed head pool, held against the JAX module on the
+    same weights (the port's seeded init, every BN randomized) in two
+    pieces: ``features`` of a ``size`` px image (full depth and width, at
+    a size that keeps the full size's odd / even steps), and ``logits`` of
+    a seeded feature map ``head`` x ``head``, the head pool's own size.
+    The JAX module runs jitted (``run_jax``; op by op it compiles every
+    distinct conv shape, several times slower for these nets), its
+    variables on a ``template_size`` template (default ``size``).
+    Returns ((port
+    features, JAX features), (port logits, JAX logits)) as numpy."""
+    randomize_port_bn(model, seed=seed).eval()
+    rng = np.random.RandomState(seed)
+    x = rng.randn(1, 3, size, size).astype(np.float32)
+    t = template_size or size
+    variables = jax_variables_from_port(jmodule, model.state_dict(),
+                                        (1, t, t, 3), init_kwargs,
+                                        **convert_kw)
+    want_f = np.moveaxis(np.asarray(run_jax(
+        lambda v, x: jmodule.apply(v, x, mode='features'), variables,
+        to_nt(x))), -1, 1)
+    fmap = rng.randn(1, model.num_features, head, head).astype(np.float32)
+    want_l = np.asarray(run_jax(
+        lambda v, x: jmodule.apply(v, x, mode='logits'), variables,
+        to_nt(fmap)))
+    with torch.no_grad():
+        got_f = model.features(torch.from_numpy(x)).numpy()
+        got_l = model.logits(torch.from_numpy(fmap)).numpy()
+    return (got_f, want_f), (got_l, want_l)
+
+
+def assert_near(got, want, tol):
+    """Elementwise within ``tol``, relative, and absolute in units of
+    ``max |want|`` where that is below 1: never looser than the round's
+    ``rtol = atol = tol``, and as tight for a net whose outputs are small."""
+    scale = min(1.0, float(np.abs(want).max()))
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol * scale)
+
+
+def assert_metadata_like_jax(model, name):
+    """``model``, built with ``pretrained=None``, carries the metadata the
+    JAX factory stamps then: its module's settings for ``imagenet``, else
+    its first dataset's (``pretorched_tpu/core/factory.py:77-85``)."""
+    import importlib
+
+    factory = pretorched_tpu_torch.MODEL_REGISTRY[name]
+    jmod = importlib.import_module(factory.__module__.replace(
+        'pretorched_tpu_torch', 'pretorched_tpu'))
+    per_dataset = jmod.pretrained_settings[name]
+    meta = per_dataset.get('imagenet') or next(iter(per_dataset.values()))
+    for key in ('input_space', 'input_size', 'input_range', 'mean', 'std'):
+        assert getattr(model, key) == meta[key], (name, key)
+    assert getattr(model, 'scale', None) == meta.get('scale'), name
 
 
 @pytest.fixture(autouse=True)
