@@ -157,7 +157,23 @@ Drives the port's main path once on one CUDA card and checks it:
     ``imagenet`` load keeps the donor's 1000 classes exactly; one CLI train
     step of ``dpn68b`` at ``-b 64``; ``wideresnet50`` from an ``.npz`` in
     the hosted export's keys, every tensor the donor's; no K1 or K2 launch;
-19. a line with each kernel's numbers and the card, then
+19. the video and audio families and VOC transfer: ``densenet3d121``,
+    ``densenet3d169``, ``densenet3d201``, ``densenet3d264``, ``mvresnet10``,
+    ``mvresnet18``, ``mvresnet34`` and ``mvresnet50`` (seeded, every BN
+    randomized, 400 classes) on 32 clips x 16 frames x 112 px, and
+    ``soundnet8`` (1000 classes) and ``BranchedSoundNet`` on 8 seeded
+    16-bit WAVs of 67,724 samples read back through
+    ``datasets.audio.soundnet_input``: one bf16 forward each, timed, with
+    its peak memory, held to its f32 forward; the multi-window head on a
+    WAV of twice that length; per family at reduced depth the card's f32
+    features and logits against the CPU's (TF32 off); zeroing the stem's
+    ``MultiViewConv.linear`` moving the logits; then
+    ``examples/voc2007_extract_torch.py -a resnet50 -b 64`` on a
+    fabricated VOC2007 folder of 128 train and 128 val JPEGs and a hosted
+    file (images/s, the cache read back, the SVM fit where sklearn
+    imports) and ``examples/visu_arch_torch.py -a resnet18`` writing both
+    PNGs; no K1 or K2 launch;
+20. a line with each kernel's numbers and the card, then
     ``{"ok": true, "device": {...}}``. Every phase's heading names the card
     and its power limit.
 
@@ -313,6 +329,20 @@ ZOO_MODELS = ('inceptionv3', 'inceptionv4', 'inceptionresnetv2',
               'vggm', 'wideresnet50')
 ZOO_PROFILED = ('inceptionv4', 'dpn92')
 ZOO_LARGE_BATCH = 64
+
+# phase 19: the video and audio families at the 3D-ResNets geometry (32
+# clips x 16 frames x 112 px, 400 classes); soundnet8 on 8 seeded 16-bit
+# WAVs of 67,724 samples at 22,050 Hz (one more of twice that length runs
+# the multi-window head); VOC2007 transfer on a fabricated folder of 128
+# train and 128 val JPEGs through examples/voc2007_extract_torch.py
+# (resnet50, -b 64); the card's f32 logits held to the CPU's (TF32 off)
+VIDEO_FAMILIES = ('densenet3d121', 'densenet3d169', 'densenet3d201',
+                  'densenet3d264', 'mvresnet10', 'mvresnet18', 'mvresnet34',
+                  'mvresnet50')
+FAMILY_CLIPS = (32, 3, 16, 112, 112)
+SOUND_CLIPS, SOUND_SAMPLES, SOUND_RATE = 8, 67724, 22050
+VOC_PER_SPLIT, VOC_BATCH = 128, 64
+TOL_CARD_CPU = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -512,14 +542,18 @@ def kernel_vs_plain(na, torch):
 
 def randomize_bn(model, torch, seed):
     g = torch.Generator().manual_seed(seed)
+
+    def draw(t, low, high):     # on the host, for a model on either device
+        t.copy_(torch.empty(t.shape).uniform_(low, high, generator=g))
+
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
-                m.running_mean.uniform_(-0.3, 0.3, generator=g)
-                m.running_var.uniform_(0.5, 1.5, generator=g)
+                draw(m.running_mean, -0.3, 0.3)
+                draw(m.running_var, 0.5, 1.5)
                 if m.affine:    # BigGAN's conditional BNs have no affine
-                    m.weight.uniform_(0.5, 1.5, generator=g)
-                    m.bias.uniform_(-0.2, 0.2, generator=g)
+                    draw(m.weight, 0.5, 1.5)
+                    draw(m.bias, -0.2, 0.2)
 
 
 def fabricate(pretorched, torch, np):
@@ -3181,6 +3215,300 @@ def zoo_path(pretorched, torch, np, na, fb_cuda):
     return out
 
 
+def timed_bf16(fn, x, torch, what, unit):
+    """``fn(x)`` in bf16 autocast by CUDA events (median of 5) and its peak
+    memory, then in f32: each output finite, bf16 within TOL_LOGITS_BF16
+    of f32 (rel L2). Returns the f32 outputs (a tuple) and the numbers."""
+    with torch.autocast('cuda', dtype=torch.bfloat16):
+        ms = median_ms(lambda: fn(x), reps=5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(x)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = out if isinstance(out, tuple) else (out,)
+    want = fn(x)
+    want = want if isinstance(want, tuple) else (want,)
+    rels = [rel_l2(o, w) for o, w in zip(out, want)]
+    n = x.shape[0]
+    print(f'{what}: bf16 forward of {n} {unit} {ms:.3f} ms (CUDA events, '
+          f'median of 5) = {n / ms * 1e3:.2f} {unit}/s; peak device memory '
+          f'{peak:.2f} GiB; bf16 vs f32 rel L2 '
+          + ', '.join(f'{r:.3e}' for r in rels)
+          + f' (tol {TOL_LOGITS_BF16:g})', flush=True)
+    check(all(bool(torch.isfinite(o).all()) for o in out + want)
+          and max(rels) <= TOL_LOGITS_BF16,
+          f'{what}: bf16 outputs off or not finite: {rels}')
+    return want, {'forward_ms': ms, f'{unit}_per_s': n / ms * 1e3,
+                  'peak_gib': peak, 'rel_l2_bf16_f32': max(rels)}
+
+
+def card_vs_cpu(model, x, torch):
+    """rel L2 of the card's f32 features and logits against the CPU's, on
+    the same weights and input (TF32 off); the model ends on the CPU."""
+    model.float().eval()
+    with torch.inference_mode():
+        feats = model.cuda().features(x.cuda())
+        logits = model.logits(feats)
+        feats, logits = feats.cpu(), logits.cpu()
+        model.cpu()
+        want_f = model.features(x)
+        want = model.logits(want_f)
+    return rel_l2(feats, want_f), rel_l2(logits, want)
+
+
+def write_wavs(np, root):
+    """``SOUND_CLIPS`` seeded 16-bit mono WAVs of ``SOUND_SAMPLES`` at
+    ``SOUND_RATE`` and one of twice that length: a tone each plus noise.
+    Returns [(path, int16 samples)]."""
+    import wave
+
+    rng = np.random.RandomState(19)
+    root.mkdir(parents=True)
+    out = []
+    for i, n in enumerate([SOUND_SAMPLES] * SOUND_CLIPS
+                          + [2 * SOUND_SAMPLES]):
+        t = np.arange(n) / SOUND_RATE
+        x = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 2000) * t)
+             + 0.1 * rng.randn(n))
+        pcm = np.clip(np.round(x * 32767), -32768, 32767).astype(np.int16)
+        path = root / f'{i:02d}.wav'
+        with wave.open(str(path), 'wb') as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(SOUND_RATE)
+            w.writeframes(pcm.tobytes())
+        out.append((path, pcm))
+    return out
+
+
+def fabricate_voc(pretorched, torch, np):
+    """A VOC2007 folder under ``WORK / 'voc'``: ``VOC_PER_SPLIT`` train and
+    val JPEGs cut from ``data/*.jpg`` at seeded crops and sizes, seeded
+    labels in {-1, 0, 1} (each class a positive and a negative train row),
+    the four download sentinels; and a hosted ``resnet50`` imagenet .pth
+    (seeded, every BN randomized, the torchvision keys)."""
+    from PIL import Image
+
+    from pretorched_tpu_torch.datasets.voc import object_categories
+
+    root = WORK / 'voc' / 'VOC2007'
+    dev = root / 'VOCdevkit' / 'VOC2007'
+    (dev / 'JPEGImages').mkdir(parents=True)
+    (dev / 'ImageSets' / 'Main').mkdir(parents=True)
+    sources = [Image.open(REPO / 'data' / f).convert('RGB')
+               for f in ('cat.jpg', 'croco.jpg', 'cat_224.jpg')]
+    rng = np.random.RandomState(20)
+    names = {}
+    for s, split in enumerate(('train', 'val')):
+        names[split] = [f'{1 + s * VOC_PER_SPLIT + i:06d}'
+                        for i in range(VOC_PER_SPLIT)]
+        for name in names[split]:
+            src = sources[rng.randint(len(sources))]
+            w = rng.randint(96, src.width + 1)
+            h = rng.randint(96, src.height + 1)
+            x0 = rng.randint(0, src.width - w + 1)
+            y0 = rng.randint(0, src.height - h + 1)
+            size = (rng.randint(160, 500), rng.randint(160, 500))
+            src.crop((x0, y0, x0 + w, y0 + h)).resize(size).save(
+                dev / 'JPEGImages' / f'{name}.jpg', quality=90)
+    for c in object_categories:
+        for split in ('train', 'val'):
+            labels = rng.choice([-1, 0, 1], VOC_PER_SPLIT, p=[0.7, 0.1, 0.2])
+            if split == 'train':
+                labels[:2] = (1, -1)
+            (dev / 'ImageSets' / 'Main' / f'{c}_{split}.txt').write_text(
+                ''.join(f'{n} {v:2d}\n' for n, v in zip(names[split],
+                                                        labels)))
+    (dev / 'ImageSets' / 'Main' / 'aeroplane_test.txt').touch()
+    check((dev / 'JPEGImages' / '000001.jpg').exists(), 'VOC sentinel')
+    donor = pretorched.resnet50(num_classes=1000, pretrained=None)
+    randomize_bn(donor, torch, seed=90)
+    url = pretorched.pretrained_settings['resnet50']['imagenet']['url']
+    torch.save({('fc' + k[len('last_linear'):] if k.startswith('last_linear')
+                 else k): v for k, v in donor.state_dict().items()},
+               WORK / 'zoo' / 'weights' / url.rsplit('/', 1)[-1])
+
+
+def video_audio_path(pretorched, torch, np, na, fb_cuda):
+    """Phase 19: the video and audio families and VOC transfer. Each of
+    ``VIDEO_FAMILIES`` (seeded, every BN randomized, 400 classes) on
+    ``FAMILY_CLIPS``, and ``soundnet8`` (1000 classes) on ``SOUND_CLIPS``
+    WAVs read back through ``datasets.audio.soundnet_input``, one bf16
+    forward each, timed, held to its f32 forward; the multi-window head on
+    a WAV of twice the length, against its windows' mean;
+    ``BranchedSoundNet`` on the same batch. Per family (reduced depth) the
+    card's f32 features and logits against the CPU's; zeroing the stem's
+    ``MultiViewConv.linear`` moves the logits. Then
+    ``examples/voc2007_extract_torch.py -a resnet50 -b 64`` on a fabricated
+    VOC2007 folder and a hosted file: features on the card (images/s by
+    host clock), reloaded from the cache, the SVM fit where sklearn
+    imports; and ``examples/visu_arch_torch.py -a resnet18``'s two PNGs.
+    No K1 or K2 launch. Returns the numbers for the result line."""
+    from pretorched_tpu_torch.datasets.audio import soundnet_input
+    from pretorched_tpu_torch.models.densenet3d import DenseNet3D
+    from pretorched_tpu_torch.models.layers import init_parameters
+    from pretorched_tpu_torch.models.multiview import MVResNet
+    from pretorched_tpu_torch.models.soundnet import BranchedSoundNet
+
+    set_counts(na, 0)
+    reset_k2(fb_cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {'models': {}}
+    g = torch.Generator(device='cuda').manual_seed(19)
+    clips = torch.randn(FAMILY_CLIPS, generator=g, device='cuda')
+    with torch.inference_mode():
+        for seed, name in enumerate(VIDEO_FAMILIES):
+            t0 = time.perf_counter()
+            model = pretorched.__dict__[name](num_classes=400)
+            randomize_bn(model, torch, seed=80 + seed)
+            model.cuda().eval()
+            built = time.perf_counter() - t0
+            (logits,), row = timed_bf16(model, clips, torch,
+                                        f'{name} (built in {built:.1f} s)',
+                                        'clips')
+            check(logits.shape == (FAMILY_CLIPS[0], 400),
+                  f'{name}: logits {tuple(logits.shape)}')
+            if name == 'mvresnet10':
+                model.conv1.linear.weight.zero_()
+                moved = rel_l2(model(clips), logits)
+                print(f'{name}: zeroing the stem\'s MultiViewConv.linear '
+                      f'moves the f32 logits by rel L2 {moved:.3e}',
+                      flush=True)
+                check(moved > TOL_CARD_CPU, f'{name}: the mixer is not live')
+                out['mixer_moves_rel_l2'] = moved
+            out['models'][name] = row
+            del model, logits
+            torch.cuda.empty_cache()
+    del clips
+
+    # the multi-view conv and the dense layers on the card against the CPU
+    x = torch.randn(2, 3, 16, 112, 112, generator=torch.Generator()
+                    .manual_seed(21))
+    wave_x = torch.randn(1, 1, SOUND_SAMPLES,
+                         generator=torch.Generator().manual_seed(22))
+    reduced = {
+        'DenseNet3D blocks (2, 2, 2, 2)': (DenseNet3D(
+            block_config=(2, 2, 2, 2), num_classes=400), x),
+        'MVResNet basic (1, 1, 1, 1)': (MVResNet(
+            'basic', (1, 1, 1, 1), num_classes=400), x),
+        'MVResNet bottleneck (1, 1, 1, 1)': (MVResNet(
+            'bottleneck', (1, 1, 1, 1), num_classes=400), x),
+        'soundnet8': (pretorched.soundnet8(num_classes=1000), wave_x)}
+    out['card_vs_cpu'] = {}
+    for seed, (what, (model, inp)) in enumerate(reduced.items()):
+        if what != 'soundnet8':       # built here, not by a factory
+            init_parameters(model, torch.Generator().manual_seed(seed))
+        randomize_bn(model, torch, seed=85 + seed)
+        rf, rl = card_vs_cpu(model, inp, torch)
+        print(f'{what}: the card\'s f32 features / logits against the '
+              f'CPU\'s, rel L2 {rf:.3e} / {rl:.3e} (tol {TOL_CARD_CPU:g}, '
+              'TF32 off)', flush=True)
+        check(max(rf, rl) <= TOL_CARD_CPU, f'{what}: card vs CPU {rf} {rl}')
+        out['card_vs_cpu'][what] = {'features': rf, 'logits': rl}
+        del model
+
+    wavs = write_wavs(np, WORK / 'audio')
+    batches = []
+    for path, pcm in wavs:
+        b = soundnet_input(str(path), sample_rate=SOUND_RATE)
+        check(b.shape == (1, 1, len(pcm)) and torch.equal(
+            b[0, 0], torch.from_numpy(pcm.astype(np.float32) / 32768.0)),
+            f'{path.name}: the WAV read back differs')
+        batches.append(b)
+    audio = torch.cat(batches[:SOUND_CLIPS]).cuda()
+    print(f'{len(wavs)} WAVs (16-bit, {SOUND_RATE} Hz) read back through '
+          f'datasets.audio.soundnet_input: batch {tuple(audio.shape)}, '
+          'samples equal to the written ones', flush=True)
+    with torch.inference_mode():
+        model = pretorched.soundnet8(num_classes=1000)
+        randomize_bn(model, torch, seed=88)
+        model.cuda().eval()
+        _, out['soundnet8'] = timed_bf16(model, audio, torch, 'soundnet8',
+                                         'waveforms')
+        two = batches[SOUND_CLIPS].cuda()
+        feats = model.features(two)
+        # the reference's windows: every full one but the last, and one
+        # right-aligned (soundnet.py:73-77)
+        fd = model.feature_dim
+        windows = feats.split(fd, -1)[:-1] + (feats[:, -fd:],)
+        want = torch.stack([model.last_linear(w) for w in windows]).mean(0)
+        got = model(two)
+        rel = rel_l2(got, want)
+        print(f'soundnet8: {two.shape[-1]} samples, {feats.shape[-1]} '
+              f'features, the multi-window logits against the mean of its '
+              f'{len(windows)} windows\' rel L2 {rel:.3e} (tol 1e-6)',
+              flush=True)
+        check(got.shape == (1, 1000) and rel <= 1e-6,
+              f'soundnet8 multi-window head: {rel}')
+        out['soundnet8']['windows_rel_l2'] = rel
+        del model
+        with torch.device('cuda'):
+            branched = BranchedSoundNet()
+        randomize_bn(branched, torch, seed=89)
+        (obj, plc), out['branched_soundnet'] = timed_bf16(
+            branched.eval(), audio, torch, 'BranchedSoundNet', 'waveforms')
+        check(obj.shape == (SOUND_CLIPS, 1000)
+              and plc.shape == (SOUND_CLIPS, 365),
+              f'BranchedSoundNet: {tuple(obj.shape)} {tuple(plc.shape)}')
+        del branched, audio
+    torch.cuda.empty_cache()
+
+    fabricate_voc(pretorched, torch, np)
+    cli = load_cli('voc2007_extract_torch')
+    argv = ['--dir_datasets', str(WORK / 'voc'), '--dir_outputs',
+            str(WORK / 'voc_out'), '-a', 'resnet50', '--pretrained',
+            'imagenet', '-b', str(VOC_BATCH), '--device', 'cuda']
+    print('examples/voc2007_extract_torch.py ' + ' '.join(argv), flush=True)
+    args = cli.parse_args(argv)
+    features, targets, classes, seconds = cli.extract(args)
+    n = sum(len(f) for f in features.values())
+    rate = n / sum(seconds.values())
+    print(f'VOC2007 extraction: {n} images in '
+          f'{sum(seconds.values()):.3f} s = {rate:.2f} images/s (PIL decode '
+          'and transform + f32 forward, host clock, the first run)',
+          flush=True)
+    check(all(f.shape == (VOC_PER_SPLIT, 2048) and np.isfinite(f).all()
+              for f in features.values())
+          and set(np.unique(targets['train'])) <= {-1.0, 0.0, 1.0},
+          'VOC features or targets off')
+    again = cli.extract(args)
+    same = all(np.array_equal(again[0][s], features[s])
+               and np.array_equal(again[1][s], targets[s])
+               for s in features)
+    print(f'VOC2007: the second run read the cached .npz files: equal '
+          f'{same}, {sum(again[3].values()):.3f} s', flush=True)
+    check(same, 'VOC: the cached features differ')
+    out['voc'] = {'images': n, 'images_per_s_path': rate,
+                  'seconds': seconds, 'cached_seconds': again[3]}
+    if importlib.util.find_spec('sklearn') is None:
+        print('VOC2007: the SVM fit was not run: sklearn is absent on this '
+              'machine (the fit runs on the host in every version of the '
+              'example)', flush=True)
+        out['voc']['mAP'] = None
+    else:
+        t0 = time.perf_counter()
+        m_ap = float(cli.train_multilabel(features, targets, classes,
+                                          'train', 'val'))
+        print(f'VOC2007: 20 LinearSVC fits in {time.perf_counter() - t0:.1f}'
+              ' s (host)', flush=True)
+        check(0.0 <= m_ap <= 1.0, f'VOC mAP {m_ap}')
+        out['voc']['mAP'] = m_ap
+    torch.cuda.empty_cache()
+
+    cli = load_cli('visu_arch_torch')
+    pngs = cli.main(['-a', 'resnet18', '--image', str(REPO / 'data' /
+                                                      'cat.jpg'),
+                     '--outdir', str(WORK / 'visu'), '--device', 'cuda'])
+    check(all(os.path.getsize(p) > 0 for p in pngs),
+          f'visu_arch_torch.py: {pngs}')
+    out['visu_pngs'] = [os.path.relpath(p, REPO) for p in pngs]
+    launched = k_counts(na, fb_cuda)
+    check(launched == (0, 0, 0, 0), f'phase 19 launched K1 / K2 {launched}')
+    return out
+
+
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
@@ -3332,7 +3660,13 @@ def main():
           '-a dpn68b (a train step)')
     zoo = zoo_path(pretorched, torch, np, na, fb_cuda)
 
-    phase('19. result')
+    phase('19. the video and audio families and VOC transfer: '
+          + ', '.join(VIDEO_FAMILIES) + ', soundnet8 and BranchedSoundNet '
+          'on WAVs; examples/voc2007_extract_torch.py -a resnet50, '
+          'examples/visu_arch_torch.py -a resnet18')
+    video_audio = video_audio_path(pretorched, torch, np, na, fb_cuda)
+
+    phase('20. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -3437,7 +3771,7 @@ def main():
         's2d': {'nonlocalresnet3d50': s2d_eval, 'slowfast_resnet50': s2d_sf},
         'video_models': videos, 'trn': trn, 'imagenet': imagenet,
         'biggan': {k: v for k, v in gan.items() if k != 'kernel_rows'},
-        'families': families, 'zoo': zoo,
+        'families': families, 'zoo': zoo, 'video_audio': video_audio,
         'native': {k: native[k] for k in ('buckets', 'path_clips_per_s')},
         'card': card}))
     print(json.dumps({'ok': True, 'device': {

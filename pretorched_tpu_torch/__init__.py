@@ -1,14 +1,14 @@
 """pretorched_tpu_torch — the PyTorch and CUDA port of ``pretorched_tpu``.
 
 The JAX package stays the reference; this package imports no JAX. It covers
-the 2D ResNet, SENet, NASNet-A, 3D ResNet, non-local ResNet, SlowFast and
-TRN families, their hosted-checkpoint loading, host and device-side
-preprocessing, the image-folder loader, image and multi-clip evaluation
-(shape buckets for native-length clips), training and online serving
-(``serving.py``), with the JAX
-package's Pallas kernels as hand-written CUDA kernels for Hopper: the
-non-local attention forward and backward, and SlowFast's fused eval
-bottleneck tail.
+every factory of the JAX package (the 2D zoo, the 3D ResNet family, the
+non-local ResNet, SlowFast, TRN, DenseNet3D, MultiView ResNet, SoundNet and
+BigGAN), their hosted-checkpoint loading, WAV ingestion, VOC2007 transfer,
+host and device-side preprocessing, the image-folder loader, image and
+multi-clip evaluation (shape buckets for native-length clips), training and
+online serving (``serving.py``), with the JAX package's Pallas kernels as
+hand-written CUDA kernels for Hopper: the non-local attention forward and
+backward, and SlowFast's fused eval bottleneck tail.
 
 Public contract (the reference's, pretorched/__init__.py:11-83):
 

@@ -46,3 +46,8 @@ from .wideresnet import wideresnet50  # noqa: F401
 from . import slowfast  # noqa: F401  (the reference's pretorched.slowfast)
 from .slowfast import SlowFastV0  # noqa: F401
 from .trn import TRN, trn  # noqa: F401
+from .densenet3d import (densenet3d121, densenet3d169,  # noqa: F401
+                         densenet3d201, densenet3d264)
+from .multiview import (MultiViewConv, MVResNet, mvresnet10,  # noqa: F401
+                        mvresnet18, mvresnet34, mvresnet50)
+from .soundnet import BranchedSoundNet, SoundNet, soundnet8  # noqa: F401

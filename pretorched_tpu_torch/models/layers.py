@@ -295,6 +295,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             init = (torch_conv_init if getattr(m, 'jax_init', False)
                     else torch_default_init)
             init(m.weight, m.bias, generator)
+        elif getattr(m, 'jax_init', False):     # MultiViewConv's own weight
+            torch_conv_init(m.weight, m.bias, generator)
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             m.reset_running_stats()
             if m.affine:

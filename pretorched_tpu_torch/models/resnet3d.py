@@ -262,14 +262,8 @@ class VideoResNet(PretrainedModel):
         self.expansion = expansion
         self.shortcut_type = shortcut_type
         self.remat = remat
-        conv = _conv_maker(factored)
-        if factored:        # a factored stem folds only its spatial half
-            self.conv1 = FactoredConv3d(3, 64, 7, (1, 2, 2), 3, s2d=s2d_stem)
-        elif s2d_stem:
-            self.conv1 = SpaceToDepthConv(3, 64, 7)
-        else:
-            self.conv1 = conv3d_kaiming_out(3, 64, 7, stride=(1, 2, 2),
-                                            padding=3)
+        conv = self._conv_maker(factored)
+        self.conv1 = self._stem(factored, s2d_stem)
         self.bn1 = _bn(64)
         inplanes = 64
         for stage, (planes, blocks, stride) in enumerate(
@@ -287,6 +281,18 @@ class VideoResNet(PretrainedModel):
                                            expansion, cardinality))
                 inplanes = planes * expansion
             setattr(self, f'layer{stage}', nn.Sequential(*mods))
+
+    def _conv_maker(self, factored):
+        """The block convs' constructor (``MVResNet`` swaps the kind)."""
+        return _conv_maker(factored)
+
+    def _stem(self, factored, s2d_stem):
+        """The 7x7x7 stem conv at stride (1, 2, 2), padding 3."""
+        if factored:        # a factored stem folds only its spatial half
+            return FactoredConv3d(3, 64, 7, (1, 2, 2), 3, s2d=s2d_stem)
+        if s2d_stem:
+            return SpaceToDepthConv(3, 64, 7)
+        return conv3d_kaiming_out(3, 64, 7, stride=(1, 2, 2), padding=3)
 
     def _after_block(self, x, stage: int, i: int):
         """Hook between residual blocks (non-local blocks go here)."""

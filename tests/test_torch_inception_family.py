@@ -49,7 +49,7 @@ NEW = {'inception_v3': ['inceptionv3'], 'inceptionv4': ['inceptionv4'],
        'mobilenet': ['mobilenetv2'], 'pnasnet': ['pnasnet5large'],
        'polynet': ['polynet'], 'vggm': ['vggm'],
        'wideresnet': ['wideresnet50']}
-# the JAX factories still to port (ROADMAP.md queue 3)
+# the video and audio factories, the last ported
 VIDEO_AND_AUDIO = {'densenet3d121', 'densenet3d169', 'densenet3d201',
                    'densenet3d264', 'mvresnet10', 'mvresnet18', 'mvresnet34',
                    'mvresnet50', 'soundnet8'}
@@ -170,8 +170,8 @@ def check_background_row(name, jax_cls, head, tmp_path, monkeypatch):
 
 
 def test_registry_matches_jax():
-    """All 62 of JAX's ``model_names``; its factories less exactly the
-    nine video and audio ones still to port; every new factory with JAX's
+    """All 62 of JAX's ``model_names``; all 102 of its factories, the
+    nine video and audio ones among them; every new factory with JAX's
     signature and defaults, and its module's settings equal to JAX's
     (``vggm`` and ``wideresnet50`` outside ``model_names`` and outside the
     aggregated ``pretrained_settings``, as in JAX)."""
@@ -180,8 +180,8 @@ def test_registry_matches_jax():
     assert len(pretorched_tpu_torch.model_names) == 62
     ported, jax_all = (set(pretorched_tpu_torch.MODEL_REGISTRY),
                        set(pretorched_tpu.MODEL_REGISTRY))
-    assert ported <= jax_all and jax_all - ported == VIDEO_AND_AUDIO
-    assert len(ported) == 93
+    assert ported == jax_all and VIDEO_AND_AUDIO <= ported
+    assert len(ported) == 102
     for module, names in NEW.items():
         port_mod = importlib.import_module(
             f'pretorched_tpu_torch.models.{module}')
