@@ -173,7 +173,26 @@ Drives the port's main path once on one CUDA card and checks it:
     file (images/s, the cache read back, the SVM fit where sklearn
     imports) and ``examples/visu_arch_torch.py -a resnet18`` writing both
     PNGs; no K1 or K2 launch;
-20. a line with each kernel's numbers and the card, then
+20. serving export and the mesh: ``zoo.export.export_model`` on the card
+    of phase 4's ``nonlocalresnet3d50`` (20 clips x 32 x 224 px, bf16 at a
+    fixed batch of 20, f32 with a symbolic batch at 2 and 20),
+    ``slowfast_resnet50(fused_blocks=32)`` (20 clips x 64 frames, bf16)
+    and ``resnet50`` (f32, symbolic batch at 1, 8 and 64), reloaded in a
+    fresh process that builds no model (``tools/port_export_reload.py``):
+    5 K1-fwd launches a non-local forward (bf16: 2 wgmma + 3 wgmma_wide;
+    f32: scalar), 11 K2 (6 TMA + 5 mma.sync) a SlowFast forward, the
+    logits against the eager forward's (bf16 rel L2 5e-3; f32, TF32 off,
+    1e-4), each forward timed in both; ``tools/convert_weights_torch.py
+    --eval`` on phase 14's val folder with a fabricated hosted
+    ``resnet18`` (the table line, its FAIL on random weights, images/s);
+    the mesh at world size 1 on NCCL (``make_mesh()`` is (1, 1)): one
+    train step of ``se_resnext101_32x4d`` at ``-b 64`` through
+    ``examples/imagenet_eval_torch.py`` plain, with ``--zero`` and with
+    ``--zero fsdp`` (same crops; each loss against the plain step's; the
+    FSDP checkpoint loads strict into a plain model), and 3 ZeRO train
+    steps of ``nonlocalresnet3d50`` (15 attention launches each, finite
+    loss);
+21. a line with each kernel's numbers and the card, then
     ``{"ok": true, "device": {...}}``. Every phase's heading names the card
     and its power limit.
 
@@ -181,7 +200,9 @@ Usage: ``python3 chip_smoke.py`` from the repository root. It exits nonzero,
 with no result line, when a phase fails or no CUDA card is present.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -343,6 +364,20 @@ FAMILY_CLIPS = (32, 3, 16, 112, 112)
 SOUND_CLIPS, SOUND_SAMPLES, SOUND_RATE = 8, 67724, 22050
 VOC_PER_SPLIT, VOC_BATCH = 128, 64
 TOL_CARD_CPU = 1e-3
+
+# phase 20: serving export (zoo/export.py) at phase 4's and phase 9's
+# geometry (20 clips a program call), resnet50 with a symbolic batch; the
+# reloaded program's logits against the eager forward's (rel L2): bf16
+# through the same kernels, f32 with TF32 off; the mesh at world size 1
+EXPORT_CLIPS = 20
+EXPORT_NL_SHAPE, EXPORT_SF_SHAPE = (3, 32, 224, 224), (3, 64, 224, 224)
+EXPORT_R50_BATCHES = (1, 8, 64)
+TOL_EXPORT = {'bfloat16': 5e-3, 'float32': 1e-4}
+# one CLI train step of se_resnext101_32x4d at -b 64 (8 of phase 14's
+# train JPEGs a class), plain, --zero and --zero fsdp, each loss against the
+# plain step's; 3 ZeRO train steps of nonlocalresnet3d50 at phase 6's batch
+ZERO_PER_CLASS, ZERO_VAL_PER_CLASS, ZERO_STEPS = 8, 2, 3
+TOL_ZERO_LOSS = 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -515,10 +550,15 @@ def kernel_vs_plain(na, torch):
                     hosts = (host_us(lambda: na.nonlocal_attention_cuda(
                                  q, k, v)),
                              host_us(lambda: na._launch_fwd(
-                                 q, k, v, 1.0, 'mma_sync')))
+                                 q, k, v, 1.0, 'mma_sync')),
+                             host_us(lambda: na.nonlocal_attention_fwd_lse(
+                                 q, k, v)))
                     line += (f'; the mma.sync kernel {earlier_ms:.3f} ms; '
-                             f'host per call {hosts[0]:.1f} us ({kernel}), '
-                             f'{hosts[1]:.1f} us (mma.sync)')
+                             f'host per call {hosts[0]:.1f} us ({kernel}, '
+                             f'the wrapper), {hosts[2]:.1f} us (the same '
+                             f'through the operator pretorched::'
+                             f'nonlocal_attention_fwd), {hosts[1]:.1f} us '
+                             f'(mma.sync)')
                     result[name] = {
                         'kernel': kernel, 'max_abs_err': err, 'ms': ms,
                         'plain_ms': plain_ms, 'library_ms': lib_ms,
@@ -527,7 +567,8 @@ def kernel_vs_plain(na, torch):
                         'bound_ms': bound_ms, 'bound_by': bound_by,
                         'earlier_ms': earlier_ms,
                         'earlier': 'mma.sync kernel, same run',
-                        'host_us': hosts[0], 'earlier_host_us': hosts[1]}
+                        'host_us': hosts[0], 'earlier_host_us': hosts[1],
+                        'host_us_operator': hosts[2]}
             print(line, flush=True)
             check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
                   f'kernel disagrees with the plain version: {line}')
@@ -1487,6 +1528,8 @@ def k2_vs_plain(torch, fb, fb_cuda, slowfast):
                             y1, x, *blk.tail_weights()))
                     host_kept = host_us(lambda: fb.fused_tail_with_layout(
                         y1, x, blk.tail_layout()))
+                    host_op = host_us(lambda: fb.fused_bottleneck_tail(
+                        y1, x, *blk.tail_weights()))
                     plain_ms = median_ms(
                         lambda: fb.fused_bottleneck_tail_reference(
                             y1, x, *weights))
@@ -1502,8 +1545,10 @@ def k2_vs_plain(torch, fb, fb_cuda, slowfast):
                             '(outputs equal)' if earlier_ms else '')
                          + f'; wrapper call with BN fold and weight layout '
                          f'{call_ms:.4f} ms, host {host_fold:.1f} us a call '
-                         f'(with the block\'s kept layout {host_kept:.1f} '
-                         f'us); plain {plain_ms:.4f} ms, unfused tail '
+                         f'(through the operator pretorched::fused_'
+                         f'bottleneck_tail {host_op:.1f} us; with the '
+                         f'block\'s kept layout {host_kept:.1f} us); plain '
+                         f'{plain_ms:.4f} ms, unfused tail '
                          f'(several cuDNN and PyTorch calls) {lib_ms:.4f} ms '
                          f'(max|unfused-plain|/max|plain| {lib_err:.2e}), '
                          f'bound {bound_ms:.4f} ms ({bound_by})'
@@ -1513,6 +1558,7 @@ def k2_vs_plain(torch, fb, fb_cuda, slowfast):
                     'kernel': kernel, 'max_abs_err': err, 'max_rel_err': rel,
                     'ms': ms, 'earlier_ms': earlier_ms, 'call_ms': call_ms,
                     'host_us': host_kept, 'host_us_with_fold': host_fold,
+                    'host_us_operator': host_op,
                     'plain_ms': plain_ms, 'library_ms': lib_ms,
                     'bound_ms': bound_ms, 'bound_by': bound_by}
             print(line, flush=True)
@@ -3509,6 +3555,285 @@ def video_audio_path(pretorched, torch, np, na, fb_cuda):
     return out
 
 
+def load_tool(name):
+    """The module of ``tools/<name>.py``."""
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / 'tools' / f'{name}.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def export_programs(pretorched, torch, np, na, fb_cuda, root):
+    """Phase 20's exports: each model's program saved under ``root``, its
+    eager forward on the seeded inputs of ``tools/port_export_reload.py``
+    (logits, CUDA-event median of 5, launches); then the programs reloaded
+    in a fresh process that builds no model, held to the eager logits.
+    Returns the rows by program and batch, and K1-fwd's and K2's launches
+    in the reloaded programs."""
+    from pretorched_tpu_torch.zoo.export import export_model
+
+    reload = load_tool('port_export_reload')
+    programs, rows = [], {}
+
+    def export(name, model, shape, dtype, batch, batches, seed, compute,
+               expect):
+        path = root / f'{name}.pt2'
+        t0 = time.perf_counter()
+        export_model(model, str(path), shape, batch=batch,
+                     dtype=getattr(torch, dtype))
+        seconds = time.perf_counter() - t0
+        programs.append({'name': name, 'path': str(path),
+                         'shape': list(shape), 'dtype': dtype,
+                         'batches': list(batches), 'seed': seed})
+        for b in batches:
+            x = reload.seeded_input(shape, b, dtype, seed)
+            with torch.inference_mode():
+                before = (dict(na.nonlocal_attention_cuda.by_kernel),
+                          dict(fb_cuda.fused_bottleneck_tail_cuda.by_kernel))
+                logits = model(x).float()
+                torch.cuda.synchronize()
+                launched = {
+                    op: {k: after[k] - was[k] for k in after
+                         if after[k] != was[k]}
+                    for op, after, was in (
+                        ('fwd', na.nonlocal_attention_cuda.by_kernel,
+                         before[0]),
+                        ('k2', fb_cuda.fused_bottleneck_tail_cuda.by_kernel,
+                         before[1]))}
+                ms = median_ms(lambda: model(x), reps=5)
+            check(launched == expect, f'{name} B={b}: the eager forward '
+                  f'launched {launched}, expected {expect}')
+            rows[f'{name}-B{b}'] = {
+                'logits': logits.cpu(), 'eager_ms': ms, 'compute': compute,
+                'expect': expect, 'export_seconds': seconds,
+                'program_mib': path.stat().st_size / 2 ** 20}
+            del x, logits
+        print(f'{name}: exported ({compute} compute, {dtype} input, batch '
+              f'{batch}) in {seconds:.1f} s, '
+              f'{path.stat().st_size / 2 ** 20:.1f} MiB', flush=True)
+
+    wide = {'fwd': {'wgmma': 2, 'wgmma_wide': 3}, 'k2': {}}
+    nl = pretorched.nonlocalresnet3d50(num_classes=400,
+                                       pretrained='kinetics-400')
+    nl.cuda().eval().bfloat16()
+    export('nonlocalresnet3d50_bf16', nl, EXPORT_NL_SHAPE, 'float32',
+           str(EXPORT_CLIPS), (EXPORT_CLIPS,), 0, 'bfloat16', wide)
+    nl.float()
+    export('nonlocalresnet3d50_f32', nl, EXPORT_NL_SHAPE, 'float32', 'b',
+           (2, EXPORT_CLIPS), 1, 'float32', {'fwd': {'scalar': 5}, 'k2': {}})
+    del nl
+    torch.cuda.empty_cache()
+    sf = pretorched.slowfast_resnet50(num_classes=400, pretrained=None,
+                                      fused_blocks=32)
+    randomize_bn(sf, torch, seed=1)
+    sf.cuda().eval().bfloat16()
+    export('slowfast_resnet50_bf16', sf, EXPORT_SF_SHAPE, 'bfloat16',
+           str(EXPORT_CLIPS), (EXPORT_CLIPS,), 2, 'bfloat16',
+           {'fwd': {}, 'k2': {'tma': 6, 'mma_sync': 5}})
+    del sf
+    torch.cuda.empty_cache()
+    r50 = pretorched.resnet50(num_classes=1000, pretrained=None)
+    randomize_bn(r50, torch, seed=3)
+    r50.cuda().eval()
+    export('resnet50_f32', r50, (3, 224, 224), 'float32', 'b',
+           EXPORT_R50_BATCHES, 3, 'float32', {'fwd': {}, 'k2': {}})
+    del r50
+    torch.cuda.empty_cache()
+
+    spec = root / 'spec.json'
+    spec.write_text(json.dumps({'programs': programs, 'out': str(root)}))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, str(REPO / 'tools' /
+                                              'port_export_reload.py'),
+                          str(spec)], capture_output=True, text=True,
+                         timeout=600)
+    check(run.returncode == 0, f'the reload process failed:\n'
+          f'{run.stdout[-2000:]}\n{run.stderr[-3000:]}')
+    line = next(ln for ln in run.stdout.splitlines()
+                if ln.startswith('RELOAD '))
+    reloaded = json.loads(line[len('RELOAD '):])
+    print(f'reload process (tools/port_export_reload.py: imports the '
+          f'operators, builds no model): {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    for key, row in rows.items():
+        got = torch.from_numpy(np.load(root / f'{key}.npy'))
+        rel = rel_l2(got, row.pop('logits'))
+        tol = TOL_EXPORT[row['compute']]
+        row.update(reloaded_ms=reloaded[key]['ms'], rel_l2=rel,
+                   launches=reloaded[key]['launches'])
+        print(f'{key}: reloaded program vs eager forward rel L2 {rel:.3e} '
+              f'(tol {tol:g}); launches {row["launches"]}; '
+              f'{row["reloaded_ms"]:.3f} ms reloaded, {row["eager_ms"]:.3f}'
+              f' ms eager (CUDA-event medians of 5, two processes)',
+              flush=True)
+        check(bool(torch.isfinite(got).all()) and rel <= tol,
+              f'{key}: the reloaded program\'s logits are off: {rel}')
+        check(row['launches'] == row.pop('expect'),
+              f'{key}: the reloaded program launched {row["launches"]}')
+    k1 = {k: r['launches']['fwd'] for k, r in rows.items()
+          if k.startswith('nonlocal')}
+    k2 = {k: r['launches']['k2'] for k, r in rows.items()
+          if k.startswith('slowfast')}
+    return rows, k1, k2
+
+
+def zero_cli_runs(pretorched, torch, np):
+    """Phase 20's ImageNet CLI runs: one train step of
+    ``se_resnext101_32x4d`` at -b 64 in bf16, plain, then ``--zero`` and
+    ``--zero fsdp`` on a mesh of this process; the train transform seeded
+    and one loader thread, so the three see the same crops. Returns each
+    run's loss; checks the step count, the losses against the plain one and
+    that the FSDP run's checkpoint loads strict into a plain model."""
+    import pretorched_tpu_torch.transforms as transforms
+    from pretorched_tpu_torch.parallel import mesh as meshes
+
+    data = WORK / 'zero_data'
+    for split, per in (('train', ZERO_PER_CLASS),
+                       ('val', ZERO_VAL_PER_CLASS)):
+        for c in range(IMAGENET_CLASSES):
+            src = WORK / 'imagenet' / split / f'n{c:08d}'
+            dst = data / split / src.name
+            dst.mkdir(parents=True)
+            for i in range(per):
+                os.symlink(src / f'{i:04d}.jpg', dst / f'{i:04d}.jpg')
+    cli = load_cli('imagenet_eval_torch')
+    base = [str(data), '-a', 'se_resnext101_32x4d', '--bf16', '-b',
+            str(IMAGENET_TRAIN_BATCH), '-p', '1', '--lr', '0.001',
+            '--device', 'cuda', '--epochs', '1', '-j', '1']
+    plain_transform = transforms.TransformImage
+
+    class Seeded(plain_transform):
+        def __init__(self, *args, **kw):
+            kw.setdefault('seed', 0)
+            super().__init__(*args, **kw)
+
+    losses, cwd = {}, os.getcwd()
+    transforms.TransformImage = Seeded
+    try:
+        for label, extra in (('plain', []), ('zero', ['--zero']),
+                             ('fsdp', ['--zero', 'fsdp'])):
+            if label == 'zero':
+                mesh = meshes.make_mesh()
+                print(f'make_mesh(): {mesh}, backend '
+                      f'{torch.distributed.get_backend()}', flush=True)
+                check(tuple(mesh.shape) == (1, 1)
+                      and torch.distributed.get_backend() == 'nccl',
+                      f'the mesh at world size 1 is {mesh}')
+            run_dir = WORK / f'zero_run_{label}'
+            run_dir.mkdir()
+            os.chdir(run_dir)
+            print('examples/imagenet_eval_torch.py ' + ' '.join(base[1:]
+                                                                 + extra),
+                  flush=True)
+            summary = cli.main(base + extra)
+            os.chdir(cwd)
+            check(summary['train_steps'] == 1,
+                  f'{label}: {summary["train_steps"]} train steps')
+            losses[label] = summary['last_train']['loss']
+    finally:
+        transforms.TransformImage = plain_transform
+        os.chdir(cwd)
+    for label in ('zero', 'fsdp'):
+        rel = abs(losses[label] - losses['plain']) / abs(losses['plain'])
+        print(f'--zero{" fsdp" if label == "fsdp" else ""}: loss '
+              f'{losses[label]:.5f} against the plain step\'s '
+              f'{losses["plain"]:.5f}: rel {rel:.2e} (tol {TOL_ZERO_LOSS:g})',
+              flush=True)
+        check(np.isfinite(losses[label]) and rel <= TOL_ZERO_LOSS,
+              f'{label}: the loss is off the plain step\'s')
+    state = torch.load(WORK / 'zero_run_fsdp' / 'checkpoint.pth',
+                       map_location='cpu', weights_only=True)
+    pretorched.se_resnext101_32x4d(pretrained=None).load_state_dict(
+        state['model'], strict=True)
+    print('the --zero fsdp checkpoint (rank 0, a full state dict) loads '
+          'strict into a plain se_resnext101_32x4d', flush=True)
+    return losses
+
+
+def export_mesh_path(pretorched, torch, np, na, fb_cuda, video_cli):
+    """Phase 20: the serving export, the golden-accuracy tool and the mesh
+    at world size 1 (see the module docstring)."""
+    from pretorched_tpu_torch.parallel import mesh as meshes
+    from pretorched_tpu_torch.parallel.train import make_train_step
+    from pretorched_tpu_torch.parallel.zero import zero_init
+
+    out = {}
+    root = WORK / 'export'
+    root.mkdir()
+    t0 = time.perf_counter()
+    out['programs'], k1, k2 = export_programs(pretorched, torch, np, na,
+                                              fb_cuda, root)
+    out['export_seconds'] = time.perf_counter() - t0
+
+    # the golden-accuracy tool on phase 14's val folder and a hosted resnet18
+    donor = pretorched.resnet18(num_classes=1000, pretrained=None)
+    randomize_bn(donor, torch, seed=20)
+    url = pretorched.pretrained_settings['resnet18']['imagenet']['url']
+    torch.save({('fc' + k[len('last_linear'):]
+                 if k.startswith('last_linear') else k): v
+                for k, v in donor.state_dict().items()},
+               WORK / 'zoo' / 'weights' / url.rsplit('/', 1)[-1])
+    del donor
+    argv = ['--eval', str(WORK / 'imagenet' / 'val'), '-b', '64',
+            '--device', 'cuda', '--golden-dir', str(WORK / 'golden'),
+            '--image', str(REPO / 'data' / 'cat.jpg'), 'resnet18']
+    print('tools/convert_weights_torch.py ' + ' '.join(argv), flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = load_tool('convert_weights_torch').main(argv)
+    text = buf.getvalue()
+    print(text, flush=True)
+    rows = [ln for ln in text.splitlines()
+            if ln.startswith('* resnet18/imagenet:')]
+    rate = re.search(r'= ([\d.]+) images/s', text)
+    n_val = IMAGENET_CLASSES * IMAGENET_PER_CLASS
+    check(rc == 1 and len(rows) == 1 and rows[0].endswith('FAIL')
+          and f'(n={n_val})' in rows[0] and rate is not None
+          and (WORK / 'golden' / 'resnet18-imagenet.npy').exists(),
+          f'the golden tool: rc {rc}, rows {rows}')
+    out['golden'] = {'row': rows[0], 'images_per_s': float(rate.group(1)),
+                     'rc': rc}
+
+    out['zero_cli_losses'] = zero_cli_runs(pretorched, torch, np)
+
+    # ZeRO train steps of the non-local model on the mesh of this process
+    mesh = meshes.make_mesh()
+    model = pretorched.nonlocalresnet3d50(num_classes=400,
+                                          pretrained='kinetics-400')
+    model.cuda().bfloat16()
+    model, opt = zero_init(model, torch.optim.SGD, mesh, lr=TRAIN_LR,
+                           momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(model, opt, remat=(0,), mesh=mesh,
+                           zero_axis='data')
+    x, labels = train_batch(video_cli, model.settings, torch)
+    set_counts(na, 0)
+    losses, device_ms = [], []
+    for i in range(ZERO_STEPS):
+        before = counts(na)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        loss = step(x, labels)['loss']
+        e1.record()
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(counts(na), before))
+        losses.append(loss.item())
+        device_ms.append(e0.elapsed_time(e1))
+        print(f'ZeRO step {i + 1}: loss {losses[-1]:.4f}, '
+              f'{device_ms[-1]:.1f} ms CUDA events, launches fwd/dq/dkv '
+              f'{launched}', flush=True)
+        check(launched == (5, 5, 5) and np.isfinite(losses[-1]),
+              f'ZeRO step {i + 1}: launches {launched}, loss {losses[-1]}')
+    expect_kernels(na, TRAIN_KERNELS, ZERO_STEPS, 'ZeRO steps')
+    out['zero_steps'] = {'losses': losses, 'device_ms': device_ms,
+                         'launches_by_kernel': kernel_counts(na)}
+    del model, opt, step, x
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    out['k1_launches'], out['k2_launches'] = k1, k2
+    return out
+
+
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
@@ -3666,7 +3991,13 @@ def main():
           'examples/visu_arch_torch.py -a resnet18')
     video_audio = video_audio_path(pretorched, torch, np, na, fb_cuda)
 
-    phase('20. result')
+    phase('20. serving export of nonlocalresnet3d50, slowfast_resnet50 '
+          '(fused_blocks=32) and resnet50 (symbolic batch), reloaded in a '
+          'fresh process; the golden-accuracy tool; the mesh at world size '
+          '1: --zero and --zero fsdp, ZeRO train steps')
+    exported = export_mesh_path(pretorched, torch, np, na, fb_cuda, cli)
+
+    phase('21. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -3698,6 +4029,7 @@ def main():
          'native_buckets': native['kernel_rows'],
          'shapes_mnist': [list(x) for x in MNIST_SHAPES],
          'launches_by_kernel': fwd_by_kernel,
+         'launches_exported': exported['k1_launches'],
          'serving_batches': served['k1_batches'],
          **k1['layer2'], 'shape': list(SLICE_SHAPES['layer2']),
          'dtype': 'bfloat16'},
@@ -3756,6 +4088,7 @@ def main():
          'replaces': 'pretorched_tpu/ops/pallas/fused_block.py:69',
          'launches': k2_launches, 'launches_by_kernel': k2_by_kernel,
          'launches_s2d_forward': s2d_sf['k2_launches'],
+         'launches_exported': exported['k2_launches'],
          **k2['fast res2.1-2'], 'earlier': 'mma.sync kernel, same run',
          'plain': 'fused_bottleneck_tail_reference',
          'library': 'the unfused tail: cuDNN conv2, BN, ReLU, cuDNN conv3, '
@@ -3772,6 +4105,8 @@ def main():
         'video_models': videos, 'trn': trn, 'imagenet': imagenet,
         'biggan': {k: v for k, v in gan.items() if k != 'kernel_rows'},
         'families': families, 'zoo': zoo, 'video_audio': video_audio,
+        'export_mesh': {k: v for k, v in exported.items()
+                        if not k.endswith('_launches')},
         'native': {k: native[k] for k in ('buckets', 'path_clips_per_s')},
         'card': card}))
     print(json.dumps({'ok': True, 'device': {

@@ -18,7 +18,17 @@ reference's examples/imagenet_eval.py:200-251), on one CUDA device:
   epoch, write ``checkpoint.pth`` (model and optimizer state) with
   ``checkpoint.pth.meta`` (``epoch``, ``arch``, ``best_prec1``) and copy it
   to ``model_best.pth`` when it is the best so far; ``--resume`` restores
-  them. SIGTERM checkpoints mid-epoch and exits.
+  them. SIGTERM checkpoints mid-epoch and exits;
+* ``--zero``: the optimizer state ZeRO-sharded over the 'data' axis of a
+  mesh of every process (``--zero fsdp``: the parameters too), each
+  process on its own card.
+
+Several processes (``torchrun --nproc-per-node N``, or ``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` set) join one mesh through
+``parallel.dist.initialize``: each trains on its own shard of the train
+set (``-b`` is the batch of one process) with batch norm over the batch of
+every process and the gradients averaged; validation splits every batch
+over the processes and sums the metrics; only rank 0 writes checkpoints.
 
 Dropout draws from torch's global generator, which the train mode seeds
 once (``torch.manual_seed(0)``): torch's dropout takes no generator.
@@ -75,7 +85,9 @@ def parse_args(argv=None):
                    help='gradient accumulation over N microbatches a step')
     p.add_argument('--zero', nargs='?', const='1', default=None,
                    choices=['1', 'fsdp'],
-                   help='ZeRO sharding over several GPUs (not ported yet)')
+                   help='ZeRO-shard the optimizer state over the data axis '
+                        '(--zero fsdp also shards the params); per-process '
+                        'optimizer memory drops to 1/n_processes')
     return p.parse_args(argv)
 
 
@@ -88,9 +100,12 @@ def read_meta(path):
 def save_checkpoint(state, arch, epoch, best_prec1, is_best,
                     filename='checkpoint.pth'):
     """``state`` to ``filename``, its ``.meta`` beside it, and a copy to
-    ``model_best.pth`` when ``is_best`` (reference: imagenet_eval.py:256-259)."""
+    ``model_best.pth`` when ``is_best`` (reference: imagenet_eval.py:256-259).
+    A ``state`` of None (a process other than rank 0) writes nothing."""
     from pretorched_tpu_torch.zoo.checkpoint import \
         save_checkpoint as save_state
+    if state is None:
+        return
     save_state(filename, state, is_best=is_best)
     with open(filename + '.meta', 'w') as f:
         f.write(repr({'epoch': epoch, 'arch': arch, 'best_prec1': best_prec1}))
@@ -98,12 +113,19 @@ def save_checkpoint(state, arch, epoch, best_prec1, is_best,
 
 def main(argv=None):
     """Runs the CLI; returns a summary dict: the last validation's metric
-    totals and time, the train steps taken, the epochs and best_prec1."""
+    totals and time, the train steps taken, the epochs and best_prec1. A
+    process group the run starts (several processes, or a mesh of its
+    own) ends with it."""
     args = parse_args(argv)
-    if args.zero:
-        raise NotImplementedError(
-            '--zero (ZeRO sharding over several GPUs) is not ported yet: '
-            'ROADMAP.md queue 1, item 10 (multi-GPU)')
+    owned = not torch.distributed.is_initialized()
+    try:
+        return _run(args)
+    finally:
+        if owned and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _run(args):
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('CUDA is not available; pass --device cpu to run '
@@ -113,13 +135,25 @@ def main(argv=None):
     from pretorched_tpu_torch.datasets.folder import (ImageFolder,
                                                       batch_iterator,
                                                       fast_eval_batches)
+    from pretorched_tpu_torch.parallel import dist, mesh as meshes
     from pretorched_tpu_torch.parallel.evaluate import (make_eval_step,
-                                                        multi_clip_eval_step)
+                                                        multi_clip_eval_step,
+                                                        pad_batch)
     from pretorched_tpu_torch.transforms import TransformImage
     from pretorched_tpu_torch.transforms.fused import ten_crop
     from pretorched_tpu_torch.utils import (AverageMeter, DeviceRunningSums,
                                             PreemptionGuard)
     from pretorched_tpu_torch.zoo.checkpoint import load_checkpoint
+
+    backend = 'nccl' if device.type == 'cuda' else 'gloo'
+    if not torch.distributed.is_initialized():
+        dist.initialize(backend=backend)
+    if device.type == 'cuda' and torch.distributed.is_initialized():
+        device = torch.device('cuda', torch.cuda.current_device())
+    # a mesh of every process, when there are several or --zero asks
+    mesh = (meshes.make_mesh(device_type=device.type)
+            if torch.distributed.is_initialized() or args.zero else None)
+    rank, nproc = meshes.batch_sharding(mesh)
 
     pretrained = None if args.pretrained in ('none', 'None', '') else args.pretrained
     print(f"=> creating model '{args.arch}' (pretrained={pretrained})")
@@ -135,7 +169,8 @@ def main(argv=None):
     # explicit --scale wins; otherwise the model's own metadata, else 0.875
     scale = (args.scale if args.scale is not None
              else settings.get('scale', 0.875))
-    print(f'=> device {device}')
+    print(f'=> device {device}' + ('' if mesh is None else
+                                   f', mesh {mesh.shape} process {rank}'))
 
     best_prec1 = 0.0
     opt_state = None
@@ -172,15 +207,17 @@ def main(argv=None):
     val_set = ImageFolder(valdir, transform=val_tf)
     print(f'=> {len(val_set)} val images')
 
+    if mesh is not None:
+        meshes.place_model(model, mesh)
     if args.ten_crop:
         crop_size = max(settings['input_size'])
-        crop_step = multi_clip_eval_step(model)
+        crop_step = multi_clip_eval_step(model, mesh=mesh)
 
         def eval_step(x, labels):
             return crop_step(ten_crop(x, crop_size, channels_last=False),
                              labels)
     else:
-        eval_step = make_eval_step(model)
+        eval_step = make_eval_step(model, mesh=mesh)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
 
     def val_batches():
@@ -201,8 +238,12 @@ def main(argv=None):
         # returns masked sums and a count, so the totals are exact
         meters = DeviceRunningSums()
         for i, (x, labels) in enumerate(val_batches()):
-            meters.update(eval_step(x, torch.as_tensor(labels,
-                                                       device=device)))
+            # every process holds the batch: each runs its rows of it,
+            # padded to the process count (label -1 rows are masked)
+            x, labels = pad_batch(x, labels, nproc)
+            labels = torch.as_tensor(meshes.global_batch(mesh, labels),
+                                     device=device)
+            meters.update(eval_step(meshes.global_batch(mesh, x), labels))
             batch_time.update(time.time() - end)
             end = time.time()
             if i % args.print_freq == 0:
@@ -233,28 +274,47 @@ def main(argv=None):
 
     # ------------------------------------------------------------- training
     from pretorched_tpu_torch.parallel.train import (make_train_step,
-                                                     sgd_step_decay)
+                                                     sgd_step_decay,
+                                                     step_decay)
+    from pretorched_tpu_torch.parallel.zero import (full_state_dicts,
+                                                    load_optimizer_state,
+                                                    zero_init)
 
     traindir = os.path.join(args.data, 'train')
     train_tf = TransformImage(settings, scale=scale, random_crop=True,
                               random_hflip=True)
     train_set = ImageFolder(traindir, transform=train_tf)
-    steps_per_epoch = max(len(train_set) // args.batch_size, 1)
+    # per-process steps: each process loads its 1/nproc of the train set
+    steps_per_epoch = max(len(train_set) // (args.batch_size * nproc), 1)
     step_idx = args.start_epoch * steps_per_epoch
-    optimizer, scheduler = sgd_step_decay(
-        model.parameters(), args.lr, args.momentum, args.weight_decay,
-        decay_epochs=30, steps_per_epoch=steps_per_epoch,
-        start_step=step_idx)
+    if args.zero:
+        model, optimizer = zero_init(
+            model, torch.optim.SGD, mesh, shard_params=args.zero == 'fsdp',
+            lr=args.lr, momentum=args.momentum,
+            weight_decay=args.weight_decay)
+        scheduler = step_decay(optimizer, 30, steps_per_epoch, step_idx)
+    else:
+        optimizer, scheduler = sgd_step_decay(
+            model.parameters(), args.lr, args.momentum, args.weight_decay,
+            decay_epochs=30, steps_per_epoch=steps_per_epoch,
+            start_step=step_idx)
     if opt_state is not None:
-        optimizer.load_state_dict(opt_state)
+        load_optimizer_state(model, optimizer, opt_state)
     train_step = make_train_step(model, optimizer, scheduler,
                                  accum_steps=args.accum_steps,
-                                 remat=args.remat)
+                                 remat=args.remat, mesh=mesh,
+                                 zero_axis='data' if args.zero else None,
+                                 zero_params=args.zero == 'fsdp')
     torch.manual_seed(0)
 
     def state():
-        return {'model': model.state_dict(),
-                'optimizer': optimizer.state_dict()}
+        """The checkpoint's dict on rank 0 (None elsewhere); every
+        process must call it (a sharded state is gathered)."""
+        model_sd, opt_sd = full_state_dicts(model, optimizer)
+        if torch.distributed.is_initialized() and \
+                torch.distributed.get_rank() != 0:
+            return None
+        return {'model': model_sd, 'optimizer': opt_sd}
 
     # preemption: SIGTERM latches a flag; the step loop checkpoints
     # mid-epoch and exits cleanly (utils/preemption.py)
@@ -268,7 +328,8 @@ def main(argv=None):
             meters = DeviceRunningSums()
             for i, (images, labels) in enumerate(batch_iterator(
                     train_set, args.batch_size, shuffle=True, drop_last=True,
-                    num_workers=args.workers, seed=epoch)):
+                    num_workers=args.workers, seed=epoch, shard_id=rank,
+                    num_shards=nproc)):
                 x = torch.from_numpy(images).to(device)
                 lab = torch.from_numpy(labels).to(device)
                 meters.update(train_step(x, lab))

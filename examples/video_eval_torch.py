@@ -13,7 +13,9 @@ consensus over clips. ``--frames native`` takes each video's own length
 (capped by ``--max-frames``), re-sampled up to a multiple of
 ``--frame-multiple`` (``utils.bucketing``); each such temporal bucket
 gathers its own batch of ``--batch-size`` videos, and what is left of each
-bucket runs at the end, in bucket order.
+bucket runs at the end, in bucket order. Launched as several processes
+(torchrun), every process loads each batch and runs its share of the
+videos on its own card, and the metric sums are added over the processes.
 
 Usage:
     python examples/video_eval_torch.py /data/kinetics/val \
@@ -131,8 +133,18 @@ def eval_batches(videos, args, settings, device):
 
 def main(argv=None):
     """Runs the eval; returns a summary dict (videos, steps, clips, the
-    eval loop's seconds and the metric totals)."""
+    eval loop's seconds and the metric totals). A process group the run
+    starts (several processes) ends with it."""
     args = parse_args(argv)
+    owned = not torch.distributed.is_initialized()
+    try:
+        return _run(args)
+    finally:
+        if owned and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _run(args):
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('CUDA is not available; pass --device cpu to run '
@@ -140,7 +152,9 @@ def main(argv=None):
 
     import pretorched_tpu_torch as pretorched
     from pretorched_tpu_torch.datasets.native import decoder_name
-    from pretorched_tpu_torch.parallel.evaluate import multi_clip_eval_step
+    from pretorched_tpu_torch.parallel import dist, mesh as meshes
+    from pretorched_tpu_torch.parallel.evaluate import (multi_clip_eval_step,
+                                                        pad_batch)
     from pretorched_tpu_torch.utils import AverageMeter, DeviceRunningSums
 
     pretrained = None if args.pretrained in ('none', '') else args.pretrained
@@ -153,7 +167,18 @@ def main(argv=None):
                  'input_range': [0, 1], 'mean': [0.485, 0.456, 0.406],
                  'std': [0.229, 0.224, 0.225]})
 
-    step = multi_clip_eval_step(model)
+    # several processes (torchrun): every one loads each batch and runs its
+    # share of the videos, as the JAX CLI shards the clips over 'data'
+    if not torch.distributed.is_initialized():
+        dist.initialize(backend='nccl' if device.type == 'cuda' else 'gloo')
+    mesh = None
+    if torch.distributed.is_initialized():
+        mesh = meshes.make_mesh(device_type=device.type)
+        meshes.place_model(model, mesh)
+        if device.type == 'cuda':
+            device = torch.device('cuda', torch.cuda.current_device())
+    n_data = meshes.data_size(mesh)
+    step = multi_clip_eval_step(model, mesh=mesh)
     videos, classes = list_videos(args.data)
     print(f'=> {len(videos)} videos, {len(classes)} classes, '
           f'{args.clips}x{args.frames}f clips, device {device}, '
@@ -169,7 +194,12 @@ def main(argv=None):
 
     buckets = {}        # frames a clip -> videos
     for clips, labels in eval_batches(videos, args, settings, device):
-        meters.update(step(clips, labels))
+        if mesh is not None:
+            rows, labels = pad_batch(clips, labels.cpu().numpy(), n_data)
+            meters.update(step(meshes.global_batch(mesh, rows),
+                               meshes.global_batch(mesh, labels)))
+        else:
+            meters.update(step(clips, labels))
         buckets[clips.shape[3]] = buckets.get(clips.shape[3], 0) + len(labels)
         batch_time.update(time.time() - t_last)
         t_last = time.time()

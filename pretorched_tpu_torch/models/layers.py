@@ -60,7 +60,17 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     keys and eval behaviour of ``nn.BatchNorm1d/2d/3d``. In train mode the
     running variance moves toward the BIASED batch variance, as flax's
     ``nn.BatchNorm`` (``pretorched_tpu/models/layers.py:91-108``) and not as
-    torch's, which uses the unbiased one (they differ by n / (n - 1))."""
+    torch's, which uses the unbiased one (they differ by n / (n - 1)).
+
+    With a ``process_group`` (``set_bn_group``; the data-parallel train
+    step sets it), train mode normalizes over the batch of every rank of
+    the group, as the JAX package's sharded step does over its global
+    batch: per-channel sum, sum of squares and count, all-reduced with a
+    differentiable all-reduce, the variance as flax computes it
+    (``E[x^2] - E[x]^2``). The same code runs on the CPU and the card
+    (``nn.SyncBatchNorm`` takes CUDA tensors only)."""
+
+    process_group = None
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
@@ -69,17 +79,53 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     def forward(self, x):
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        # one pass: the output and the batch mean and 1 / sqrt(var + eps)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.process_group is not None:
+            y, mean, var = self._cross_rank(x)
+        else:
+            # one pass: the output and the batch mean and 1 / sqrt(var + eps)
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = None
         if not getattr(_bn_state, 'frozen', 0):
             with torch.no_grad():
                 dt = self.running_var.dtype
-                var = invstd.to(dt).pow(-2) - self.eps
+                if var is None:
+                    var = invstd.to(dt).pow(-2) - self.eps
                 self.running_mean.lerp_(mean.to(dt), self.momentum)
-                self.running_var.lerp_(var, self.momentum)
+                self.running_var.lerp_(var.to(dt), self.momentum)
                 self.num_batches_tracked.add_(1)
         return y
+
+    def _cross_rank(self, x):
+        """(y, mean, biased var) over the batches of every rank of
+        ``process_group``, in f32."""
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        with torch.autocast(x.device.type, enabled=False):
+            xf = x.float()
+            stats = torch.cat([xf.sum(dims), xf.square().sum(dims),
+                               xf.new_full((1,), x.numel() // c)])
+            stats = all_reduce(stats, group=self.process_group)
+            mean = stats[:c] / stats[-1]
+            var = (stats[c:2 * c] / stats[-1] - mean.square()).clamp(min=0)
+            scale = torch.rsqrt(var + self.eps)
+            shift = -mean * scale
+            if self.affine:
+                scale = scale * self.weight.float()
+                shift = shift * self.weight.float() + self.bias.float()
+            y = xf * scale.reshape(shape) + shift.reshape(shape)
+        return y.to(x.dtype), mean.detach(), var.detach()
+
+
+def set_bn_group(model: nn.Module, group) -> None:
+    """Every ``BatchNorm`` of ``model`` normalizes in train mode over the
+    ranks of ``group`` (None: over its own batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = group
 
 
 def batch_norm(channels: int, eps: float = 1e-5, momentum: float = 0.1,

@@ -123,7 +123,11 @@ class Bottleneck(nn.Module):
     def tail_layout(self) -> TailLayout:
         """The folded tail weights, kept with their kernel layout until a
         source tensor changes. Tensors made under ``inference_mode`` keep
-        no version counter, so a block holding one folds at every call."""
+        no version counter, so a block holding one folds at every call, and
+        so does a trace (``torch.export``), whose tensors have no storage:
+        the fold then becomes part of the traced program."""
+        if torch.compiler.is_compiling():
+            return TailLayout(*self.tail_weights())
         sources = self._tail_sources()
         with torch.no_grad():
             if any(t.is_inference() for t in sources):

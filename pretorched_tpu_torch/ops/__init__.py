@@ -1,1 +1,6 @@
-"""Tensor ops of the port: pooling wrappers and the CUDA kernels."""
+"""Tensor ops of the port: pooling wrappers and the CUDA kernels.
+
+Importing the package registers the kernels' operators (``library``).
+"""
+
+from . import library  # noqa: F401

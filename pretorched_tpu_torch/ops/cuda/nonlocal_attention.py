@@ -25,6 +25,9 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   matrices in f32.
 * ``NonLocalAttention``: the ``torch.autograd.Function`` (the JAX package's
   custom VJP): kernels for CUDA tensors, plain versions for CPU tensors.
+* ``nonlocal_attention_fwd_lse``: the forward through the registered
+  operator ``pretorched::nonlocal_attention_fwd`` (``ops/library.py``),
+  which ``torch.export`` records as one node.
 * ``auto_nonlocal_attention``: what the model calls. Through
   ``NonLocalAttention`` when a gradient is needed, else the forward alone.
 * ``linear_nonlocal_attention``: the dot_product mode, linear in N.
@@ -217,12 +220,12 @@ _reset(nonlocal_attention_cuda)
 
 
 def nonlocal_attention_fwd_lse(q, k, v, scale: float = 1.0):
-    """(out, lse): the kernel for CUDA tensors, the plain version on the CPU."""
-    if q.is_cuda:
-        return nonlocal_attention_cuda(q, k, v, scale)
-    if q.device.type != 'cpu':
+    """(out, lse) through the operator ``pretorched::nonlocal_attention_fwd``
+    (``ops/library.py``): the kernel for CUDA tensors, the plain version on
+    the CPU, and the operator itself in an exported program."""
+    if q.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no non-local attention for device {q.device}')
-    return nonlocal_attention_fwd_lse_reference(q, k, v, scale)
+    return torch.ops.pretorched.nonlocal_attention_fwd(q, k, v, float(scale))
 
 
 def _launch(entry, q, v, tensors, scale, *dtype):

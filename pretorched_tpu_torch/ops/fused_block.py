@@ -15,13 +15,15 @@ in torch's layouts, w2 (Cm, Cm, 3, 3) (or the conv's (Cm, Cm, 1, 3, 3)), w3
 [scale; shift] (``fold_bn``). The JAX function takes (B, T, H, W, C) and
 HWIO; its tests move the axes.
 
-* ``fused_bottleneck_tail``: what the model calls. The CUDA kernel K2
-  (``ops/cuda/fused_block.py``) for CUDA tensors, the plain version for CPU
-  tensors. Eval only on both: an input that needs a gradient raises, as the
-  JAX function has no backward.
-* ``fused_tail_with_layout``: the same, with the folded weights held in a
-  ``TailLayout`` that keeps their kernel layout between calls (what
-  ``models/slowfast.py`` calls).
+* ``fused_bottleneck_tail``: the registered operator
+  ``pretorched::fused_bottleneck_tail`` (``ops/library.py``): the CUDA
+  kernel K2 (``ops/cuda/fused_block.py``) for CUDA tensors, the plain
+  version for CPU tensors. Eval only on both: an input that needs a
+  gradient raises, as the JAX function has no backward.
+* ``fused_tail_with_layout``: what ``models/slowfast.py`` calls, with the
+  folded weights held in a ``TailLayout``. An eager call on the card
+  launches K2 with the layout kept between calls; on the CPU and under
+  ``torch.export`` it goes through the operator.
 * ``fused_bottleneck_tail_reference``: the plain PyTorch version, the JAX
   reference's arithmetic (l.207-228): f32 accumulation, the affine in f32,
   y2 rounded to the input dtype before conv3, the input dtype out.
@@ -33,7 +35,6 @@ import torch
 import torch.nn.functional as F
 
 from .cuda.fused_block import (TailLayout, check_tail_inputs,
-                               fused_bottleneck_tail_cuda,
                                fused_bottleneck_tail_laid_out_cuda,
                                needs_grad)
 
@@ -73,20 +74,23 @@ def fused_bottleneck_tail_reference(y1, x_res, w2, a2, w3, a3, wp=None,
 
 
 def fused_bottleneck_tail(y1, x_res, w2, a2, w3, a3, wp=None, ap=None):
-    """The kernel for CUDA tensors, the plain version on the CPU."""
-    if y1.is_cuda:
-        return fused_bottleneck_tail_cuda(y1, x_res, w2, a2, w3, a3, wp, ap)
-    if y1.device.type != 'cpu':
+    """Through the operator ``pretorched::fused_bottleneck_tail``
+    (``ops/library.py``): the kernel for CUDA tensors, the plain version on
+    the CPU, the operator itself in an exported program."""
+    if y1.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no fused bottleneck tail for device {y1.device}')
+    check_tail_inputs(y1, x_res, w2, a2, w3, a3, wp, ap)
     if needs_grad(y1, x_res, w2, a2, w3, a3, wp, ap):
         raise ValueError('fused_bottleneck_tail is eval-only: it has no '
                          'backward, and an input requires a gradient')
-    return fused_bottleneck_tail_reference(y1, x_res, w2, a2, w3, a3, wp, ap)
+    return torch.ops.pretorched.fused_bottleneck_tail(y1, x_res, w2, a2, w3,
+                                                      a3, wp, ap)
 
 
 def fused_tail_with_layout(y1, x_res, layout: TailLayout):
-    """``fused_bottleneck_tail(y1, x_res, *layout.folded)``, with the
-    kernel's weight layout kept in ``layout`` from call to call."""
-    if y1.is_cuda:
+    """``fused_bottleneck_tail(y1, x_res, *layout.folded)``; an eager call
+    on the card keeps the kernel's weight layout in ``layout`` from call to
+    call and launches the kernel directly."""
+    if y1.is_cuda and not torch.compiler.is_compiling():
         return fused_bottleneck_tail_laid_out_cuda(y1, x_res, layout)
     return fused_bottleneck_tail(y1, x_res, *layout.folded)

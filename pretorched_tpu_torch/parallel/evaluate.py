@@ -1,17 +1,23 @@
-"""Image and multi-clip evaluation steps on one device.
+"""Image and multi-clip evaluation steps, on one device or over a mesh.
 
-Counterpart of ``pretorched_tpu/parallel/evaluate.py:27-99`` without the
-mesh: the JAX steps shard the batch over a device mesh; here the batch runs
-on the model's one device. All steps treat ``label == -1`` as padding,
+Counterpart of ``pretorched_tpu/parallel/evaluate.py``. Without a mesh a
+step runs the batch on the model's device. With a mesh (``parallel.mesh``)
+each rank runs its own rows of the batch (``mesh.global_batch``, or a
+rank-sharded loader) and the metric sums are all-reduced over 'data', so
+every rank returns the sums of the whole batch, as the JAX steps do with
+the batch sharded over 'data'. All steps treat ``label == -1`` as padding,
 masked out of every metric sum including 'count', and ``pad_batch`` pads a
-ragged final batch with such rows.
+ragged batch with such rows to the data-axis multiple.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from .mesh import data_group, place_model  # noqa: F401  (JAX's home of it)
 
 
 def pad_batch(x: torch.Tensor, labels, multiple: int):
@@ -43,27 +49,45 @@ def _masked_metrics(logits, labels, topk):
     return out
 
 
-def make_eval_step(model, topk=(1, 5)):
-    """One-crop image evaluation (the JAX ``make_eval_step`` /
-    ``sharded_accuracy_step``). ``step(x, labels)``: x (B, C, H, W) on the
-    model's device, labels (B,) with -1 for padding; returns a dict of
-    device scalars (``top1``, ``top5``, ``loss``, ``count``)."""
+def _reduced(out, mesh):
+    """The metric sums of every rank of 'data' (one all-reduce)."""
+    group = data_group(mesh)
+    if group is None:
+        return out
+    keys = list(out)
+    sums = torch.stack([out[k].double() for k in keys])
+    dist.all_reduce(sums, group=group)
+    return {k: sums[i].to(out[k].dtype) for i, k in enumerate(keys)}
+
+
+def sharded_accuracy_step(model, mesh=None, topk=(1, 5)):
+    """One-crop image evaluation. ``step(x, labels)``: x (B, C, H, W) on
+    the model's device (with a mesh, this rank's rows), labels (B,) with
+    -1 for padding; returns a dict of device scalars (``top1``, ``top5``,
+    ``loss``, ``count``), summed over the mesh's 'data' ranks."""
 
     @torch.inference_mode()
     def step(x, labels):
-        return _masked_metrics(model(x), torch.as_tensor(labels), topk)
+        return _reduced(_masked_metrics(model(x), torch.as_tensor(labels),
+                                        topk), mesh)
 
     return step
 
 
-def multi_clip_eval_step(model, topk=(1, 5)):
+def make_eval_step(model, mesh=None, topk=(1, 5)):
+    """The eval step bound to a model (``sharded_accuracy_step``)."""
+    return sharded_accuracy_step(model, mesh=mesh, topk=topk)
+
+
+def multi_clip_eval_step(model, mesh=None, topk=(1, 5)):
     """N-clip video evaluation (BASELINE config 4's protocol).
 
     Consensus: per-clip softmax probabilities are averaged over clips;
     accuracy and loss (NLL of the consensus probability) come from that
     average. ``step(clips, labels)``: clips (B, N_clips, C, T, H, W) on the
-    model's device, labels (B,) with -1 for padding; returns a dict of
-    device scalars (``top1``, ``top5``, ``loss``, ``count``)."""
+    model's device (with a mesh, this rank's videos), labels (B,) with -1
+    for padding; returns a dict of device scalars (``top1``, ``top5``,
+    ``loss``, ``count``), summed over the mesh's 'data' ranks."""
 
     @torch.inference_mode()
     def step(clips, labels):
@@ -72,6 +96,7 @@ def multi_clip_eval_step(model, topk=(1, 5)):
         logits = logits.reshape(b, n, -1).float()
         probs = F.softmax(logits, dim=-1).mean(dim=1)
         logp = torch.log(probs.clamp(min=1e-30))
-        return _masked_metrics(logp, torch.as_tensor(labels), topk)
+        return _reduced(_masked_metrics(logp, torch.as_tensor(labels), topk),
+                        mesh)
 
     return step

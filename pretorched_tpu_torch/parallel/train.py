@@ -1,12 +1,18 @@
-"""The training step on one device.
+"""The training step, on one device or data-parallel over a mesh.
 
 Counterpart of ``pretorched_tpu/parallel/train.py``: cross-entropy, SGD with
 momentum and weight decay, and the reference's step-decay schedule
 (imagenet_eval.py:162-208, 281-285). The JAX step is one jitted function of
 (params, batch_stats, opt_state); here the model and the optimizer hold
 that state and the step updates them in place. The JAX step's buffer
-donation has no counterpart. ``mesh`` and ``zero_axis`` (data and model
-parallelism, ZeRO) are not ported yet and raise.
+donation has no counterpart.
+
+With a mesh (``parallel.mesh``) each rank runs its own rows of the batch:
+batch norm normalizes over the rows of every 'data' rank
+(``layers.BatchNorm``'s cross-rank statistics, the global batch JAX's
+sharded step sees), the gradients are averaged over 'data', and the loss
+and top-1 are those of the whole batch. ``zero_axis`` / ``zero_params``
+take the model and optimizer of ``parallel.zero.zero_init``.
 """
 
 from __future__ import annotations
@@ -14,9 +20,12 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..models.layers import set_bn_group
 from ..models.resnet3d import checkpointed
+from .mesh import data_group, data_size
 
 
 def cross_entropy(logits, labels):
@@ -26,7 +35,8 @@ def cross_entropy(logits, labels):
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     scheduler=None, accum_steps: int = 1, remat=False,
-                    mesh=None, zero_axis: Optional[str] = None) -> Callable:
+                    mesh=None, zero_axis: Optional[str] = None,
+                    zero_params: bool = False) -> Callable:
     """Returns ``step(x, labels) -> {'loss', 'top1'}`` (0-d tensors on the
     model's device; reading them synchronizes, the step does not).
 
@@ -42,12 +52,35 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ``remat``: ``True`` or a tuple of stages. A model with a ``remat``
     attribute (``VideoResNet``) gets it set, and checkpoints those stages'
     residual blocks; any other model is checkpointed as a whole forward.
+
+    ``mesh``: x and labels are this rank's rows (equal on every rank of
+    'data'); see the module docstring. The model's parameters must be
+    replicated (``mesh.place_model`` does it) or FSDP-sharded.
+    ``zero_axis='data'`` requires the ZeRO optimizer of ``zero_init``, and
+    with ``zero_params=True`` its FSDP model too.
     """
-    if mesh is not None or zero_axis is not None:
-        raise NotImplementedError('mesh and zero_axis (multi-GPU) are not '
-                                  'ported yet')
+    from .zero import is_fsdp, is_zero
+
     if accum_steps < 1:
         raise ValueError(f'accum_steps must be >= 1, got {accum_steps}')
+    if zero_axis is not None:
+        if mesh is None:
+            raise ValueError('zero_axis requires a mesh')
+        if zero_axis != 'data':
+            raise ValueError(f'ZeRO shards over the data axis, not '
+                             f'{zero_axis!r}')
+        if zero_params != is_fsdp(model) or (not zero_params
+                                             and not is_zero(optimizer)):
+            raise ValueError('zero_axis needs the model and optimizer of '
+                             'parallel.zero.zero_init(..., shard_params='
+                             f'{zero_params})')
+    elif zero_params:
+        raise ValueError('zero_params requires zero_axis')
+    group = data_group(mesh)
+    n_data = data_size(mesh)
+    # FSDP reduce-scatters the gradients itself
+    all_reduce_grads = group is not None and not is_fsdp(model)
+    set_bn_group(model, group)
     forward = model
     if remat and hasattr(model, 'remat'):
         model.remat = remat
@@ -68,13 +101,32 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             (loss / accum_steps).backward()
             losses.append(loss.detach())
             top1s.append((logits.argmax(1) == li).float().mean())
+        metrics = torch.stack([torch.stack(losses).mean(),
+                               torch.stack(top1s).mean()])
+        if all_reduce_grads:
+            _average_gradients(model, group, n_data)
+        if group is not None:
+            dist.all_reduce(metrics, group=group)
+            metrics /= n_data
         optimizer.step()
         if scheduler is not None:
             scheduler.step()
-        return {'loss': torch.stack(losses).mean(),
-                'top1': torch.stack(top1s).mean()}
+        return {'loss': metrics[0], 'top1': metrics[1]}
 
     return step
+
+
+def _average_gradients(model, group, n: int):
+    """The mean of every gradient over ``group``: one all-reduce of the
+    gradients flattened, per dtype."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    for dtype in {g.dtype for g in grads}:
+        same = [g for g in grads if g.dtype == dtype]
+        flat = torch.cat([g.reshape(-1) for g in same])
+        dist.all_reduce(flat, group=group)
+        flat /= n
+        for g, part in zip(same, flat.split([g.numel() for g in same])):
+            g.copy_(part.view_as(g))
 
 
 def finetune_mask(model: torch.nn.Module, trainable_prefixes) -> Dict[str, bool]:
@@ -105,7 +157,15 @@ def sgd_step_decay(params, lr: float = 0.1, momentum: float = 0.9,
     run's, as the JAX step is passed its ``step_idx``)."""
     optimizer = torch.optim.SGD(params, lr=lr, momentum=momentum,
                                 weight_decay=weight_decay)
+    return optimizer, step_decay(optimizer, decay_epochs, steps_per_epoch,
+                                 start_step)
+
+
+def step_decay(optimizer, decay_epochs: int = 30, steps_per_epoch: int = 1,
+               start_step: int = 0):
+    """The reference's 0.1x every ``decay_epochs`` epochs on ``optimizer``
+    (any, e.g. the ZeRO one of ``zero.zero_init``) as a per-step staircase
+    from ``start_step``."""
     period = decay_epochs * steps_per_epoch
-    scheduler = torch.optim.lr_scheduler.LambdaLR(
+    return torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda step: 0.1 ** ((start_step + step) // period))
-    return optimizer, scheduler

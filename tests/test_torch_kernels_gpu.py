@@ -2,8 +2,9 @@
 backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16 (the
 wide programs of all three at layer 3's C = Cv = 512), and
 the fused bottleneck tail K2) against their plain PyTorch versions, on a
-card; and each factory of the rest of the 2D zoo built there, its bf16
-forward held to its f32 one.
+card; K1-fwd and K2 through their registered operators, and
+``torch.export`` on the card recording them; and each factory of the rest
+of the 2D zoo built there, its bf16 forward held to its f32 one.
 
 Every test here is marked ``gpu`` and skips without CUDA. The file imports
 no JAX, so it runs on a machine that has only PyTorch (the suite's
@@ -861,3 +862,70 @@ def test_image_zoo_bf16_forward_on_the_card(cuda, name):
     assert ((got - want).norm() / want.norm()).item() <= 5e-2
     assert (na.nonlocal_attention_cuda.launches,
             fb_cuda.fused_bottleneck_tail_cuda.launches) == launches
+
+
+@pytest.mark.gpu
+def test_attention_operator_launches_the_kernel(cuda):
+    """``pretorched::nonlocal_attention_fwd`` on CUDA tensors is K1-fwd:
+    one launch, on the program the dispatch picks."""
+    q, k, v, _ = _bwd_inputs(2, 300, 300, 64, 64, torch.bfloat16, cuda)
+    before = dict(na.nonlocal_attention_cuda.by_kernel)
+    out, lse = torch.ops.pretorched.nonlocal_attention_fwd(q, k, v, 1.0)
+    torch.cuda.synchronize()
+    after = na.nonlocal_attention_cuda.by_kernel
+    assert {p: after[p] - before[p] for p in after} == {
+        'wgmma': 1, 'wgmma_wide': 0, 'mma_sync': 0, 'scalar': 0}
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+        q.float(), k.float(), v.float())
+    assert _rel_to_max(out, want) <= 2e-2
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_tail_operator_launches_the_kernel(cuda):
+    args = _k2_inputs(K2_CASES[0], torch.bfloat16, cuda)
+    before = fb_cuda.fused_bottleneck_tail_cuda.launches
+    with torch.no_grad():
+        out = torch.ops.pretorched.fused_bottleneck_tail(*args)
+        torch.cuda.synchronize()
+        assert fb_cuda.fused_bottleneck_tail_cuda.launches == before + 1
+        want = fb.fused_bottleneck_tail_reference(*args)
+    assert _rel_err(out, want.float()) <= 2e-2
+
+
+@pytest.mark.gpu
+def test_export_on_the_card_records_the_operators(cuda, tmp_path):
+    """Exported on the card, a bf16 non-local net and a fused SlowFast hold
+    the operators and no plain attention; the reloaded programs launch the
+    kernels (2 K1-fwd, 3 K2 a forward) and match the eager forward."""
+    import pretorched_tpu_torch
+    from pretorched_tpu_torch.models import slowfast
+    from pretorched_tpu_torch.zoo.export import (export_model,
+                                                 exported_program_text,
+                                                 load_exported)
+
+    torch.manual_seed(0)
+    nl = pretorched_tpu_torch.nonlocalresnet3d18(num_classes=5,
+                                                 pretrained=None)
+    sf = slowfast.SlowFast(layers=(1, 2, 2, 1), num_classes=5,
+                           fused_blocks=32)
+    cases = ((nl.bfloat16(), (3, 8, 64, 64), na.nonlocal_attention_cuda,
+              'pretorched.nonlocal_attention_fwd', 2),
+             (sf, (3, 16, 64, 64), fb_cuda.fused_bottleneck_tail_cuda,
+              'pretorched.fused_bottleneck_tail', 3))
+    for model, shape, wrapper, op, per_forward in cases:
+        model.to(cuda).eval()
+        txt = exported_program_text(model, shape, batch='2')
+        assert txt.count(op) == per_forward and 'logsumexp' not in txt
+        path = str(tmp_path / 'program.pt2')
+        export_model(model, path, shape, batch='2')
+        call, params = load_exported(path)
+        x = torch.randn(2, *shape, device=cuda)
+        before = wrapper.launches
+        got = call(params, x)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + per_forward
+        with torch.no_grad():
+            want = model(x)
+        assert ((got.float() - want.float()).norm()
+                / want.float().norm()).item() <= 5e-3
