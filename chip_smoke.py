@@ -192,7 +192,25 @@ Drives the port's main path once on one CUDA card and checks it:
     FSDP checkpoint loads strict into a plain model), and 3 ZeRO train
     steps of ``nonlocalresnet3d50`` (15 attention launches each, finite
     loss);
-21. a line with each kernel's numbers and the card, then
+21. pipeline and expert parallelism (``parallel.pipeline``,
+    ``parallel.moe``): phase 4's ``nonlocalresnet3d50`` pipelined over its
+    four resolution stages on the card (``pipeline_apply_stages`` of
+    ``pipeline_stage_fns``, ``devices=['cuda:0'] * 4``): the bf16 forward
+    of 20 clips x 32 x 224 px in 4 microbatches, 20 K1-fwd launches (8
+    wgmma, 12 wgmma_wide), its logits held to the unpipelined forward, both
+    timed with their peak memory; the backward of 8 clips in 4 microbatches
+    (eval BN), 20 launches each of K1-dq and K1-dkv, every parameter's
+    gradient held to the unpipelined backward's; K1-fwd at the forward's
+    microbatch shapes and K1-dq, K1-dkv at the backward's against their
+    plain versions; ``pipeline_apply`` over blocks 1-32 of
+    ``resnet3d152``'s layer3 (bf16, 4 stages) against ``sequential_apply``;
+    ``trn_expert_forward`` on phase 12's TRN against the dense forward (f32
+    with TF32 off, and bf16), the head alone timed both ways;
+    ``moe_apply`` on 1024 pooled ``resnet50`` features (standardized), 8
+    experts, a skewed router at capacity factor 1.0, against
+    ``moe_reference``, with the dropped fraction; the mesh paths of ``pipeline_apply`` and
+    ``moe_apply`` at world size 1 on NCCL against the in-process results;
+22. a line with each kernel's numbers and the card, then
     ``{"ok": true, "device": {...}}``. Every phase's heading names the card
     and its power limit.
 
@@ -378,6 +396,33 @@ TOL_EXPORT = {'bfloat16': 5e-3, 'float32': 1e-4}
 # plain step's; 3 ZeRO train steps of nonlocalresnet3d50 at phase 6's batch
 ZERO_PER_CLASS, ZERO_VAL_PER_CLASS, ZERO_STEPS = 8, 2, 3
 TOL_ZERO_LOSS = 2e-2
+
+# phase 21: nonlocalresnet3d50 (phase 4's weights) pipelined over its four
+# stages on one card (devices=['cuda:0'] * 4): a bf16 forward of 20 clips x
+# 32 x 224 px in 4 microbatches (K1-fwd at B = 5), a backward of 8 clips in
+# 4 (K1-dq and K1-dkv at B = 2); blocks 1-32 of resnet3d152's layer3 as a
+# homogeneous 4-stage trunk; phase 12's TRN with its MSTRN head as experts;
+# moe_apply over pooled resnet50 features
+PIPE_STAGES, PIPE_MICRO, PIPE_CLIPS, PIPE_TRAIN_CLIPS = 4, 4, 20, 8
+PIPE_SHAPES = {'layer2': (5, 6272, 6272, 256, 256),
+               'layer3': (5, 784, 784, 512, 512)}
+PIPE_TRAIN_SHAPES = {'layer2': (2, 6272, 6272, 256, 256),
+                     'layer3': (2, 784, 784, 512, 512)}
+TRUNK_BLOCKS = (1, 33)
+MOE_TOKENS, MOE_EXPERTS, MOE_HIDDEN, MOE_SKEW = 1024, 8, 1024, 3.0
+# each parameter's gradient through the pipeline against the unpipelined
+# backward of the same microbatches, |diff| over the sum of the
+# microbatches' gradient norms: the same kernels at the same shapes, their
+# f32 gradients summed in another order, and the stem's max-pool backward
+# adds overlapping windows atomically, in an order that changes from run
+# to run and rounds to bf16 there (bn1.bias, the sum of that gradient, read
+# 4.1e-3 to 6.0e-3 in bf16 on an H100, the other parameters 2e-8 at the
+# median); f32 with TF32 off
+TOL_PIPE_GRAD = {'bfloat16': 5e-2, 'float32': 1e-4}
+# the expert-parallel TRN against the dense one in f32, TF32 off (max |diff|
+# / max |dense|), moe_apply against the per-token oracle, and the mesh paths
+# at world size 1 against the in-process ones
+TOL_TRN_EXPERT, TOL_MOE, TOL_PIPE_MESH = 1e-4, 1e-4, 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -3834,6 +3879,416 @@ def export_mesh_path(pretorched, torch, np, na, fb_cuda, video_cli):
     return out
 
 
+def microbatch_kernel_rows(na, torch):
+    """Phase 21: K1-fwd at the pipelined forward's microbatch shapes and
+    K1-dq, K1-dkv at the pipelined backward's, bf16, each held to its plain
+    version at phase 3's and phase 5's tolerances, with its time, the plain
+    version's, SDPA's and the bound."""
+    g = torch.Generator(device='cuda').manual_seed(21)
+    rows = {}
+    for (name, (b, n, nk, c, cv)), op in (
+            *((item, 'fwd') for item in PIPE_SHAPES.items()),
+            *((item, 'bwd') for item in PIPE_TRAIN_SHAPES.items())):
+        q = (torch.randn(b, n, c, device='cuda', generator=g)
+             / c ** 0.25).bfloat16()
+        k = (torch.randn(b, nk, c, device='cuda', generator=g)
+             / c ** 0.25).bfloat16()
+        v = torch.randn(b, nk, cv, device='cuda', generator=g).bfloat16()
+        out, lse = na.nonlocal_attention_cuda(q, k, v)
+        bounds = attention_bounds(b, n, nk, c, cv, 'bfloat16')
+        shape = f'B={b} N={n} Nk={nk} C={c} Cv={cv}'
+        if op == 'fwd':
+            want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+                q.float(), k.float(), v.float())
+            err, err_rel, err_lse = fwd_errors(out, lse, want, want_lse)
+            del want, want_lse
+            tol, tol_lse = TOL['bfloat16']
+            ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
+            plain_ms = median_ms(
+                lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v))
+            lib_ms, backend = sdpa_ms(torch, q, k, v)
+            kernel = na.attention_kernel(torch.bfloat16, c, cv, 'fwd')
+            rows[f'fwd {name}'] = {
+                'kernel': kernel, 'shape': [b, n, nk, c, cv],
+                'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+                'library_ms': lib_ms, 'bound_ms': bounds['fwd'][0],
+                'bound_by': bounds['fwd'][1]}
+            print(f'K1-fwd {name} microbatch {shape} bf16 [{kernel}]: '
+                  f'max|out-plain|={err:.3e} (tol {tol:g}), /max|plain| '
+                  f'{err_rel:.3e} (tol {TOL_REL_BF16:g}), max|lse-plain|='
+                  f'{err_lse:.3e} (tol {tol_lse:g}); kernel {ms:.3f} ms, '
+                  f'plain {plain_ms:.3f} ms, scaled_dot_product_attention '
+                  f'{fmt_ms(lib_ms)} ({backend}), bound '
+                  f'{bounds["fwd"][0]:.4f} ms ({bounds["fwd"][1]})',
+                  flush=True)
+            check(err <= tol and err_rel <= TOL_REL_BF16
+                  and err_lse <= tol_lse,
+                  f'K1-fwd disagrees with the plain version at {shape}')
+        else:
+            do = torch.randn(b, n, cv, device='cuda', generator=g).bfloat16()
+            delta = (do.float() * out.float()).sum(-1)
+            dq = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+            dk, dv = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse,
+                                                        delta)
+            want = na.nonlocal_attention_bwd_reference(
+                q.float(), k.float(), v.float(), out.float(), lse, do.float())
+            rels = [rel_to_max(gr, w) for gr, w in zip((dq, dk, dv), want)]
+            errs = [(gr.float() - w).abs().max().item()
+                    for gr, w in zip((dq, dk, dv), want)]
+            del want
+            dq_ms = median_ms(lambda: na.nonlocal_attention_bwd_dq_cuda(
+                q, k, v, do, lse, delta))
+            dkv_ms = median_ms(lambda: na.nonlocal_attention_bwd_dkv_cuda(
+                q, k, v, do, lse, delta))
+            plain_ms = median_ms(lambda: na.nonlocal_attention_bwd_reference(
+                q, k, v, out, lse, do))
+            lib_ms, backend = sdpa_ms(torch, q, k, v, do)
+            for op_name, ms, err in (('dq', dq_ms, errs[0]),
+                                     ('dkv', dkv_ms, max(errs[1:]))):
+                rows[f'{op_name} {name}'] = {
+                    'kernel': na.attention_kernel(torch.bfloat16, c, cv,
+                                                  op_name),
+                    'shape': [b, n, nk, c, cv], 'max_abs_err': err,
+                    'ms': ms, 'plain_ms': plain_ms,
+                    'plain': 'nonlocal_attention_bwd_reference (dq, dk, dv '
+                             'together)',
+                    'library_ms': lib_ms,
+                    'library': 'scaled_dot_product_attention backward (dq, '
+                               'dk, dv together)',
+                    'bound_ms': bounds[op_name][0],
+                    'bound_by': bounds[op_name][1]}
+            print(f'K1-dq, K1-dkv {name} microbatch {shape} bf16: '
+                  f'max|d-plain|/max|d| dq {rels[0]:.2e}, dk {rels[1]:.2e}, '
+                  f'dv {rels[2]:.2e} (tol {TOL_BWD["bfloat16"]:g}); dq '
+                  f'{dq_ms:.3f} ms (bound {bounds["dq"][0]:.4f}), dkv '
+                  f'{dkv_ms:.3f} ms (bound {bounds["dkv"][0]:.4f}), plain '
+                  f'backward {plain_ms:.3f} ms, scaled_dot_product_attention '
+                  f'backward {fmt_ms(lib_ms)} ({backend})', flush=True)
+            check(max(rels) <= TOL_BWD['bfloat16'],
+                  f'K1-dq / K1-dkv disagree with the plain backward at '
+                  f'{shape}')
+            del do, delta, dq, dk, dv
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def grad_rel(got, want, scale):
+    """|got - want| over ``scale``; 0 where both are zero, inf where only
+    the difference is not."""
+    diff = (got - want).norm().item()
+    return diff / scale if scale else (0.0 if diff == 0 else float('inf'))
+
+
+def timed_peak(fn, torch, reps=3):
+    """(median ms by CUDA events of ``reps`` calls after one warm-up, peak
+    device memory GiB of one call above what was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return median_ms(fn, reps=reps), peak
+
+
+def pipeline_moe_path(pretorched, na, torch, np):
+    """Phase 21: pipeline and expert parallelism (see the module
+    docstring). Returns the phase's numbers and K1's launches by program
+    in the pipelined forward and backward."""
+    import torch.nn.functional as F
+
+    from pretorched_tpu_torch.models.resnet3d import (pipeline_stage_fns,
+                                                      split_stage_variables)
+    from pretorched_tpu_torch.parallel import mesh as meshes
+    from pretorched_tpu_torch.parallel.moe import (moe_apply, moe_reference,
+                                                   mstrn_expert_params,
+                                                   trn_expert_forward)
+    from pretorched_tpu_torch.parallel.pipeline import (
+        pipeline_apply, pipeline_apply_stages, sequential_apply,
+        stack_block_params)
+    out = {'kernel_rows': microbatch_kernel_rows(na, torch)}
+    devices = ['cuda:0'] * PIPE_STAGES
+    g = torch.Generator(device='cuda').manual_seed(21)
+
+    # (a) the pipelined bf16 forward against the whole one
+    model = pretorched.nonlocalresnet3d50(num_classes=400,
+                                          pretrained='kinetics-400')
+    model.cuda().eval().bfloat16()
+    fns = pipeline_stage_fns(model)
+    x = torch.randn(PIPE_CLIPS, 3, 32, 224, 224, device='cuda', generator=g)
+    with torch.inference_mode():
+        def piped():
+            return pipeline_apply_stages(
+                fns, split_stage_variables(model.state_dict()), x,
+                devices=devices, n_micro=PIPE_MICRO)
+
+        set_counts(na, 0)
+        logits_pp = piped().float()
+        torch.cuda.synchronize()
+        fwd_launches = counts(na)
+        fwd_by_kernel = kernel_counts(na)
+        print(f'pipeline_apply_stages(pipeline_stage_fns(nonlocalresnet3d50),'
+              f' devices=[cuda:0] x {PIPE_STAGES}, n_micro={PIPE_MICRO}), '
+              f'bf16, {PIPE_CLIPS} clips x 32 x 224 px: launches fwd/dq/dkv '
+              f'{fwd_launches}, by program {fwd_by_kernel}', flush=True)
+        check(fwd_launches == (5 * PIPE_MICRO, 0, 0),
+              f'the pipelined forward launched {fwd_launches}')
+        expect_kernels(na, EVAL_KERNELS, PIPE_MICRO, 'pipelined forward')
+        logits = model(x).float()
+        rel = rel_l2(logits_pp, logits)
+        pp_ms, pp_gb = timed_peak(piped, torch)
+        whole_ms, whole_gb = timed_peak(lambda: model(x), torch)
+    print(f'pipelined logits vs the unpipelined bf16 forward: rel L2 '
+          f'{rel:.3e} (tol {TOL_LOGITS_BF16:g}); forward {pp_ms:.3f} ms '
+          f'pipelined (4 stages one after another on one card) vs '
+          f'{whole_ms:.3f} ms whole = {PIPE_CLIPS / pp_ms * 1e3:.2f} vs '
+          f'{PIPE_CLIPS / whole_ms * 1e3:.2f} clips/s (CUDA events, median '
+          f'of 3); peak device memory above the input {pp_gb:.2f} vs '
+          f'{whole_gb:.2f} GiB', flush=True)
+    check(logits_pp.shape == (PIPE_CLIPS, 400)
+          and bool(torch.isfinite(logits_pp).all())
+          and rel <= TOL_LOGITS_BF16,
+          f'the pipelined logits are off the whole forward: rel L2 {rel}')
+    out['forward'] = {'clips': PIPE_CLIPS, 'n_micro': PIPE_MICRO,
+                      'stages': PIPE_STAGES, 'rel_l2': rel,
+                      'pipelined_ms': pp_ms, 'whole_ms': whole_ms,
+                      'pipelined_peak_gib': pp_gb, 'whole_peak_gib': whole_gb,
+                      'launches_by_kernel': fwd_by_kernel}
+    del x, logits, logits_pp
+
+    # (b) the pipelined backward: eval BN, a loss linear in the logits
+    # (these random weights saturate the softmax of the logits, a
+    # cross-entropy of ~400). Held to the unpipelined model's backward of
+    # the same 4 microbatches, the gradients summed (cuDNN deterministic;
+    # see TOL_PIPE_GRAD for what still differs); the unpipelined backward
+    # of the whole batch is printed beside it: with these weights other
+    # batch sizes' kernels move the gradients far (PERF.md §6)
+    x = torch.randn(PIPE_TRAIN_CLIPS, 3, 32, 224, 224, device='cuda',
+                    generator=g)
+    weights = torch.randn(PIPE_TRAIN_CLIPS, 400, device='cuda', generator=g)
+    params = dict(model.named_parameters())
+
+    def grads(run, parts=1):
+        """(loss, each parameter's gradient summed over the parts, the sum
+        of its parts' gradient norms)."""
+        loss, total, scale = 0.0, {}, dict.fromkeys(params, 0.0)
+        for xs, ws in zip(x.chunk(parts), weights.chunk(parts)):
+            model.zero_grad(set_to_none=True)
+            part = (run(xs).float() * ws).sum() / weights.numel()
+            part.backward()
+            loss += part.item()
+            for k, p in params.items():
+                g = p.grad.float()
+                total[k] = total[k] + g if k in total else g.clone()
+                scale[k] += g.norm().item()
+        return loss, total, scale
+
+    def worst(got, want, scale):
+        """The largest and the median over the parameters of |got - want|
+        over ``scale`` (0 where both are zero)."""
+        r = sorted(((grad_rel(got[k], want[k], scale[k]), k)
+                    for k in params), reverse=True)
+        return {'worst': r[0][0], 'worst_param': r[0][1],
+                'median': r[len(r) // 2][0]}
+
+    def pipelined_vs_unpipelined(dtype):
+        set_counts(na, 0)
+        loss_pp, g_pp, _ = grads(lambda xs: pipeline_apply_stages(
+            fns, split_stage_variables(model.state_dict(keep_vars=True)), xs,
+            devices=devices, n_micro=PIPE_MICRO))
+        launches, by_kernel = counts(na), kernel_counts(na)
+        check(launches == (5 * PIPE_MICRO,) * 3,
+              f'the pipelined backward launched {launches}')
+        if dtype == 'bfloat16':
+            expect_kernels(na, TRAIN_KERNELS, PIPE_MICRO,
+                           'pipelined backward')
+        loss_mb, g_mb, scale_mb = grads(model, PIPE_MICRO)
+        loss_whole, g_whole, norm_whole = grads(model)
+        res = {'loss': loss_pp, 'loss_microbatches': loss_mb,
+               'loss_whole': loss_whole, 'launches_by_kernel': by_kernel,
+               'vs_microbatches': worst(g_pp, g_mb, scale_mb),
+               'vs_whole_batch': worst(g_pp, g_whole, norm_whole)}
+        print(f'pipelined backward, {dtype}, {PIPE_TRAIN_CLIPS} clips in '
+              f'{PIPE_MICRO} microbatches, eval BN: launches fwd/dq/dkv '
+              f'{launches}, by program {by_kernel}; loss {loss_pp:.6f}, '
+              f'unpipelined {loss_mb:.6f} (the same microbatches), '
+              f'{loss_whole:.6f} (the whole batch); each of the '
+              f'{len(params)} parameters\' gradients against the '
+              f'unpipelined backward of the same microbatches, |diff| over '
+              f'the sum of the microbatches\' gradient norms: largest '
+              f'{res["vs_microbatches"]["worst"]:.2e} '
+              f'({res["vs_microbatches"]["worst_param"]}), median '
+              f'{res["vs_microbatches"]["median"]:.2e} (tol '
+              f'{TOL_PIPE_GRAD[dtype]:g}); rel L2 to the whole batch\'s: '
+              f'largest '
+              f'{res["vs_whole_batch"]["worst"]:.2e} '
+              f'({res["vs_whole_batch"]["worst_param"]}), median '
+              f'{res["vs_whole_batch"]["median"]:.2e}', flush=True)
+        check(res['vs_microbatches']['worst'] <= TOL_PIPE_GRAD[dtype],
+              f'{dtype} pipelined gradients off the unpipelined ones: {res}')
+        return res
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        bf16 = pipelined_vs_unpipelined('bfloat16')
+        model.float()
+        f32 = pipelined_vs_unpipelined('float32')
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    bwd_by_kernel = bf16['launches_by_kernel']
+    out['backward'] = {'clips': PIPE_TRAIN_CLIPS, 'n_micro': PIPE_MICRO,
+                       'bfloat16': bf16, 'float32': f32}
+    model.zero_grad(set_to_none=True)
+    del model, fns, params, x
+    torch.cuda.empty_cache()
+
+    # (c) a homogeneous trunk: blocks 1-32 of resnet3d152's layer3
+    deep = pretorched.resnet3d152(num_classes=400, pretrained=None)
+    randomize_bn(deep, torch, seed=21)
+    blocks = [deep.layer3[i] for i in range(*TRUNK_BLOCKS)]
+    stacked = {k: v.cuda() for k, v in stack_block_params(blocks).items()}
+    template = blocks[0].cuda().eval()
+    del deep, blocks
+
+    def block_fn(p, h):
+        # bf16 compute on f32 parameters, as a model's bfloat16() runs
+        with torch.autocast('cuda', dtype=torch.bfloat16):
+            return torch.func.functional_call(template, p, (h,))
+
+    h = torch.randn(PIPE_CLIPS, 1024, 4, 14, 14, device='cuda',
+                    generator=g).bfloat16()
+    with torch.inference_mode():
+        set_counts(na, 0)
+        trunk_pp = pipeline_apply(block_fn, stacked, h, devices=devices,
+                                  n_micro=PIPE_MICRO)
+        trunk_seq = sequential_apply(block_fn, stacked, h)
+        trunk_rel = rel_l2(trunk_pp, trunk_seq)
+        trunk_pp_ms, _ = timed_peak(lambda: pipeline_apply(
+            block_fn, stacked, h, devices=devices, n_micro=PIPE_MICRO), torch)
+        trunk_seq_ms, _ = timed_peak(
+            lambda: sequential_apply(block_fn, stacked, h), torch)
+    n_blocks = TRUNK_BLOCKS[1] - TRUNK_BLOCKS[0]
+    print(f'pipeline_apply of resnet3d152 layer3 blocks {TRUNK_BLOCKS[0]}-'
+          f'{TRUNK_BLOCKS[1] - 1} ({n_blocks} stacked, {n_blocks // PIPE_STAGES} '
+          f'a stage) on {PIPE_CLIPS} clips (1024, 4, 14, 14) bf16, '
+          f'n_micro={PIPE_MICRO}: rel L2 to sequential_apply {trunk_rel:.3e} '
+          f'(tol {TOL_LOGITS_BF16:g}); {trunk_pp_ms:.3f} ms pipelined vs '
+          f'{trunk_seq_ms:.3f} ms sequential', flush=True)
+    check(bool(torch.isfinite(trunk_pp).all())
+          and trunk_rel <= TOL_LOGITS_BF16 and counts(na) == (0, 0, 0),
+          f'the trunk pipeline is off sequential_apply: {trunk_rel}')
+    out['trunk'] = {'blocks': n_blocks, 'clips': PIPE_CLIPS,
+                    'rel_l2': trunk_rel, 'pipelined_ms': trunk_pp_ms,
+                    'sequential_ms': trunk_seq_ms}
+
+    # (d) the expert-parallel MSTRN head of phase 12's TRN, and moe_apply
+    trn = pretorched.trn(num_classes=400, num_segments=8, consensus='MSTRN',
+                         arch='resnet50')
+    randomize_bn(trn, torch, seed=3)
+    trn.cuda().eval()
+    videos = torch.randn(*TRN_VIDEOS, device='cuda', generator=g)
+    fwd, spec = trn_expert_forward(trn)
+    with torch.inference_mode():
+        stack = mstrn_expert_params(trn.temporal_relation, spec)
+        dense, expert = trn(videos), fwd(videos, stack)
+        trn_rel = rel_to_max(expert, dense)
+        frames = videos.transpose(1, 2).reshape(-1, *TRN_VIDEOS[1:2],
+                                                *TRN_VIDEOS[3:])
+        feats = trn.base_module._logits(trn.base_module._features(
+            frames)).reshape(TRN_VIDEOS[0], 8, -1)
+        from pretorched_tpu_torch.parallel.moe import mstrn_expert_apply
+        head_ms = median_ms(lambda: mstrn_expert_apply(stack, spec, feats))
+        dense_head_ms = median_ms(lambda: trn.temporal_relation(feats[:, None]))
+        trn.bfloat16()
+        dense_bf16, expert_bf16 = trn(videos).float(), fwd(videos).float()
+        trn_rel_bf16 = rel_l2(expert_bf16, dense_bf16)
+    print(f'trn_expert_forward (MSTRN over resnet50, {spec["E"]} experts, '
+          f'{TRN_VIDEOS[0]} videos x 8 segments x 224 px, the stack '
+          f'precomputed): f32 (TF32 off) max|expert - dense| / max|dense| '
+          f'{trn_rel:.3e} (tol {TOL_TRN_EXPERT:g}); bf16 rel L2 '
+          f'{trn_rel_bf16:.3e} (tol {TOL_LOGITS_BF16:g}); the f32 head alone '
+          f'{head_ms:.3f} ms as experts vs {dense_head_ms:.3f} ms dense',
+          flush=True)
+    check(trn_rel <= TOL_TRN_EXPERT and trn_rel_bf16 <= TOL_LOGITS_BF16,
+          f'the expert-parallel TRN is off the dense one: {trn_rel}, '
+          f'{trn_rel_bf16}')
+    out['trn'] = {'experts': spec['E'], 'rel_to_max_f32': trn_rel,
+                  'rel_l2_bf16': trn_rel_bf16, 'head_ms': head_ms,
+                  'dense_head_ms': dense_head_ms}
+
+    # moe_apply on pooled resnet50 features of MOE_TOKENS frames
+    base = trn.base_module.float()
+    frames = torch.randn(MOE_TOKENS, 3, 224, 224, device='cuda', generator=g)
+    with torch.inference_mode():
+        tokens = torch.cat([base._logits(base._features(f))
+                            for f in frames.split(256)]).float()
+    del frames, trn, fwd, stack, videos
+    d = tokens.shape[1]
+    rng = np.random.RandomState(21)
+    experts = {k: v.cuda() for k, v in stack_block_params([
+        {'w1': rng.randn(d, MOE_HIDDEN).astype(np.float32) / d ** 0.5,
+         'w2': rng.randn(MOE_HIDDEN, d).astype(np.float32) / MOE_HIDDEN ** 0.5}
+        for _ in range(MOE_EXPERTS)]).items()}
+    # standardized features: their shared mean would route every token to
+    # one expert; the router's logits are then N(0, 1), expert 0's skewed
+    # to N(0, MOE_SKEW^2), so it wins about a third of the tokens
+    tokens = (tokens - tokens.mean(0)) / tokens.std(0).clamp_min(1e-6)
+    router = torch.from_numpy(rng.randn(d, MOE_EXPERTS).astype(np.float32)
+                              / d ** 0.5).cuda()
+    router[:, 0] *= MOE_SKEW
+
+    def expert_fn(p, t):
+        return F.gelu(t @ p['w1']) @ p['w2']
+
+    with torch.inference_mode():
+        y, aux, metrics = moe_apply(expert_fn, experts, tokens, router,
+                                    capacity_factor=1.0)
+        ref = torch.from_numpy(moe_reference(expert_fn, experts, tokens,
+                                             router, capacity_factor=1.0))
+        moe_rel = rel_to_max(y.cpu(), ref)
+        dropped = float(metrics['fraction_dropped'])
+        moe_ms = median_ms(lambda: moe_apply(expert_fn, experts, tokens,
+                                             router, capacity_factor=1.0))
+    print(f'moe_apply: {MOE_TOKENS} pooled {d}-d resnet50 features '
+          f'(standardized), '
+          f'{MOE_EXPERTS} experts (GELU MLP, hidden {MOE_HIDDEN}), skewed '
+          f'router, capacity factor 1.0 (capacity {metrics["capacity"]}): '
+          f'fraction dropped {dropped:.4f}, aux loss {float(aux):.4f}; '
+          f'max|y - moe_reference| / max|ref| {moe_rel:.3e} (tol '
+          f'{TOL_MOE:g}); {moe_ms:.3f} ms', flush=True)
+    check(moe_rel <= TOL_MOE and dropped > 0,
+          f'moe_apply is off the per-token oracle: {moe_rel}, dropped '
+          f'{dropped}')
+    out['moe'] = {'tokens': MOE_TOKENS, 'experts': MOE_EXPERTS,
+                  'fraction_dropped': dropped, 'aux_loss': float(aux),
+                  'rel_to_max': moe_rel, 'ms': moe_ms}
+
+    # (e) the mesh paths at world size 1 on NCCL
+    mesh = meshes.make_mesh((1, 1), ('data', 'stage'))
+    mesh_ep = meshes.make_mesh((1, 1), ('data', 'expert'))
+    check(torch.distributed.get_backend() == 'nccl',
+          f'the mesh runs on {torch.distributed.get_backend()}')
+    with torch.inference_mode():
+        trunk_mesh = pipeline_apply(block_fn, stacked, h, mesh,
+                                    n_micro=PIPE_MICRO, batch_axes=('data',))
+        y_mesh, _, _ = moe_apply(expert_fn, experts, tokens, router, mesh_ep,
+                                 capacity_factor=1.0)
+    mesh_rel = (rel_l2(trunk_mesh, trunk_pp), rel_to_max(y_mesh, y))
+    print(f'the mesh paths at world size 1 (NCCL, {mesh}, {mesh_ep}): '
+          f'pipeline_apply rel L2 {mesh_rel[0]:.3e} to the in-process '
+          f'pipeline, moe_apply {mesh_rel[1]:.3e} (tol {TOL_PIPE_MESH:g})',
+          flush=True)
+    check(max(mesh_rel) <= TOL_PIPE_MESH,
+          f'the mesh paths differ from the in-process ones: {mesh_rel}')
+    out['mesh'] = {'pipeline_rel_l2': mesh_rel[0], 'moe_rel': mesh_rel[1]}
+    torch.distributed.destroy_process_group()
+    del stacked, template, h, tokens, experts
+    torch.cuda.empty_cache()
+    return out, fwd_by_kernel, bwd_by_kernel
+
+
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
@@ -3997,7 +4452,14 @@ def main():
           '1: --zero and --zero fsdp, ZeRO train steps')
     exported = export_mesh_path(pretorched, torch, np, na, fb_cuda, cli)
 
-    phase('21. result')
+    phase('21. pipeline and experts: nonlocalresnet3d50 pipelined over its '
+          f'four stages ({PIPE_CLIPS} clips forward, {PIPE_TRAIN_CLIPS} '
+          'backward, 4 microbatches), resnet3d152 layer3 as a 4-stage '
+          'trunk, the expert-parallel MSTRN head, moe_apply, the mesh paths '
+          'at world size 1')
+    piped, pipe_fwd, pipe_bwd = pipeline_moe_path(pretorched, na, torch, np)
+
+    phase('22. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -4030,6 +4492,9 @@ def main():
          'shapes_mnist': [list(x) for x in MNIST_SHAPES],
          'launches_by_kernel': fwd_by_kernel,
          'launches_exported': exported['k1_launches'],
+         'launches_pipelined': {'forward': pipe_fwd, 'backward': pipe_bwd},
+         'pipelined_shapes': {k: v for k, v in piped['kernel_rows'].items()
+                              if k.startswith('fwd')},
          'serving_batches': served['k1_batches'],
          **k1['layer2'], 'shape': list(SLICE_SHAPES['layer2']),
          'dtype': 'bfloat16'},
@@ -4065,6 +4530,10 @@ def main():
         {'name': 'nonlocal_attention_bwd_dq', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
          'launches': train_launches[1], **k1b['layer2']['dq'],
+         'launches_pipelined': {k: n for k, n in pipe_bwd.items()
+                                if k.startswith('dq')},
+         'pipelined_shapes': {k: v for k, v in piped['kernel_rows'].items()
+                              if k.startswith('dq')},
          'launches_by_kernel': {k[3:]: n for k, n in train_by_kernel.items()
                                 if k.startswith('dq')},
          'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
@@ -4076,6 +4545,10 @@ def main():
         {'name': 'nonlocal_attention_bwd_dkv', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '172',
          'launches': train_launches[2], **k1b['layer2']['dkv'],
+         'launches_pipelined': {k: n for k, n in pipe_bwd.items()
+                                if k.startswith('dkv')},
+         'pipelined_shapes': {k: v for k, v in piped['kernel_rows'].items()
+                              if k.startswith('dkv')},
          'launches_by_kernel': dkv_by_kernel,
          'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
         {'name': 'nonlocal_attention_bwd_dkv_wide', 'route': 'cuda',
@@ -4108,6 +4581,9 @@ def main():
         'export_mesh': {k: v for k, v in exported.items()
                         if not k.endswith('_launches')},
         'native': {k: native[k] for k in ('buckets', 'path_clips_per_s')},
+        'pipeline': {k: piped[k] for k in ('forward', 'backward', 'trunk',
+                                           'mesh')},
+        'moe': {'trn': piped['trn'], 'moe_apply': piped['moe']},
         'card': card}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -26,7 +26,9 @@ in native NCTHW layout. One class covers the five variants:
   gradient is taken: backprop keeps only each block's input and recomputes
   its inside, as the JAX module's ``nn.remat`` does (resnet3d.py:210-233);
 * ``stage_slice``: ``forward(x, stage_slice=(lo, hi))`` runs pipeline
-  segments lo..hi-1 only (resnet3d.py:237-284).
+  segments lo..hi-1 only (resnet3d.py:237-284); ``split_stage_variables``
+  and ``pipeline_stage_fns`` give the four segments' states and functions
+  for ``parallel.pipeline`` (resnet3d.py:292-317).
 
 ``resneti3d50`` is the ResNet3D-50 that loads a 2D ``resnet50`` checkpoint,
 each 2D kernel broadcast over time (``zoo/convert.inflate_kernel``).
@@ -341,6 +343,33 @@ TORCH_RENAMES = {'last_linear': 'fc'}
 # the top-level parameter names of each ``stage_slice`` segment
 PIPELINE_STAGE_PREFIXES = (('conv1', 'bn1', 'layer1'), ('layer2',),
                            ('layer3',), ('layer4', 'last_linear'))
+
+
+def split_stage_variables(state):
+    """Partition a ``VideoResNet`` state (``state_dict()``, or any mapping
+    of parameter and buffer names) into the four pipeline stages' dicts by
+    top-level name, for ``parallel.pipeline.pipeline_apply_stages``. A
+    ``NonLocalResNet3D``'s blocks (``layer2.*``, ``layer3.*``) fall in
+    stages 1 and 2."""
+    stage_of = {top: i for i, prefixes in enumerate(PIPELINE_STAGE_PREFIXES)
+                for top in prefixes}
+    out = [{} for _ in PIPELINE_STAGE_PREFIXES]
+    for key, value in state.items():
+        out[stage_of[key.split('.')[0]]][key] = value
+    return out
+
+
+def pipeline_stage_fns(model):
+    """The four ``(stage_state, x) -> y`` callables matching
+    ``split_stage_variables``: each runs one ``stage_slice`` of ``model``
+    with that stage's tensors (``torch.func.functional_call``); composed in
+    order they equal the whole forward."""
+    def make(i):
+        def fn(stage_state, x):
+            return torch.func.functional_call(
+                model, stage_state, (x,), {'stage_slice': (i, i + 1)})
+        return fn
+    return [make(i) for i in range(len(PIPELINE_STAGE_PREFIXES))]
 
 CONFIGS = {
     'resnet3d10': ('basic', (1, 1, 1, 1)),

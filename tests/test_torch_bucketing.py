@@ -30,7 +30,7 @@ import pretorched_tpu_torch
 from pretorched_tpu.utils import bucketing as jb
 from pretorched_tpu_torch.utils import bucketing as tb
 
-from torch_port_helpers import carry_model, randomize_bn
+from torch_port_helpers import carry_model, randomize_bn, zeros_init
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -169,8 +169,11 @@ def test_native_frames_cli_matches_jax_cli(tmp_path, monkeypatch, capsys):
             '--frame-multiple', '4', '--clips', '2', '--batch-size', '3',
             '-j', '1', '--print-freq', '1']
     # the JAX CLI on one device, as the port runs (the suite's 8 virtual
-    # devices compile a sharded program for the same numbers)
+    # devices compile a sharded program for the same numbers), its factory
+    # from zeros on a template that the file overwrites
     from pretorched_tpu import parallel as jparallel
+    from pretorched_tpu.core import factory as jfactory
+    monkeypatch.setattr(jfactory, 'init_variables', zeros_init)
     one_device = jparallel.make_mesh
     monkeypatch.setattr(jparallel, 'make_mesh', lambda: one_device(
         devices=jax.devices()[:1]))

@@ -929,3 +929,48 @@ def test_export_on_the_card_records_the_operators(cuda, tmp_path):
             want = model(x)
         assert ((got.float() - want.float()).norm()
                 / want.float().norm()).item() <= 5e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+def test_pipelined_nonlocal_forward_launches_k1_per_microbatch(cuda, dtype):
+    """``nonlocalresnet3d50`` pipelined over its four stages on the card
+    (``devices=['cuda:0'] * 4``, 4 microbatches of 2 clips x 8 frames x 112
+    px, every BN randomized): 20 K1-fwd launches, 5 a microbatch (bf16: 2
+    wgmma + 3 wgmma_wide), and the logits of the unpipelined forward (rel
+    L2: bf16 5e-2 as ``chip_smoke.py``'s phase 21, f32 with TF32 off
+    1e-4)."""
+    import pretorched_tpu_torch as pretorched
+    from pretorched_tpu_torch.models.resnet3d import (pipeline_stage_fns,
+                                                      split_stage_variables)
+    from pretorched_tpu_torch.parallel.pipeline import pipeline_apply_stages
+
+    torch.manual_seed(0)
+    model = pretorched.nonlocalresnet3d50(num_classes=400, pretrained=None)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.2, 0.2, generator=g)
+    model.to(cuda).eval()
+    if dtype == 'bfloat16':
+        model.bfloat16()
+    x = torch.randn(8, 3, 8, 112, 112, device=cuda)
+    fwd = na.nonlocal_attention_cuda
+    before = dict(fwd.by_kernel), fwd.launches
+    with torch.inference_mode():
+        got = pipeline_apply_stages(
+            pipeline_stage_fns(model),
+            split_stage_variables(model.state_dict()), x,
+            devices=['cuda:0'] * 4, n_micro=4).float()
+        assert fwd.launches == before[1] + 20
+        if dtype == 'bfloat16':
+            assert fwd.by_kernel['wgmma'] == before[0]['wgmma'] + 8
+            assert fwd.by_kernel['wgmma_wide'] == before[0]['wgmma_wide'] + 12
+        want = model(x).float()
+    rel = ((got - want).norm() / want.norm()).item()
+    assert torch.isfinite(got).all() and rel <= (
+        5e-2 if dtype == 'bfloat16' else 1e-4), rel

@@ -16,6 +16,7 @@ from pretorched_tpu_torch.models.nonlocalnet import NonLocalBlock
 
 from torch_port_helpers import (carry_model, port_state_dict, randomize_bn,
                                 to_nt, to_numpy_tree)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 MODES = ['embedded_gaussian', 'gaussian', 'dot_product', 'concatenation']
 

@@ -24,6 +24,7 @@ from pretorched_tpu_torch.models.layers import SpaceToDepthConv
 from pretorched_tpu_torch.models.resnet import ResNet
 
 from torch_port_helpers import port_state_dict, randomize_bn, to_numpy_tree
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _carry(name):

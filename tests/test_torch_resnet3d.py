@@ -13,6 +13,7 @@ import pretorched_tpu
 from pretorched_tpu_torch.zoo.convert import state_dict_from_flax
 
 from torch_port_helpers import carry_model, randomize_bn
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize('name,shortcut', [('resnet3d18', 'A'),

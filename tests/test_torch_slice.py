@@ -13,6 +13,7 @@ import subprocess
 import sys
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,7 +29,8 @@ from pretorched_tpu_torch.parallel.evaluate import multi_clip_eval_step
 from pretorched_tpu_torch.transforms.fused import fused_preprocess
 from pretorched_tpu_torch.zoo import io
 
-from torch_port_helpers import port_state_dict, randomize_bn
+from torch_port_helpers import port_state_dict, randomize_bn, zeros_init
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAME, TAG = 'nonlocalresnet3d50', 'kinetics-400'
@@ -225,8 +227,19 @@ def _run_cli(script, argv, capsys):
 
 def test_eval_cli_matches_jax_cli(hosted, tmp_path, monkeypatch, capsys):
     """Both CLIs on one frame folder and one checkpoint print the same
-    final ``* Acc@1 ... Acc@5 ...`` line (clips at 32 px for CPU cost)."""
+    final ``* Acc@1 ... Acc@5 ...`` line (clips at 32 px for CPU cost).
+    The JAX CLI runs on one device, as the port does (the suite's 8
+    virtual devices compile a sharded program and pad each batch to 8
+    videos, for the same numbers), and its factory starts from zeros on a
+    ``jax.eval_shape`` template, which the hosted file (every variable of
+    the exporting model) overwrites."""
+    from pretorched_tpu import parallel as jparallel
+    from pretorched_tpu.core import factory as jfactory
     _, home = hosted
+    monkeypatch.setattr(jfactory, 'init_variables', zeros_init)
+    one_device = jparallel.make_mesh
+    monkeypatch.setattr(jparallel, 'make_mesh', lambda: one_device(
+        devices=jax.devices()[:1]))
     monkeypatch.setenv('PRETORCHED_HOME', str(home / 'jax'))
     (home / 'jax' / 'weights').mkdir(parents=True, exist_ok=True)
     pth = home / 'jax' / 'weights' / _pth_name()

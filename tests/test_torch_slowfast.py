@@ -30,6 +30,7 @@ from pretorched_tpu_torch.ops.fused_block import \
 from pretorched_tpu_torch.parallel.evaluate import multi_clip_eval_step
 
 from torch_port_helpers import port_state_dict, randomize_bn, to_nt
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-3
 VIDEOS, CLIPS = 2, 2

@@ -25,6 +25,7 @@ from pretorched_tpu_torch.models.layers import (SpaceToDepthConv,
 from pretorched_tpu_torch.ops import space_to_depth as psd
 
 from torch_port_helpers import port_state_dict, to_numpy_tree
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _x(shape, seed=0):

@@ -49,6 +49,7 @@ from pretorched_tpu_torch.zoo.checkpoint import load_checkpoint, save_checkpoint
 
 from torch_port_helpers import (assert_state_matches as _assert_state_matches,
                                 port_state_dict, randomize_bn, to_nt)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = dict(block='basic', layers=(1, 1, 1, 1), num_classes=5,
             shortcut_type='B', nonlocal_layers=(0, 1, 1, 0))
@@ -142,11 +143,25 @@ def test_accumulated_train_steps_match_jax(variables, jax_accum):
     assert int(model.bn1.num_batches_tracked) == 2 * STEPS
 
 
-def test_remat_equals_no_remat(variables):
+@pytest.fixture(scope='module')
+def port_plain(variables):
+    """(losses, model) of the port's STEPS f32 steps on ``_batch(2)``, the
+    uninterrupted run that remat and the checkpoint resume are held to bit
+    for bit, on one torch thread as ``one_torch_thread`` runs the tests."""
+    x, labels = _batch(2)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return _port_run(variables, x, labels)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_remat_equals_no_remat(variables, port_plain):
     """Checkpointing layer1's blocks changes memory, not numbers, and the
     recompute does not update BN's running statistics a second time."""
     x, labels = _batch(2)
-    losses, plain = _port_run(variables, x, labels)
+    losses, plain = port_plain
     losses_r, rematted = _port_run(variables, x, labels, remat=(0,))
     assert rematted.remat == (0,)
     assert losses_r == losses
@@ -182,10 +197,11 @@ def test_finetune_mask_freezes_bit_for_bit(variables):
             assert torch.equal(p, before[n]), n
 
 
-def test_checkpoint_resume_equals_uninterrupted(variables, tmp_path):
+def test_checkpoint_resume_equals_uninterrupted(variables, port_plain,
+                                                tmp_path):
     x, labels = _batch(2)
     xt, lt = torch.from_numpy(x), torch.from_numpy(labels)
-    _, straight = _port_run(variables, x, labels)
+    _, straight = port_plain
 
     model = _port_model(variables)
     opt, sched = sgd_step_decay(model.parameters(), **SGD)

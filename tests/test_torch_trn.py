@@ -29,6 +29,7 @@ from pretorched_tpu_torch.models.trn import \
 
 from torch_port_helpers import (carry_model, port_state_dict, randomize_bn,
                                 to_nt)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 SEGMENTS = 4
 BACKBONE = dict(block='basic', layers=(1, 1, 1, 1),

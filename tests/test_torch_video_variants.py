@@ -28,7 +28,8 @@ from pretorched_tpu_torch.models.resnet3d import (PIPELINE_STAGE_PREFIXES,
 from pretorched_tpu_torch.zoo.convert import state_dict_from_flax
 
 from torch_port_helpers import (carry_model, port_state_dict, randomize_bn,
-                                to_nt)
+                                to_nt, zeros_init)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 NARROW = (16, 16, 32, 32)
 VARIANTS = {
@@ -192,6 +193,10 @@ def test_resneti3d50_inflates_a_2d_resnet50(tmp_path, monkeypatch):
     assert got['conv1.weight'].shape == (64, 3, 7, 7, 7)
     for t in range(7):
         assert torch.equal(got['conv1.weight'][:, :, t], w2)
+    # every variable comes from the file (strict): the JAX factory starts
+    # from zeros on a template instead of compiling its init
+    from pretorched_tpu.core import factory as jfactory
+    monkeypatch.setattr(jfactory, 'init_variables', zeros_init)
     jmodel = pretorched_tpu.resneti3d50()
     want = state_dict_from_flax(jmodel.variables)
     assert sorted(want) == sorted(got)

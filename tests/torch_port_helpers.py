@@ -117,6 +117,21 @@ def jax_variables_from_port(module, state_dict, input_shape,
     return convert_state_dict(sd, template, **convert_kw)
 
 
+def zeros_init(module, input_shape, seed=0, **call_kwargs):
+    """A stand-in for the JAX factories' ``core.factory.init_variables``:
+    zeros on a ``jax.eval_shape`` template, nothing compiled. For a JAX
+    factory whose every variable a hosted file then overwrites."""
+    import jax
+
+    shapes = jax.eval_shape(
+        lambda x: module.init({'params': jax.random.key(seed),
+                               'dropout': jax.random.key(seed)}, x,
+                              **call_kwargs),
+        jax.ShapeDtypeStruct(input_shape, np.float32))
+    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                  dict(shapes))
+
+
 def run_jax(fn, *args):
     """``fn(*args)`` jitted at XLA's backend optimization level 0: a parity
     test runs each program once, so compiling is most of its cost, and
