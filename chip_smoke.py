@@ -210,7 +210,27 @@ Drives the port's main path once on one CUDA card and checks it:
     experts, a skewed router at capacity factor 1.0, against
     ``moe_reference``, with the dropped fraction; the mesh paths of ``pipeline_apply`` and
     ``moe_apply`` at world size 1 on NCCL against the in-process results;
-22. a line with each kernel's numbers and the card, then
+22. the seq axis (``parallel.seq``): phase 4's ``nonlocalresnet3d50``,
+    every BN randomized (zeroing the blocks' ``W.1`` moves the logits),
+    time-sharded over 2 shards in the one-process stacked form
+    (``seq_parallel(model, shards=2)``): K1-fwd, K1-dq and K1-dkv at the
+    stacked seq shapes (16 x 16 frames: layer 2 (16, 3136, 6272, 256,
+    256), layer 3 (16, 392, 784, 512, 512)) against their plain versions,
+    timed with SDPA and the bound; 12 bf16 train steps of phase 6's batch
+    (8 clips x 32 x 224 px, SGD as phase 6), each with 5 launches of each
+    K1 kernel (2 wgmma + 3 wgmma_wide) at those shapes, the median of
+    steps 2-12 by CUDA events beside phase 6's unsharded step (the same
+    statistic), with the peak memory; the seq step of 2 clips against the
+    unsharded step from the same weights: in f64 (train-mode BN, the
+    attention plain, in f64) to rounding, and in f32 with the kernels
+    (TF32 off; eval BN and a loss linear in the logits, where f32 is well
+    conditioned) each parameter's gradient held to the f64 step's, with a
+    planted fault (the halos send no gradient back) that must fail that
+    check; and the whole-batch backward (eval BN, TF32 off) of 8 clips
+    against the sum of its 4 microbatches' backwards, in f32 with cuDNN on
+    and off on the weights as they are and with the attention tempered
+    (printed), and in f64 (held to rounding);
+23. a line with each kernel's numbers and the card, then
     ``{"ok": true, "device": {...}}``. Every phase's heading names the card
     and its power limit.
 
@@ -409,6 +429,29 @@ PIPE_SHAPES = {'layer2': (5, 6272, 6272, 256, 256),
 PIPE_TRAIN_SHAPES = {'layer2': (2, 6272, 6272, 256, 256),
                      'layer3': (2, 784, 784, 512, 512)}
 TRUNK_BLOCKS = (1, 33)
+# phase 22: 2 time shards stacked on the batch (parallel.seq's one-process
+# form): each non-local block attends with its shard's queries to every
+# key, K1 at (2 x 8 clips, N, 2 N) a pass
+SEQ_SHARDS, SEQ_F32_CLIPS, WHOLE_MICRO = 2, 2, 4
+SEQ_SHAPES = {'layer2': (16, 3136, 6272, 256, 256),
+              'layer3': (16, 392, 784, 512, 512)}
+# the seq step against the unsharded one (2 clips): in f64 (train-mode
+# BN, cross-entropy) the loss and each gradient within TOL_SEQ_F64
+# (grad_spread's units; 0 and 1.7e-10 read on an H100 80GB HBM3 at 700
+# W). In f32 with the kernels (TF32 off) on eval BN, a loss linear in the
+# logits and the attention logits tempered to a spread of 1, the seq and
+# the unsharded step each within TOL_SEQ_F32 of the f64 step (each
+# gradient, grad_spread; 2.6e-03 and 1.9e-03 read there at worst, 1.2e-04
+# and 9.2e-05 at the median) and TOL_SEQ_LOSS (the loss; 2.4e-07), and the
+# seq step with its halo gradients dropped beyond TOL_SEQ_F32 (1.05 read,
+# 8.2e-02 at the median). Untempered, f32 is no yardstick on these random
+# weights: the logits spread by up to 2e4, and the unsharded f32 step with
+# the plain attention sits 2.4 (all gradients together, rel L2) from f64
+# (tools/port_seq_f32_probe.py). The whole
+# batch's backward against its microbatches' is held in f64 at
+# TOL_SEQ_F64 too (2.7e-13 read there); in f32 it is printed (5e-4 to
+# 1e-3 at the median, with cuDNN on and off)
+TOL_SEQ_F64, TOL_SEQ_LOSS, TOL_SEQ_F32 = 1e-6, 1e-5, 1e-2
 MOE_TOKENS, MOE_EXPERTS, MOE_HIDDEN, MOE_SKEW = 1024, 8, 1024, 3.0
 # each parameter's gradient through the pipeline against the unpipelined
 # backward of the same microbatches, |diff| over the sum of the
@@ -1227,7 +1270,8 @@ def profile_step(step, x, labels, torch):
 
 
 def train_path(pretorched, na, torch, np, cli):
-    """Phase 6; returns the launch counts of the timed steps."""
+    """Phase 6; returns the launch counts of the timed steps and the step's
+    median ms by CUDA events."""
     from pretorched_tpu_torch.parallel.train import (make_train_step,
                                                      sgd_step_decay)
     from pretorched_tpu_torch.zoo.checkpoint import (load_checkpoint,
@@ -1316,7 +1360,7 @@ def train_path(pretorched, na, torch, np, cli):
           'the checkpoint did not restore exactly')
     del fresh, opt2, sched2, state, at_save, params, bufs, model, opt, x
     torch.cuda.empty_cache()
-    return launches, by_kernel, layer3
+    return launches, by_kernel, layer3, step_dev
 
 
 def attention_f64(q, k, v, scale=1.0):
@@ -3879,16 +3923,16 @@ def export_mesh_path(pretorched, torch, np, na, fb_cuda, video_cli):
     return out
 
 
-def microbatch_kernel_rows(na, torch):
-    """Phase 21: K1-fwd at the pipelined forward's microbatch shapes and
-    K1-dq, K1-dkv at the pipelined backward's, bf16, each held to its plain
-    version at phase 3's and phase 5's tolerances, with its time, the plain
-    version's, SDPA's and the bound."""
-    g = torch.Generator(device='cuda').manual_seed(21)
+def k1_rows(na, torch, fwd_shapes, bwd_shapes, what, seed):
+    """K1-fwd at ``fwd_shapes`` and K1-dq, K1-dkv at ``bwd_shapes`` ({name:
+    (B, N, Nk, C, Cv)}), bf16, each held to its plain version at phase 3's
+    and phase 5's tolerances, with its time, the plain version's, SDPA's
+    and the bound."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
     rows = {}
     for (name, (b, n, nk, c, cv)), op in (
-            *((item, 'fwd') for item in PIPE_SHAPES.items()),
-            *((item, 'bwd') for item in PIPE_TRAIN_SHAPES.items())):
+            *((item, 'fwd') for item in fwd_shapes.items()),
+            *((item, 'bwd') for item in bwd_shapes.items())):
         q = (torch.randn(b, n, c, device='cuda', generator=g)
              / c ** 0.25).bfloat16()
         k = (torch.randn(b, nk, c, device='cuda', generator=g)
@@ -3913,7 +3957,7 @@ def microbatch_kernel_rows(na, torch):
                 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
                 'library_ms': lib_ms, 'bound_ms': bounds['fwd'][0],
                 'bound_by': bounds['fwd'][1]}
-            print(f'K1-fwd {name} microbatch {shape} bf16 [{kernel}]: '
+            print(f'K1-fwd {name} {what} {shape} bf16 [{kernel}]: '
                   f'max|out-plain|={err:.3e} (tol {tol:g}), /max|plain| '
                   f'{err_rel:.3e} (tol {TOL_REL_BF16:g}), max|lse-plain|='
                   f'{err_lse:.3e} (tol {tol_lse:g}); kernel {ms:.3f} ms, '
@@ -3957,7 +4001,7 @@ def microbatch_kernel_rows(na, torch):
                                'dk, dv together)',
                     'bound_ms': bounds[op_name][0],
                     'bound_by': bounds[op_name][1]}
-            print(f'K1-dq, K1-dkv {name} microbatch {shape} bf16: '
+            print(f'K1-dq, K1-dkv {name} {what} {shape} bf16: '
                   f'max|d-plain|/max|d| dq {rels[0]:.2e}, dk {rels[1]:.2e}, '
                   f'dv {rels[2]:.2e} (tol {TOL_BWD["bfloat16"]:g}); dq '
                   f'{dq_ms:.3f} ms (bound {bounds["dq"][0]:.4f}), dkv '
@@ -4007,7 +4051,8 @@ def pipeline_moe_path(pretorched, na, torch, np):
     from pretorched_tpu_torch.parallel.pipeline import (
         pipeline_apply, pipeline_apply_stages, sequential_apply,
         stack_block_params)
-    out = {'kernel_rows': microbatch_kernel_rows(na, torch)}
+    out = {'kernel_rows': k1_rows(na, torch, PIPE_SHAPES, PIPE_TRAIN_SHAPES,
+                                  'microbatch', 21)}
     devices = ['cuda:0'] * PIPE_STAGES
     g = torch.Generator(device='cuda').manual_seed(21)
 
@@ -4289,6 +4334,339 @@ def pipeline_moe_path(pretorched, na, torch, np):
     return out, fwd_by_kernel, bwd_by_kernel
 
 
+def grad_spread(got, want):
+    """{parameter: |got - want| / |want|}, |want| taken as at least 1e-4 of
+    the largest gradient norm (biases that feed a BN or a softmax have no
+    gradient but rounding)."""
+    floor = 1e-4 * max(g.norm().item() for g in want.values())
+    return {n: (got[n] - want[n]).norm().item()
+            / max(want[n].norm().item(), floor) for n in want}
+
+
+def seq_path(pretorched, na, torch, np, cli, unsharded_ms):
+    """Phase 22: the seq axis (see the module docstring). ``unsharded_ms``:
+    phase 6's step by CUDA events. Returns the phase's numbers."""
+    import copy
+
+    from pretorched_tpu_torch.models import nonlocalnet
+    from pretorched_tpu_torch.parallel.seq import seq_parallel
+    from pretorched_tpu_torch.parallel.train import (cross_entropy,
+                                                     make_train_step,
+                                                     sgd_step_decay)
+    out = {'kernel_rows': k1_rows(na, torch, SEQ_SHAPES, SEQ_SHAPES, 'seq',
+                                  22)}
+    model = pretorched.nonlocalresnet3d50(num_classes=400,
+                                          pretrained='kinetics-400')
+    randomize_bn(model, torch, seed=22)
+    model.cuda()
+    base = copy.deepcopy(model)          # f32, unsharded: the twin
+    x, labels = train_batch(cli, model.settings, torch)
+    blocks = [m for m in model.modules()
+              if isinstance(m, nonlocalnet.NonLocalBlock)]
+
+    # (a) the attention reaches the logits: zeroing W.1 moves them
+    model.bfloat16().eval()
+    with torch.inference_mode():
+        on = model(x[:2]).float()
+        kept = [b.W[1].weight.clone() for b in blocks]
+        for b in blocks:
+            b.W[1].weight.zero_()
+        off = model(x[:2]).float()
+        for b, w in zip(blocks, kept):
+            b.W[1].weight.copy_(w)
+    moved = rel_l2(off, on)
+    print(f'every BN randomized: zeroing the {len(blocks)} blocks\' W.1 '
+          f'moves the bf16 logits of 2 clips by rel L2 {moved:.3e}',
+          flush=True)
+    check(moved > 1e-3, f'W.1 does not reach the logits: {moved}')
+
+    # (b) bf16 train steps, time-sharded over 2 shards in one process
+    seq_parallel(model, shards=SEQ_SHARDS)
+    opt, sched = sgd_step_decay(model.parameters(), lr=TRAIN_LR,
+                                momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(model, opt, sched, remat=(0,))
+    attention, shapes = nonlocalnet.auto_nonlocal_attention, []
+
+    def record(q, k, v, *args):
+        shapes.append((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                       v.shape[2]))
+        return attention(q, k, v, *args)
+
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(na, 0)
+    device_ms, losses = [], []
+    for i in range(TRAIN_STEPS):
+        before = counts(na)
+        nonlocalnet.auto_nonlocal_attention = record if i == 0 else attention
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        try:
+            e0.record()
+            res = step(x, labels)
+            e1.record()
+            torch.cuda.synchronize()
+        finally:
+            nonlocalnet.auto_nonlocal_attention = attention
+        device_ms.append(e0.elapsed_time(e1))
+        losses.append(res['loss'].item())
+        launched = tuple(a - b for a, b in zip(counts(na), before))
+        print(f'seq step {i + 1}: loss {losses[-1]:.4f} '
+              f'{device_ms[-1]:.1f} ms CUDA events, launches fwd/dq/dkv '
+              f'{launched}', flush=True)
+        check(launched == (5, 5, 5) and np.isfinite(losses[-1]),
+              f'seq step {i + 1}: launched {launched}, loss {losses[-1]}')
+    launches, by_kernel = counts(na), kernel_counts(na)
+    expect_kernels(na, TRAIN_KERNELS, TRAIN_STEPS, 'seq train run')
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 - base_gb
+    # phase 6's statistic: the median of steps 2-12
+    step_ms = sorted(device_ms[1:])[len(device_ms[1:]) // 2]
+    want_shapes = [SEQ_SHAPES['layer2']] * 2 + [SEQ_SHAPES['layer3']] * 3
+    print(f'seq_parallel(nonlocalresnet3d50, shards={SEQ_SHARDS}), bf16, '
+          f'remat=(0,), {TRAIN_CLIPS} clips x 32 x 224 px: step '
+          f'{step_ms:.2f} ms by CUDA events (the median of steps '
+          f'2-{TRAIN_STEPS}, {min(device_ms[1:]):.2f}-'
+          f'{max(device_ms[1:]):.2f})'
+          f' against {unsharded_ms:.2f} ms unsharded (phase 6, the same '
+          'statistic) = '
+          f'{TRAIN_CLIPS / step_ms * 1e3:.2f} vs '
+          f'{TRAIN_CLIPS / unsharded_ms * 1e3:.2f} train clips/s; peak '
+          f'device memory above the model {peak_gb:.2f} GiB; K1 launches '
+          f'fwd/dq/dkv {launches} in {TRAIN_STEPS} steps, by program '
+          f'{by_kernel}; K1 calls of the first step (B, N, Nk, C, Cv) '
+          f'{shapes}', flush=True)
+    check(shapes == want_shapes, f'K1 ran at {shapes}, not {want_shapes}')
+    out['train'] = {'shards': SEQ_SHARDS, 'clips': TRAIN_CLIPS,
+                    'step_ms': step_ms, 'steps_ms': device_ms,
+                    'unsharded_step_ms': unsharded_ms, 'losses': losses,
+                    'peak_gib': peak_gb, 'launches': launches,
+                    'launches_by_kernel': by_kernel,
+                    'w1_moves_logits': moved}
+    del model, opt, sched, step, res
+    torch.cuda.empty_cache()
+
+    # (c) the seq step against the unsharded one from the same weights, on
+    # 2 clips. In f64 (the attention plain, in f64) with train-mode BN and
+    # the cross-entropy the two must agree to rounding. In f32 with the
+    # kernels (TF32 off), where f32 is well conditioned: eval BN, a loss
+    # linear in the logits, and each non-local block's theta scaled so
+    # that its attention logits spread by 1 (on these random weights they
+    # spread by up to 2e4: a saturated softmax, whose gradient f32 rounds
+    # away with the plain attention as with the kernels). There each
+    # parameter's gradient of the seq step (and of the unsharded one) is
+    # held to the f64 step's, and a seq step whose halos send no gradient
+    # back to their shard (a planted fault) must fail that check
+    from pretorched_tpu_torch.parallel import seq as seq_rules
+
+    x2, l2 = x[:SEQ_F32_CLIPS], labels[:SEQ_F32_CLIPS]
+    g = torch.Generator(device='cuda').manual_seed(22)
+    w2 = torch.randn(SEQ_F32_CLIPS, 400, device='cuda', generator=g)
+
+    def one_step(shards, dtype, train, weights=base):
+        m = copy.deepcopy(weights).to(dtype).train(train)
+        if shards:
+            seq_parallel(m, shards=shards)
+        if dtype == torch.float64:
+            nonlocalnet.auto_nonlocal_attention = attention_f64
+        try:
+            logits = m(x2.to(dtype))
+            loss = (cross_entropy(logits, l2) if train else
+                    (logits * w2.to(dtype)).sum() / w2.numel())
+            loss.backward()
+        finally:
+            nonlocalnet.auto_nonlocal_attention = attention
+        return loss.item(), {n: p.grad.double()
+                             for n, p in m.named_parameters()}
+
+    stacked_halo = seq_rules._Stacked.halo
+
+    def halo_without_grad(self, x, left, right, value):
+        """The planted fault: the halo frames carry no gradient back."""
+        out = stacked_halo(self, x.detach(), left, right, value)
+        length = x.shape[2]
+        return torch.cat([out[:, :, :left], x, out[:, :, left + length:]],
+                         dim=2)
+
+    def tempered(weights):
+        """A copy of ``weights`` whose non-local blocks' theta is divided
+        by the spread (std) of the block's attention logits in the f64 eval
+        forward of ``x2``; and those spreads."""
+        spreads = []
+
+        def record(q, k, v, *args):
+            spreads.append(torch.bmm(q[:, :256], k.transpose(1, 2))
+                           .std().item())
+            return attention_f64(q, k, v, *args)
+
+        m = copy.deepcopy(weights).double().eval()
+        nonlocalnet.auto_nonlocal_attention = record
+        try:
+            with torch.no_grad():
+                m(x2.double())
+        finally:
+            nonlocalnet.auto_nonlocal_attention = attention
+        del m
+        t = copy.deepcopy(weights)
+        with torch.no_grad():
+            for blk, spread in zip([m for m in t.modules() if isinstance(
+                    m, nonlocalnet.NonLocalBlock)], spreads, strict=True):
+                blk.theta.weight.div_(spread)
+                blk.theta.bias.div_(spread)
+        return t, spreads
+
+    def together(got, want):
+        """All gradients together: rel L2."""
+        return (sum((got[n] - want[n]).norm().item() ** 2 for n in want)
+                / sum(w.norm().item() ** 2 for w in want.values())) ** 0.5
+
+    def spread_line(what, err, got, want):
+        order = sorted(err, key=err.get, reverse=True)
+        top = ', '.join(f'{n} {err[n]:.3e}' for n in order[:3])
+        return (f'{what}: each gradient worst {top}; median '
+                f'{err[order[len(order) // 2]]:.3e}; all together rel L2 '
+                f'{together(got, want):.3e}')
+
+    set_counts(na, 0)
+    loss_d, gd = one_step(None, torch.float64, True)
+    loss_ds, gds = one_step(SEQ_SHARDS, torch.float64, True)
+    f64_err = grad_spread(gds, gd)
+    f64_worst = max(f64_err, key=f64_err.get)
+    f64_loss = abs(loss_ds - loss_d) / loss_d
+    del gd, gds
+    print(f'{SEQ_F32_CLIPS} clips, f64 (the attention in f64, plain; '
+          f'train-mode BN, cross-entropy): loss unsharded {loss_d:.12f}, '
+          f'seq {loss_ds:.12f} (rel {f64_loss:.2e}); each of the '
+          f'{len(f64_err)} gradients against the unsharded step\'s: worst '
+          f'{f64_err[f64_worst]:.3e} ({f64_worst}), median '
+          f'{sorted(f64_err.values())[len(f64_err) // 2]:.3e} (tol '
+          f'{TOL_SEQ_F64:g})', flush=True)
+    check(f64_loss <= TOL_SEQ_F64 and f64_err[f64_worst] <= TOL_SEQ_F64,
+          f'the f64 seq step is off the unsharded step: loss {f64_loss}, '
+          f'{f64_worst} {f64_err[f64_worst]}')
+
+    cool, spreads = tempered(base)
+    lin_d, want = one_step(None, torch.float64, False, cool)
+    lin_ref, ref = one_step(None, torch.float32, False, cool)
+    lin_seq, got = one_step(SEQ_SHARDS, torch.float32, False, cool)
+    seq_rules._Stacked.halo = halo_without_grad
+    try:
+        lin_bad, bad = one_step(SEQ_SHARDS, torch.float32, False, cool)
+    finally:
+        seq_rules._Stacked.halo = stacked_halo
+    f32_launches = counts(na)
+    err = {k: grad_spread(v, want) for k, v in
+           (('seq', got), ('unsharded', ref), ('fault', bad))}
+    worst = {k: max(e.values()) for k, e in err.items()}
+    loss_err = {k: abs(v - lin_d) / abs(lin_d) for k, v in
+                (('seq', lin_seq), ('unsharded', lin_ref), ('fault', lin_bad))}
+    print(f'f32 with the kernels, TF32 off, eval BN, a loss linear in the '
+          f'logits, each block\'s theta divided by its attention logits\' '
+          f'spread ({", ".join(f"{v:.3g}" for v in spreads)}), against the '
+          f'f64 unsharded step (tol {TOL_SEQ_F32:g} each '
+          f'gradient, {TOL_SEQ_LOSS:g} the loss): loss f64 {lin_d:.10e}, rel '
+          f'seq {loss_err["seq"]:.2e}, unsharded '
+          f'{loss_err["unsharded"]:.2e}, planted fault '
+          f'{loss_err["fault"]:.2e}; launches fwd/dq/dkv {f32_launches}',
+          flush=True)
+    for k, g_ in (('seq', got), ('unsharded', ref), ('fault', bad)):
+        print('  ' + spread_line({'seq': 'seq step', 'unsharded':
+                                  'unsharded step', 'fault': 'seq step, '
+                                  'halo gradients dropped'}[k], err[k], g_,
+                                 want), flush=True)
+    check(f32_launches == (15, 15, 15) and worst['seq'] <= TOL_SEQ_F32
+          and worst['unsharded'] <= TOL_SEQ_F32
+          and loss_err['seq'] <= TOL_SEQ_LOSS
+          and loss_err['unsharded'] <= TOL_SEQ_LOSS,
+          f'the f32 steps are off the f64 step: gradients {worst}, loss '
+          f'{loss_err}, launches {f32_launches}')
+    check(worst['fault'] > TOL_SEQ_F32,
+          f'the f32 check passes a seq step without halo gradients: {worst}')
+    out['f32'] = {'clips': SEQ_F32_CLIPS, 'f64_loss_rel': f64_loss,
+                  'logit_spreads': spreads,
+                  'f64_worst': f64_err[f64_worst],
+                  'f64_worst_param': f64_worst,
+                  'loss_rel': loss_err, 'worst': worst,
+                  'worst_param': {k: max(e, key=e.get)
+                                  for k, e in err.items()},
+                  'median': {k: sorted(e.values())[len(e) // 2]
+                             for k, e in err.items()},
+                  'rel_l2': {'seq': together(got, want),
+                             'unsharded': together(ref, want),
+                             'fault': together(bad, want)}}
+    del want, ref, got, bad
+    torch.cuda.empty_cache()
+
+    # (d) the whole-batch backward against its microbatches' (eval BN, a
+    # loss linear in the logits, TF32 off): in f32 with cuDNN on and off,
+    # on the weights as they are and with (c)'s tempered attention, and in
+    # f64 (the attention plain, in f64), where the two must agree
+    g = torch.Generator(device='cuda').manual_seed(22)
+    weights = torch.randn(TRAIN_CLIPS, 400, device='cuda', generator=g)
+
+    def linear_grads(parts, x):
+        total = {}
+        w = weights.to(x.dtype)
+        for xs, ws in zip(x.chunk(parts), w.chunk(parts)):
+            m.zero_grad(set_to_none=True)
+            ((m(xs) * ws).sum() / w.numel()).backward()
+            for n, p in m.named_parameters():
+                total[n] = total[n] + p.grad.double() if n in total \
+                    else p.grad.double()
+        return total
+
+    out['whole_batch'] = {}
+    for name, cudnn, dtype, start in (
+            ('cudnn', True, torch.float32, base),
+            ('no_cudnn', False, torch.float32, base),
+            ('tempered_cudnn', True, torch.float32, cool),
+            ('tempered_no_cudnn', False, torch.float32, cool),
+            ('f64', True, torch.float64, base)):
+        torch.backends.cudnn.enabled = cudnn
+        m = copy.deepcopy(start).to(dtype).eval()
+        if dtype == torch.float64:
+            nonlocalnet.auto_nonlocal_attention = attention_f64
+        t0 = time.perf_counter()
+        try:
+            xs = x.to(dtype)
+            whole = linear_grads(1, xs)
+            parts = linear_grads(WHOLE_MICRO, xs)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.enabled = True
+            nonlocalnet.auto_nonlocal_attention = attention
+        rel = grad_spread(parts, whole)
+        worst = max(rel, key=rel.get)
+        row = {'worst': rel[worst], 'worst_param': worst,
+               'median': sorted(rel.values())[len(rel) // 2],
+               'seconds': time.perf_counter() - t0}
+        out['whole_batch'][name] = row
+        print(f'whole-batch backward of {TRAIN_CLIPS} clips against the sum '
+              f'of its {WHOLE_MICRO} microbatches\' (eval BN, '
+              f'{str(dtype)[6:]}, TF32 off, cuDNN {"on" if cudnn else "off"}'
+              f'{", attention tempered as in (c)" if start is cool else ""}'
+              f'): rel L2 worst {row["worst"]:.3e} ({worst}), median '
+              f'{row["median"]:.3e} over {len(rel)} parameters; '
+              f'{row["seconds"]:.1f} s', flush=True)
+        del whole, parts, xs, m
+    check(out['whole_batch']['f64']['worst'] <= TOL_SEQ_F64,
+          f'in f64 the whole batch\'s gradients are off its microbatches\': '
+          f'{out["whole_batch"]["f64"]}')
+    del cool, base
+    torch.cuda.empty_cache()
+    return out
+
+
+def seq_entries(seq, op):
+    """The seq phase's keys of K1's ``op`` entry in the kernels line: its
+    launches by program in the timed steps and its rows at the seq
+    shapes."""
+    return {'launches_seq': {k: n for k, n in
+                             seq['train']['launches_by_kernel'].items()
+                             if k.startswith(op + ' ')},
+            'seq_shapes': {k: v for k, v in seq['kernel_rows'].items()
+                           if k.startswith(op + ' ')}}
+
+
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
@@ -4386,7 +4764,7 @@ def main():
 
     phase(f'6. training path: nonlocalresnet3d50, {TRAIN_STEPS} steps of '
           f'{TRAIN_CLIPS} clips x 32 frames x 224 px')
-    train_launches, train_by_kernel, train_layer3 = train_path(
+    train_launches, train_by_kernel, train_layer3, train_ms = train_path(
         pretorched, na, torch, np, cli)
 
     phase('7. gradient agreement: f32 step with the kernels, with the plain '
@@ -4459,7 +4837,13 @@ def main():
           'at world size 1')
     piped, pipe_fwd, pipe_bwd = pipeline_moe_path(pretorched, na, torch, np)
 
-    phase('22. result')
+    phase(f'22. the seq axis: nonlocalresnet3d50 time-sharded over '
+          f'{SEQ_SHARDS} shards in one process, {TRAIN_STEPS} bf16 train '
+          f'steps of {TRAIN_CLIPS} clips x 32 x 224 px; K1 at the seq shapes; the '
+          'f32 step against the unsharded one; the whole-batch backward')
+    seq = seq_path(pretorched, na, torch, np, cli, train_ms)
+
+    phase('23. result')
     src = 'pretorched_tpu_torch/csrc/'
     forward = {k: sum(k2[s][k] * n for s, n in K2_SLICE.items())
                for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
@@ -4495,6 +4879,7 @@ def main():
          'launches_pipelined': {'forward': pipe_fwd, 'backward': pipe_bwd},
          'pipelined_shapes': {k: v for k, v in piped['kernel_rows'].items()
                               if k.startswith('fwd')},
+         **seq_entries(seq, 'fwd'),
          'serving_batches': served['k1_batches'],
          **k1['layer2'], 'shape': list(SLICE_SHAPES['layer2']),
          'dtype': 'bfloat16'},
@@ -4534,6 +4919,7 @@ def main():
                                 if k.startswith('dq')},
          'pipelined_shapes': {k: v for k, v in piped['kernel_rows'].items()
                               if k.startswith('dq')},
+         **seq_entries(seq, 'dq'),
          'launches_by_kernel': {k[3:]: n for k, n in train_by_kernel.items()
                                 if k.startswith('dq')},
          'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
@@ -4549,6 +4935,7 @@ def main():
                                 if k.startswith('dkv')},
          'pipelined_shapes': {k: v for k, v in piped['kernel_rows'].items()
                               if k.startswith('dkv')},
+         **seq_entries(seq, 'dkv'),
          'launches_by_kernel': dkv_by_kernel,
          'shape': list(TRAIN_SHAPES['layer2']), 'dtype': 'bfloat16'},
         {'name': 'nonlocal_attention_bwd_dkv_wide', 'route': 'cuda',
@@ -4584,6 +4971,7 @@ def main():
         'pipeline': {k: piped[k] for k in ('forward', 'backward', 'trunk',
                                            'mesh')},
         'moe': {'trn': piped['trn'], 'moe_apply': piped['moe']},
+        'seq': {k: seq[k] for k in ('train', 'f32', 'whole_batch')},
         'card': card}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

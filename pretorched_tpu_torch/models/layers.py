@@ -55,6 +55,13 @@ def frozen_bn_stats():
         _bn_state.frozen = depth
 
 
+def stats_frozen() -> bool:
+    """Whether this thread runs inside ``frozen_bn_stats``: in the recompute
+    of a checkpointed block (``resnet3d.checkpointed``), where
+    ``parallel.seq`` replays the block's forward decisions."""
+    return getattr(_bn_state, 'frozen', 0) > 0
+
+
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
     """Batch norm over dim 1 of an (N, C, ...) input, with the state-dict
     keys and eval behaviour of ``nn.BatchNorm1d/2d/3d``. In train mode the
@@ -98,14 +105,14 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
     def _cross_rank(self, x):
         """(y, mean, biased var) over the batches of every rank of
-        ``process_group``, in f32."""
+        ``process_group``, in f32 (f64 for an f64 input)."""
         from torch.distributed.nn.functional import all_reduce
 
         c = x.shape[1]
         dims = [0, *range(2, x.dim())]
         shape = (1, c) + (1,) * (x.dim() - 2)
         with torch.autocast(x.device.type, enabled=False):
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             stats = torch.cat([xf.sum(dims), xf.square().sum(dims),
                                xf.new_full((1,), x.numel() // c)])
             stats = all_reduce(stats, group=self.process_group)
@@ -114,8 +121,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
             scale = torch.rsqrt(var + self.eps)
             shift = -mean * scale
             if self.affine:
-                scale = scale * self.weight.float()
-                shift = shift * self.weight.float() + self.bias.float()
+                scale = scale * self.weight.to(xf.dtype)
+                shift = shift * self.weight.to(xf.dtype) + self.bias.to(xf.dtype)
             y = xf * scale.reshape(shape) + shift.reshape(shape)
         return y.to(x.dtype), mean.detach(), var.detach()
 

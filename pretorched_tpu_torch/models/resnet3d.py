@@ -309,14 +309,17 @@ class VideoResNet(PretrainedModel):
     def _features(self, x, lo: int = 0, hi: int = 4):
         """Segments lo..hi-1 of [stem + layer1, layer2, layer3, layer4]."""
         if lo == 0:
-            x = F.relu(self.bn1(self.conv1(x)))
-            x = max_pool(x, 3, 2, 1)
+            x = self._stem_pool(F.relu(self.bn1(self.conv1(x))))
         remat = self._remat_stages() if torch.is_grad_enabled() else ()
         for stage in range(lo + 1, hi + 1):
             for i, blk in enumerate(getattr(self, f'layer{stage}')):
                 x = checkpointed(blk, x) if stage - 1 in remat else blk(x)
                 x = self._after_block(x, stage, i)
         return x
+
+    def _stem_pool(self, x):
+        """The stem's 3x3x3 max pool at stride 2, padding 1."""
+        return max_pool(x, 3, 2, 1)
 
     def _logits(self, features):
         return self.last_linear(global_avg_pool(features))

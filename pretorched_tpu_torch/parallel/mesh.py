@@ -26,6 +26,7 @@ values do.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -34,12 +35,14 @@ import torch.distributed as dist
 HEAD = 'last_linear'
 
 
-def make_mesh(shape: Optional[Tuple[int, int]] = None,
+def make_mesh(shape: Optional[Tuple[int, ...]] = None,
               axis_names: Sequence[str] = ('data', 'model'),
               device_type: str = 'cuda'):
-    """A ('data', 'model') ``DeviceMesh`` over the processes of the default
-    group; with no ``shape``, all of them on 'data'. Without a group (one
-    process, no launcher) it starts one of this process alone."""
+    """A ``DeviceMesh`` over the processes of the default group, one axis
+    per name (('data', 'model') by default; ('data', 'seq', 'model') for
+    ``parallel.seq``); with no ``shape``, all of them on the first axis.
+    Without a group (one process, no launcher) it starts one of this
+    process alone."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from .dist import initialize_single
@@ -47,12 +50,17 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None,
     if not dist.is_initialized():
         initialize_single('nccl' if device_type == 'cuda' else 'gloo')
     n = dist.get_world_size()
-    shape = tuple(shape) if shape is not None else (n, 1)
-    if shape[0] * shape[1] != n:
+    names = tuple(axis_names)
+    shape = (tuple(shape) if shape is not None
+             else (n,) + (1,) * (len(names) - 1))
+    if len(shape) != len(names):
+        raise ValueError(f'mesh shape {shape} has {len(shape)} axes, the '
+                         f'names {names} {len(names)}')
+    if math.prod(shape) != n:
         raise ValueError(f'mesh shape {shape} does not hold the {n} '
                          'processes')
     return init_device_mesh(device_type, shape,
-                            mesh_dim_names=tuple(axis_names))
+                            mesh_dim_names=names)
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -77,6 +85,19 @@ def axis_group(mesh, axis: str):
     return mesh[axis].get_group() if axis_size(mesh, axis) > 1 else None
 
 
+def axes_group(mesh, axes: Sequence[str]):
+    """The process group spanning ``axes`` together (the ranks that differ
+    only in their index on those axes), or None where they hold one rank.
+    Axes the mesh lacks hold one rank each. ('data', 'seq') is the group
+    batch norm and the gradient sum of ``parallel.seq`` reduce over."""
+    present = tuple(a for a in axes if axis_size(mesh, a) > 1)
+    if not present:
+        return None
+    if len(present) == 1:
+        return axis_group(mesh, present[0])
+    return mesh[present]._flatten('_'.join(present)).get_group()
+
+
 def data_group(mesh):
     """The process group of this rank's 'data' axis, or None where the axis
     holds one rank (nothing to reduce)."""
@@ -92,14 +113,26 @@ def batch_sharding(mesh) -> Tuple[int, int]:
 def global_batch(mesh, x):
     """This rank's rows of a batch every rank holds (a tensor or an
     array): the axis-0 block of its 'data' index, as ``P('data')`` splits
-    a global array. The batch must divide the axis (``evaluate.pad_batch``)."""
+    a global array. The batch must divide the axis (``evaluate.pad_batch``).
+    On a mesh with a 'seq' axis a clip batch (N, C, T, H, W) is also cut
+    in time, the dim-2 block of this rank's 'seq' index, as ``P('data',
+    'seq')`` splits JAX's (N, T, H, W, C) clips; labels (1-D) are not."""
     index, n = batch_sharding(mesh)
-    if n == 1:
+    if n > 1:
+        if len(x) % n:
+            raise ValueError(f'batch {len(x)} does not divide the data axis '
+                             f'{n}')
+        rows = len(x) // n
+        x = x[index * rows:(index + 1) * rows]
+    s = axis_size(mesh, 'seq')
+    if s == 1 or x.ndim < 3:
         return x
-    if len(x) % n:
-        raise ValueError(f'batch {len(x)} does not divide the data axis {n}')
-    rows = len(x) // n
-    return x[index * rows:(index + 1) * rows]
+    if x.shape[2] % s:
+        raise ValueError(f'{x.shape[2]} frames do not divide the seq axis '
+                         f'{s}')
+    frames = x.shape[2] // s
+    index = axis_index(mesh, 'seq')
+    return x[:, :, index * frames:(index + 1) * frames]
 
 
 def model_shardings(mesh, model: torch.nn.Module, head_path: str = HEAD):

@@ -13,6 +13,14 @@ batch norm normalizes over the rows of every 'data' rank
 sharded step sees), the gradients are averaged over 'data', and the loss
 and top-1 are those of the whole batch. ``zero_axis`` / ``zero_params``
 take the model and optimizer of ``parallel.zero.zero_init``.
+
+A 'seq' axis (dp x sp x tp, the JAX dry run's ('data', 'seq', 'model')
+mesh) cuts each clip in time as well (``parallel.seq``): x is this rank's
+rows and frames (``mesh.global_batch``), batch norm normalizes over 'data'
+x 'seq', and each parameter's gradient is summed over 'seq' (each rank
+holds its share of it) and averaged over 'data'. A head that
+``mesh.place_model`` column-shards over 'model' keeps DTensor parameters:
+their local shards are reduced the same way, and SGD steps them in place.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch.nn.functional as F
 
 from ..models.layers import set_bn_group
 from ..models.resnet3d import checkpointed
-from .mesh import data_group, data_size
+from .mesh import axes_group, axis_size, data_group, data_size
 
 
 def cross_entropy(logits, labels):
@@ -54,10 +62,13 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     residual blocks; any other model is checkpointed as a whole forward.
 
     ``mesh``: x and labels are this rank's rows (equal on every rank of
-    'data'); see the module docstring. The model's parameters must be
-    replicated (``mesh.place_model`` does it) or FSDP-sharded.
-    ``zero_axis='data'`` requires the ZeRO optimizer of ``zero_init``, and
-    with ``zero_params=True`` its FSDP model too.
+    'data'), and with a 'seq' axis x is also cut in time (call
+    ``seq.seq_parallel(model, mesh)`` first); see the module docstring.
+    The model's parameters must be replicated (``mesh.place_model`` does
+    it, with the head column-sharded over 'model' where it divides) or
+    FSDP-sharded. ``zero_axis='data'`` requires the ZeRO optimizer of
+    ``zero_init``, and with ``zero_params=True`` its FSDP model too; they
+    take no 'seq' axis.
     """
     from .zero import is_fsdp, is_zero
 
@@ -76,7 +87,18 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                              f'{zero_params})')
     elif zero_params:
         raise ValueError('zero_params requires zero_axis')
-    group = data_group(mesh)
+    if axis_size(mesh, 'seq') > 1:
+        if zero_axis is not None:
+            raise ValueError('ZeRO and FSDP take no seq axis')
+        rules = getattr(model, 'seq', None)
+        if rules is None or rules.mesh is not mesh:
+            raise ValueError("a mesh with a 'seq' axis needs the model's "
+                             'time-sharding rules on it: call parallel.seq.'
+                             'seq_parallel(model, mesh) first')
+    # the gradients and batch norm reduce over 'data' x 'seq', the metrics
+    # over 'data' (every 'seq' rank of a row computes the same loss)
+    group = axes_group(mesh, ('data', 'seq'))
+    metrics_group = data_group(mesh)
     n_data = data_size(mesh)
     # FSDP reduce-scatters the gradients itself
     all_reduce_grads = group is not None and not is_fsdp(model)
@@ -105,8 +127,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                                torch.stack(top1s).mean()])
         if all_reduce_grads:
             _average_gradients(model, group, n_data)
-        if group is not None:
-            dist.all_reduce(metrics, group=group)
+        if metrics_group is not None:
+            dist.all_reduce(metrics, group=metrics_group)
             metrics /= n_data
         optimizer.step()
         if scheduler is not None:
@@ -116,10 +138,14 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     return step
 
 
+@torch.no_grad()
 def _average_gradients(model, group, n: int):
-    """The mean of every gradient over ``group``: one all-reduce of the
-    gradients flattened, per dtype."""
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    """Every gradient summed over ``group`` and divided by ``n``: one
+    all-reduce of the gradients flattened, per dtype. A DTensor gradient
+    (a head sharded over 'model') takes part with its local shard."""
+    from .zero import _local
+
+    grads = [_local(p.grad) for p in model.parameters() if p.grad is not None]
     for dtype in {g.dtype for g in grads}:
         same = [g for g in grads if g.dtype == dtype]
         flat = torch.cat([g.reshape(-1) for g in same])

@@ -118,6 +118,13 @@ def _local(t):
     return t.to_local() if hasattr(t, 'to_local') else t
 
 
+def _distributed(model) -> bool:
+    """Whether ``model`` holds DTensor parameters: FSDP's, or a head that
+    ``mesh.place_model`` sharded over 'model'."""
+    return is_fsdp(model) or any(hasattr(p, 'to_local')
+                                 for p in model.parameters())
+
+
 def sharded_size_bytes(tree) -> int:
     """Bytes this rank holds of ``tree``: an optimizer's state (only the
     part a ZeRO optimizer keeps here), a module's parameters or a dict of
@@ -134,13 +141,14 @@ def sharded_size_bytes(tree) -> int:
 def full_state_dicts(model, optimizer=None):
     """(model state dict, optimizer state dict or None), whole, on rank 0
     and empty elsewhere; every rank must call it. Plain tensors on the CPU
-    for an FSDP model (its DTensors gathered); a ZeRO optimizer's state
-    consolidated from every rank."""
+    for a model with DTensor parameters (FSDP's, a tensor-parallel head's:
+    gathered; its optimizer state keyed by parameter name); a ZeRO
+    optimizer's state consolidated from every rank."""
     from torch.distributed.checkpoint.state_dict import (
         StateDictOptions, get_model_state_dict, get_optimizer_state_dict)
 
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
-    if is_fsdp(model):
+    if _distributed(model):
         opts = StateDictOptions(full_state_dict=True, cpu_offload=True)
         msd = get_model_state_dict(model, options=opts)
         osd = (None if optimizer is None else
@@ -160,7 +168,7 @@ def load_full_state_dict(model, state_dict):
     """Load a whole state dict (as ``full_state_dicts`` or
     ``zoo.convert.state_dict_from_flax`` gives it, on every rank) into
     ``model``, sharded or not."""
-    if not is_fsdp(model):
+    if not _distributed(model):
         model.load_state_dict(state_dict)
         return
     from torch.distributed.checkpoint.state_dict import (StateDictOptions,
@@ -173,7 +181,7 @@ def load_full_state_dict(model, state_dict):
 def load_optimizer_state(model, optimizer, state):
     """Load a whole optimizer state dict (``full_state_dicts``' second) on
     every rank into ``optimizer``, of ``model`` sharded or not."""
-    if not is_fsdp(model):
+    if not _distributed(model):
         optimizer.load_state_dict(state)
         return
     from torch.distributed.checkpoint.state_dict import (

@@ -194,6 +194,7 @@ WGMMA_CASES = [
     (2, 1000, 1000, 128, 192),
     (2, 6272, 784, 256, 256),
     (2, 6272, 6272, 256, 256),
+    (2, 3136, 6272, 256, 256),      # layer 2, one of 2 time shards
 ]
 
 
@@ -301,6 +302,7 @@ WIDE_CASES = [
     (2, 300, 200, 320, 512),
     (1, 100, 90, 512, 64),
     (1, 130, 250, 64, 384),
+    (2, 392, 784, 512, 512),        # layer 3, one of 2 time shards
 ]
 
 
@@ -972,5 +974,54 @@ def test_pipelined_nonlocal_forward_launches_k1_per_microbatch(cuda, dtype):
             assert fwd.by_kernel['wgmma_wide'] == before[0]['wgmma_wide'] + 12
         want = model(x).float()
     rel = ((got - want).norm() / want.norm()).item()
+    assert torch.isfinite(got).all() and rel <= (
+        5e-2 if dtype == 'bfloat16' else 1e-4), rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', ['bfloat16', 'float32'])
+def test_seq_stacked_nonlocal_step_on_the_card(cuda, dtype):
+    """``nonlocalresnet3d50`` time-sharded over 2 shards stacked in one
+    process (``parallel.seq.seq_parallel(model, shards=2)``; 2 clips x 16
+    frames x 112 px, every BN randomized, eval mode: in train mode the
+    bf16 logits of these random weights move chaotically between any two
+    batch layouts): a forward and backward launch each K1 kernel 5 times
+    (bf16: 2 wgmma + 3 wgmma_wide), every query shard against the keys of
+    both (N != Nk), and the logits equal the unsharded forward's (rel L2:
+    bf16 5e-2 as ``chip_smoke.py``'s phase 21, f32 with TF32 off 1e-4)."""
+    import copy
+
+    import pretorched_tpu_torch as pretorched
+    from pretorched_tpu_torch.parallel.seq import seq_parallel
+
+    torch.manual_seed(0)
+    model = pretorched.nonlocalresnet3d50(num_classes=400, pretrained=None)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.2, 0.2, generator=g)
+    model.to(cuda).eval()
+    if dtype == 'bfloat16':
+        model.bfloat16()
+    sharded = seq_parallel(copy.deepcopy(model), shards=2)
+    x = torch.randn(2, 3, 16, 112, 112, device=cuda)
+    wrappers = (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
+                na.nonlocal_attention_bwd_dkv_cuda)
+    before = [(w.launches, dict(w.by_kernel)) for w in wrappers]
+    got = sharded(x)
+    got.float().square().mean().backward()
+    torch.cuda.synchronize()
+    for w, (n, by) in zip(wrappers, before):
+        assert w.launches == n + 5
+        if dtype == 'bfloat16':
+            assert w.by_kernel['wgmma'] == by['wgmma'] + 2
+            assert w.by_kernel['wgmma_wide'] == by['wgmma_wide'] + 3
+    with torch.no_grad():
+        want = model(x)
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
     assert torch.isfinite(got).all() and rel <= (
         5e-2 if dtype == 'bfloat16' else 1e-4), rel
