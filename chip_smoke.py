@@ -8,8 +8,9 @@ Drives the port's main path once on one CUDA card and checks it:
 3. the non-local attention forward kernels against their plain PyTorch
    version at the video slice's shapes, in f32 (TF32 off) and bf16, each
    with the kernel the dispatch picks (``attention_kernel``: bf16 with C
-   and Cv multiples of 64 up to 512 on wgmma, past 256 its wide program,
-   other bf16 shapes on mma.sync, f32 scalar), its time, its bound and one
+   and Cv multiples of 8 up to 512 on K1-fwd's wgmma programs, which pad
+   them to 64 through TMA, past 256 the wide program, other bf16 shapes on
+   mma.sync, f32 scalar), its time, its bound and one
    ``scaled_dot_product_attention`` call's time, the plain version's at
    layers 2 and 3, and at both layers the mma.sync kernel that wgmma
    replaced (held to the plain version at the same tolerances) and each
@@ -38,7 +39,12 @@ Drives the port's main path once on one CUDA card and checks it:
    (at layer 3 its wide programs) replaced: time and host time per call,
    each generic kernel held to the plain backward, K1-dq's two outputs
    held together; K1-dq and K1-dkv must repeat bitwise at every bf16
-   shape;
+   shape. Then K1's done line: K1-fwd, K1-dq and K1-dkv in bf16 at N = Nk
+   = 65,536, C = Cv = 256 (the narrow wgmma programs) against the plain
+   version computed in chunks of queries in f32 (the kernel's own out and
+   lse for the backward, dk and dv summed over the chunks), at this
+   phase's and phase 3's tolerances, timed beside SDPA; and the f32
+   kernels timed at the train shapes of layers 2 and 3 beside SDPA in f32;
 6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
    ``remat=(0,)``, SGD, 12 steps of 8 clips x 32 frames x 224 px; it checks
    15 attention launches a step (5 forward, 5 dq and 5 dkv on wgmma, 3 of
@@ -102,10 +108,12 @@ Drives the port's main path once on one CUDA card and checks it:
 12. ``trn`` (MSTRN over ``resnet50``, 8 videos x 8 segments x 224 px,
     bf16): videos/s, the backbone computing in bf16, the logits held to the
     f32 forward, the generator path repeating from its seed;
-13. ``MNISTNonLocalNet`` on 64 images: K1-fwd on mma.sync in bf16 and on
-    the scalar kernel in f32, 2 launches a forward, each held to the plain
-    version, the f32 logits against the plain attention, ``W.1`` moving
-    them, and the bf16 launches timed;
+13. ``MNISTNonLocalNet`` on 64 images: K1-fwd on wgmma in bf16 (C = 16
+    and 32, padded to 64) and on the scalar kernel in f32, 2 launches a
+    forward, each held to the plain version, the f32 logits against the
+    plain attention, ``W.1`` moving them, and the bf16 launches timed
+    beside the mma.sync program that wgmma replaced there (also held to
+    the plain version);
 14. BASELINE config 2 through ``examples/imagenet_eval_torch.py`` in
     this process, on fabricated hosted ``imagenet`` files (seeded, every
     BN randomized; ``nasnetalarge``'s with its 1001st class) and 512 JPEGs
@@ -128,15 +136,19 @@ Drives the port's main path once on one CUDA card and checks it:
 16. BASELINE config 5: ``biggan256(num_classes=1000, ch=96)`` (seeded,
     every BN's statistics randomized, SAGAN's ``gamma`` 0.5) sampling 32
     seeded labels through ``gan.biggan.sample`` in bf16: (32, 256, 256, 3)
-    images, finite, in [-1, 1], one K1-fwd launch a forward on mma.sync
-    (scalar in f32), the bf16 images against the f32 images of the same
+    images, finite, in [-1, 1], one K1-fwd launch a forward on the wide
+    wgmma program (C = 96, Cv = 384 padded to 128 and 384; scalar in f32),
+    each bf16 launch held to the plain version, the bf16 images against
+    the f32 images of the same
     weights and z; at batch 4 in f32 the images with the kernel against the
     plain attention, and ``gamma`` 0 moving them; images/s, peak memory, a
     profiled forward by family with K1-fwd's share and the idle share; one
-    bf16 ``biggan128(ch=96)`` forward; K1-fwd alone at (32, 4096, 1024, 96,
-    384), (32, 4096, 1024, 48, 192) and (2, 4096, 1024, 16, 64), f32 and
-    bf16, against its plain version with its time, the plain version's,
-    SDPA's and the bound;
+    bf16 ``biggan128(ch=96)`` forward, its launch on wgmma held to the
+    plain version; K1-fwd alone at (32, 4096, 1024, 96, 384), (32, 4096,
+    1024, 48, 192) and (2, 4096, 1024, 16, 64), f32 and bf16, against its
+    plain version with its time, the plain version's, SDPA's and the bound,
+    and in bf16 the mma.sync program that wgmma replaced there (held to the
+    plain version, timed);
 17. the 2D families on phase 14's JPEGs: ``resnext101_32x4d``,
     ``resnext101_64x4d``, ``fbresnet152``, ``cafferesnet101``,
     ``densenet121``, ``vgg16_bn``, ``alexnet`` and ``squeezenet1_1`` (seeded,
@@ -287,6 +299,12 @@ TRAIN_KERNELS = {**EVAL_KERNELS, 'dq wgmma': 2, 'dq wgmma_wide': 3,
 # max |grad - plain| / max |plain grad|: f32 sums in another order; bf16
 # rounds p and ds for the products and stores bf16
 TOL_BWD = {'float32': 1e-4, 'bfloat16': 2e-2}
+# K1's done line (phase 5): one sequence of N = Nk = 65,536 at layer 2's
+# widths in bf16, (B, N, Nk, C, Cv), held to the plain version computed
+# DONE_CHUNK queries at a time (the whole N x N matrix would take 16 GiB in
+# f32); the f32 kernels timed at TRAIN_SHAPES' layer2 and layer3
+DONE_LINE_SHAPE = (1, 65536, 65536, 256, 256)
+DONE_CHUNK = 4096
 # the card's dense peaks (H100 SXM at 700 W) and memory rate, for bounds
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 MEM_BYTES_PER_S = 3.35e12
@@ -1071,6 +1089,139 @@ def backward_vs_plain(na, torch):
     return result
 
 
+def k1_done_line(na, torch):
+    """K1's done line: K1-fwd, K1-dq and K1-dkv in bf16 at DONE_LINE_SHAPE
+    on the narrow wgmma programs, held to the plain version computed in
+    chunks of DONE_CHUNK queries in f32 (the backward's from the kernel's
+    own out and lse; dk and dv summed over the chunks) at phase 3's and
+    phase 5's tolerances, each timed beside SDPA; then the f32 kernels
+    timed at the train shapes of layers 2 and 3 beside SDPA in f32.
+    Returns the numbers."""
+    b, n, nk, c, cv = DONE_LINE_SHAPE
+    dt = torch.bfloat16
+    g = torch.Generator(device='cuda').manual_seed(6)
+    q = (torch.randn(b, n, c, device='cuda', generator=g) / c ** 0.25).to(dt)
+    k = (torch.randn(b, nk, c, device='cuda', generator=g) / c ** 0.25).to(dt)
+    v = torch.randn(b, nk, cv, device='cuda', generator=g).to(dt)
+    do = torch.randn(b, n, cv, device='cuda', generator=g).to(dt)
+    programs = {op: na._program(na.attention_kernel(dt, c, cv, op), c, cv)
+                for op in na.OPS}
+    check(set(programs.values()) == {'wgmma'},
+          f'done line: K1 programs {programs}, expected wgmma')
+    out, lse = na.nonlocal_attention_cuda(q, k, v)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+    dk, dv = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    # the plain version, DONE_CHUNK queries at a time
+    kf, vf = k.float(), v.float()
+    want_dk = torch.zeros(b, nk, c, device='cuda')
+    want_dv = torch.zeros(b, nk, cv, device='cuda')
+    err = dict.fromkeys(('out', 'lse', 'dq'), 0.0)
+    top = dict.fromkeys(('out', 'dq'), 0.0)
+    for i in range(0, n, DONE_CHUNK):
+        rows = slice(i, i + DONE_CHUNK)
+        qc = q[:, rows].float()
+        want, want_lse = na.nonlocal_attention_fwd_lse_reference(qc, kf, vf)
+        err['out'] = max(err['out'],
+                         (out[:, rows].float() - want).abs().max().item())
+        err['lse'] = max(err['lse'],
+                         (lse[:, rows] - want_lse).abs().max().item())
+        top['out'] = max(top['out'], want.abs().max().item())
+        del want, want_lse
+        want_dq, dkc, dvc = na.nonlocal_attention_bwd_reference(
+            qc, kf, vf, out[:, rows].float(), lse[:, rows],
+            do[:, rows].float())
+        err['dq'] = max(err['dq'],
+                        (dq[:, rows].float() - want_dq).abs().max().item())
+        top['dq'] = max(top['dq'], want_dq.abs().max().item())
+        want_dk += dkc
+        want_dv += dvc
+        del want_dq, dkc, dvc
+    rel = {'out': err['out'] / top['out'], 'dq': err['dq'] / top['dq'],
+           'dk': rel_to_max(dk, want_dk), 'dv': rel_to_max(dv, want_dv)}
+    del want_dk, want_dv
+    tol, tol_lse = TOL['bfloat16']
+    line = (f'done line bf16 B={b} N={n} Nk={nk} C={c} Cv={cv} [fwd, dq, dkv'
+            f' {programs["fwd"]}], the plain version in chunks of '
+            f'{DONE_CHUNK} queries: max|out-plain|={err["out"]:.3e} (tol '
+            f'{tol:g}), /max|plain| {rel["out"]:.3e} (tol {TOL_REL_BF16:g}),'
+            f' max|lse-plain|={err["lse"]:.3e} (tol {tol_lse:g}); '
+            f'max|d-plain|/max|d| dq {rel["dq"]:.2e}, dk {rel["dk"]:.2e}, dv '
+            f'{rel["dv"]:.2e} (tol {TOL_BWD["bfloat16"]:g})')
+    print(line, flush=True)
+    check(err['out'] <= tol and rel['out'] <= TOL_REL_BF16
+          and err['lse'] <= tol_lse,
+          f'done line: K1-fwd disagrees with the plain version: {line}')
+    check(max(rel['dq'], rel['dk'], rel['dv']) <= TOL_BWD['bfloat16'],
+          f'done line: K1-dq or K1-dkv disagrees with the plain backward: '
+          f'{line}')
+    result = {'shape': list(DONE_LINE_SHAPE), 'dtype': 'bfloat16',
+              'programs': programs, 'chunk': DONE_CHUNK,
+              'max_abs_err': err, 'max_rel_err': rel}
+    bounds = attention_bounds(b, n, nk, c, cv, 'bfloat16')
+    times = {
+        'fwd': median_ms(lambda: na.nonlocal_attention_cuda(q, k, v), reps=5),
+        'dq': median_ms(lambda: na.nonlocal_attention_bwd_dq_cuda(
+            q, k, v, do, lse, delta), reps=5),
+        'dkv': median_ms(lambda: na.nonlocal_attention_bwd_dkv_cuda(
+            q, k, v, do, lse, delta), reps=5)}
+    sdpa = {'fwd': sdpa_ms(torch, q, k, v), 'bwd': sdpa_ms(torch, q, k, v, do)}
+    print('    ' + ', '.join(f'{op} {ms:.3f} ms (bound {bounds[op][0]:.3f}, '
+                             f'{bounds[op][1]})' for op, ms in times.items())
+          + f'; scaled_dot_product_attention {fmt_ms(sdpa["fwd"][0])} '
+          f'({sdpa["fwd"][1]}), its backward {fmt_ms(sdpa["bwd"][0])} '
+          f'({sdpa["bwd"][1]})', flush=True)
+    result.update({'ms': times, 'bound_ms': {op: bd[0] for op, bd in
+                                              bounds.items()},
+                   'library_ms': {key: ms for key, (ms, _) in sdpa.items()},
+                   'library': {key: f'scaled_dot_product_attention '
+                                    f'({backend})'
+                               for key, (_, backend) in sdpa.items()}})
+    del q, k, v, do, out, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+
+    # the f32 kernels at the train shapes
+    result['float32'] = {}
+    g = torch.Generator(device='cuda').manual_seed(7)
+    for name in ('layer2', 'layer3'):
+        b, n, nk, c, cv = TRAIN_SHAPES[name]
+        q = torch.randn(b, n, c, device='cuda', generator=g) / c ** 0.25
+        k = torch.randn(b, nk, c, device='cuda', generator=g) / c ** 0.25
+        v = torch.randn(b, nk, cv, device='cuda', generator=g)
+        do = torch.randn(b, n, cv, device='cuda', generator=g)
+        out, lse = na.nonlocal_attention_cuda(q, k, v)
+        delta = (do * out).sum(-1)
+        programs = {op: na.attention_kernel(torch.float32, c, cv, op)
+                    for op in na.OPS}
+        times = {
+            'fwd': median_ms(lambda: na.nonlocal_attention_cuda(q, k, v),
+                             reps=3),
+            'dq': median_ms(lambda: na.nonlocal_attention_bwd_dq_cuda(
+                q, k, v, do, lse, delta), reps=3),
+            'dkv': median_ms(lambda: na.nonlocal_attention_bwd_dkv_cuda(
+                q, k, v, do, lse, delta), reps=3)}
+        sdpa = {'fwd': sdpa_ms(torch, q, k, v),
+                'bwd': sdpa_ms(torch, q, k, v, do)}
+        bounds = attention_bounds(b, n, nk, c, cv, 'float32')
+        print(f'{name:10s} float32 B={b} N={n} Nk={nk} C={c} Cv={cv} '
+              f'[{programs["fwd"]}]: '
+              + ', '.join(f'{op} {ms:.3f} ms (bound {bounds[op][0]:.3f})'
+                          for op, ms in times.items())
+              + f'; scaled_dot_product_attention {fmt_ms(sdpa["fwd"][0])} '
+              f'({sdpa["fwd"][1]}), its backward {fmt_ms(sdpa["bwd"][0])} '
+              f'({sdpa["bwd"][1]})', flush=True)
+        result['float32'][name] = {
+            'shape': [b, n, nk, c, cv], 'programs': programs, 'ms': times,
+            'bound_ms': {op: bd[0] for op, bd in bounds.items()},
+            'library_ms': {key: ms for key, (ms, _) in sdpa.items()},
+            'library': {key: f'scaled_dot_product_attention ({backend})'
+                        for key, (_, backend) in sdpa.items()}}
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return result
+
+
 def counts(na):
     return (na.nonlocal_attention_cuda.launches,
             na.nonlocal_attention_bwd_dq_cuda.launches,
@@ -1135,6 +1286,24 @@ def device_times(fn, torch):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
     return window, by_name
+
+
+def queued_ms(fn, torch, reps=20):
+    """Device ms of one call of ``fn`` without its host time: ``reps``
+    calls queued behind a sleep kernel of ~25 ms (longer than the host
+    takes to queue them), one CUDA-event pair around them all. A pair
+    around each call (``median_ms``) measures the wrapper's host time
+    wherever the kernel is shorter than it."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)       # clock cycles
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
 
 
 def print_families(by_name, busy, groups):
@@ -2378,12 +2547,13 @@ def trn_path(pretorched, torch):
 def mnist_path(na, torch):
     """Phase 13: ``MNISTNonLocalNet`` on 64 seeded 28 x 28 images, every BN
     randomized (its blocks' ``W.1`` included): a bf16 forward (K1-fwd on
-    mma.sync) and an f32 one (scalar), each with the counts set to 0 just
-    before it: 2 K1-fwd launches, each launch's out and lse held to the
-    plain version at phase 3's tolerances; the f32 logits with the kernels
-    against the plain attention; zeroing each ``W.1`` moves them; the bf16
-    launches timed against the plain version, SDPA and the bound. Returns
-    the numbers for the result line."""
+    wgmma, C = 16 and 32 padded to 64) and an f32 one (scalar), each with
+    the counts set to 0 just before it: 2 K1-fwd launches, each launch's
+    out and lse held to the plain version at phase 3's tolerances; the f32
+    logits with the kernels against the plain attention; zeroing each
+    ``W.1`` moves them; the bf16 launches timed against the plain version,
+    SDPA, the bound and the mma.sync program that wgmma replaced there (held
+    to the plain version too). Returns the numbers for the result line."""
     from pretorched_tpu_torch.models import nonlocalnet
 
     model = nonlocalnet.MNISTNonLocalNet()
@@ -2414,6 +2584,8 @@ def mnist_path(na, torch):
                 nonlocalnet.auto_nonlocal_attention = orig
             by_kernel = kernel_counts(na)
             kernel = na.attention_kernel(dt, 16, 16, 'fwd')
+            check(kernel == ('wgmma' if dt == torch.bfloat16 else 'scalar'),
+                  f'MNIST {dname}: K1-fwd on {kernel}')
             check(na.nonlocal_attention_cuda.launches == 2
                   and by_kernel == {f'fwd {kernel}': 2},
                   f'MNIST {dname}: K1-fwd launches {by_kernel}, expected 2 '
@@ -2463,20 +2635,47 @@ def mnist_path(na, torch):
             check(moved > 1e-3, f'the logits do not depend on {name}')
         timed = {}
         for shape, q, k, v, err in runs['bfloat16']['rows']:
+            want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+                q.float(), k.float(), v.float())
+            out_m, lse_m = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
+            errs_m = fwd_errors(out_m, lse_m, want, want_lse)
+            print(f'MNIST bf16 K1-fwd {shape}, the mma.sync program wgmma '
+                  f'replaced: max|out-plain|={errs_m[0]:.3e}, /max|plain| '
+                  f'{errs_m[1]:.3e}, max|lse-plain|={errs_m[2]:.3e}',
+                  flush=True)
+            check(errs_m[0] <= TOL['bfloat16'][0] and errs_m[1] <= TOL_REL_BF16
+                  and errs_m[2] <= TOL['bfloat16'][1],
+                  f'MNIST: the mma.sync program disagrees at {shape}: '
+                  f'{errs_m}')
+            del want, want_lse, out_m, lse_m
+            earlier_ms = median_ms(lambda: na._launch_fwd(q, k, v, 1.0,
+                                                          'mma_sync'))
             ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
+            device = (queued_ms(
+                          lambda: na.nonlocal_attention_cuda(q, k, v), torch),
+                      queued_ms(
+                          lambda: na._launch_fwd(q, k, v, 1.0, 'mma_sync'),
+                          torch))
             plain_ms = median_ms(
                 lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v))
             lib_ms, backend = sdpa_ms(torch, q, k, v)
             bound_ms, bound_by = attention_bounds(*shape, 'bfloat16')['fwd']
-            print(f'MNIST bf16 K1-fwd {shape}: kernel {ms:.4f} ms, plain '
+            print(f'MNIST bf16 K1-fwd {shape}: kernel {ms:.4f} ms, the '
+                  f'mma.sync program {earlier_ms:.4f} ms, plain '
                   f'{plain_ms:.4f} ms, scaled_dot_product_attention '
                   f'{fmt_ms(lib_ms)} ({backend}), bound {bound_ms:.5f} ms '
-                  f'({bound_by})', flush=True)
+                  f'({bound_by}); queued (device time) {device[0]:.4f} ms '
+                  f'(wgmma), {device[1]:.4f} ms (mma.sync)', flush=True)
             timed[shape] = {'max_abs_err': err, 'ms': ms,
                             'plain_ms': plain_ms, 'library_ms': lib_ms,
                             'library': f'scaled_dot_product_attention '
                                        f'({backend})',
-                            'bound_ms': bound_ms, 'bound_by': bound_by}
+                            'bound_ms': bound_ms, 'bound_by': bound_by,
+                            'earlier_ms': earlier_ms,
+                            'earlier': 'mma.sync program, same run',
+                            'earlier_max_abs_err': errs_m[0],
+                            'device_ms': device[0],
+                            'earlier_device_ms': device[1]}
     check(set(timed) == set(MNIST_SHAPES), f'MNIST shapes {list(timed)}')
     return {'timed': timed,
             'launches_by_kernel': {k: v['by_kernel'] for k, v in runs.items()}}
@@ -2927,7 +3126,9 @@ def native_path(pretorched, na, torch, np, cli):
 def sagan_kernel_rows(na, torch):
     """K1-fwd alone at SAGAN's shapes, f32 and bf16, against its plain
     version at phase 3's tolerances; each with its time, the plain
-    version's, one SDPA call's and the bound."""
+    version's, one SDPA call's and the bound; in bf16 also the mma.sync
+    program that the wgmma programs replaced there (as phase 3 keeps layer
+    3's), held to the plain version at the same tolerances and timed."""
     g = torch.Generator(device='cuda').manual_seed(5)
     rows = {}
     for name, (b, n, nk, c, cv) in BIGGAN_SHAPES.items():
@@ -2938,12 +3139,19 @@ def sagan_kernel_rows(na, torch):
             k = (torch.randn(b, nk, c, device='cuda', generator=g)
                  / c ** 0.25).to(dt)
             v = torch.randn(b, nk, cv, device='cuda', generator=g).to(dt)
-            kernel = na.attention_kernel(dt, c, cv, 'fwd')
+            kernel = na._program(na.attention_kernel(dt, c, cv, 'fwd'), c,
+                                 cv)
             out, lse = na.nonlocal_attention_cuda(q, k, v)
             torch.cuda.synchronize()
             want, want_lse = na.nonlocal_attention_fwd_lse_reference(
                 q.float(), k.float(), v.float())
             err, err_rel, err_lse = fwd_errors(out, lse, want, want_lse)
+            errs_m = (0.0, 0.0, 0.0)
+            earlier = dt == torch.bfloat16
+            if earlier:
+                out_m, lse_m = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
+                errs_m = fwd_errors(out_m, lse_m, want, want_lse)
+                del out_m, lse_m
             del out, lse, want, want_lse
             tol, tol_lse = TOL[dname]
             tol_rel = TOL_REL_BF16 if dt == torch.bfloat16 else float('inf')
@@ -2961,15 +3169,34 @@ def sagan_kernel_rows(na, torch):
                     f'    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
                     f'scaled_dot_product_attention {fmt_ms(lib_ms)} '
                     f'({backend}), bound {bound_ms:.4f} ms ({bound_by})')
+            row = {'shape': [b, n, nk, c, cv], 'dtype': dname,
+                   'program': kernel, 'max_abs_err': err, 'ms': ms,
+                   'plain_ms': plain_ms, 'library_ms': lib_ms,
+                   'library': f'scaled_dot_product_attention ({backend})',
+                   'bound_ms': bound_ms, 'bound_by': bound_by}
+            if earlier:
+                row['earlier_ms'] = median_ms(lambda: na._launch_fwd(
+                    q, k, v, 1.0, 'mma_sync'))
+                row['earlier'] = 'mma.sync program, same run'
+                row['earlier_max_abs_err'] = errs_m[0]
+                row['device_ms'] = queued_ms(
+                    lambda: na.nonlocal_attention_cuda(q, k, v), torch)
+                row['earlier_device_ms'] = queued_ms(
+                    lambda: na._launch_fwd(q, k, v, 1.0, 'mma_sync'), torch)
+                line += (f'\n    the mma.sync program it replaced: '
+                         f'{row["earlier_ms"]:.4f} ms, max|out-plain|='
+                         f'{errs_m[0]:.3e}, /max|plain| {errs_m[1]:.3e}, '
+                         f'max|lse-plain|={errs_m[2]:.3e}; queued (device '
+                         f'time) {row["device_ms"]:.4f} ms ({kernel}), '
+                         f'{row["earlier_device_ms"]:.4f} ms (mma.sync)')
             print(line, flush=True)
             check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
                   f'kernel disagrees with the plain version: {line}')
-            rows[f'{name} {dname}'] = {
-                'shape': [b, n, nk, c, cv], 'dtype': dname,
-                'program': kernel, 'max_abs_err': err, 'ms': ms,
-                'plain_ms': plain_ms, 'library_ms': lib_ms,
-                'library': f'scaled_dot_product_attention ({backend})',
-                'bound_ms': bound_ms, 'bound_by': bound_by}
+            check(errs_m[0] <= tol and errs_m[1] <= tol_rel
+                  and errs_m[2] <= tol_lse,
+                  f'the mma.sync program disagrees with the plain version: '
+                  f'{line}')
+            rows[f'{name} {dname}'] = row
             del q, k, v
             torch.cuda.empty_cache()
     return rows
@@ -2979,13 +3206,16 @@ def biggan_path(na, torch):
     """Phase 16: BASELINE config 5, ``biggan256(num_classes=1000, ch=96)``
     (seeded, every BN's statistics randomized, ``gamma`` 0.5) sampling
     32 seeded labels in bf16 through ``gan.biggan.sample``: (32, 256, 256,
-    3) images, finite, in [-1, 1], one K1-fwd launch on mma.sync a
-    forward; the bf16 images against the f32 images of the same weights
-    and z; at batch 4 in f32 (TF32 off) the images with the kernel
-    (scalar) against the plain attention, and ``gamma`` 0 moving them;
-    images/s by CUDA events, peak memory and a profiled forward by family
-    with K1-fwd's share; one bf16 ``biggan128(ch=96)`` forward; K1-fwd
-    alone at SAGAN's shapes. Returns the numbers for the result line."""
+    3) images, finite, in [-1, 1], one K1-fwd launch a forward on the wide
+    wgmma program (C = 96 padded to 128), held to the plain version at
+    phase 3's tolerances; the bf16 images against the f32 images of the
+    same weights and z; at batch 4 in f32 (TF32 off) the images with the
+    kernel (scalar) against the plain attention, and ``gamma`` 0 moving
+    them; images/s by CUDA events, peak memory and a profiled forward by
+    family with K1-fwd's share; one bf16 ``biggan128(ch=96)`` forward, its
+    launch on wgmma (C = 48 padded to 64) held to the plain version;
+    K1-fwd alone at SAGAN's shapes. Returns the numbers for the result
+    line."""
     from pretorched_tpu_torch.gan import biggan
 
     model = biggan.biggan256(num_classes=1000, ch=96)
@@ -3003,14 +3233,51 @@ def biggan_path(na, torch):
                             enabled=dtype == torch.bfloat16):
             return biggan.sample(m, gz, labels[:n], truncation=1.0)
 
+    orig = biggan.auto_nonlocal_attention
+
+    def recorded(m, n, dtype):
+        """draw, keeping each K1-fwd launch's inputs and outputs"""
+        calls = []
+
+        def recording(q, k, v, scale=1.0):
+            got, lse = na.nonlocal_attention_fwd_lse(q, k, v, scale)
+            calls.append((q, k, v, got, lse, scale))
+            return got
+
+        biggan.auto_nonlocal_attention = recording
+        try:
+            return draw(m, n, dtype), calls
+        finally:
+            biggan.auto_nonlocal_attention = orig
+
+    def hold(calls, program, what):
+        """each bf16 launch against the plain version at phase 3's
+        tolerances"""
+        for q, k, v, got, lse, scale in calls:
+            want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+                q.float(), k.float(), v.float(), scale)
+            err, err_rel, err_lse = fwd_errors(got, lse, want, want_lse)
+            tol, tol_lse = TOL['bfloat16']
+            line = (f'{what} bf16 K1-fwd {tuple(q.shape)} x '
+                    f'{tuple(v.shape)} [{program}]: max|out-plain|='
+                    f'{err:.3e} (tol {tol:g}), /max|plain| {err_rel:.3e} '
+                    f'(tol {TOL_REL_BF16:g}), max|lse-plain|={err_lse:.3e} '
+                    f'(tol {tol_lse:g})')
+            print(line, flush=True)
+            check(q.dtype == torch.bfloat16 and err <= tol
+                  and err_rel <= TOL_REL_BF16 and err_lse <= tol_lse,
+                  f'kernel disagrees with the plain version: {line}')
+        calls.clear()
+
     out = {}
     runs = {}
     for dt in (torch.bfloat16, torch.float32):
         dname = str(dt).split('.')[-1]
         set_counts(na, 0)
-        img = draw(model, BIGGAN_BATCH, dt)
+        img, calls = recorded(model, BIGGAN_BATCH, dt)
         torch.cuda.synchronize()
-        program = na.attention_kernel(dt, 96, 384, 'fwd')
+        program = na._program(na.attention_kernel(dt, 96, 384, 'fwd'), 96,
+                              384)
         by_kernel = kernel_counts(na)
         if dt == torch.bfloat16:
             out['launches'] = na.nonlocal_attention_cuda.launches
@@ -3022,9 +3289,13 @@ def biggan_path(na, torch):
               and bool(torch.isfinite(img).all())
               and img.abs().max().item() <= 1.0,
               f'biggan256 {dname}: bad images')
-        check(by_kernel == {f'fwd {program}': 1},
+        check(by_kernel == {f'fwd {program}': 1} and len(calls) == 1,
               f'biggan256 {dname}: K1 launches {by_kernel}, expected one '
               f'on {program}')
+        if dt == torch.bfloat16:
+            check(program == 'wgmma_wide', f'biggan256 bf16 on {program}')
+            hold(calls, program, 'biggan256')
+        del calls
         runs[dname] = img.float()
     rel = rel_l2(runs['bfloat16'], runs['float32'])
     print(f'bf16 images vs f32 images (same weights and z): rel L2 '
@@ -3034,7 +3305,6 @@ def biggan_path(na, torch):
     del runs
 
     # f32 at batch 4: the kernel (scalar) against the plain attention
-    orig = biggan.auto_nonlocal_attention
     kernel_img = draw(model, 4, torch.float32)
     biggan.auto_nonlocal_attention = na.nonlocal_attention_reference
     try:
@@ -3098,9 +3368,14 @@ def biggan_path(na, torch):
         small.attention.gamma.fill_(0.5)
     small.cuda()
     set_counts(na, 0)
-    img = draw(small, BIGGAN_BATCH, torch.bfloat16)
+    img, calls = recorded(small, BIGGAN_BATCH, torch.bfloat16)
     torch.cuda.synchronize()
     by_kernel = kernel_counts(na)
+    program = na._program(na.attention_kernel(torch.bfloat16, 48, 192,
+                                              'fwd'), 48, 192)
+    check(program == 'wgmma' and len(calls) == 1,
+          f'biggan128: {len(calls)} launches on {program}')
+    hold(calls, program, 'biggan128')
     ms128 = median_ms(lambda: draw(small, BIGGAN_BATCH, torch.bfloat16),
                       reps=5)
     print(f'biggan128 bf16 sample of {BIGGAN_BATCH}: {tuple(img.shape)}, '
@@ -3108,7 +3383,7 @@ def biggan_path(na, torch):
           f'5) = {BIGGAN_BATCH / ms128 * 1e3:.2f} images/s', flush=True)
     check(tuple(img.shape) == (BIGGAN_BATCH, 128, 128, 3)
           and bool(torch.isfinite(img).all())
-          and by_kernel == {'fwd mma_sync': 1},
+          and by_kernel == {f'fwd {program}': 1},
           f'biggan128: images {tuple(img.shape)} or launches {by_kernel}')
     out['biggan128'] = {'sample_ms': ms128,
                         'images_per_s': BIGGAN_BATCH / ms128 * 1e3,
@@ -4670,11 +4945,14 @@ def seq_entries(seq, op):
 def kernel_label(line):
     """A readable name for a kernel of ptxas's 'Function properties for'
     line: its template arguments spelled out."""
-    m = re.search(r'nonlocal_attention_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel',
-                  line)
+    m = re.search(r'nonlocal_attention_(?:fwd|bwd_dq|bwd_dkv)_wgmma_kernel'
+                  r'(?:ILi(\d)E)?', line)
     if m:
-        return (f'{m.group(0)} (bf16, wgmma + TMA ring, 2 consumer '
-                'warpgroups at 240 registers, 1 producer at 24)')
+        chunks = (f', {m.group(1)} 64-column chunks of O' if m.group(1)
+                  else '')
+        return (f'{m.group(0).split("ILi")[0]} (bf16, wgmma + TMA ring'
+                f'{chunks}, 2 consumer warpgroups at 240 registers, 1 '
+                'producer at 24)')
     m = re.search(r'(nonlocal_attention_(?:fwd|bwd_dq|bwd_dkv)_wide_kernel)'
                   r'ILi(\d)E', line)
     if m:
@@ -4759,8 +5037,10 @@ def main():
     # before the training phases allocate
     torch.cuda.empty_cache()
 
-    phase('5. non-local attention backward kernels vs plain PyTorch')
+    phase('5. non-local attention backward kernels vs plain PyTorch; K1\'s '
+          'done line at N = 65,536')
     k1b = backward_vs_plain(na, torch)
+    done_line = k1_done_line(na, torch)
 
     phase(f'6. training path: nonlocalresnet3d50, {TRAIN_STEPS} steps of '
           f'{TRAIN_CLIPS} clips x 32 frames x 224 px')
@@ -4792,7 +5072,7 @@ def main():
           'x 224 px')
     trn = trn_path(pretorched, torch)
 
-    phase('13. MNISTNonLocalNet: K1-fwd on mma.sync (bf16) and scalar (f32)')
+    phase('13. MNISTNonLocalNet: K1-fwd on wgmma (bf16) and scalar (f32)')
     mnist = mnist_path(na, torch)
 
     phase('14. BASELINE config 2 through examples/imagenet_eval_torch.py: '
@@ -4894,8 +5174,10 @@ def main():
          'dtype': 'bfloat16'},
         {'name': 'nonlocal_attention_fwd_mnist', 'route': 'cuda',
          'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
-         'note': 'K1-fwd at MNISTNonLocalNet\'s shapes: the mma.sync program '
-                 'in bf16 (the scalar one in f32, launches_by_kernel)',
+         'note': 'K1-fwd at MNISTNonLocalNet\'s shapes: the wgmma program '
+                 'in bf16 on C = 16 and 32 padded to 64 by TMA (the scalar '
+                 'one in f32, launches_by_kernel); earlier_ms: the mma.sync '
+                 'program it replaced there',
          'launches': sum(mnist['launches_by_kernel']['bfloat16'].values()),
          'launches_by_kernel': mnist['launches_by_kernel'],
          **mnist['timed'][MNIST_SHAPES[0]], 'shape': list(MNIST_SHAPES[0]),
@@ -4905,8 +5187,10 @@ def main():
         {'name': 'nonlocal_attention_fwd_sagan', 'route': 'cuda',
          'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
          'note': 'K1-fwd at SAGAN\'s shapes in biggan256 sampling: the '
-                 'mma.sync program in bf16 (the scalar one in f32, '
-                 'other_shapes)',
+                 'wide wgmma program in bf16 on C = 96 padded to 128 by TMA '
+                 '(biggan128\'s and the golden lock\'s on the narrow one, '
+                 'the scalar one in f32: other_shapes); earlier_ms: the '
+                 'mma.sync program it replaced there',
          'launches': gan['launches'],
          'launches_by_kernel': gan['launches_by_kernel'],
          **gan['kernel_rows']['biggan256 ch96 bfloat16'],
@@ -4972,7 +5256,7 @@ def main():
                                            'mesh')},
         'moe': {'trn': piped['trn'], 'moe_apply': piped['moe']},
         'seq': {k: seq[k] for k in ('train', 'f32', 'whole_batch')},
-        'card': card}))
+        'k1_done_line': done_line, 'card': card}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

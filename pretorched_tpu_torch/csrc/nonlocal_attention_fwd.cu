@@ -23,19 +23,30 @@
 // last query tile is zero-filled on load and skipped on store. Three
 // kernels, chosen by the caller's dispatch on dtype and shape:
 //
-// * bf16 with C and Cv multiples of 64 up to 256 (the eval and train
-//   layer-2 shapes, sub_sample): Hopper's own route, warp-specialised. One
+// * bf16 with C and Cv multiples of 8 up to 256 (the eval and train
+//   layer-2 shapes, sub_sample; SAGAN's C = 48, Cv = 192 in biggan128;
+//   MNISTNonLocalNet's 16 and 32): Hopper's own route, warp-specialised. One
 //   producer thread streams k and v through a 2-slot TMA + mbarrier ring,
 //   two consumer warpgroups run wgmma with the whole (64, Cv) accumulator
 //   in registers, so q k^T is formed once and q is loaded once
 //   (nonlocal_attention_fwd_wgmma_kernel below, wgmma_tiles.cuh).
-// * bf16 with C and Cv multiples of 64 up to 512, one above 256 (layer 3's
-//   C = Cv = 512): the wide wgmma kernel. A 64 x 512 f32 O does not fit a
+// * bf16 with C and Cv multiples of 8 up to 512, one above 256 (layer 3's
+//   C = Cv = 512; SAGAN's C = 96, Cv = 384 in biggan256): the wide wgmma
+//   kernel. A 64 x 512 f32 O does not fit a
 //   warpgroup's registers, so the two consumer warpgroups share 64 query
 //   rows and each owns half of O's columns; both form the same q k^T
 //   (nonlocal_attention_fwd_wide_kernel below).
+//   Both wgmma kernels read whole 64-channel TMA boxes. A width that is no
+//   multiple of 64 is padded to the next one, Cp = ceil(C / 64) 64 and Cvp
+//   = ceil(Cv / 64) 64, by TMA itself: a box reads zeros past the tensor's
+//   last column (the map's OOB fill), so no copy is made and no extra byte
+//   comes from memory. Zero channels add nothing to q k^T, and O's columns
+//   past Cv are clipped by the TMA store. The kernels take the padded
+//   widths; only the tensor maps know C and Cv. The cost is the products
+//   on zero channels: 1.07x the minimal at C = 48, Cv = 192 and at C = 96,
+//   Cv = 384. TMA needs 16-byte rows, so C and Cv are multiples of 8.
 // * other bf16 shapes (gaussian mode's C = 1024, channels that are no
-//   multiple of 64): tensor cores through mma.sync.m16n8k16 with f32
+//   multiple of 8): tensor cores through mma.sync.m16n8k16 with f32
 //   accumulation, four warps of 16 query rows each (the FlashAttention-2
 //   layout). The score tile stays in registers; P is rounded to bf16 for
 //   P V, as in FlashAttention. The (16, Cv) accumulator of a warp would need
@@ -373,45 +384,56 @@ nonlocal_attention_fwd_bf16_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------- bf16, Hopper: wgmma, TMA, ring
-// C and Cv multiples of 64, at most 256 (the dispatch in
-// ops/cuda/nonlocal_attention.py). A block owns (batch item, 128 queries):
+// C and Cv multiples of 8, at most 256 (the dispatch in
+// ops/cuda/nonlocal_attention.py), padded to Cp and Cvp (multiples of 64)
+// by the maps' zero fill. A block owns (batch item, 128 queries):
 // warpgroups 0 and 1 consume 64 query rows each, warpgroup 2 produces
 // (one thread issues every TMA copy). Shared memory, each tile a stack of
 // swizzled 64-channel chunks (wgmma_tiles.cuh):
-//   q      128 x C, loaded once              (256 C bytes)
-//   k ring 2 slots of 64 keys x C            (256 C bytes)
-//   v ring 2 slots of 64 keys x Cv           (256 Cv bytes; O's staging at
-//                                             the end)
+//   q      128 x Cp, loaded once             (256 Cp bytes)
+//   k ring 2 slots of 64 keys x Cp           (256 Cp bytes)
+//   v ring 2 slots of 64 keys x Cvp          (256 Cvp bytes; O's staging
+//                                             at the end)
 // 192 KB at C = Cv = 256. Per key tile a consumer forms S = q k^T (64 x 64,
 // wgmma m64n64k16, both operands in shared memory), the online softmax in
 // registers (a row across the 4 threads of a quad), P in bf16 straight from
 // the accumulator, then O += P v (wgmma with A = P from registers, B = v
-// MN-major: m64n256k16 at Cv = 256, Cv / 64 m64n64k16 otherwise). O (64 x
-// Cv f32) stays in 128 registers a thread: no Cv split, no recompute.
+// MN-major: m64n256k16 at Cvp = 256, Cvp / 64 m64n64k16 otherwise). O (64
+// x Cvp f32) stays in NV x 32 registers a thread, NV = Cvp / 64 fixed at
+// compile time (one instantiation per NV, so a narrow Cv holds no idle
+// accumulator and no branch guards a product): no Cv split, no recompute.
+// Every expected transaction count is that of whole boxes (rows x Cp x 2
+// bytes): TMA counts the zeros it fills, past the rows and past the
+// columns alike.
 constexpr int kWQ = 128;            // query rows per block
 constexpr int kWK = 64;             // keys per tile
 
-size_t fwd_wgmma_smem(int c, int cv) {
-  return 512 * (size_t)c + 256 * (size_t)cv + 2 * sizeof(Ring<2>) +
+// C and Cv rounded up to whole 64-channel boxes
+int padded(int width) { return (width + 63) / 64 * 64; }
+
+size_t fwd_wgmma_smem(int cp, int cvp) {
+  return 512 * (size_t)cp + 256 * (size_t)cvp + 2 * sizeof(Ring<2>) +
          sizeof(uint64_t) + 1024;   // + 1024: aligning the base
 }
 
+template <int NV>
 __global__ void __launch_bounds__(kWThreads, 1)
 nonlocal_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                     const __grid_constant__ CUtensorMap kmap,
                                     const __grid_constant__ CUtensorMap vmap,
                                     const __grid_constant__ CUtensorMap omap,
                                     float* __restrict__ lse, int n, int nk,
-                                    int c, int cv, float scale) {
+                                    int cp, float scale) {
+  constexpr int cvp = 64 * NV;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align1024(smem_raw);
-  unsigned char* ks = qs + 256 * c;
-  unsigned char* vs = ks + 256 * c;
-  Ring<2>* kring = reinterpret_cast<Ring<2>*>(vs + 256 * cv);
+  unsigned char* ks = qs + 256 * cp;
+  unsigned char* vs = ks + 256 * cp;
+  Ring<2>* kring = reinterpret_cast<Ring<2>*>(vs + 256 * cvp);
   Ring<2>* vring = kring + 1;
   uint64_t* qbar = reinterpret_cast<uint64_t*>(vring + 1);
 
-  const int nc = c / 64, nv = cv / 64;
+  const int nc = cp / 64;
   const int bi = blockIdx.y;
   const int q0 = blockIdx.x * kWQ;
   const int tiles = (nk + kWK - 1) / kWK;
@@ -429,20 +451,20 @@ nonlocal_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     // ---- producer: q once, then k and v tiles through the rings
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(qbar, kWQ * c * 2);
+      mbar_expect_tx(qbar, kWQ * cp * 2);
       for (int j = 0; j < nc; ++j)
         tma_load(qs + j * kWQ * 128, &qmap, qbar, 64 * j, q0, bi);
       for (int t = 0; t < tiles; ++t) {
         const int s = Ring<2>::slot(t);
         kring->wait_empty(t);
-        mbar_expect_tx(&kring->full[s], kWK * c * 2);
+        mbar_expect_tx(&kring->full[s], kWK * cp * 2);
         for (int j = 0; j < nc; ++j)
-          tma_load(ks + s * 128 * c + j * 8192, &kmap, &kring->full[s],
+          tma_load(ks + s * 128 * cp + j * 8192, &kmap, &kring->full[s],
                    64 * j, t * kWK, bi);
         vring->wait_empty(t);
-        mbar_expect_tx(&vring->full[s], kWK * cv * 2);
-        for (int j = 0; j < nv; ++j)
-          tma_load(vs + s * 128 * cv + j * 8192, &vmap, &vring->full[s],
+        mbar_expect_tx(&vring->full[s], kWK * cvp * 2);
+        for (int j = 0; j < NV; ++j)
+          tma_load(vs + s * 128 * cvp + j * 8192, &vmap, &vring->full[s],
                    64 * j, t * kWK, bi);
       }
     }
@@ -455,9 +477,9 @@ nonlocal_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const float sl2 = scale * kLog2e;   // scores in log2 units
     const uint32_t q_rows = smem_addr(qs) + wg * 64 * 128;
 
-    float o[4][32];
+    float o[NV][32];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NV; ++j)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[j][i] = 0.f;
     float m_i[2] = {kNegInf, kNegInf};
@@ -470,7 +492,7 @@ nonlocal_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       float sc[32];
       kring->wait_full(t);
       wgmma_fence();
-      ss_scores(sc, q_rows, kWQ * 128, smem_addr(ks) + s * 128 * c, nc);
+      ss_scores(sc, q_rows, kWQ * 128, smem_addr(ks) + s * 128 * cp, nc);
       wgmma_commit();
       wgmma_wait_all();
       reg_fence(sc);
@@ -505,7 +527,7 @@ nonlocal_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         l_i[h] = l_i[h] * alpha[h] + sum[h];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NV; ++j)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[j][i] *= alpha[(i >> 1) & 1];
       uint32_t pa[4][4];
@@ -514,31 +536,30 @@ nonlocal_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
       // ---- O += P v
       vring->wait_full(t);
-      const uint32_t vt = smem_addr(vs) + s * 128 * cv;
+      const uint32_t vt = smem_addr(vs) + s * 128 * cvp;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        rs_product(o, pa[kk], vt + kk * 16 * 128, nv);
+        rs_chunks(o, pa[kk], vt + kk * 16 * 128, 64 * 128);
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        reg_fence(o[j]);
-        reg_fence(pa[j]);
-      }
+      for (int j = 0; j < NV; ++j) reg_fence(o[j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) reg_fence(pa[j]);
       vring->release(t);
     }
 
     // ---- epilogue: O / l in bf16 through the v ring (free once both
     // consumer warpgroups are past their last product), one TMA store per
-    // 64-column chunk of this warpgroup's rows; lse in f32
+    // 64-column chunk of this warpgroup's rows (columns past Cv and rows
+    // past N clipped); lse in f32
     named_sync(1, 256);
     float inv_l[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) inv_l[h] = 1.f / l_i[h];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j >= nv) break;
+    for (int j = 0; j < NV; ++j) {
 #pragma unroll
       for (int i = 0; i < 32; i += 2) {
         const int h = (i >> 1) & 1;
@@ -551,7 +572,7 @@ nonlocal_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_proxy_async();
     named_sync(2 + wg, 128);
     if (tid == 0) {
-      for (int j = 0; j < nv; ++j)
+      for (int j = 0; j < NV; ++j)
         tma_store(&omap, vs + j * kWQ * 128 + wg * 64 * 128, 64 * j,
                   q0 + wg * 64, bi);
       tma_store_drain();
@@ -567,30 +588,50 @@ nonlocal_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+template <int NV>
+int launch_fwd_narrow(const CUtensorMap& qm, const CUtensorMap& km,
+                      const CUtensorMap& vm, const CUtensorMap& om,
+                      float* lse, int b, int n, int nk, int cp, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = fwd_wgmma_smem(cp, 64 * NV);
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(nonlocal_attention_fwd_wgmma_kernel<NV>,
+                                     smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kWQ - 1) / kWQ, b);
+  nonlocal_attention_fwd_wgmma_kernel<NV><<<grid, kWThreads, smem, stream>>>(
+      qm, km, vm, om, lse, n, nk, cp, scale);
+  return (int)cudaGetLastError();
+}
+
 int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                      float* lse, int b, int n, int nk, int c, int cv,
                      float scale, cudaStream_t stream) {
-  if (c % 64 || cv % 64 || c > 256 || cv > 256)
+  if (c % 8 || cv % 8 || c > 256 || cv > 256)
     return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm, om;
   if (!make_map(&qm, q, b, n, c, kWQ) || !make_map(&km, k, b, nk, c, kWK) ||
       !make_map(&vm, v, b, nk, cv, kWK) || !make_map(&om, out, b, n, cv, 64))
     return (int)cudaErrorNotSupported;
-  const size_t smem = fwd_wgmma_smem(c, cv);
-  static int smem_allowed[kMaxDevices] = {};
-  const cudaError_t err =
-      allow_smem(nonlocal_attention_fwd_wgmma_kernel, smem, smem_allowed);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + kWQ - 1) / kWQ, b);
-  nonlocal_attention_fwd_wgmma_kernel<<<grid, kWThreads, smem, stream>>>(
-      qm, km, vm, om, lse, n, nk, c, cv, scale);
-  return (int)cudaGetLastError();
+  const int cp = padded(c);
+  switch (padded(cv) / 64) {
+    case 1: return launch_fwd_narrow<1>(qm, km, vm, om, lse, b, n, nk, cp,
+                                        scale, stream);
+    case 2: return launch_fwd_narrow<2>(qm, km, vm, om, lse, b, n, nk, cp,
+                                        scale, stream);
+    case 3: return launch_fwd_narrow<3>(qm, km, vm, om, lse, b, n, nk, cp,
+                                        scale, stream);
+    default: return launch_fwd_narrow<4>(qm, km, vm, om, lse, b, n, nk, cp,
+                                         scale, stream);
+  }
 }
 
 // ------------------------------- bf16, Hopper: the wide forward (layer 3)
-// C and Cv multiples of 64 up to 512, one of them above 256 (the dispatch
+// C and Cv multiples of 8 up to 512, one of them above 256 (the dispatch
 // in ops/cuda/nonlocal_attention.py; layer 3 of nonlocalresnet3d50, C = Cv
-// = 512, N = Nk = 784 at 32 frames x 224 px).
+// = 512, N = Nk = 784 at 32 frames x 224 px; biggan256's SAGAN attention,
+// C = 96, Cv = 384, N = 4096, Nk = 1024), padded to Cp and Cvp by the
+// maps' zero fill as above.
 //
 // What bounds it. At (B, N, Nk, C, Cv) = (20, 784, 784, 512, 512) the
 // function needs 2 B N Nk (C + Cv) = 25.2 GFLOP, 0.0255 ms at the bf16
@@ -601,7 +642,7 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
 // Design. A block owns (batch item, 64 queries): ceil(N / 64) x B blocks,
 // 260 at B = 20, 13 at B = 1. Warpgroup 2 produces (one thread issues every
 // TMA copy); consumer warpgroups 0 and 1 both read the same 64 query rows
-// and consumer g owns O[:, 64 W g .. 64 W g + 64 W), W = ceil(Cv / 128)
+// and consumer g owns O[:, 64 W g .. 64 W g + 64 W), W = Cvp / 128 rounded up
 // 64-column chunks, 64 x 256 f32 (128 registers a thread) at Cv = 512.
 // Both form the whole S = q k^T over C (the products' A = q and B = k
 // from shared memory), so the same online softmax runs in both, and each
@@ -609,8 +650,8 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
 // with no exchange and no barrier between the consumers inside the loop.
 // Shared memory, each tile a stack of swizzled 64-channel chunks
 // (wgmma_tiles.cuh):
-//   q       64 x C, loaded once                 (128 C bytes)
-//   k ring  kFwdWideStages slots of kFwdWideTk keys x C
+//   q       64 x Cp, loaded once                (128 Cp bytes)
+//   k ring  kFwdWideStages slots of kFwdWideTk keys x Cp
 //   v ring  the same of kFwdWideTk keys x 2W chunks (each consumer's
 //           product reads W chunks whether or not they all exist, so no
 //           branch guards a wgmma; O's staging at the end)
@@ -628,9 +669,9 @@ static_assert(kFwdWideTk * kFwdWideStages >= 64,
               "O is staged in the v ring: 64 rows x 2W chunks");
 
 template <int W>
-size_t fwd_wide_smem(int c) {
-  return 128 * (size_t)c +
-         (size_t)kFwdWideStages * kFwdWideTk * (2 * c + 2 * W * 128) +
+size_t fwd_wide_smem(int cp) {
+  return 128 * (size_t)cp +
+         (size_t)kFwdWideStages * kFwdWideTk * (2 * cp + 2 * W * 128) +
          2 * sizeof(Ring<kFwdWideStages>) + sizeof(uint64_t) + 1024;
 }
 
@@ -641,18 +682,18 @@ nonlocal_attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,
                                    const __grid_constant__ CUtensorMap vmap,
                                    const __grid_constant__ CUtensorMap omap,
                                    float* __restrict__ lse, int n, int nk,
-                                   int c, int cv, float scale) {
+                                   int cp, int cvp, float scale) {
   constexpr int TK = kFwdWideTk, ST = kFwdWideStages;
   constexpr int kVSlot = 2 * W * TK * 128;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* qs = align1024(smem_raw);
-  unsigned char* ks = qs + 128 * c;
-  unsigned char* vs = ks + ST * TK * 2 * c;
+  unsigned char* ks = qs + 128 * cp;
+  unsigned char* vs = ks + ST * TK * 2 * cp;
   Ring<ST>* kring = reinterpret_cast<Ring<ST>*>(vs + ST * kVSlot);
   Ring<ST>* vring = kring + 1;
   uint64_t* qbar = reinterpret_cast<uint64_t*>(vring + 1);
 
-  const int nc = c / 64, nv = cv / 64;
+  const int nc = cp / 64, nv = cvp / 64;
   const int bi = blockIdx.y;
   const int q0 = blockIdx.x * 64;
   const int tiles = (nk + TK - 1) / TK;
@@ -670,18 +711,18 @@ nonlocal_attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,
     // ---- producer: q once, then k and v tiles through the rings
     setmaxnreg_dec<24>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(qbar, 64 * c * 2);
+      mbar_expect_tx(qbar, 64 * cp * 2);
       for (int j = 0; j < nc; ++j)
         tma_load(qs + j * 8192, &qmap, qbar, 64 * j, q0, bi);
       for (int t = 0; t < tiles; ++t) {
         const int s = Ring<ST>::slot(t);
         kring->wait_empty(t);
-        mbar_expect_tx(&kring->full[s], TK * c * 2);
+        mbar_expect_tx(&kring->full[s], TK * cp * 2);
         for (int j = 0; j < nc; ++j)
-          tma_load(ks + s * TK * 2 * c + j * TK * 128, &kmap, &kring->full[s],
-                   64 * j, t * TK, bi);
+          tma_load(ks + s * TK * 2 * cp + j * TK * 128, &kmap,
+                   &kring->full[s], 64 * j, t * TK, bi);
         vring->wait_empty(t);
-        mbar_expect_tx(&vring->full[s], TK * cv * 2);
+        mbar_expect_tx(&vring->full[s], TK * cvp * 2);
         for (int j = 0; j < nv; ++j)
           tma_load(vs + s * kVSlot + j * TK * 128, &vmap, &vring->full[s],
                    64 * j, t * TK, bi);
@@ -711,7 +752,7 @@ nonlocal_attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,
       float sc[TK / 2];
       kring->wait_full(t);
       wgmma_fence();
-      ss_scores(sc, smem_addr(qs), 8192, smem_addr(ks) + s * TK * 2 * c, nc,
+      ss_scores(sc, smem_addr(qs), 8192, smem_addr(ks) + s * TK * 2 * cp, nc,
                 TK * 128);
       wgmma_commit();
       wgmma_wait_all();
@@ -772,7 +813,8 @@ nonlocal_attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // ---- epilogue: O / l in bf16 through the v ring (free once both
     // consumers are past their last product), one TMA store per existing
-    // 64-column chunk; lse in f32 from consumer 0
+    // 64-column chunk (columns past Cv and rows past N clipped); lse in f32
+    // from consumer 0
     named_sync(1, 256);
     float inv_l[2];
 #pragma unroll
@@ -810,23 +852,23 @@ nonlocal_attention_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,
 template <int W>
 int launch_fwd_wide(const CUtensorMap& qm, const CUtensorMap& km,
                     const CUtensorMap& vm, const CUtensorMap& om, float* lse,
-                    int b, int n, int nk, int c, int cv, float scale,
+                    int b, int n, int nk, int cp, int cvp, float scale,
                     cudaStream_t stream) {
-  const size_t smem = fwd_wide_smem<W>(c);
+  const size_t smem = fwd_wide_smem<W>(cp);
   static int smem_allowed[kMaxDevices] = {};
   const cudaError_t err = allow_smem(nonlocal_attention_fwd_wide_kernel<W>,
                                      smem, smem_allowed);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((n + 63) / 64, b);
   nonlocal_attention_fwd_wide_kernel<W><<<grid, kWThreads, smem, stream>>>(
-      qm, km, vm, om, lse, n, nk, c, cv, scale);
+      qm, km, vm, om, lse, n, nk, cp, cvp, scale);
   return (int)cudaGetLastError();
 }
 
 int launch_fwd_wgmma_wide(const void* q, const void* k, const void* v,
                           void* out, float* lse, int b, int n, int nk, int c,
                           int cv, float scale, cudaStream_t stream) {
-  if (c % 64 || cv % 64 || c > 512 || cv > 512 || (c <= 256 && cv <= 256))
+  if (c % 8 || cv % 8 || c > 512 || cv > 512 || (c <= 256 && cv <= 256))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm, om;
   if (!make_map(&qm, q, b, n, c, 64) ||
@@ -834,15 +876,16 @@ int launch_fwd_wgmma_wide(const void* q, const void* k, const void* v,
       !make_map(&vm, v, b, nk, cv, kFwdWideTk) ||
       !make_map(&om, out, b, n, cv, 64))
     return (int)cudaErrorNotSupported;
-  switch ((cv / 64 + 1) / 2) {
-    case 1: return launch_fwd_wide<1>(qm, km, vm, om, lse, b, n, nk, c, cv,
+  const int cp = padded(c), cvp = padded(cv);
+  switch ((cvp / 64 + 1) / 2) {
+    case 1: return launch_fwd_wide<1>(qm, km, vm, om, lse, b, n, nk, cp, cvp,
                                       scale, stream);
-    case 2: return launch_fwd_wide<2>(qm, km, vm, om, lse, b, n, nk, c, cv,
+    case 2: return launch_fwd_wide<2>(qm, km, vm, om, lse, b, n, nk, cp, cvp,
                                       scale, stream);
-    case 3: return launch_fwd_wide<3>(qm, km, vm, om, lse, b, n, nk, c, cv,
+    case 3: return launch_fwd_wide<3>(qm, km, vm, om, lse, b, n, nk, cp, cvp,
                                       scale, stream);
-    default: return launch_fwd_wide<4>(qm, km, vm, om, lse, b, n, nk, c, cv,
-                                       scale, stream);
+    default: return launch_fwd_wide<4>(qm, km, vm, om, lse, b, n, nk, cp,
+                                       cvp, scale, stream);
   }
 }
 
@@ -885,7 +928,7 @@ int pt_nonlocal_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // The bf16 wgmma kernel: the same function as pt_nonlocal_attention_fwd,
-// for C and Cv multiples of 64 up to 256 and 16-byte aligned tensors (the
+// for C and Cv multiples of 8 up to 256 and 16-byte aligned tensors (the
 // caller's dispatch picks it).
 int pt_nonlocal_attention_fwd_wgmma(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
@@ -898,7 +941,7 @@ int pt_nonlocal_attention_fwd_wgmma(const void* q, const void* k,
 }
 
 // The wide bf16 wgmma kernel: the same function, for C and Cv multiples of
-// 64 up to 512 with one of them above 256, and 16-byte aligned tensors
+// 8 up to 512 with one of them above 256, and 16-byte aligned tensors
 // (the caller's dispatch picks it).
 int pt_nonlocal_attention_fwd_wgmma_wide(const void* q, const void* k,
                                          const void* v, void* out, void* lse,

@@ -70,8 +70,10 @@ EncodeTiledFn encode_tiled() {
 // The map of a contiguous bf16 tensor (b, rows, cols) as the 3-D tensor
 // (cols, rows, b), boxes of 64 columns x box_rows rows x 1, 128-byte
 // swizzle. A box past `rows` reads zeros and is clipped on store, so a
-// ragged tile never touches the next batch item. cols % 64 == 0 and a
-// 16-byte aligned base (the wrapper checks both). False on failure.
+// ragged tile never touches the next batch item; a box past `cols` (cols
+// no multiple of 64, K1-fwd's padded widths) likewise. cols % 8 == 0 (rows
+// of 16 bytes) and a 16-byte aligned base (the wrapper checks both).
+// False on failure.
 bool make_map(CUtensorMap* map, const void* base, int b, int rows, int cols,
               int box_rows) {
   const EncodeTiledFn encode = encode_tiled();

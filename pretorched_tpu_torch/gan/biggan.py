@@ -15,8 +15,9 @@ variable tree loads key for key (``zoo/convert.state_dict_from_flax``):
   (64 px): theta (C/8), phi (C/8) and g (C/2) are 1x1 convs, phi and g are
   max-pooled 2x2, so the attention reads N/4 keys and Cv = 4 C. It goes
   through ``auto_nonlocal_attention``: on a CUDA tensor that is the K1-fwd
-  kernel (mma.sync in bf16, the scalar program in f32, since C is no
-  multiple of 64 at these widths); on the CPU its plain version;
+  kernel (in bf16 the wgmma programs, which pad C = 48 or 96 to whole
+  64-channel boxes, the wide one at Cv = 384; in f32 the scalar program);
+  on the CPU its plain version;
 * head: BN -> ReLU -> 3x3 conv -> tanh.
 
 ``BigGAN.forward(z, labels)`` returns NCHW images in [-1, 1]; ``sample``

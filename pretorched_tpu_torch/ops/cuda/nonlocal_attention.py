@@ -13,9 +13,11 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   ``_attn_dkv_kernel``) behind ``nonlocal_attention_bwd_dq_cuda`` and
   ``nonlocal_attention_bwd_dkv_cuda``.
 * ``attention_kernel``: the dispatch of K1-fwd, K1-dq and K1-dkv on dtype,
-  shape and op: ``'wgmma'`` (bf16, C and Cv multiples of 64 up to
-  ``WGMMA_MAX_WIDTH``: Hopper's warp-specialised wgmma + TMA kernels; each
-  op takes a second, wide program past 256, layer 3's 512),
+  shape and op: ``'wgmma'`` (bf16, C and Cv up to ``WGMMA_MAX_WIDTH``,
+  multiples of 8 for K1-fwd, whose programs pad them to 64 through TMA's
+  zero fill, and of 64 for K1-dq and K1-dkv: Hopper's warp-specialised
+  wgmma + TMA kernels; each op takes a second, wide program past 256,
+  layer 3's 512),
   ``'mma_sync'`` (every other bf16 shape) or ``'scalar'`` (f32). The
   kernel wrappers take CUDA tensors only and raise on anything they do not
   take; each counts its launches in ``.launches`` and per program in
@@ -57,6 +59,10 @@ OPS = ('fwd', 'dq', 'dkv')
 # each op's wide program.
 WGMMA_MAX_WIDTH = 512
 WGMMA_NARROW_WIDTH = 256
+# The step of C and Cv each op's wgmma programs take: K1-fwd reads 64-channel
+# TMA boxes past the last column as zeros, so it needs only TMA's 16-byte
+# rows (8 bf16); K1-dq's and K1-dkv's programs take whole boxes.
+WGMMA_WIDTH_STEP = {'fwd': 8, 'dq': 64, 'dkv': 64}
 
 
 def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
@@ -68,7 +74,8 @@ def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
         raise ValueError(f'dtype {dtype} not supported (float32, bfloat16)')
     if dtype == torch.float32:
         return 'scalar'
-    fits = all(w % 64 == 0 and w <= WGMMA_MAX_WIDTH for w in (c, cv))
+    step = WGMMA_WIDTH_STEP[op]
+    fits = all(w % step == 0 and w <= WGMMA_MAX_WIDTH for w in (c, cv))
     return 'wgmma' if fits else 'mma_sync'
 
 
@@ -166,7 +173,7 @@ def _ptr(t):
 
 def _check_tma(*tensors):
     """TMA reads and writes 16-byte aligned rows from a 16-byte aligned
-    base; the rows (C, Cv multiples of 64 in bf16) always are."""
+    base; the rows (C, Cv multiples of 8 in bf16) always are."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f'the wgmma kernels need 16-byte aligned tensors;'

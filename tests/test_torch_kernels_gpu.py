@@ -77,12 +77,14 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol_out, tol_lse,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('dtype,program', [(torch.bfloat16, 'mma_sync'),
-                                           (torch.float32, 'scalar')])
-def test_sagan_shapes_take_their_programs(cuda, dtype, program):
-    """C is no multiple of 64 at SAGAN's shapes: bf16 runs the mma.sync
-    program, f32 the scalar one, one launch each."""
-    for b, n, nk, c, cv, _ in SAGAN_CASES:
+@pytest.mark.parametrize('dtype,programs', [
+    (torch.bfloat16, ('wgmma_wide', 'wgmma', 'wgmma')),
+    (torch.float32, ('scalar',) * 3)])
+def test_sagan_shapes_take_their_programs(cuda, dtype, programs):
+    """C is no multiple of 64 at SAGAN's shapes, but a multiple of 8: bf16
+    runs K1-fwd's wgmma programs on widths padded by TMA (biggan256's Cv =
+    384 the wide one), f32 the scalar one, one launch each."""
+    for (b, n, nk, c, cv, _), program in zip(SAGAN_CASES, programs):
         q = torch.randn(b, n, c, device=cuda, dtype=dtype)
         k = torch.randn(b, nk, c, device=cuda, dtype=dtype)
         v = torch.randn(b, nk, cv, device=cuda, dtype=dtype)
@@ -413,6 +415,72 @@ def test_wgmma_agrees_with_the_mma_sync_kernels(cuda):
     assert _rel_err(dqw, dqm.float()) <= 2e-2
 
 
+# (B, N, Nk, C, Cv) for K1-fwd's wgmma programs at widths that are no
+# multiple of 64, padded to whole 64-channel boxes by TMA's zero fill: each
+# C of {8, 16, 24, 48, 96, 136, 200} and each Cv of {8, 40, 64, 192, 384,
+# 264}; ragged N and Nk (the last query band and key tile partly past the
+# tensor, rows and columns at once); B = 1 and B > 1 (a box never reads
+# the next batch item, lse shaped per row); Cv != C both ways (out sized by
+# Cv). Cv = 384 and 264 (Cvp = 320: consumer 1's third chunk does not
+# exist) take the wide program.
+NARROW_CASES = [
+    (1, 64, 64, 8, 8),
+    (2, 300, 200, 16, 64),
+    (3, 1000, 250, 24, 40),
+    (2, 4096, 1024, 48, 192),
+    (2, 1000, 520, 96, 384),
+    (1, 130, 90, 136, 264),
+    (2, 200, 130, 200, 8),
+    (1, 100, 300, 8, 384),
+    (2, 777, 333, 136, 40),
+    (4, 49, 49, 32, 32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv', NARROW_CASES)
+def test_narrow_wgmma_forward_matches_plain(cuda, b, n, nk, c, cv):
+    """K1-fwd's wgmma programs at padded widths against the plain version
+    in f32 on the same bf16 inputs (out 2e-2, and 2e-2 of the largest
+    |out|; lse 1e-2) and against the mma.sync program they replaced there
+    (the private launch route), one launch each on its program."""
+    q, k, v, _ = _bwd_inputs(b, n, nk, c, cv, torch.bfloat16, cuda)
+    program = na._program(na.attention_kernel(q.dtype, c, cv, 'fwd'), c, cv)
+    assert program == ('wgmma_wide' if max(c, cv) > 256 else 'wgmma')
+    before = dict(na.nonlocal_attention_cuda.by_kernel)
+    out, lse = na.nonlocal_attention_fwd_lse(q, k, v)
+    om, lm = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
+    torch.cuda.synchronize()
+    after = na.nonlocal_attention_cuda.by_kernel
+    assert {p: after[p] - before[p] for p in na.PROGRAMS} == {
+        p: int(p in (program, 'mma_sync')) for p in na.PROGRAMS}
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+        q.float(), k.float(), v.float())
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n, cv)
+    assert lse.dtype == torch.float32 and lse.shape == (b, n)
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
+    assert _rel_err(out, want) <= 2e-2
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-2)
+    assert _rel_err(out, om.float()) <= 2e-2
+    torch.testing.assert_close(lse, lm, rtol=0, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_narrow_widths_off_the_step_take_mma_sync(cuda):
+    """C = 20 is no multiple of 8 (TMA's 16-byte rows): K1-fwd stays on
+    the mma.sync program, held to the plain version."""
+    q, k, v, _ = _bwd_inputs(2, 100, 90, 20, 64, torch.bfloat16, cuda)
+    assert na.attention_kernel(q.dtype, 20, 64, 'fwd') == 'mma_sync'
+    before = na.nonlocal_attention_cuda.by_kernel['mma_sync']
+    out, lse = na.nonlocal_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert na.nonlocal_attention_cuda.by_kernel['mma_sync'] == before + 1
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(
+        q.float(), k.float(), v.float())
+    torch.testing.assert_close(out.float(), want, rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-2)
+
+
 @pytest.mark.gpu
 def test_wgmma_kernels_refuse_misaligned_tensors(cuda):
     """TMA needs a 16-byte aligned base: a view 2 bytes into its storage is
@@ -440,6 +508,15 @@ def test_wgmma_kernels_refuse_misaligned_tensors(cuda):
         na.nonlocal_attention_bwd_dkv_cuda(q, q, q, q, lse, lse)
     assert (na.nonlocal_attention_bwd_dq_cuda.launches,
             na.nonlocal_attention_bwd_dkv_cuda.launches) == before
+    # K1-fwd at padded widths (C = 48, Cv = 192; C = 96, Cv = 384)
+    for c, cv in ((48, 192), (96, 384)):
+        flat = torch.randn(64 * cv + 1, device=cuda).to(torch.bfloat16)
+        v = flat[1:].view(1, 64, cv)
+        q = torch.randn(1, 64, c, device=cuda).to(torch.bfloat16)
+        before = dict(na.nonlocal_attention_cuda.by_kernel)
+        with pytest.raises(ValueError, match='16-byte aligned'):
+            na.nonlocal_attention_cuda(q, q, v)
+        assert na.nonlocal_attention_cuda.by_kernel == before
 
 
 @pytest.mark.gpu
@@ -752,14 +829,14 @@ def test_served_resnet18_rows_match_the_direct_forward(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype,kernel,tol_out,tol_lse', [
     (torch.float32, 'scalar', 2e-4, 1e-4),
-    (torch.bfloat16, 'mma_sync', 2e-2, 1e-2)])
+    (torch.bfloat16, 'wgmma', 2e-2, 1e-2)])
 @pytest.mark.parametrize('b,n,c', [(64, 196, 16), (64, 49, 32)])
 def test_mnist_nonlocal_shapes_match_plain(cuda, dtype, kernel, tol_out,
                                            tol_lse, b, n, c):
     """K1-fwd at ``MNISTNonLocalNet``'s two attention shapes (64 images:
     N = 196, C = 16 and N = 49, C = 32), on the kernel the dispatch picks
-    (C is no multiple of 64, so bf16 takes mma.sync), against the plain
-    version at phase 3's tolerances."""
+    (C is a multiple of 8, so bf16 takes the wgmma program on widths padded
+    to 64), against the plain version at phase 3's tolerances."""
     q, k, v, _ = _bwd_inputs(b, n, n, c, c, dtype, cuda)
     assert na.attention_kernel(dtype, c, c, 'fwd') == kernel
     before = na.nonlocal_attention_cuda.by_kernel[kernel]

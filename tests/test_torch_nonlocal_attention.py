@@ -20,7 +20,8 @@ from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
 # scale != 1; B > 1 with N not a multiple of 128 — including the two past
 # faults: lse shaped per row for B > 1, and v/out sized by Cv, not C; and
 # layer 3's width (C = Cv = 512) at a small N, its scale ~ 1/sqrt(C) so
-# the softmax is not one-hot. All at 1e-4 (f32 on both sides).
+# the softmax is not one-hot; SAGAN's C = 48, Cv = 4 C (biggan128, keys
+# pooled 2x2). All at 1e-4 (f32 on both sides).
 CASES = [
     (1, 256, 256, 32, 32, 1.0),
     (2, 300, 300, 32, 32, 1.0),
@@ -29,6 +30,7 @@ CASES = [
     (3, 200, 200, 16, 16, 0.25),
     (2, 130, 520, 8, 24, 2.0),
     (2, 96, 80, 512, 512, 0.05),
+    (2, 256, 64, 48, 192, 1.0),
 ]
 
 
@@ -89,8 +91,11 @@ def test_plain_runs_f32_under_autocast():
 # 'fwd,dq,dkv' where they differ. bf16 with C and Cv multiples of 64 up to
 # 512 (the layer-2 and sub_sample shapes, Cv != C, the smallest; layer 3,
 # Cv != C, one side narrow, on each op's wide program) takes wgmma
-# everywhere; gaussian mode (1024), past 512 and channels that are no
-# multiple of 64 stay on mma.sync; f32 is scalar
+# everywhere; multiples of 8 that are not of 64 (MNISTNonLocalNet's 16 and
+# 32, SAGAN's 48 / 192 and 96 / 384, the golden lock's 16 / 64) take wgmma
+# in K1-fwd, whose programs pad them, and mma.sync in the backward;
+# gaussian mode (1024), past 512 and channels that are no multiple of 8
+# stay on mma.sync; f32 is scalar
 DISPATCH = [
     (torch.bfloat16, 256, 256, 'wgmma'),
     (torch.bfloat16, 64, 256, 'wgmma'),
@@ -100,16 +105,21 @@ DISPATCH = [
     (torch.bfloat16, 512, 512, 'wgmma'),
     (torch.bfloat16, 1024, 512, 'mma_sync'),
     (torch.bfloat16, 256, 320, 'wgmma'),
-    (torch.bfloat16, 32, 32, 'mma_sync'),
-    (torch.bfloat16, 96, 64, 'mma_sync'),
+    (torch.bfloat16, 32, 32, 'wgmma,mma_sync,mma_sync'),
+    (torch.bfloat16, 96, 64, 'wgmma,mma_sync,mma_sync'),
     (torch.float32, 256, 256, 'scalar'),
     (torch.float32, 32, 24, 'scalar'),
     (torch.bfloat16, 64, 512, 'wgmma'),
     (torch.bfloat16, 512, 64, 'wgmma'),
     (torch.bfloat16, 384, 320, 'wgmma'),
     (torch.bfloat16, 576, 512, 'mma_sync'),
-    (torch.bfloat16, 512, 480, 'mma_sync'),
+    (torch.bfloat16, 512, 480, 'wgmma,mma_sync,mma_sync'),
     (torch.float32, 512, 512, 'scalar'),
+    (torch.bfloat16, 96, 384, 'wgmma,mma_sync,mma_sync'),
+    (torch.bfloat16, 48, 192, 'wgmma,mma_sync,mma_sync'),
+    (torch.bfloat16, 16, 64, 'wgmma,mma_sync,mma_sync'),
+    (torch.bfloat16, 8, 8, 'wgmma,mma_sync,mma_sync'),
+    (torch.bfloat16, 20, 64, 'mma_sync'),
 ]
 
 
