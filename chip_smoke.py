@@ -10,7 +10,8 @@ Drives the port's main path once on one CUDA card and checks it:
    with the kernel the dispatch picks (``attention_kernel``: bf16 with C
    and Cv multiples of 8 up to 512 on K1-fwd's wgmma programs, which pad
    them to 64 through TMA, past 256 the wide program, other bf16 shapes on
-   mma.sync, f32 scalar), its time, its bound and one
+   mma.sync, f32 scalar in K1-fwd; f32 K1-dq and K1-dkv on tf32x3 up to
+   512, scalar past it), its time, its bound and one
    ``scaled_dot_product_attention`` call's time, the plain version's at
    layers 2 and 3, and at both layers the mma.sync kernel that wgmma
    replaced (held to the plain version at the same tolerances) and each
@@ -38,13 +39,19 @@ Drives the port's main path once on one CUDA card and checks it:
    shape and, at layers 2 and 3, the generic K1-dq and K1-dkv that wgmma
    (at layer 3 its wide programs) replaced: time and host time per call,
    each generic kernel held to the plain backward, K1-dq's two outputs
-   held together; K1-dq and K1-dkv must repeat bitwise at every bf16
-   shape. Then K1's done line: K1-fwd, K1-dq and K1-dkv in bf16 at N = Nk
+   held together; K1-dq and K1-dkv must repeat bitwise at every shape. In
+   f32 every shape runs the program the dispatch picks (tf32x3, scalar at
+   gaussian mode's C = 1024), and at layers 2 and 3 the scalar programs
+   tf32x3 replaced are held to the plain backward too and timed beside it
+   with their host times, SDPA's f32 backward, and the bounds at the
+   tensor cores' TF32 rate over 3 and at the CUDA cores'. Then K1's done
+   line: K1-fwd, K1-dq and K1-dkv in bf16 at N = Nk
    = 65,536, C = Cv = 256 (the narrow wgmma programs) against the plain
    version computed in chunks of queries in f32 (the kernel's own out and
    lse for the backward, dk and dv summed over the chunks), at this
    phase's and phase 3's tolerances, timed beside SDPA; and the f32
-   kernels timed at the train shapes of layers 2 and 3 beside SDPA in f32;
+   kernels timed at the train shapes of layers 2 and 3 beside SDPA in f32
+   (K1-dq and K1-dkv beside the scalar programs);
 6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
    ``remat=(0,)``, SGD, 12 steps of 8 clips x 32 frames x 224 px; it checks
    15 attention launches a step (5 forward, 5 dq and 5 dkv on wgmma, 3 of
@@ -53,6 +60,13 @@ Drives the port's main path once on one CUDA card and checks it:
    over steps 2-12, clips/s and peak memory, profiles one more step
    (device time by kernel family, each K1 program's, idle share), and
    saves a checkpoint after step 3 that must restore exactly;
+6b. the f32 fine-tuning step: the same model, batch and SGD in f32 with
+   TF32 off, steps in turns with the f32 backward on tf32x3 and forced onto
+   the scalar programs (the dispatch patched in this script): 15 K1
+   launches a step by program (5 K1-fwd scalar, 5 K1-dq and 5 K1-dkv on
+   the program of the turn), finite losses, device and host time a step
+   (median and spread), peak memory, and one profiled step of each with
+   K1's share and the device's idle share;
 7. gradient agreement: each non-local block's gradients with the kernels
    against those with the plain attention, and one step's loss and
    gradients in f32 with the kernels and with the plain attention, each
@@ -305,12 +319,24 @@ TOL_BWD = {'float32': 1e-4, 'bfloat16': 2e-2}
 # f32); the f32 kernels timed at TRAIN_SHAPES' layer2 and layer3
 DONE_LINE_SHAPE = (1, 65536, 65536, 256, 256)
 DONE_CHUNK = 4096
-# the card's dense peaks (H100 SXM at 700 W) and memory rate, for bounds
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+# the card's dense peaks (H100 SXM at 700 W) and memory rate, for bounds:
+# bf16 on the tensor cores, f32 on the CUDA cores, and f32 as the tf32x3
+# programs of K1-dq and K1-dkv form it, 3 TF32 products on the tensor
+# cores' 495 TFLOP/s for each f32 product
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12, 'tf32x3': 495e12 / 3}
 MEM_BYTES_PER_S = 3.35e12
 # 12 steps: the first warms up, the median of steps 2-12 is read, by host
 # clock and by device time (CUDA events around each step)
 TRAIN_CLIPS, TRAIN_STEPS, TRAIN_LR = 8, 12, 1e-3
+# phase 6b: phase 6's step in f32 (TF32 off), the f32 fine-tuning a user of
+# the f32 zoo runs: a warm step on each backward program, then turns of
+# F32_TRAIN_STEPS steps with K1-dq and K1-dkv on tf32x3 (t) and forced onto
+# the scalar programs (s), t s s t, and one profiled step of each; K1
+# launches a step by program
+F32_TRAIN_STEPS = 3
+F32_TRAIN_KERNELS = {
+    'tf32x3': {'fwd scalar': 5, 'dq tf32x3': 5, 'dkv tf32x3': 5},
+    'scalar': {'fwd scalar': 5, 'dq scalar': 5, 'dkv scalar': 5}}
 # K2 (the fused bottleneck tail): (N, T, H, W, Cin, Cm, Cout, projection)
 # of SlowFast-R50 on 20 clips x 64 frames x 224 px (fast pathway B*T =
 # 20 x 32, slow 20 x 4); the first four are fused_blocks=32's, with their
@@ -547,7 +573,8 @@ def bound(flops, nbytes, dtype):
 def attention_bounds(b, n, nk, c, cv, dtype):
     """Bounds of K1-fwd, K1-dq and K1-dkv: each input read once, each output
     written once; the products each must do (s and p v; s, dp and dq; s,
-    dp, dk and dv)."""
+    dp, dk and dv). ``dtype`` names the rate (``PEAK_FLOPS``): 'tf32x3'
+    is f32 data at the tensor cores' rate over 3."""
     e = 2 if dtype == 'bfloat16' else 4
     q, k, v, o = b * n * c * e, b * nk * c * e, b * nk * cv * e, b * n * cv * e
     rows = b * n * 4
@@ -1079,6 +1106,10 @@ def backward_vs_plain(na, torch):
                         'earlier': 'generic mma.sync kernel, same run',
                         'host_us': dq_hosts[0],
                         'earlier_host_us': dq_hosts[1]}
+            if dt == torch.float32:
+                line, generic_rel = f32_backward_rows(
+                    na, torch, name, (q, k, v, do, out, lse), got, want,
+                    (dq_kernel, kernel), errs, rels, line, result)
             print(line, flush=True)
             check(max(rels) <= tol,
                   f'backward kernels disagree with the plain version: {line}')
@@ -1089,14 +1120,95 @@ def backward_vs_plain(na, torch):
     return result
 
 
+def f32_backward_rows(na, torch, name, inputs, got, want, kernels, errs,
+                      rels, line, result):
+    """Phase 5 in f32: K1-dq and K1-dkv repeated (bitwise); at layers 2 and
+    3 the scalar programs that tf32x3 replaced held to the plain backward
+    too, both timed with their host time per call, beside SDPA's f32
+    backward and the bounds at the tensor cores' tf32x3 rate and at the
+    CUDA cores'. Returns the line and the scalar programs' largest error
+    (0 where not run); keeps the layers' numbers in ``result`` under
+    '<name> float32'."""
+    q, k, v, do, out, lse = inputs
+    dq_kernel, kernel = kernels
+    b, n, c = q.shape
+    nk, cv = v.shape[1:]
+    delta = (do * out).sum(-1)
+    dq_again = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+    dk_again, dv_again = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse,
+                                                             delta)
+    same = (torch.equal(dk_again, got[1]) and torch.equal(dv_again, got[2]))
+    same_dq = torch.equal(dq_again, got[0])
+    del dq_again, dk_again, dv_again
+    line += (f'; a second run bitwise equal: dk, dv {same}, dq {same_dq}')
+    check(same, f'f32 K1-dkv ({kernel}) does not repeat at {name}')
+    check(same_dq, f'f32 K1-dq ({dq_kernel}) does not repeat at {name}')
+    if name not in ('layer2', 'layer3') or kernel != 'tf32x3':
+        return line, 0.0
+    scalar = (na._launch_dq(q, k, v, do, lse, delta, 1.0, 'scalar'),
+              *na._launch_dkv(q, k, v, do, lse, delta, 1.0, 'scalar'))
+    scalar_rel = max(rel_to_max(gr, w) for gr, w in zip(scalar, want))
+    del scalar
+    calls = {
+        'dq': (lambda: na.nonlocal_attention_bwd_dq_cuda(
+                   q, k, v, do, lse, delta),
+               lambda: na._launch_dq(q, k, v, do, lse, delta, 1.0, 'scalar')),
+        'dkv': (lambda: na.nonlocal_attention_bwd_dkv_cuda(
+                    q, k, v, do, lse, delta),
+                lambda: na._launch_dkv(q, k, v, do, lse, delta, 1.0,
+                                       'scalar'))}
+    ms = {op: (median_ms(new, reps=5), median_ms(old, reps=3))
+          for op, (new, old) in calls.items()}
+    hosts = {op: (host_us(new, reps=10), host_us(old, reps=3))
+             for op, (new, old) in calls.items()}
+    plain_ms = median_ms(lambda: na.nonlocal_attention_bwd_reference(
+        q, k, v, out, lse, do), reps=3)
+    lib_ms, backend = sdpa_ms(torch, q, k, v, do)
+    tc = attention_bounds(b, n, nk, c, cv, 'tf32x3')
+    cores = attention_bounds(b, n, nk, c, cv, 'float32')
+    # multiply-adds per (query, key) pair: K1-dq's s, dp and dq once; K1-dkv's
+    # dk blocks s, dp and dk, its dv blocks s again and dv
+    pair = {'dq': (2 * c + cv, 2 * c + cv), 'dkv': (3 * c + 2 * cv,
+                                                   2 * c + 2 * cv)}
+    line += (f'; the scalar programs they replaced: max|d-plain|/max|d| '
+             f'{scalar_rel:.2e}\n    f32 ' + ', '.join(
+                 f'{op} {ms[op][0]:.3f} ms (scalar {ms[op][1]:.3f}; host per '
+                 f'call {hosts[op][0]:.1f} us, scalar {hosts[op][1]:.1f}; '
+                 f'bound {tc[op][0]:.4f} ms at the TF32 rate over 3, '
+                 f'{cores[op][0]:.4f} on the CUDA cores; {pair[op][0]} '
+                 f'multiply-adds a pair, minimum {pair[op][1]})'
+                 for op in ms)
+             + f'; plain {plain_ms:.3f} ms, scaled_dot_product_attention '
+             f'backward {fmt_ms(lib_ms)} ({backend})')
+    library = (f'scaled_dot_product_attention backward ({backend}; f32; '
+               f'dq, dk, dv together)')
+    plain = 'nonlocal_attention_bwd_reference (dq, dk, dv together)'
+    result[f'{name} float32'] = {
+        op: {'kernel': kernel, 'program': 'tf32x3',
+             'max_abs_err': errs[0] if op == 'dq' else max(errs[1:]),
+             'max_rel_err': rels[0] if op == 'dq' else max(rels[1:]),
+             'ms': ms[op][0], 'plain_ms': plain_ms, 'plain': plain,
+             'library_ms': lib_ms, 'library': library,
+             'bound_ms': tc[op][0], 'bound_by': tc[op][1],
+             'bound_rate': 'TF32 dense 495 TFLOP/s over 3 products',
+             'bound_ms_cuda_cores': cores[op][0],
+             'earlier_ms': ms[op][1], 'earlier': 'scalar program, same run',
+             'host_us': hosts[op][0], 'earlier_host_us': hosts[op][1],
+             'multiply_adds_per_pair': pair[op][0],
+             'minimal_multiply_adds_per_pair': pair[op][1]}
+        for op in ms}
+    return line, scalar_rel
+
+
 def k1_done_line(na, torch):
     """K1's done line: K1-fwd, K1-dq and K1-dkv in bf16 at DONE_LINE_SHAPE
     on the narrow wgmma programs, held to the plain version computed in
     chunks of DONE_CHUNK queries in f32 (the backward's from the kernel's
     own out and lse; dk and dv summed over the chunks) at phase 3's and
     phase 5's tolerances, each timed beside SDPA; then the f32 kernels
-    timed at the train shapes of layers 2 and 3 beside SDPA in f32.
-    Returns the numbers."""
+    timed at the train shapes of layers 2 and 3 beside SDPA in f32, K1-dq
+    and K1-dkv (tf32x3) beside the scalar programs they replaced. Returns
+    the numbers."""
     b, n, nk, c, cv = DONE_LINE_SHAPE
     dt = torch.bfloat16
     g = torch.Generator(device='cuda').manual_seed(6)
@@ -1201,19 +1313,42 @@ def k1_done_line(na, torch):
                 q, k, v, do, lse, delta), reps=3),
             'dkv': median_ms(lambda: na.nonlocal_attention_bwd_dkv_cuda(
                 q, k, v, do, lse, delta), reps=3)}
+        # the scalar programs tf32x3 replaced, same inputs
+        scalar = {
+            'dq': median_ms(lambda: na._launch_dq(
+                q, k, v, do, lse, delta, 1.0, 'scalar'), reps=3),
+            'dkv': median_ms(lambda: na._launch_dkv(
+                q, k, v, do, lse, delta, 1.0, 'scalar'), reps=3)}
+        plain = {
+            'fwd': median_ms(lambda: na.nonlocal_attention_fwd_lse_reference(
+                q, k, v), reps=3),
+            'bwd': median_ms(lambda: na.nonlocal_attention_bwd_reference(
+                q, k, v, out, lse, do), reps=3)}
         sdpa = {'fwd': sdpa_ms(torch, q, k, v),
                 'bwd': sdpa_ms(torch, q, k, v, do)}
-        bounds = attention_bounds(b, n, nk, c, cv, 'float32')
-        print(f'{name:10s} float32 B={b} N={n} Nk={nk} C={c} Cv={cv} '
-              f'[{programs["fwd"]}]: '
-              + ', '.join(f'{op} {ms:.3f} ms (bound {bounds[op][0]:.3f})'
-                          for op, ms in times.items())
-              + f'; scaled_dot_product_attention {fmt_ms(sdpa["fwd"][0])} '
-              f'({sdpa["fwd"][1]}), its backward {fmt_ms(sdpa["bwd"][0])} '
-              f'({sdpa["bwd"][1]})', flush=True)
+        # K1-fwd's scalar program on the CUDA cores; K1-dq's and K1-dkv's
+        # tf32x3 at the TF32 rate over 3 (the CUDA cores' beside it)
+        cores = attention_bounds(b, n, nk, c, cv, 'float32')
+        tc = attention_bounds(b, n, nk, c, cv, 'tf32x3')
+        bounds = {op: tc[op] if programs[op] == 'tf32x3' else cores[op]
+                  for op in na.OPS}
+        print(f'{name:10s} float32 B={b} N={n} Nk={nk} C={c} Cv={cv}: '
+              + ', '.join(
+                  f'{op} [{programs[op]}] {ms:.3f} ms (bound '
+                  f'{bounds[op][0]:.3f}'
+                  + (f' at the TF32 rate over 3, {cores[op][0]:.3f} on the '
+                     f'CUDA cores; scalar {scalar[op]:.3f} ms)'
+                     if op in scalar else ' on the CUDA cores)')
+                  for op, ms in times.items())
+              + f'; plain {plain["fwd"]:.3f} ms, its backward '
+              f'{plain["bwd"]:.3f} ms; scaled_dot_product_attention '
+              f'{fmt_ms(sdpa["fwd"][0])} ({sdpa["fwd"][1]}), its backward '
+              f'{fmt_ms(sdpa["bwd"][0])} ({sdpa["bwd"][1]})', flush=True)
         result['float32'][name] = {
             'shape': [b, n, nk, c, cv], 'programs': programs, 'ms': times,
+            'scalar_ms': scalar, 'plain_ms': plain,
             'bound_ms': {op: bd[0] for op, bd in bounds.items()},
+            'bound_ms_cuda_cores': {op: bd[0] for op, bd in cores.items()},
             'library_ms': {key: ms for key, (ms, _) in sdpa.items()},
             'library': {key: f'scaled_dot_product_attention ({backend})'
                         for key, (_, backend) in sdpa.items()}}
@@ -1530,6 +1665,142 @@ def train_path(pretorched, na, torch, np, cli):
     del fresh, opt2, sched2, state, at_save, params, bufs, model, opt, x
     torch.cuda.empty_cache()
     return launches, by_kernel, layer3, step_dev
+
+
+def train_f32_path(pretorched, na, torch, np, cli):
+    """Phase 6b: phase 6's model, batch, SGD and ``remat=(0,)`` in f32 with
+    TF32 off, through ``make_train_step``: steps in turns with the f32
+    backward on tf32x3 (the dispatch's choice) and forced onto the scalar
+    programs (the dispatch patched here, nothing in the package), each
+    step's loss finite and its K1 launches by program checked; device time
+    (CUDA events) and host time a step, median and spread of each program;
+    peak memory; one profiled step of each, by kernel family, with K1's
+    share and the device's idle share. Returns the numbers."""
+    from pretorched_tpu_torch.parallel.train import (make_train_step,
+                                                     sgd_step_decay)
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32, 'TF32 is on')
+    model = pretorched.nonlocalresnet3d50(num_classes=400,
+                                          pretrained='kinetics-400').cuda()
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          'the f32 model holds other parameters')
+    opt, sched = sgd_step_decay(model.parameters(), lr=TRAIN_LR,
+                                momentum=0.9, weight_decay=1e-4)
+    step = make_train_step(model, opt, sched, remat=(0,))
+    x, labels = train_batch(cli, model.settings, torch)
+    check(x.dtype == torch.float32, f'batch {x.dtype}')
+    dispatch = na.attention_kernel
+
+    def forced_scalar(dtype, c, cv, op):
+        """The dispatch with the f32 backward on the scalar programs."""
+        return 'scalar' if dtype == torch.float32 else dispatch(dtype, c, cv,
+                                                                op)
+
+    times = {'tf32x3': ([], []), 'scalar': ([], [])}   # (host s, device ms)
+
+    def run(program, steps, timed=True):
+        na.attention_kernel = dispatch if program == 'tf32x3' \
+            else forced_scalar
+        try:
+            for _ in range(steps):
+                before = kernel_counts(na)
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                t0 = time.perf_counter()
+                e0.record()
+                out = step(x, labels)
+                e1.record()
+                torch.cuda.synchronize()
+                host = time.perf_counter() - t0
+                after = kernel_counts(na)
+                launched = {k: n - before.get(k, 0) for k, n in after.items()
+                            if n - before.get(k, 0)}
+                loss = out['loss'].item()
+                check(np.isfinite(loss), f'f32 step ({program}): loss {loss}')
+                check(launched == F32_TRAIN_KERNELS[program],
+                      f'f32 step ({program}) launched {launched}, expected '
+                      f'{F32_TRAIN_KERNELS[program]}')
+                if timed:
+                    times[program][0].append(host)
+                    times[program][1].append(e0.elapsed_time(e1))
+        finally:
+            na.attention_kernel = dispatch
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    set_counts(na, 0)
+    run('tf32x3', 1, timed=False)
+    run('scalar', 1, timed=False)
+    losses = [run(p, F32_TRAIN_STEPS)
+              for p in ('tf32x3', 'scalar', 'scalar', 'tf32x3')]
+    launches = kernel_counts(na)
+    steps = 2 + 4 * F32_TRAIN_STEPS
+    want = {k: n * (1 + 2 * F32_TRAIN_STEPS) for k, n in
+            {**F32_TRAIN_KERNELS['tf32x3'],
+             'dq scalar': 5, 'dkv scalar': 5}.items()}
+    want['fwd scalar'] = 5 * steps
+    check(launches == want, f'f32 train run: launches by program {launches}, '
+          f'expected {want}')
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    out = {'clips': TRAIN_CLIPS, 'steps_per_turn': F32_TRAIN_STEPS,
+           'launches_by_kernel': launches, 'peak_gib': peak_gb,
+           'losses': losses}
+    print(f'nonlocalresnet3d50 in f32 (TF32 off), remat=(0,), SGD lr '
+          f'{TRAIN_LR:g}; {TRAIN_CLIPS} clips x 32 x 224 x 224 a step; '
+          f'turns tf32x3, scalar, scalar, tf32x3 of {F32_TRAIN_STEPS} steps '
+          f'after a warm step of each; launches by program in {steps} steps '
+          f'{launches}; peak device memory {peak_gb:.2f} GiB; losses at the '
+          f'turns\' ends {", ".join(f"{v:.4f}" for v in losses)}',
+          flush=True)
+    for program, (host, dev) in times.items():
+        med = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+        out[program] = {'device_ms': med(dev), 'device_ms_range':
+                        [min(dev), max(dev)], 'host_ms': med(host) * 1e3,
+                        'host_ms_range': [min(host) * 1e3, max(host) * 1e3],
+                        'clips_per_s': TRAIN_CLIPS / med(dev) * 1e3}
+        print(f'f32 step, K1-dq and K1-dkv on {program}: {med(dev):.1f} ms '
+              f'CUDA events (steps {min(dev):.1f}-{max(dev):.1f}), '
+              f'{med(host) * 1e3:.1f} ms host clock around synchronize '
+              f'({min(host) * 1e3:.1f}-{max(host) * 1e3:.1f}), medians of '
+              f'{len(dev)} = {TRAIN_CLIPS / med(dev) * 1e3:.2f} train '
+              f'clips/s', flush=True)
+    for program in ('tf32x3', 'scalar'):
+        na.attention_kernel = dispatch if program == 'tf32x3' \
+            else forced_scalar
+        try:
+            window, by_name = device_times(lambda: step(x, labels), torch)
+        finally:
+            na.attention_kernel = dispatch
+        busy = sum(by_name.values()) / 1e3
+        if not busy:
+            print(f'profiled f32 step ({program}): the profiler saw no '
+                  'device time (not measured)')
+            continue
+        k1 = {key: sum(us for name, us in by_name.items() if key in name)
+              / 1e3 for key in ('nonlocal_attention_fwd',
+                                'nonlocal_attention_bwd')}
+        idle = max(0.0, 1 - busy / window)
+        print(f'profiled f32 step ({program}; torch.profiler): {window:.1f} '
+              f'ms host window, {busy:.1f} ms of kernels, device idle '
+              f'{idle:.1%}; K1 {sum(k1.values()):.1f} ms '
+              f'({sum(k1.values()) / busy:.1%}): K1-fwd (scalar) '
+              f'{k1["nonlocal_attention_fwd"]:.1f} ms, K1-dq + K1-dkv '
+              f'({program}) {k1["nonlocal_attention_bwd"]:.1f} ms', flush=True)
+        families = print_families(by_name, busy, {
+            'attention': ('nonlocal_attention',), 'convolution': CONV_KEYS,
+            'batch norm': ('batch_norm', 'bn_fw', 'bn_bw'),
+            'optimizer': ('multi_tensor', 'foreach')})
+        out[program].update({
+            'profile': {'window_ms': window, 'kernel_ms': busy, 'idle': idle,
+                        'k1_fwd_ms': k1['nonlocal_attention_fwd'],
+                        'k1_bwd_ms': k1['nonlocal_attention_bwd'],
+                        'k1_share': sum(k1.values()) / busy,
+                        'families_ms': families}})
+    del model, opt, sched, step, x
+    torch.cuda.empty_cache()
+    return out
 
 
 def attention_f64(q, k, v, scale=1.0):
@@ -4959,6 +5230,11 @@ def kernel_label(line):
         return (f'{m.group(1)} (bf16, wgmma + TMA, C, Cv <= 512, {m.group(2)} '
                 '64-column chunks a consumer, 2 consumer warpgroups at 240 '
                 'registers, 1 producer at 24)')
+    m = re.search(r'nonlocal_attention_bwd_tf32x3_kernelILi(\d+)E', line)
+    if m:
+        return (f'nonlocal_attention_bwd_tf32x3_kernel (f32 on mma.sync TF32, '
+                f'3 products; {m.group(1)} 8-column tiles a warp, '
+                f'{16 * int(m.group(1))} output columns a block)')
     m = re.search(r'nonlocal_attention_(?:fwd|bwd)_(?:bf16|f32)_kernel'
                   r'(?:ILi(\d+)ELb([01])E)?', line)
     if m:
@@ -5046,6 +5322,11 @@ def main():
           f'{TRAIN_CLIPS} clips x 32 frames x 224 px')
     train_launches, train_by_kernel, train_layer3, train_ms = train_path(
         pretorched, na, torch, np, cli)
+
+    phase('6b. the f32 fine-tuning step: nonlocalresnet3d50 in f32, TF32 '
+          f'off, {TRAIN_CLIPS} clips x 32 frames x 224 px, K1-dq and K1-dkv '
+          'on tf32x3 and on the scalar programs in turns')
+    f32_train = train_f32_path(pretorched, na, torch, np, cli)
 
     phase('7. gradient agreement: f32 step with the kernels, with the plain '
           'attention, and in f64')
@@ -5227,6 +5508,24 @@ def main():
          'note': 'K1-dkv' + layer3,
          'launches': train_layer3[2], **k1b['layer3']['dkv'],
          'shape': list(TRAIN_SHAPES['layer3']), 'dtype': 'bfloat16'},
+        *[{'name': f'nonlocal_attention_bwd_{op}_f32', 'route': 'cuda',
+           'source': src + 'nonlocal_attention_bwd.cu',
+           'replaces': pallas + ('141' if op == 'dq' else '172'),
+           'note': f'K1-{op} in f32 on the tensor cores (tf32x3: three '
+                   'TF32 products per f32 product); launches: phase 6b\'s '
+                   'f32 steps (launches_by_kernel, the scalar program\'s in '
+                   'the turns that force it); earlier_ms: the scalar '
+                   'program it replaced; layer3: the same at layer 3',
+           'launches': f32_train['launches_by_kernel'][f'{op} tf32x3'],
+           'launches_by_kernel': {
+               k.split(' ', 1)[1]: n
+               for k, n in f32_train['launches_by_kernel'].items()
+               if k.startswith(op + ' ')},
+           **k1b['layer2 float32'][op], 'shape': list(TRAIN_SHAPES['layer2']),
+           'dtype': 'float32', 'layer3': {
+               **k1b['layer3 float32'][op],
+               'shape': list(TRAIN_SHAPES['layer3'])}}
+          for op in ('dq', 'dkv')],
         {'name': 'fused_bottleneck_tail', 'route': 'cuda',
          'source': src + 'fused_block.cu',
          'replaces': 'pretorched_tpu/ops/pallas/fused_block.py:69',
@@ -5256,6 +5555,8 @@ def main():
                                            'mesh')},
         'moe': {'trn': piped['trn'], 'moe_apply': piped['moe']},
         'seq': {k: seq[k] for k in ('train', 'f32', 'whole_batch')},
+        'train_f32': {k: v for k, v in f32_train.items()
+                      if k != 'launches_by_kernel'},
         'k1_done_line': done_line, 'card': card}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -13,9 +13,13 @@
 // to dk and dv.
 //
 // What bounds it. At the training path's layer-2 shape (B = 8, N = Nk =
-// 6272, C = Cv = 256) the backward needs 2 B N Nk (3C + 2Cv) = 806 GFLOP
-// against ~0.2 GB of operands in bf16: bound by the matrix units, 0.82 ms
-// at the card's bf16 peak.
+// 6272, C = Cv = 256) the backward needs 5 products of 2 B N Nk C each, 2 B
+// N Nk (3C + 2Cv) = 806 GFLOP, against ~0.2 GB of operands in bf16 (0.4 GB
+// in f32): bound by the matrix units, 0.82 ms at the card's bf16 peak. In
+// f32 each product is 3 TF32 products on the tensor cores (below), 2417
+// GFLOP at the 495 TFLOP/s dense TF32 rate: 4.88 ms (K1-dq alone 2.93 ms,
+// K1-dkv 3.91 ms at their minimal work); 12.0 ms on the 67 TFLOP/s of the
+// CUDA cores.
 //
 // Design. The TPU kernels carry the dq (or dk, dv) accumulator in VMEM
 // across a sequential grid axis. Blocks on a GPU run in no order, so each
@@ -30,15 +34,14 @@
 //
 // For each 64-wide column tile the block forms s (and dp unless it makes
 // dv) from channel chunks in shared memory, turns them into X in
-// registers, and accumulates X times a 64-row tile of the third operand. A
-// block keeps only a column chunk of its accumulator (128 columns in bf16,
-// 64 in f32) in registers, and the chunks go over grid.z: the accumulator
-// of a 64-row block at C = 512 would take 256 KB in f32, more than the 227
-// KB a block may have, and C reaches 1024 in gaussian mode. Each chunk
-// recomputes s and dp: at C = Cv = 256 in bf16 that is 2.6x the minimal
-// FLOPs, bought for register-resident accumulators. dk and dv are separate
-// chunks of the K1-dkv grid, so a dv block skips dp. The caller's dispatch
-// picks one of three programs:
+// registers, and accumulates X times a 64-row tile of the third operand. In
+// the generic programs (mma.sync in bf16, scalar in f32) a block keeps only
+// a column chunk of its accumulator (128 columns in bf16, 64 in f32) in
+// registers, and the chunks go over grid.z: C reaches 1024 in gaussian
+// mode. Each chunk recomputes s and dp: at C = Cv = 256 in bf16 that is
+// 2.6x the minimal FLOPs, bought for register-resident accumulators. dk and
+// dv are separate chunks of the K1-dkv grid, so a dv block skips dp. The
+// caller's dispatch picks one of five programs:
 //
 // * bf16 with C and Cv multiples of 64 up to 256 (the train layer-2
 //   shape): warp-specialised wgmma kernels with TMA, which form s (s^T)
@@ -63,9 +66,45 @@
 //   path's layer 2) a block takes 128 rows on 8 warps and keeps its rows
 //   resident in shared memory (186 KB), 40 KB a tile; wider channels take
 //   64 rows on 4 warps and stream both operands.
-// * f32: scalar FMAs (TF32 would break the f32 tolerance), 16 x 16
-//   threads, each with a 4 x 4 register tile; X passes through shared
-//   memory. Its third operand is staged by plain loads between barriers.
+// * f32 with C and Cv up to 512 (every f32 shape of the models but gaussian
+//   mode's C = 1024): tf32x3, mma.sync.m16n8k8 in TF32 with three products
+//   per f32 product (nonlocal_attention_bwd_tf32x3_kernel). One TF32
+//   product keeps 11 bits of each operand and misses the f32 tolerance
+//   (1e-4 of the largest gradient; 6.4e-4 at layer 2). Each operand is
+//   split in registers into hi = tf32(x) and lo = tf32(x - hi)
+//   (cvt.rna.tf32.f32's rounding, by an integer add and mask), and lo hi +
+//   hi lo + hi hi, the small terms first (CUTLASS's OpMultiplyAddFastF32,
+//   as PyTorch's f32 memory-efficient attention does), keeps about 22 of
+//   f32's 24 bits; the dropped lo lo is ~2^-22 of each product. X is split
+//   the same way before its product. The mma's own sums truncate: summed
+//   there over 6272 keys the gradients sat 6e-5 of the largest from f64,
+//   so every chunk of s and dp and every stage of X m is summed from zero
+//   and joins its accumulator by an f32 add, which rounds to nearest: 3e-6
+//   from f64 at layer 2, where the plain f32 backward sits 4e-6
+//   (tools/port_kernel_probes.py tf32). A block of 8 warps owns 64 rows and the
+//   whole width of its output up to 512 (4 warp rows of 16 x 2 column
+//   halves; the accumulator, 64 KB at 256 and 128 KB at 512, stays in
+//   registers), forms s and dp once per 64-column tile (each warp a 16 x
+//   32 piece) and shares X through shared memory, so no chunk of the
+//   output recomputes them. K1-dkv's dk and dv blocks are apart (grid.z =
+//   2), and a dv block skips dp. Multiply-adds per (query, key) pair, at C
+//   = Cv = 256 and at 512: K1-dq 768 / 1536 (C + Cv + C, the minimum),
+//   K1-dkv 1280 / 2560 against the minimum 1024 / 2048 (the dv blocks
+//   form s again); the scalar program's 64-column chunks did 2304 and 3584
+//   at 256 (3.0x and 3.5x the minimum), 5.7x and 6.5x at 512. Every
+//   operand streams through a 3-slot cp.async ring of 36 KB slots
+//   (64-channel chunks of the rows and the tile's columns, then rows of the
+//   third operand), so the chunk after next loads while one is multiplied;
+//   144 KB a block, one block an SM (207 registers a thread at 256
+//   columns, 247 at 512). The probe's variants put the time a third each in
+//   the products, the copies from L2 and the rest (barriers, X): neither a
+//   4-slot ring nor two blocks an SM (128 registers, spilling at 512)
+//   changes it by more than 8%. TF32 wgmma reads both operands K-major
+//   only: q, k, v and do would need transposes in shared memory for the
+//   accumulating products, left for a later redesign.
+// * f32 otherwise (C or Cv above 512): scalar FMAs, 16 x 16 threads, each
+//   with a 4 x 4 register tile; X passes through shared memory. Its third
+//   operand is staged by plain loads between barriers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,6 +288,273 @@ nonlocal_attention_bwd_f32_kernel(const BwdParams<float> p) {
       const int col = w0 + tx + 16 * j;
       if (col < part.w) out[(size_t)row * part.w + col] = acc[i][j];
     }
+  }
+}
+
+// ------------------------------------------- f32, tensor cores: tf32x3
+constexpr int kTRows = 64;          // rows per block: 4 warp rows of 16
+constexpr int kTCols = 64;          // streamed columns per tile
+constexpr int kTK = 64;             // channel chunk of s and dp
+constexpr int kTLdK = kTK + 8;      // 72 = 8 mod 32: 8-byte fragment loads
+constexpr int kTLdX = kTCols + 8;   // of 8 rows x 4 lanes hit 32 banks
+constexpr int kTThreads = 256;      // 8 warps: 4 warp rows x 2 column halves
+constexpr int kTStages = 3;         // ring slots: one in use, two loading
+constexpr int kTSlot = 2 * kTRows * kTLdK;   // floats: a row and a col chunk
+constexpr size_t kTSmem =
+    (kTStages * kTSlot + 2 * kTRows * kTLdX) * sizeof(float);   // 144 KB
+// The widest accumulator a warp keeps, in 8-column tiles: a block owns 16 x
+// kTMaxNT output columns (512); wider outputs go over grid.z.
+constexpr int kTMaxNT = 32;
+constexpr int kTMaxWidth = 512;     // the widest C, Cv the C entries take
+
+// Rows of the third operand m a ring slot takes at NT tiles a warp: its
+// rows are 16 NT + 4 floats (= 4 mod 32: the B fragments' 4-byte loads of
+// rows 2qd and 2qd + 1, columns g, hit 32 banks).
+__host__ __device__ constexpr int tf32_m_rows(int nt) {
+  return 64 * (16 * nt + 4) <= kTSlot   ? 64
+         : 32 * (16 * nt + 4) <= kTSlot ? 32
+         : 16 * (16 * nt + 4) <= kTSlot ? 16
+                                        : 8;
+}
+
+// acc[t] += the warp's 16 x 32 tile (rows wr.., columns 32 half + 8t..) of
+// a b^T over one kTK-channel chunk: a (the block's rows) and b (the tile's
+// columns) kTLdK apart in `slot`. The chunk's sum starts from zero on the
+// tensor cores and joins acc by an f32 add (see mma_tf32x3).
+__device__ __forceinline__ void tf32x3_chunk(float (&acc)[4][4],
+                                             const float* slot, int wr,
+                                             int half) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+  const float* a = slot + (wr + g) * kTLdK + 2 * qd;
+  const float* b = slot + (kTRows + 32 * half + g) * kTLdK + 2 * qd;
+  float partial[4][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kTK; kk += 8) {
+    const float2 x0 = *reinterpret_cast<const float2*>(a + kk);
+    const float2 x1 = *reinterpret_cast<const float2*>(a + 8 * kTLdK + kk);
+    uint32_t ahi[4], alo[4];
+    split_tf32(x0.x, ahi[0], alo[0]);
+    split_tf32(x1.x, ahi[1], alo[1]);
+    split_tf32(x0.y, ahi[2], alo[2]);
+    split_tf32(x1.y, ahi[3], alo[3]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float2 y = *reinterpret_cast<const float2*>(b + 8 * t * kTLdK + kk);
+      uint32_t bhi[2], blo[2];
+      split_tf32(y.x, bhi[0], blo[0]);
+      split_tf32(y.y, bhi[1], blo[1]);
+      mma_tf32x3(partial[t], ahi, alo, bhi, blo);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] += partial[t][e];
+}
+
+// A block of 8 warps owns 64 rows (4 warp rows of 16) and 16 NT columns of
+// one output (two halves of 8 NT, one a warp), and walks the column tiles
+// as a sequence of ring stages: the s chunks, the dp chunks (ds parts
+// only), then the m rows. Each warp forms its 16 x 32 of s (and dp), once
+// for the block's whole width, turns it into X and leaves X split into its
+// TF32 halves in shared memory; then each warp adds its rows of X times its
+// half of m to its accumulator.
+template <int NT>
+__global__ void __launch_bounds__(kTThreads)
+nonlocal_attention_bwd_tf32x3_kernel(const BwdParams<float> p) {
+  constexpr int kLdM = 16 * NT + 4;
+  constexpr int kKM = tf32_m_rows(NT);
+  constexpr int kMStages = kTCols / kKM;
+  static_assert(NT % 4 == 0 && kKM * kLdM <= kTSlot, "m rows fit a slot");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* xs_hi = ring + kTStages * kTSlot;    // X (64 x 64): TF32 halves
+  float* xs_lo = xs_hi + kTRows * kTLdX;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int wr = (warp & 3) * 16;     // the warp's first row in the block
+  const int half = warp >> 2;         // its half of the block's columns
+  const int bi = blockIdx.y;
+  const int r0 = blockIdx.x * kTRows;
+  const bool first = (int)blockIdx.z < p.zsplit;
+  const Part<float> part = first ? p.part0 : p.part1;
+  const int w0 = ((int)blockIdx.z - (first ? 0 : p.zsplit)) * 16 * NT;
+  // the warp's 8-column tiles that hold output columns
+  const int live = (part.w - w0 - 8 * NT * half + 7) / 8;
+  const int n_stats = p.stats_on_rows ? p.rows : p.cols;
+  const float* ra = p.ra + (size_t)bi * p.rows * p.c;
+  const float* ca = p.ca + (size_t)bi * p.cols * p.c;
+  const float* rb = p.rb + (size_t)bi * p.rows * p.cv;
+  const float* cb = p.cb + (size_t)bi * p.cols * p.cv;
+  const float* lse = p.lse + (size_t)bi * n_stats;
+  const float* delta = p.delta + (size_t)bi * n_stats;
+  const float* m = part.m + (size_t)bi * p.cols * part.w;
+  const bool vec_a = p.c % 4 == 0 && aligned16(p.ra) && aligned16(p.ca);
+  const bool vec_b = p.cv % 4 == 0 && aligned16(p.rb) && aligned16(p.cb);
+  const bool vec_m = part.w % 4 == 0 && aligned16(part.m);
+
+  const int n_s = (p.c + kTK - 1) / kTK;
+  const int n_dp = part.ds ? (p.cv + kTK - 1) / kTK : 0;
+  const int per_tile = n_s + n_dp + kMStages;
+  const int total = (p.cols + kTCols - 1) / kTCols * per_tile;
+
+  // Start stage st's loads into its slot; one commit group per call, empty
+  // past the end, so that the wait below counts stages.
+  auto issue = [&](int st) {
+    if (st < total) {
+      float* slot = ring + (st % kTStages) * kTSlot;
+      const int c0 = st / per_tile * kTCols, j = st % per_tile;
+      if (j < n_s + n_dp) {
+        const bool is_s = j < n_s;
+        const int k0 = (is_s ? j : j - n_s) * kTK;
+        const int ch = is_s ? p.c : p.cv;
+        const bool vec = is_s ? vec_a : vec_b;
+        load_tile_f32_async<kTRows, kTK, kTThreads>(
+            slot, kTLdK, is_s ? ra : rb, ch, r0, p.rows, k0, ch, vec);
+        load_tile_f32_async<kTCols, kTK, kTThreads>(
+            slot + kTRows * kTLdK, kTLdK, is_s ? ca : cb, ch, c0, p.cols,
+            k0, ch, vec);
+      } else {
+        load_tile_f32_async<kKM, 16 * NT, kTThreads>(
+            slot, kLdM, m, part.w, c0 + (j - n_s - n_dp) * kKM, p.cols, w0,
+            part.w, vec_m);
+      }
+    }
+    cp_async_commit();
+  };
+  int st = 0;   // the next stage to use
+  auto next_slot = [&]() -> const float* {
+    cp_async_wait<kTStages - 2>();   // stage st has landed (this thread's)
+    __syncthreads();                 // ... every thread's; slot st - 1 free
+    issue(st + kTStages - 1);
+    return ring + (st++ % kTStages) * kTSlot;
+  };
+
+  // rows wr + g (h = 0) and wr + g + 8 (h = 1) of the warp
+  float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  if (p.stats_on_rows) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + wr + g + 8 * h;
+      if (row < p.rows) {
+        lse_r[h] = lse[row];
+        delta_r[h] = delta[row];
+      }
+    }
+  }
+  // acc[t][0..1]: row wr + g, columns w0 + 8 NT half + 8t + 2qd + {0, 1};
+  // [2..3]: row + 8
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  for (int s0 = 0; s0 < kTStages - 1; ++s0) issue(s0);
+  for (int c0 = 0; c0 < p.cols; c0 += kTCols) {
+    // the warp's 16 x 32 of s and dp: columns 32 half + 8t + 2qd + {0, 1}
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+    for (int j = 0; j < n_s; ++j) tf32x3_chunk(s, next_slot(), wr, half);
+    for (int j = 0; j < n_dp; ++j) tf32x3_chunk(dp, next_slot(), wr, half);
+
+    // ---- X = p or ds, zero outside the valid rows and columns, into xs as
+    // its TF32 halves. xs is free: the previous tile's m stages are behind
+    // this tile's first barrier.
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int ct = 32 * half + 8 * t + 2 * qd;   // column in the tile
+      float lse_c[2] = {0.f, 0.f}, delta_c[2] = {0.f, 0.f};
+      if (!p.stats_on_rows) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (c0 + ct + e < p.cols) {
+            lse_c[e] = lse[c0 + ct + e];
+            delta_c[e] = delta[c0 + ct + e];
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rt = wr + g + 8 * h;             // row in the block
+        float2 hi, lo;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float l = p.stats_on_rows ? lse_r[h] : lse_c[e];
+          const float d = p.stats_on_rows ? delta_r[h] : delta_c[e];
+          float x = 0.f;
+          if (r0 + rt < p.rows && c0 + ct + e < p.cols) {
+            x = expf(s[t][2 * h + e] * p.scale - l);
+            if (part.ds) x *= (dp[t][2 * h + e] - d) * p.scale;
+          }
+          uint32_t xh, xl;
+          split_tf32(x, xh, xl);
+          (e ? hi.y : hi.x) = __uint_as_float(xh);
+          (e ? lo.y : lo.x) = __uint_as_float(xl);
+        }
+        *reinterpret_cast<float2*>(xs_hi + rt * kTLdX + ct) = hi;
+        *reinterpret_cast<float2*>(xs_lo + rt * kTLdX + ct) = lo;
+      }
+    }
+
+    // ---- acc += X m, kKM rows of m a stage; X's A fragments come from xs
+    // already split, m's B fragments are split here. Four 8-column tiles at
+    // a time, whose stage sums start from zero and join acc by f32 adds.
+    for (int j = 0; j < kMStages; ++j) {
+      const float* slot = next_slot();   // also: every warp's X is in xs
+      const float* ah = xs_hi + (wr + g) * kTLdX + j * kKM + 2 * qd;
+      const float* al = xs_lo + (wr + g) * kTLdX + j * kKM + 2 * qd;
+      const float* b = slot + 2 * qd * kLdM + 8 * NT * half + g;
+#pragma unroll
+      for (int t0 = 0; t0 < NT; t0 += 4) {
+        if (t0 >= live) break;    // the warp's tiles past the output's width
+        float partial[4][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kKM; kk += 8) {
+          const float2 h0 = *reinterpret_cast<const float2*>(ah + kk);
+          const float2 h1 =
+              *reinterpret_cast<const float2*>(ah + 8 * kTLdX + kk);
+          const float2 l0 = *reinterpret_cast<const float2*>(al + kk);
+          const float2 l1 =
+              *reinterpret_cast<const float2*>(al + 8 * kTLdX + kk);
+          const uint32_t ahi[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
+                                   __float_as_uint(h0.y), __float_as_uint(h1.y)};
+          const uint32_t alo[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
+                                   __float_as_uint(l0.y), __float_as_uint(l1.y)};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const float* bt = b + kk * kLdM + 8 * (t0 + t);
+            uint32_t bhi[2], blo[2];
+            split_tf32(bt[0], bhi[0], blo[0]);
+            split_tf32(bt[kLdM], bhi[1], blo[1]);
+            mma_tf32x3(partial[t], ahi, alo, bhi, blo);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[t0 + t][e] += partial[t][e];
+      }
+    }
+  }
+  cp_async_wait<0>();   // only empty groups remain; leave none in flight
+
+  // ---- epilogue
+  float* out = part.out + (size_t)bi * p.rows * part.w;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + wr + g + 8 * h;
+    if (row >= p.rows) continue;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = w0 + 8 * NT * half + 8 * t + 2 * qd + e;
+        if (col < part.w) out[(size_t)row * part.w + col] = acc[t][2 * h + e];
+      }
   }
 }
 
@@ -525,11 +831,19 @@ int chunk_width<bf16>() { return kBW; }
 
 int chunks(int w, int width) { return (w + width - 1) / width; }
 
+// Sets p.zsplit for parts `width` columns a block: part 0's chunks, then
+// (two_parts: K1-dkv) part 1's. Returns grid.z.
+template <typename T>
+int z_split(BwdParams<T>& p, int width, bool two_parts) {
+  p.zsplit = chunks(p.part0.w, width);
+  return p.zsplit + (two_parts ? chunks(p.part1.w, width) : 0);
+}
+
 // K1-dq: rows = queries, cols = keys, one part: dq += ds k.
 template <typename T>
-int run_dq(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, int b, int n, int nk,
-           int c, int cv, float scale, cudaStream_t stream) {
+BwdParams<T> dq_params(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dq, int n, int nk, int c, int cv, float scale) {
   BwdParams<T> p;
   p.ra = static_cast<const T*>(q);
   p.ca = static_cast<const T*>(k);
@@ -543,19 +857,18 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout,
   p.cv = cv;
   p.scale = scale;
   p.stats_on_rows = 1;
-  const int z = chunks(c, chunk_width<T>());
-  p.zsplit = z;
   p.part0 = Part<T>{static_cast<const T*>(k), static_cast<T*>(dq), c, 1};
   p.part1 = p.part0;
-  return launch(p, b, z, stream);
+  return p;
 }
 
 // K1-dkv: rows = keys, cols = queries; part 0 makes dk += ds^T q, part 1
 // dv += p^T do.
 template <typename T>
-int run_dkv(const void* q, const void* k, const void* v, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv, int b,
-            int n, int nk, int c, int cv, float scale, cudaStream_t stream) {
+BwdParams<T> dkv_params(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        void* dk, void* dv, int n, int nk, int c, int cv,
+                        float scale) {
   BwdParams<T> p;
   p.ra = static_cast<const T*>(k);
   p.ca = static_cast<const T*>(q);
@@ -569,12 +882,61 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout,
   p.cv = cv;
   p.scale = scale;
   p.stats_on_rows = 0;
-  const int zk = chunks(c, chunk_width<T>());
-  const int zv = chunks(cv, chunk_width<T>());
-  p.zsplit = zk;
   p.part0 = Part<T>{static_cast<const T*>(q), static_cast<T*>(dk), c, 1};
   p.part1 = Part<T>{static_cast<const T*>(dout), static_cast<T*>(dv), cv, 0};
-  return launch(p, b, zk + zv, stream);
+  return p;
+}
+
+template <typename T>
+int run_dq(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dq, int b, int n, int nk,
+           int c, int cv, float scale, cudaStream_t stream) {
+  BwdParams<T> p = dq_params<T>(q, k, v, dout, lse, delta, dq, n, nk, c, cv,
+                                scale);
+  return launch(p, b, z_split(p, chunk_width<T>(), false), stream);
+}
+
+template <typename T>
+int run_dkv(const void* q, const void* k, const void* v, const void* dout,
+            const void* lse, const void* delta, void* dk, void* dv, int b,
+            int n, int nk, int c, int cv, float scale, cudaStream_t stream) {
+  BwdParams<T> p = dkv_params<T>(q, k, v, dout, lse, delta, dk, dv, n, nk, c,
+                                 cv, scale);
+  return launch(p, b, z_split(p, chunk_width<T>(), true), stream);
+}
+
+// ------------------------------------------------- tf32x3: launch
+template <int NT>
+int launch_tf32x3_nt(const BwdParams<float>& p, int b, int z,
+                     cudaStream_t stream) {
+  auto kernel = nonlocal_attention_bwd_tf32x3_kernel<NT>;
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(kernel, kTSmem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.rows + kTRows - 1) / kTRows, b, z);
+  kernel<<<grid, kTThreads, kTSmem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The program instantiated for the narrowest accumulator that holds the
+// widest part (8-column tiles a warp, half of a block's 16 NT columns),
+// and kTMaxNT past 16 kTMaxNT columns, which then go over grid.z.
+int launch_tf32x3(BwdParams<float>& p, int b, bool two_parts,
+                  cudaStream_t stream) {
+  const int w = two_parts && p.part1.w > p.part0.w ? p.part1.w : p.part0.w;
+  const int want = (w + 15) / 16;
+  const int kNT[] = {4, 8, 16, 24};
+  int nt = kTMaxNT;
+  for (int t : kNT)
+    if (want <= t && t < nt) nt = t;
+  const int z = z_split(p, 16 * nt, two_parts);
+  switch (nt) {
+    case 4: return launch_tf32x3_nt<4>(p, b, z, stream);
+    case 8: return launch_tf32x3_nt<8>(p, b, z, stream);
+    case 16: return launch_tf32x3_nt<16>(p, b, z, stream);
+    case 24: return launch_tf32x3_nt<24>(p, b, z, stream);
+    default: return launch_tf32x3_nt<kTMaxNT>(p, b, z, stream);
+  }
 }
 
 // ---------------------------------------- bf16, Hopper: wgmma, TMA, ring
@@ -1706,6 +2068,34 @@ int pt_nonlocal_attention_bwd_dkv(const void* q, const void* k, const void* v,
     return run_dkv<bf16>(q, k, v, dout, lse, delta, dk, dv, b, n, nk, c, cv,
                          scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The f32 tensor-core program (tf32x3): the same functions as
+// pt_nonlocal_attention_bwd_dq and pt_nonlocal_attention_bwd_dkv in f32,
+// for C and Cv up to kTMaxWidth (the caller's dispatch picks it).
+int pt_nonlocal_attention_bwd_dq_tf32x3(const void* q, const void* k,
+                                        const void* v, const void* dout,
+                                        const void* lse, const void* delta,
+                                        void* dq, int b, int n, int nk, int c,
+                                        int cv, float scale, void* stream) {
+  if (bad_shape(b, n, nk, c, cv) || c > kTMaxWidth || cv > kTMaxWidth)
+    return (int)cudaErrorInvalidValue;
+  BwdParams<float> p = dq_params<float>(q, k, v, dout, lse, delta, dq, n, nk,
+                                        c, cv, scale);
+  return launch_tf32x3(p, b, false, static_cast<cudaStream_t>(stream));
+}
+
+int pt_nonlocal_attention_bwd_dkv_tf32x3(const void* q, const void* k,
+                                         const void* v, const void* dout,
+                                         const void* lse, const void* delta,
+                                         void* dk, void* dv, int b, int n,
+                                         int nk, int c, int cv, float scale,
+                                         void* stream) {
+  if (bad_shape(b, n, nk, c, cv) || c > kTMaxWidth || cv > kTMaxWidth)
+    return (int)cudaErrorInvalidValue;
+  BwdParams<float> p = dkv_params<float>(q, k, v, dout, lse, delta, dk, dv, n,
+                                         nk, c, cv, scale);
+  return launch_tf32x3(p, b, true, static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 wgmma kernel: the same function as pt_nonlocal_attention_bwd_dkv,

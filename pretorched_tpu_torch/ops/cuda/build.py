@@ -114,11 +114,13 @@ def _load() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
     # q, k, v, do, lse, delta, then dq (dk, dv); b, n, nk, c, cv; scale,
-    # dtype, stream (the wgmma entries: no dtype)
+    # dtype, stream (the wgmma and tf32x3 entries: no dtype)
     for fn, outs, ints in ((lib.pt_nonlocal_attention_bwd_dq, 1, 1),
                            (lib.pt_nonlocal_attention_bwd_dq_wgmma, 1, 0),
                            (lib.pt_nonlocal_attention_bwd_dq_wgmma_wide, 1,
                             0),
+                           (lib.pt_nonlocal_attention_bwd_dq_tf32x3, 1, 0),
+                           (lib.pt_nonlocal_attention_bwd_dkv_tf32x3, 2, 0),
                            (lib.pt_nonlocal_attention_bwd_dkv, 2, 1),
                            (lib.pt_nonlocal_attention_bwd_dkv_wgmma, 2, 0),
                            (lib.pt_nonlocal_attention_bwd_dkv_wgmma_wide, 2,
@@ -132,6 +134,8 @@ def _load() -> ctypes.CDLL:
                lib.pt_nonlocal_attention_bwd_dq,
                lib.pt_nonlocal_attention_bwd_dq_wgmma,
                lib.pt_nonlocal_attention_bwd_dq_wgmma_wide,
+               lib.pt_nonlocal_attention_bwd_dq_tf32x3,
+               lib.pt_nonlocal_attention_bwd_dkv_tf32x3,
                lib.pt_nonlocal_attention_bwd_dkv,
                lib.pt_nonlocal_attention_bwd_dkv_wgmma,
                lib.pt_nonlocal_attention_bwd_dkv_wgmma_wide):

@@ -18,7 +18,10 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   zero fill, and of 64 for K1-dq and K1-dkv: Hopper's warp-specialised
   wgmma + TMA kernels; each op takes a second, wide program past 256,
   layer 3's 512),
-  ``'mma_sync'`` (every other bf16 shape) or ``'scalar'`` (f32). The
+  ``'mma_sync'`` (every other bf16 shape), ``'tf32x3'`` (f32 K1-dq and
+  K1-dkv with C and Cv up to ``TF32X3_MAX_WIDTH``: tensor cores, three
+  TF32 products per f32 product) or ``'scalar'`` (the other f32 shapes,
+  and K1-fwd in f32). The
   kernel wrappers take CUDA tensors only and raise on anything they do not
   take; each counts its launches in ``.launches`` and per program in
   ``.by_kernel`` (``PROGRAMS``: the wide wgmma program as ``'wgmma_wide'``).
@@ -49,9 +52,9 @@ from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CV_F32 = 512  # the f32 path keeps a (64, Cv) accumulator in shared memory
-KERNELS = ('wgmma', 'mma_sync', 'scalar')
+KERNELS = ('wgmma', 'mma_sync', 'tf32x3', 'scalar')
 # what ``.by_kernel`` counts: the kernels, wgmma's wide program apart
-PROGRAMS = ('wgmma', 'wgmma_wide', 'mma_sync', 'scalar')
+PROGRAMS = ('wgmma', 'wgmma_wide', 'mma_sync', 'tf32x3', 'scalar')
 OPS = ('fwd', 'dq', 'dkv')
 # The widest C and Cv the wgmma kernels take (64-channel TMA boxes). A
 # warpgroup holds a (64, 256) f32 accumulator in 128 registers a thread:
@@ -63,6 +66,11 @@ WGMMA_NARROW_WIDTH = 256
 # TMA boxes past the last column as zeros, so it needs only TMA's 16-byte
 # rows (8 bf16); K1-dq's and K1-dkv's programs take whole boxes.
 WGMMA_WIDTH_STEP = {'fwd': 8, 'dq': 64, 'dkv': 64}
+# The widest C and Cv the f32 tensor-core programs of K1-dq and K1-dkv take
+# (a block keeps the whole width of its output in registers); gaussian
+# mode's C = 1024 stays on the scalar program.
+TF32X3_MAX_WIDTH = 512
+TF32X3_OPS = ('dq', 'dkv')
 
 
 def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
@@ -73,18 +81,26 @@ def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
     if dtype not in _DTYPE_CODES:
         raise ValueError(f'dtype {dtype} not supported (float32, bfloat16)')
     if dtype == torch.float32:
-        return 'scalar'
+        fits = op in TF32X3_OPS and max(c, cv) <= TF32X3_MAX_WIDTH
+        return 'tf32x3' if fits else 'scalar'
     step = WGMMA_WIDTH_STEP[op]
     fits = all(w % step == 0 and w <= WGMMA_MAX_WIDTH for w in (c, cv))
     return 'wgmma' if fits else 'mma_sync'
 
 
+# (kernel, the dispatch's choice) pairs a private launch may take: the
+# generic program of each dtype takes its every shape, so a launch of the
+# program that replaced it can be held against it
+_OLDER = {('mma_sync', 'wgmma'), ('scalar', 'tf32x3')}
+
+
 def _check_kernel(dtype, c: int, cv: int, kernel: str, op: str):
     """``kernel`` must be the dispatch's choice for ``op``, or mma_sync
-    where that is wgmma: the mma.sync kernels take every bf16 shape, so a
-    wgmma launch can be held against the kernel it replaced."""
+    where that is wgmma, scalar where it is tf32x3: the mma.sync and scalar
+    kernels take every shape of their dtype, so a wgmma or tf32x3 launch
+    can be held against the kernel it replaced."""
     chosen = attention_kernel(dtype, c, cv, op)
-    if kernel != chosen and (kernel, chosen) != ('mma_sync', 'wgmma'):
+    if kernel != chosen and (kernel, chosen) not in _OLDER:
         raise ValueError(f'{op} kernel {kernel!r} does not take {dtype} with '
                          f'C={c}, Cv={cv} (the dispatch picks {chosen!r})')
 
@@ -269,6 +285,7 @@ def _launch_dq(q, k, v, do, lse, delta, scale, kernel):
     program = _program(kernel, c, cv)
     if kernel == 'wgmma':
         _check_tma(q, k, v, do, dq)
+    if kernel in ('wgmma', 'tf32x3'):
         _launch(f'pt_nonlocal_attention_bwd_dq_{program}', q, v,
                 (q, k, v, do, lse, delta, dq), scale)
     else:
@@ -298,6 +315,7 @@ def _launch_dkv(q, k, v, do, lse, delta, scale, kernel):
     program = _program(kernel, c, cv)
     if kernel == 'wgmma':
         _check_tma(q, k, v, do, dk, dv)
+    if kernel in ('wgmma', 'tf32x3'):
         _launch(f'pt_nonlocal_attention_bwd_dkv_{program}', q, v,
                 (q, k, v, do, lse, delta, dk, dv), scale)
     else:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (the non-local attention forward K1-fwd, its
 backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16 (the
-wide programs of all three at layer 3's C = Cv = 512), and
+wide programs of all three at layer 3's C = Cv = 512), K1-dq and K1-dkv
+in f32 on tf32x3 up to C, Cv = 512, and
 the fused bottleneck tail K2) against their plain PyTorch versions, on a
 card; K1-fwd and K2 through their registered operators, and
 ``torch.export`` on the card recording them; and each factory of the rest
@@ -127,7 +128,8 @@ def test_backward_kernels_match_plain(cuda, dtype, tol, b, n, nk, c, cv,
                                       scale):
     """dq, dk, dv of K1-dq and K1-dkv against the plain backward in f32 on
     the same inputs, out and lse; max error relative to the largest
-    gradient. f32: scalar FMAs, sums in another order. bf16: ds and p are
+    gradient. f32: tf32x3 (three TF32 products per f32 product; scalar FMAs
+    at gaussian mode's C = 1024), sums in another order. bf16: ds and p are
     rounded to bf16 for the products, and the outputs are bf16."""
     q, k, v, do = _bwd_inputs(b, n, nk, c, cv, dtype, cuda)
     out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v, scale)
@@ -179,6 +181,92 @@ def test_launch_counters_advance_once_per_backward(cuda):
         na.auto_nonlocal_attention(q, k, v)
     assert [f.launches for f in launches] == [before[0] + 2, before[1] + 1,
                                               before[2] + 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv,scale', CASES)
+def test_f32_backward_programs_match_plain_and_scalar(cuda, b, n, nk, c, cv,
+                                                      scale):
+    """f32 K1-dq and K1-dkv on the program the dispatch picks (tf32x3 up to
+    C, Cv = 512, scalar past it), one launch each counted under it; against
+    the plain backward at 1e-4 of the largest gradient, against the scalar
+    program at the same inputs within the same, and bitwise the same on a
+    second run (no atomics)."""
+    q, k, v, do = _bwd_inputs(b, n, nk, c, cv, torch.float32, cuda)
+    out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v, scale)
+    delta = (do * out).sum(-1)
+    program = 'tf32x3' if max(c, cv) <= 512 else 'scalar'
+    for op in ('dq', 'dkv'):
+        assert na.attention_kernel(torch.float32, c, cv, op) == program
+    fns = (na.nonlocal_attention_bwd_dq_cuda, na.nonlocal_attention_bwd_dkv_cuda)
+    before = [dict(fn.by_kernel) for fn in fns]
+    dq = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale)
+    dk, dv = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    for fn, was in zip(fns, before):
+        assert {p: fn.by_kernel[p] - was[p] for p in na.PROGRAMS} == {
+            p: int(p == program) for p in na.PROGRAMS}
+    want = na.nonlocal_attention_bwd_reference(q, k, v, out, lse, do, scale)
+    scalar = (na._launch_dq(q, k, v, do, lse, delta, scale, 'scalar'),
+              *na._launch_dkv(q, k, v, do, lse, delta, scale, 'scalar'))
+    again = (na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale),
+             *na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                 scale))
+    torch.cuda.synchronize()
+    for g, w, old, rep, x, name in zip((dq, dk, dv), want, scalar, again,
+                                       (q, k, v), ('dq', 'dk', 'dv')):
+        assert g.dtype == torch.float32 and g.shape == x.shape, name
+        assert _rel_err(g, w) <= 1e-4, (name, _rel_err(g, w))
+        assert _rel_err(g, old) <= 1e-4, (name, _rel_err(g, old))
+        assert torch.equal(g, rep), name
+
+
+# tf32x3's per-row and per-width guards: B = 3 with each batch item's
+# logits on another scale (lse and delta read per row of each item), Cv
+# above and below C, ragged N and Nk
+TF32X3_GUARD_CASES = [(3, 200, 150, 64, 192), (3, 150, 200, 192, 64),
+                      (3, 333, 65, 40, 24)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv', TF32X3_GUARD_CASES)
+def test_tf32x3_reads_lse_per_row_and_sizes_by_cv(cuda, b, n, nk, c, cv):
+    """The tf32x3 programs at B > 1 with batch items whose softmax rows
+    differ in scale (a wrong item's lse or delta would move every
+    gradient), with v, do and dv sized by Cv, not C: each gradient within
+    1e-4 of the plain backward's largest, each batch item on its own."""
+    q, k, v, do = _bwd_inputs(b, n, nk, c, cv, torch.float32, cuda, seed=3)
+    q = q * torch.arange(1, b + 1, device=cuda, dtype=q.dtype)[:, None, None]
+    out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+    delta = (do * out).sum(-1)
+    dq = na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+    dk, dv = na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    want = na.nonlocal_attention_bwd_reference(q, k, v, out, lse, do)
+    for i in range(b):
+        for g, w, name in zip((dq, dk, dv), want, ('dq', 'dk', 'dv')):
+            assert _rel_err(g[i], w[i]) <= 1e-4, (i, name)
+
+
+@pytest.mark.gpu
+def test_f32_layer_shapes_take_tf32x3(cuda):
+    """The non-local model's layer-2 and layer-3 shapes in f32 (B = 1):
+    K1-fwd on scalar, K1-dq and K1-dkv on tf32x3, one launch each through
+    the autograd Function."""
+    fns = (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
+           na.nonlocal_attention_bwd_dkv_cuda)
+    for n, c in ((6272, 256), (784, 512)):
+        q, k, v, do = _bwd_inputs(1, n, n, c, c, torch.float32, cuda)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        before = [dict(fn.by_kernel) for fn in fns]
+        na.auto_nonlocal_attention(q, k, v).backward(do)
+        torch.cuda.synchronize()
+        for fn, was, kernel in zip(fns, before,
+                                   ('scalar', 'tf32x3', 'tf32x3')):
+            assert {key: fn.by_kernel[key] - was[key]
+                    for key in fn.by_kernel} == {
+                key: int(key == kernel) for key in na.PROGRAMS}
 
 
 # (B, N, Nk, C, Cv) for the wgmma kernels (bf16, C and Cv multiples of 64 up
@@ -953,7 +1041,7 @@ def test_attention_operator_launches_the_kernel(cuda):
     torch.cuda.synchronize()
     after = na.nonlocal_attention_cuda.by_kernel
     assert {p: after[p] - before[p] for p in after} == {
-        'wgmma': 1, 'wgmma_wide': 0, 'mma_sync': 0, 'scalar': 0}
+        'wgmma': 1, 'wgmma_wide': 0, 'mma_sync': 0, 'tf32x3': 0, 'scalar': 0}
     want, want_lse = na.nonlocal_attention_fwd_lse_reference(
         q.float(), k.float(), v.float())
     assert _rel_to_max(out, want) <= 2e-2

@@ -95,7 +95,8 @@ def test_plain_runs_f32_under_autocast():
 # 32, SAGAN's 48 / 192 and 96 / 384, the golden lock's 16 / 64) take wgmma
 # in K1-fwd, whose programs pad them, and mma.sync in the backward;
 # gaussian mode (1024), past 512 and channels that are no multiple of 8
-# stay on mma.sync; f32 is scalar
+# stay on mma.sync; f32 takes scalar in K1-fwd and tf32x3 in K1-dq and
+# K1-dkv up to 512
 DISPATCH = [
     (torch.bfloat16, 256, 256, 'wgmma'),
     (torch.bfloat16, 64, 256, 'wgmma'),
@@ -107,14 +108,14 @@ DISPATCH = [
     (torch.bfloat16, 256, 320, 'wgmma'),
     (torch.bfloat16, 32, 32, 'wgmma,mma_sync,mma_sync'),
     (torch.bfloat16, 96, 64, 'wgmma,mma_sync,mma_sync'),
-    (torch.float32, 256, 256, 'scalar'),
-    (torch.float32, 32, 24, 'scalar'),
+    (torch.float32, 256, 256, 'scalar,tf32x3,tf32x3'),
+    (torch.float32, 32, 24, 'scalar,tf32x3,tf32x3'),
     (torch.bfloat16, 64, 512, 'wgmma'),
     (torch.bfloat16, 512, 64, 'wgmma'),
     (torch.bfloat16, 384, 320, 'wgmma'),
     (torch.bfloat16, 576, 512, 'mma_sync'),
     (torch.bfloat16, 512, 480, 'wgmma,mma_sync,mma_sync'),
-    (torch.float32, 512, 512, 'scalar'),
+    (torch.float32, 512, 512, 'scalar,tf32x3,tf32x3'),
     (torch.bfloat16, 96, 384, 'wgmma,mma_sync,mma_sync'),
     (torch.bfloat16, 48, 192, 'wgmma,mma_sync,mma_sync'),
     (torch.bfloat16, 16, 64, 'wgmma,mma_sync,mma_sync'),
@@ -129,9 +130,12 @@ def kernels_by_op(kernel):
     return dict(zip(na.OPS, names if len(names) == 3 else names * 3))
 
 
-# each case's id: the dtype's index, C, Cv and K1-dq's kernel
-DISPATCH_IDS = [f'dtype{i}-{c}-{cv}-{kernels_by_op(kernel)["dq"]}'
-                for i, (_, c, cv, kernel) in enumerate(DISPATCH)]
+# each case's id: its index, C, Cv and K1-dq's kernel in bf16, K1-fwd's in
+# f32 (scalar), so an f32 case keeps its id whichever backward program the
+# dispatch gives it
+DISPATCH_IDS = [f'dtype{i}-{c}-{cv}-'
+                f'{kernels_by_op(kernel)["fwd" if dtype == torch.float32 else "dq"]}'
+                for i, (dtype, c, cv, kernel) in enumerate(DISPATCH)]
 
 
 @pytest.mark.parametrize('dtype,c,cv,kernel', DISPATCH, ids=DISPATCH_IDS)
@@ -171,8 +175,9 @@ def test_dispatch_takes_mma_sync_by_name_and_refuses_the_rest():
 def test_fwd_and_dkv_dispatch_route_each_shape(monkeypatch, dtype, c, cv,
                                                kernel):
     """K1-fwd and K1-dkv call the C entry of the kernel the dispatch picks:
-    wgmma's narrow entry up to 256, its wide entry past it (no dtype code),
-    the mma.sync / scalar entry with its dtype code otherwise; each launch
+    wgmma's narrow entry up to 256, its wide entry past it, tf32x3's (no
+    dtype code in these), the mma.sync / scalar entry with its dtype code
+    otherwise; each launch
     is counted under its program (the wide one as ``wgmma_wide``). The C
     entries are replaced by a recorder, so no card is needed."""
     entries = []
@@ -196,7 +201,7 @@ def test_fwd_and_dkv_dispatch_route_each_shape(monkeypatch, dtype, c, cv,
         else:
             dk, dv = na._launch_dkv(q, q, v, v, stats, stats, 1.0, chosen)
             assert dk.shape == q.shape and dv.shape == v.shape
-        if chosen == 'wgmma':
+        if chosen in ('wgmma', 'tf32x3'):
             assert entries == [(f'{name}_{program}', 1.0)], op
         else:
             assert entries == [(name, na._DTYPE_CODES[dtype])], op
@@ -208,3 +213,132 @@ def test_launch_counters_are_kept_per_kernel():
     for fn in (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
                na.nonlocal_attention_bwd_dkv_cuda):
         assert set(fn.by_kernel) == set(na.PROGRAMS) >= set(na.KERNELS)
+
+
+# f32 widths of K1-dq and K1-dkv: the models' (MNIST's 16 and 32, SAGAN's
+# 48 / 192 and 96 / 384, layers 2 and 3) and the card tests' odd ones take
+# tf32x3 up to 512; gaussian mode's C = 1024 and anything wider stay scalar
+F32_BACKWARD = [
+    (16, 16, 'tf32x3'), (32, 32, 'tf32x3'), (48, 192, 'tf32x3'),
+    (96, 384, 'tf32x3'), (256, 256, 'tf32x3'), (512, 512, 'tf32x3'),
+    (8, 24, 'tf32x3'), (20, 150, 'tf32x3'), (392, 260, 'tf32x3'),
+    (1, 512, 'tf32x3'), (1024, 512, 'scalar'), (512, 513, 'scalar'),
+]
+
+
+@pytest.mark.parametrize('c,cv,kernel', F32_BACKWARD)
+def test_f32_backward_dispatch_by_width(c, cv, kernel):
+    """f32 K1-dq and K1-dkv take tf32x3 wherever C and Cv are at most 512,
+    else scalar; f32 K1-fwd stays on scalar at every width."""
+    for op in ('dq', 'dkv'):
+        assert na.attention_kernel(torch.float32, c, cv, op) == kernel, op
+    assert na.attention_kernel(torch.float32, c, cv, 'fwd') == 'scalar'
+
+
+def test_f32_backward_takes_scalar_by_name_where_tf32x3_is_picked():
+    """The private launch routes may send a tf32x3 shape to the scalar
+    program (the A/B against the program it replaced); tf32x3 takes no
+    shape past 512 and no K1-fwd, and no bf16."""
+    for op in ('dq', 'dkv'):
+        na._check_kernel(torch.float32, 256, 256, 'scalar', op)
+        na._check_kernel(torch.float32, 512, 512, 'tf32x3', op)
+        with pytest.raises(ValueError, match=f'{op} kernel .* does not take'):
+            na._check_kernel(torch.float32, 1024, 512, 'tf32x3', op)
+        with pytest.raises(ValueError, match='does not take'):
+            na._check_kernel(torch.bfloat16, 256, 256, 'tf32x3', op)
+        with pytest.raises(ValueError, match='does not take'):
+            na._check_kernel(torch.float32, 256, 256, 'mma_sync', op)
+    with pytest.raises(ValueError, match='does not take'):
+        na._check_kernel(torch.float32, 256, 256, 'tf32x3', 'fwd')
+
+
+@pytest.mark.parametrize('c,cv,kernel', [(256, 256, 'tf32x3'),
+                                         (1024, 512, 'scalar')])
+def test_f32_backward_routes_to_its_entries(monkeypatch, c, cv, kernel):
+    """K1-dq and K1-dkv in f32 call tf32x3's entries (no dtype code) where
+    the dispatch picks it and the scalar entries (dtype code 0) otherwise,
+    also when scalar is asked for by name at a tf32x3 shape; each launch is
+    counted under its program. The C entries are replaced by a recorder."""
+    entries = []
+    monkeypatch.setattr(na, '_launch',
+                        lambda entry, *args: entries.append((entry, args[-1])))
+    q = torch.zeros(1, 8, c)
+    v = torch.zeros(1, 8, cv)
+    stats = torch.zeros(1, 8)
+    for program in (kernel, 'scalar'):
+        for fn, launch, name in (
+                (na.nonlocal_attention_bwd_dq_cuda, na._launch_dq,
+                 'pt_nonlocal_attention_bwd_dq'),
+                (na.nonlocal_attention_bwd_dkv_cuda, na._launch_dkv,
+                 'pt_nonlocal_attention_bwd_dkv')):
+            before = dict(fn.by_kernel)
+            entries.clear()
+            outs = launch(q, q, v, v, stats, stats, 1.0, program)
+            assert [o.shape for o in (outs if isinstance(outs, tuple)
+                                      else (outs,))] == (
+                [q.shape] if fn is na.nonlocal_attention_bwd_dq_cuda
+                else [q.shape, v.shape])
+            assert entries == ([(f'{name}_tf32x3', 1.0)]
+                               if program == 'tf32x3' else [(name, 0)])
+            assert {k: fn.by_kernel[k] - before[k] for k in na.PROGRAMS} == {
+                k: int(k == program) for k in na.PROGRAMS}
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on f32 bits: round to nearest, ties away from zero,
+    to 10 mantissa bits (the low 13 bits cleared)."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
+        np.float32)
+
+
+def _mm(a, b, terms):
+    """a @ b (batched) as the tf32x3 kernels form it: each f32 operand
+    split into TF32 halves hi = tf32(x), lo = tf32(x - hi), and the
+    products lo hi + hi lo + hi hi summed in f32 (each TF32 product is
+    exact in f32); ``terms=1``: hi hi alone, one TF32 product."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    hh = torch.bmm(*map(torch.from_numpy, (ahi, bhi)))
+    if terms == 1:
+        return hh.numpy()
+    small = (torch.bmm(*map(torch.from_numpy, (alo, bhi)))
+             + torch.bmm(*map(torch.from_numpy, (ahi, blo))))
+    return (small + hh).numpy()
+
+
+def _split_backward(q, k, v, do, lse, delta, scale, terms):
+    """dq, dk, dv with every product of K1-dq and K1-dkv (s, dp, ds k,
+    ds^T q, p^T do) formed by ``_mm``."""
+    kt = k.transpose(0, 2, 1)
+    s = _mm(q, kt, terms)
+    dp = _mm(do, v.transpose(0, 2, 1), terms)
+    p = np.exp(s * np.float32(scale) - lse[..., None]).astype(np.float32)
+    ds = (p * (dp - delta[..., None]) * np.float32(scale)).astype(np.float32)
+    return (_mm(ds, k, terms), _mm(ds.transpose(0, 2, 1), q, terms),
+            _mm(p.transpose(0, 2, 1), do, terms))
+
+
+def test_three_tf32_products_keep_the_f32_tolerance():
+    """The split arithmetic of the tf32x3 programs, emulated on the CPU:
+    three TF32 products per f32 product give dq, dk, dv within 1e-4 of the
+    largest gradient of the plain backward (the card's f32 tolerance, which
+    one TF32 product misses). B > 1, Nk != N, Cv != C, scale != 1."""
+    b, n, nk, c, cv, scale = 2, 300, 72, 64, 96, 0.5
+    rng = np.random.RandomState(5)
+    q = (rng.randn(b, n, c) / c ** 0.25).astype(np.float32)
+    k = (rng.randn(b, nk, c) / c ** 0.25).astype(np.float32)
+    v = rng.randn(b, nk, cv).astype(np.float32)
+    do = rng.randn(b, n, cv).astype(np.float32)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    out, lse = na.nonlocal_attention_fwd_lse_reference(tq, tk, tv, scale)
+    want = na.nonlocal_attention_bwd_reference(tq, tk, tv, out, lse, tdo,
+                                               scale)
+    delta = (do * out.numpy()).sum(-1).astype(np.float32)
+    rels = {}
+    for terms in (3, 1):
+        got = _split_backward(q, k, v, do, lse.numpy(), delta, scale, terms)
+        rels[terms] = [float(np.abs(g - w.numpy()).max() / np.abs(w.numpy()).max())
+                       for g, w in zip(got, want)]
+    assert max(rels[3]) <= 1e-4, rels
+    assert max(rels[1]) > 1e-4, rels

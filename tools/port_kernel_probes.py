@@ -3,7 +3,8 @@
 K1-dq and K1-dkv kernels, on one CUDA card (``pretorched_tpu_torch``; no
 JAX).
 
-    python3 tools/port_kernel_probes.py [k2] [dq] [lr] [wide] [host]
+    python3 tools/port_kernel_probes.py [k2] [dq] [lr] [wide] [tf32]
+        [tf32_timing] [tf32_loads] [host]
 
 * ``k2``: builds variants of ``csrc/fused_block.cu`` (the source with one
   textual change each) into their own libraries and times the TMA kernel
@@ -27,6 +28,27 @@ JAX).
   left undefined before their products, which ptxas serializes: C7515),
   with the largest difference from ``base``; K1-dq also beside the generic
   mma.sync program it replaced.
+* ``tf32``: the f32 tensor-core programs of K1-dq and K1-dkv (tf32x3) at
+  the train shapes of layers 2 and 3, ``sub_sample`` and the seq axis:
+  ``base`` against ``truncating`` (every sum accumulated on the tensor
+  cores, whose adds truncate, instead of partials joined by f32 adds),
+  ``cvt`` (``cvt.rna.tf32.f32`` for the TF32 rounding), ``k32``
+  (32-channel chunks of s and dp), ``all_tiles`` (every 8-column tile a
+  warp holds multiplied, whatever the output's width: no branch), ``stages4``
+  (a 4-slot ring), ``max_nt16`` (at most 16 tiles a warp: layer 3's
+  512 columns in two grid.z chunks, each forming s and dp),
+  ``two_blocks`` (two blocks an SM: at most 128 registers a thread and
+  32-channel chunks) and ``two_blocks_s_truncating`` (that, with the s
+  and dp chunks summed on the tensor cores: fewer live registers), each timed in
+  turns with the scalar program beside them and held to the plain f32
+  backward and to an f64 one (max error over the largest gradient); each
+  variant's registers and the SASS opcode counts of its kernel at 16 tiles
+  a warp (layer 2). ``tf32_timing``: the same against variants whose
+  gradients are wrong, for their times alone: ``one_product`` (one TF32
+  product per f32 product), ``no_split`` (three products of the unsplit
+  bits: no split arithmetic) and both. ``tf32_loads``: likewise without
+  the row chunks (``no_row_loads``), the column chunks (``no_col_loads``)
+  or the rows of m (``no_m_loads``) copied from L2.
 * ``host``: the host time of one K1-fwd wrapper call at layer 3's widths
   (B = 1 and 8), step by step (checks, allocation, device context and
   stream, pointers, the C entry with its four tensor maps and launch, the
@@ -99,6 +121,69 @@ WIDE_DQ_VARIANTS = {
         ('float st[TK / 2] = {};\n        reg_fence(st);', 'float st[TK / 2];'),
         ('float dp[TK / 2] = {};   // as st above\n        reg_fence(dp);',
          'float dp[TK / 2];')]}
+# tf32x3 (the f32 K1-dq and K1-dkv) against: its sums accumulated on the
+# tensor cores (which truncate), cvt.rna.tf32.f32 for the TF32 rounding,
+# 32-channel chunks, every 8-column tile multiplied whatever the output's
+# width, a 4-slot ring, at most 16 tiles a warp (layer 3's 512 columns over
+# grid.z, s and dp formed twice)
+TF32_TRUNCATING = [
+    ('      mma_tf32x3(partial[t], ahi, alo, bhi, blo);\n    }\n  }\n'
+     '#pragma unroll\n  for (int t = 0; t < 4; ++t)\n#pragma unroll\n'
+     '    for (int e = 0; e < 4; ++e) acc[t][e] += partial[t][e];\n}\n',
+     '      mma_tf32x3(acc[t], ahi, alo, bhi, blo);\n    }\n  }\n'
+     '  (void)partial;\n}\n'),
+    ('            mma_tf32x3(partial[t], ahi, alo, bhi, blo);',
+     '            mma_tf32x3(acc[t0 + t], ahi, alo, bhi, blo);'),
+    ('          for (int e = 0; e < 4; ++e) acc[t0 + t][e] += partial[t][e];',
+     '          for (int e = 0; e < 4; ++e) (void)partial[t][e];')]
+TF32_CVT = ('mma_tiles.cuh',
+            '  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;',
+            '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : '
+            '"f"(x));\n  return r;')
+TF32_VARIANTS = {
+    'base': [],
+    'truncating': TF32_TRUNCATING,
+    'cvt': [TF32_CVT],
+    'k32': [('constexpr int kTK = 64; ', 'constexpr int kTK = 32; ')],
+    'all_tiles': [('        if (t0 >= live) break;', '')],
+    'stages4': [('constexpr int kTStages = 3; ', 'constexpr int kTStages = 4; ')],
+    'max_nt16': [('constexpr int kTMaxNT = 32;', 'constexpr int kTMaxNT = 16;')],
+    'two_blocks': [('__launch_bounds__(kTThreads)\n',
+                    '__launch_bounds__(kTThreads, 2)\n'),
+                   ('constexpr int kTK = 64; ', 'constexpr int kTK = 32; ')]}
+TF32_VARIANTS['two_blocks_s_truncating'] = (
+    TF32_VARIANTS['two_blocks'] + TF32_TRUNCATING[:1])
+# timing only (their gradients are wrong): one TF32 product per f32 product,
+# and no split arithmetic (hi = lo = the f32 bits, three products)
+TF32_TIMING_VARIANTS = {
+    'base': [],
+    'one_product': [('mma_tiles.cuh', '''  mma_tf32(d, alo, bhi[0], bhi[1]);
+  mma_tf32(d, ahi, blo[0], blo[1]);
+  mma_tf32(d, ahi, bhi[0], bhi[1]);''', '''  mma_tf32(d, ahi, bhi[0], bhi[1]);''')],
+    'no_split': [('mma_tiles.cuh', '''  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));''', '''  hi = lo = __float_as_uint(x);''')]}
+TF32_TIMING_VARIANTS['one_product_no_split'] = (
+    TF32_TIMING_VARIANTS['one_product'] + TF32_TIMING_VARIANTS['no_split'])
+# and without the block's row chunks of s and dp, the tile's column chunks,
+# or the rows of m: what their copies from L2 cost
+TF32_LOAD_VARIANTS = {
+    'base': [],
+    'no_row_loads': [(
+        '        load_tile_f32_async<kTRows, kTK, kTThreads>(\n'
+        '            slot, kTLdK, is_s ? ra : rb, ch, r0, p.rows, k0, ch, vec);\n',
+        '')],
+    'no_col_loads': [(
+        '        load_tile_f32_async<kTCols, kTK, kTThreads>(\n'
+        '            slot + kTRows * kTLdK, kTLdK, is_s ? ca : cb, ch, c0, p.cols,\n'
+        '            k0, ch, vec);\n', '')],
+    'no_m_loads': [(
+        '        load_tile_f32_async<kKM, 16 * NT, kTThreads>(\n'
+        '            slot, kLdM, m, part.w, c0 + (j - n_s - n_dp) * kKM, p.cols, w0,\n'
+        '            part.w, vec_m);\n', '')]}
+TF32_SHAPES = {'layer2': (8, 6272, 6272, 256, 256),
+               'layer3': (8, 784, 784, 512, 512),
+               'sub_sample': (8, 6272, 784, 256, 256),
+               'seq layer2': (16, 3136, 6272, 256, 256)}
 WIDE_FWD_SHAPES = [(20, 784, 784, 512, 512), (8, 784, 784, 512, 512),
                    (1, 784, 784, 512, 512)]
 WIDE_DKV_SHAPES = [(8, 784, 784, 512, 512), (2, 784, 196, 512, 512)]
@@ -157,13 +242,16 @@ def build_variants(source, variants, tag):
         d.mkdir(parents=True)
         for f in CSRC.glob('*.cuh'):
             shutil.copy(f, d)
-        text = (CSRC / source).read_text()
-        for old, new in patches:
+        texts = {source: (CSRC / source).read_text()}
+        for patch in patches:     # (old, new) in source, or (file, old, new)
+            target, old, new = patch if len(patch) == 3 else (source, *patch)
+            text = texts.get(target) or (CSRC / target).read_text()
             if text.count(old) != 1:
                 raise SystemExit(f'{tag} {name}: the patched text is not '
-                                 f'found once in {source}')
-            text = text.replace(old, new)
-        (d / source).write_text(text)
+                                 f'found once in {target}')
+            texts[target] = text.replace(old, new)
+        for target, text in texts.items():
+            (d / target).write_text(text)
         procs[name] = subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, '-shared', '-o',
              str(d / 'lib.so'), str(d / source)],
@@ -173,6 +261,7 @@ def build_variants(source, variants, tag):
         log = proc.communicate(timeout=600)[0]
         if proc.returncode:
             raise SystemExit(f'{tag} {name}: nvcc failed\n{log}')
+        (OUT / tag / name / 'build.log').write_text(log)
         for line in log.splitlines():
             if 'Potential Performance Loss' in line:
                 note, _, fn = line.split('Loss: ')[1].partition(
@@ -384,6 +473,134 @@ def probe_wide(smi):
         print(f'  {(b, n, nk, c, cv)} ms: ' + ', '.join(row), flush=True)
 
 
+def sass_opcodes(lib_path, kernel):
+    """Opcode counts of ``kernel``'s SASS in a built library (cuobjdump)."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    out = subprocess.run([tool, '-sass', str(lib_path)], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, inside = {}, False
+    for line in out.splitlines():
+        if 'Function :' in line:
+            inside = kernel in line
+        elif inside:
+            m = re.match(r'\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?'
+                         r'([A-Z][A-Z0-9_]*)', line)
+            if m:
+                counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def bwd_f64(q, k, v, o, lse, do):
+    """The plain backward (``nonlocal_attention_bwd_reference``) in f64."""
+    import torch
+    q, k, v, o, lse, do = (t.double() for t in (q, k, v, o, lse, do))
+    p = torch.exp(torch.bmm(q, k.transpose(1, 2)) - lse[..., None])
+    dv = torch.bmm(p.transpose(1, 2), do)
+    ds = torch.bmm(do, v.transpose(1, 2))
+    ds.sub_((do * o).sum(-1)[..., None]).mul_(p)
+    del p
+    return torch.bmm(ds, k), torch.bmm(ds.transpose(1, 2), q), dv
+
+
+def probe_tf32(smi, variants=None, tag='tf32'):
+    """tf32x3's variants (TF32_VARIANTS) at TF32_SHAPES: ms of K1-dq and
+    K1-dkv in turns (variants, scalar, then back), each held to the plain
+    f32 backward and to the f64 one."""
+    import torch
+    from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = build_variants('nonlocal_attention_bwd.cu',
+                          variants or TF32_VARIANTS, tag)
+    for name, lib in libs.items():
+        for fn, outs in ((lib.pt_nonlocal_attention_bwd_dq_tf32x3, 1),
+                         (lib.pt_nonlocal_attention_bwd_dkv_tf32x3, 2)):
+            fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_void_p])
+        ops = sass_opcodes(OUT / tag / name / 'lib.so',
+                           'tf32x3_kernelILi16E')
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:14]
+        log = (OUT / tag / name / 'build.log').read_text().splitlines()
+        regs = [re.search(r'Used (\d+) registers', log[i + 2]).group(1)
+                + ' at NT ' + re.search(r'kernelILi(\d+)E', line).group(1)
+                + (' (spills ' + re.search(r'(\d+) bytes spill stores',
+                                           log[i + 1]).group(1) + ' B)'
+                   if ' 0 bytes spill stores' not in log[i + 1] else '')
+                for i, line in enumerate(log)
+                if 'Function properties' in line and 'tf32x3' in line
+                and i + 2 < len(log) and 'Used' in log[i + 2]]
+        print(f'  {tag} {name}: registers {", ".join(regs)}; SASS of the '
+              f'kernel at 16 tiles a warp, {sum(ops.values())} '
+              f'instructions: '
+              + ', '.join(f'{op} {n}' for op, n in top), flush=True)
+    g = torch.Generator(device='cuda').manual_seed(3)
+    print(f'f32 K1-dq and K1-dkv, tf32x3 variants against scalar, CUDA-event '
+          f'medians of 5 in turns; max |d - ref| / max |ref| against the '
+          f'plain f32 and the f64 backward ({smi})')
+    for label, (b, n, nk, c, cv) in TF32_SHAPES.items():
+        q = torch.randn(b, n, c, device='cuda', generator=g) / c ** 0.25
+        k = torch.randn(b, nk, c, device='cuda', generator=g) / c ** 0.25
+        v = torch.randn(b, nk, cv, device='cuda', generator=g)
+        do = torch.randn(b, n, cv, device='cuda', generator=g)
+        out, lse = na.nonlocal_attention_cuda(q, k, v)
+        delta = (do * out).sum(-1)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        dims = (b, n, nk, c, cv, ctypes.c_float(1.0), stream)
+        ins = [ctypes.c_void_p(t.data_ptr())
+               for t in (q, k, v, do, lse, delta)]
+
+        def runner(lib):
+            dq = torch.empty_like(q)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+            def dq_fn():
+                err = lib.pt_nonlocal_attention_bwd_dq_tf32x3(
+                    *ins, ctypes.c_void_p(dq.data_ptr()), *dims)
+                if err:
+                    raise RuntimeError(f'CUDA error {err}')
+
+            def dkv_fn():
+                err = lib.pt_nonlocal_attention_bwd_dkv_tf32x3(
+                    *ins, ctypes.c_void_p(dk.data_ptr()),
+                    ctypes.c_void_p(dv.data_ptr()), *dims)
+                if err:
+                    raise RuntimeError(f'CUDA error {err}')
+            return dq_fn, dkv_fn, (dq, dk, dv)
+
+        runs = {name: runner(lib) for name, lib in libs.items()}
+        runs['scalar'] = (
+            lambda: na._launch_dq(q, k, v, do, lse, delta, 1.0, 'scalar'),
+            lambda: na._launch_dkv(q, k, v, do, lse, delta, 1.0, 'scalar'),
+            None)
+        times = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            dq_fn, dkv_fn, _ = runs[name]
+            times[name].append((median_ms(dq_fn, reps=5),
+                                median_ms(dkv_fn, reps=5)))
+        want = na.nonlocal_attention_bwd_reference(q, k, v, out, lse, do)
+        exact = bwd_f64(q, k, v, out, lse, do)
+
+        def rel(got, ref):
+            return max(((x.double() - r.double()).abs().max()
+                        / r.double().abs().max()).item()
+                       for x, r in zip(got, ref))
+        print(f'  {label} (B, N, Nk, C, Cv) = {(b, n, nk, c, cv)}: plain f32 '
+              f'to f64 {rel(want, exact):.2e}', flush=True)
+        for name, (dq_fn, dkv_fn, outs) in runs.items():
+            ts = times[name]
+            line = (f'    {name:18s} dq '
+                    + ' / '.join(f'{t[0]:.3f}' for t in ts) + ' ms, dkv '
+                    + ' / '.join(f'{t[1]:.3f}' for t in ts) + ' ms')
+            if outs is not None:
+                dq_fn()
+                dkv_fn()
+                torch.cuda.synchronize()
+                line += (f'; to plain f32 {rel(outs, want):.2e}, to f64 '
+                         f'{rel(outs, exact):.2e}')
+            print(line, flush=True)
+        del q, k, v, do, out, lse, delta, runs, want, exact
+        torch.cuda.empty_cache()
+
+
 def probe_lr(smi):
     import numpy as np
     import torch
@@ -532,7 +749,12 @@ def main(argv):
         raise SystemExit('port_kernel_probes: no CUDA card')
     smi = card()
     probes = {'k2': probe_k2, 'dq': probe_dq, 'lr': probe_lr,
-              'wide': probe_wide, 'host': probe_host}
+              'wide': probe_wide, 'tf32': probe_tf32,
+              'tf32_timing': lambda smi: probe_tf32(
+                  smi, TF32_TIMING_VARIANTS, 'tf32_timing'),
+              'tf32_loads': lambda smi: probe_tf32(
+                  smi, TF32_LOAD_VARIANTS, 'tf32_loads'),
+              'host': probe_host}
     for name in argv or list(probes):
         probes[name](smi)
 
