@@ -10,12 +10,13 @@ Drives the port's main path once on one CUDA card and checks it:
    with the kernel the dispatch picks (``attention_kernel``: bf16 with C
    and Cv multiples of 8 up to 512 on K1-fwd's wgmma programs, which pad
    them to 64 through TMA, past 256 the wide program, other bf16 shapes on
-   mma.sync, f32 scalar in K1-fwd; f32 K1-dq and K1-dkv on tf32x3 up to
-   512, scalar past it), its time, its bound and one
+   mma.sync; f32 K1-fwd, K1-dq and K1-dkv on tf32x3 up to 512, scalar
+   past it), f32 repeated bitwise, its time, its bound (f32: at the TF32
+   rate over 3 and on the CUDA cores) and one
    ``scaled_dot_product_attention`` call's time, the plain version's at
-   layers 2 and 3, and at both layers the mma.sync kernel that wgmma
-   replaced (held to the plain version at the same tolerances) and each
-   one's host time per call;
+   layers 2 and 3, and at both layers the kernel that the dispatch's
+   choice replaced (bf16: mma.sync, f32: scalar; held to the plain version
+   at the same tolerances) and each one's host time per call;
 4. the eval path: a fabricated hosted ``kinetics-400`` checkpoint for
    ``nonlocalresnet3d50`` (seeded init, every BN randomized, non-local
    weights included), a frame folder of JPEGs, and the 10-clip, 32-frame,
@@ -51,7 +52,7 @@ Drives the port's main path once on one CUDA card and checks it:
    lse for the backward, dk and dv summed over the chunks), at this
    phase's and phase 3's tolerances, timed beside SDPA; and the f32
    kernels timed at the train shapes of layers 2 and 3 beside SDPA in f32
-   (K1-dq and K1-dkv beside the scalar programs);
+   (K1-fwd, K1-dq and K1-dkv beside the scalar programs);
 6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
    ``remat=(0,)``, SGD, 12 steps of 8 clips x 32 frames x 224 px; it checks
    15 attention launches a step (5 forward, 5 dq and 5 dkv on wgmma, 3 of
@@ -61,10 +62,10 @@ Drives the port's main path once on one CUDA card and checks it:
    (device time by kernel family, each K1 program's, idle share), and
    saves a checkpoint after step 3 that must restore exactly;
 6b. the f32 fine-tuning step: the same model, batch and SGD in f32 with
-   TF32 off, steps in turns with the f32 backward on tf32x3 and forced onto
-   the scalar programs (the dispatch patched in this script): 15 K1
-   launches a step by program (5 K1-fwd scalar, 5 K1-dq and 5 K1-dkv on
-   the program of the turn), finite losses, device and host time a step
+   TF32 off, steps in turns with the f32 attention on tf32x3 and forced
+   onto the scalar programs (the dispatch patched in this script): 15 K1
+   launches a step by program (5 K1-fwd, 5 K1-dq and 5 K1-dkv on the
+   program of the turn), finite losses, device and host time a step
    (median and spread), peak memory, and one profiled step of each with
    K1's share and the device's idle share;
 7. gradient agreement: each non-local block's gradients with the kernels
@@ -123,7 +124,7 @@ Drives the port's main path once on one CUDA card and checks it:
     bf16): videos/s, the backbone computing in bf16, the logits held to the
     f32 forward, the generator path repeating from its seed;
 13. ``MNISTNonLocalNet`` on 64 images: K1-fwd on wgmma in bf16 (C = 16
-    and 32, padded to 64) and on the scalar kernel in f32, 2 launches a
+    and 32, padded to 64) and on tf32x3 in f32, 2 launches a
     forward, each held to the plain version, the f32 logits against the
     plain attention, ``W.1`` moving them, and the bf16 launches timed
     beside the mma.sync program that wgmma replaced there (also held to
@@ -151,8 +152,8 @@ Drives the port's main path once on one CUDA card and checks it:
     every BN's statistics randomized, SAGAN's ``gamma`` 0.5) sampling 32
     seeded labels through ``gan.biggan.sample`` in bf16: (32, 256, 256, 3)
     images, finite, in [-1, 1], one K1-fwd launch a forward on the wide
-    wgmma program (C = 96, Cv = 384 padded to 128 and 384; scalar in f32),
-    each bf16 launch held to the plain version, the bf16 images against
+    wgmma program (C = 96, Cv = 384 padded to 128 and 384; tf32x3 in f32),
+    each launch held to the plain version, the bf16 images against
     the f32 images of the same
     weights and z; at batch 4 in f32 the images with the kernel against the
     plain attention, and ``gamma`` 0 moving them; images/s, peak memory, a
@@ -206,7 +207,7 @@ Drives the port's main path once on one CUDA card and checks it:
     and ``resnet50`` (f32, symbolic batch at 1, 8 and 64), reloaded in a
     fresh process that builds no model (``tools/port_export_reload.py``):
     5 K1-fwd launches a non-local forward (bf16: 2 wgmma + 3 wgmma_wide;
-    f32: scalar), 11 K2 (6 TMA + 5 mma.sync) a SlowFast forward, the
+    f32: tf32x3), 11 K2 (6 TMA + 5 mma.sync) a SlowFast forward, the
     logits against the eager forward's (bf16 rel L2 5e-3; f32, TF32 off,
     1e-4), each forward timed in both; ``tools/convert_weights_torch.py
     --eval`` on phase 14's val folder with a fabricated hosted
@@ -329,13 +330,13 @@ MEM_BYTES_PER_S = 3.35e12
 # clock and by device time (CUDA events around each step)
 TRAIN_CLIPS, TRAIN_STEPS, TRAIN_LR = 8, 12, 1e-3
 # phase 6b: phase 6's step in f32 (TF32 off), the f32 fine-tuning a user of
-# the f32 zoo runs: a warm step on each backward program, then turns of
-# F32_TRAIN_STEPS steps with K1-dq and K1-dkv on tf32x3 (t) and forced onto
-# the scalar programs (s), t s s t, and one profiled step of each; K1
-# launches a step by program
+# the f32 zoo runs: a warm step on each program, then turns of
+# F32_TRAIN_STEPS steps with K1-fwd, K1-dq and K1-dkv on tf32x3 (t) and
+# forced onto the scalar programs (s), t s s t, and one profiled step of
+# each; K1 launches a step by program
 F32_TRAIN_STEPS = 3
 F32_TRAIN_KERNELS = {
-    'tf32x3': {'fwd scalar': 5, 'dq tf32x3': 5, 'dkv tf32x3': 5},
+    'tf32x3': {'fwd tf32x3': 5, 'dq tf32x3': 5, 'dkv tf32x3': 5},
     'scalar': {'fwd scalar': 5, 'dq scalar': 5, 'dkv scalar': 5}}
 # K2 (the fused bottleneck tail): (N, T, H, W, Cin, Cm, Cout, projection)
 # of SlowFast-R50 on 20 clips x 64 frames x 224 px (fast pathway B*T =
@@ -625,10 +626,14 @@ def fwd_errors(out, lse, want, want_lse):
 
 def kernel_vs_plain(na, torch):
     """Phase 3: every case in both dtypes, with the kernel the dispatch
-    picks; bf16 cases timed with their bound and SDPA's time, layers 2 and
-    3 also on the mma.sync kernel that wgmma replaced, which is held to the
-    plain version at the same tolerances. Returns the bf16 rows of layers 2
-    and 3."""
+    picks, f32 repeated bitwise; each timed with its bound (f32: at the
+    TF32 rate over 3 and on the CUDA cores, beside the multiply-adds a
+    pair) and SDPA's time; layers 2 and 3 also on the kernel that the
+    dispatch's choice replaced (bf16: mma.sync, f32: scalar), which is held
+    to the plain version at the same tolerances and timed with its host
+    time.
+    Returns the rows of layers 2 and 3 (bf16 under the layer's name, f32
+    under '<layer> float32')."""
     g = torch.Generator(device='cuda').manual_seed(0)
     result = {}
     for name, (b, n, nk, c, cv) in SLICE_SHAPES.items():
@@ -652,62 +657,88 @@ def kernel_vs_plain(na, torch):
                     f'Cv={cv} [{kernel}]: max|out-plain|={err:.3e} (tol '
                     f'{tol:g}), /max|plain| {err_rel:.3e} (tol {tol_rel:g}), '
                     f'max|lse-plain|={err_lse:.3e} (tol {tol_lse:g})')
-            earlier = (dt == torch.bfloat16 and name in ('layer2', 'layer3')
-                       and kernel != 'mma_sync')
+            repeats = True
+            if dt == torch.float32:
+                again = na.nonlocal_attention_cuda(q, k, v)
+                repeats = (torch.equal(out, again[0])
+                           and torch.equal(lse, again[1]))
+                line += f', a second call bitwise the same: {repeats}'
+                del again
+            layer = name in ('layer2', 'layer3')
+            older = 'mma_sync' if dt == torch.bfloat16 else 'scalar'
+            earlier = layer and kernel != older
             errs_m = (0.0, 0.0, 0.0)
             if earlier:
-                # the mma.sync kernel that wgmma replaced, at its tolerances
-                out_m, lse_m = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
+                # the kernel the dispatch's choice replaced, at its
+                # tolerances
+                out_m, lse_m = na._launch_fwd(q, k, v, 1.0, older)
                 errs_m = fwd_errors(out_m, lse_m, want, want_lse)
                 del out_m, lse_m
-                line += (f'\n    the mma.sync kernel: max|out-plain|='
+                line += (f'\n    the {older} kernel: max|out-plain|='
                          f'{errs_m[0]:.3e}, /max|plain| {errs_m[1]:.3e}, '
                          f'max|lse-plain|={errs_m[2]:.3e}')
             del want, want_lse
-            if dt == torch.bfloat16 or name in ('layer2', 'layer3'):
-                ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
-                line += f'\n    kernel {ms:.3f} ms'
-            if name in ('layer2', 'layer3'):
+            ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
+            line += f'\n    kernel {ms:.3f} ms'
+            if layer:
                 plain_ms = median_ms(
                     lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v))
                 line += f', plain {plain_ms:.3f} ms'
-            if dt == torch.bfloat16:
-                lib_ms, backend = sdpa_ms(torch, q, k, v)
-                bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
-                                                      dname)['fwd']
-                line += (f', scaled_dot_product_attention {fmt_ms(lib_ms)} '
-                         f'({backend}), bound {bound_ms:.4f} ms ({bound_by})')
-                if earlier:
-                    earlier_ms = median_ms(lambda: na._launch_fwd(
-                        q, k, v, 1.0, 'mma_sync'))
-                    hosts = (host_us(lambda: na.nonlocal_attention_cuda(
-                                 q, k, v)),
-                             host_us(lambda: na._launch_fwd(
-                                 q, k, v, 1.0, 'mma_sync')),
-                             host_us(lambda: na.nonlocal_attention_fwd_lse(
-                                 q, k, v)))
-                    line += (f'; the mma.sync kernel {earlier_ms:.3f} ms; '
-                             f'host per call {hosts[0]:.1f} us ({kernel}, '
-                             f'the wrapper), {hosts[2]:.1f} us (the same '
-                             f'through the operator pretorched::'
-                             f'nonlocal_attention_fwd), {hosts[1]:.1f} us '
-                             f'(mma.sync)')
-                    result[name] = {
-                        'kernel': kernel, 'max_abs_err': err, 'ms': ms,
-                        'plain_ms': plain_ms, 'library_ms': lib_ms,
-                        'library': f'scaled_dot_product_attention '
-                                   f'({backend})',
-                        'bound_ms': bound_ms, 'bound_by': bound_by,
-                        'earlier_ms': earlier_ms,
-                        'earlier': 'mma.sync kernel, same run',
-                        'host_us': hosts[0], 'earlier_host_us': hosts[1],
-                        'host_us_operator': hosts[2]}
+            lib_ms, backend = sdpa_ms(torch, q, k, v)
+            rate = 'tf32x3' if kernel == 'tf32x3' else dname
+            bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
+                                                  rate)['fwd']
+            line += (f', scaled_dot_product_attention {fmt_ms(lib_ms)} '
+                     f'({backend}), bound {bound_ms:.4f} ms ({bound_by}'
+                     + (' at the TF32 rate over 3' if rate == 'tf32x3'
+                        else '') + ')')
+            cores_ms = None
+            if dt == torch.float32:
+                cores_ms = attention_bounds(b, n, nk, c, cv,
+                                            'float32')['fwd'][0]
+                line += (f', {cores_ms:.4f} ms on the CUDA cores; '
+                         f'{c + cv} multiply-adds a (query, key) pair')
+            if earlier:
+                earlier_ms = median_ms(lambda: na._launch_fwd(
+                    q, k, v, 1.0, older))
+                hosts = (host_us(lambda: na.nonlocal_attention_cuda(
+                             q, k, v)),
+                         host_us(lambda: na._launch_fwd(
+                             q, k, v, 1.0, older)),
+                         host_us(lambda: na.nonlocal_attention_fwd_lse(
+                             q, k, v)))
+                line += (f'; the {older} kernel {earlier_ms:.3f} ms; '
+                         f'host per call {hosts[0]:.1f} us ({kernel}, '
+                         f'the wrapper), {hosts[2]:.1f} us (the same '
+                         f'through the operator pretorched::'
+                         f'nonlocal_attention_fwd), {hosts[1]:.1f} us '
+                         f'({older})')
+                row = {
+                    'kernel': kernel, 'max_abs_err': err, 'ms': ms,
+                    'plain_ms': plain_ms, 'library_ms': lib_ms,
+                    'library': f'scaled_dot_product_attention '
+                               f'({backend})',
+                    'bound_ms': bound_ms, 'bound_by': bound_by,
+                    'earlier_ms': earlier_ms,
+                    'earlier': f'{older} kernel, same run',
+                    'host_us': hosts[0], 'earlier_host_us': hosts[1],
+                    'host_us_operator': hosts[2]}
+                if dt == torch.float32:
+                    row.update({'bound_ms_cuda_cores': cores_ms,
+                                'macs_per_pair': c + cv,
+                                'shape': [b, n, nk, c, cv],
+                                'dtype': dname})
+                    result[f'{name} float32'] = row
+                else:
+                    result[name] = row
             print(line, flush=True)
-            check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
-                  f'kernel disagrees with the plain version: {line}')
+            check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse
+                  and repeats,
+                  f'kernel disagrees with the plain version or itself: '
+                  f'{line}')
             check(errs_m[0] <= tol and errs_m[1] <= tol_rel
                   and errs_m[2] <= tol_lse,
-                  f'the mma.sync kernel disagrees with the plain version: '
+                  f'the {older} kernel disagrees with the plain version: '
                   f'{line}')
             del q, k, v, out, lse
             torch.cuda.empty_cache()
@@ -866,12 +897,20 @@ def main_path(pretorched, na, torch, np):
         check(rel_wp <= min(TOL_LOGITS_BF16, 2 * rel_mp),
               f'bf16 logits through wgmma off the plain attention: {rel_wp}')
         model.float()
+        before = kernel_counts(na)
         logits_k = model(batch)
+        f32_by_kernel = {key: n - before.get(key, 0)
+                         for key, n in kernel_counts(na).items()
+                         if n != before.get(key, 0)}
         logits_p = with_attention(na.nonlocal_attention_reference)
         rel = rel_l2(logits_k, logits_p)
         rel_bf16 = rel_l2(logits_bf16, logits_p)
-        print(f'f32 logits, kernel vs plain attention: rel L2 {rel:.3e} '
-              f'(tol 1e-3); bf16 vs f32-plain: rel L2 {rel_bf16:.3e}')
+        print(f'f32 logits, kernel ({f32_by_kernel}) vs plain attention: '
+              f'rel L2 {rel:.3e} (tol 1e-3); bf16 vs f32-plain: rel L2 '
+              f'{rel_bf16:.3e}')
+        check(f32_by_kernel == {'fwd tf32x3': 5},
+              f'the f32 forward launched {f32_by_kernel}, expected 5 '
+              'K1-fwd on tf32x3')
         check(bool(torch.isfinite(logits_k).all()) and rel <= 1e-3,
               f'kernel and plain paths disagree: rel L2 {rel:.3e}')
         folded.float()
@@ -1206,9 +1245,9 @@ def k1_done_line(na, torch):
     chunks of DONE_CHUNK queries in f32 (the backward's from the kernel's
     own out and lse; dk and dv summed over the chunks) at phase 3's and
     phase 5's tolerances, each timed beside SDPA; then the f32 kernels
-    timed at the train shapes of layers 2 and 3 beside SDPA in f32, K1-dq
-    and K1-dkv (tf32x3) beside the scalar programs they replaced. Returns
-    the numbers."""
+    timed at the train shapes of layers 2 and 3 beside SDPA in f32, K1-fwd,
+    K1-dq and K1-dkv (tf32x3) beside the scalar programs they replaced.
+    Returns the numbers."""
     b, n, nk, c, cv = DONE_LINE_SHAPE
     dt = torch.bfloat16
     g = torch.Generator(device='cuda').manual_seed(6)
@@ -1315,6 +1354,8 @@ def k1_done_line(na, torch):
                 q, k, v, do, lse, delta), reps=3)}
         # the scalar programs tf32x3 replaced, same inputs
         scalar = {
+            'fwd': median_ms(lambda: na._launch_fwd(q, k, v, 1.0, 'scalar'),
+                             reps=3),
             'dq': median_ms(lambda: na._launch_dq(
                 q, k, v, do, lse, delta, 1.0, 'scalar'), reps=3),
             'dkv': median_ms(lambda: na._launch_dkv(
@@ -1326,8 +1367,8 @@ def k1_done_line(na, torch):
                 q, k, v, out, lse, do), reps=3)}
         sdpa = {'fwd': sdpa_ms(torch, q, k, v),
                 'bwd': sdpa_ms(torch, q, k, v, do)}
-        # K1-fwd's scalar program on the CUDA cores; K1-dq's and K1-dkv's
-        # tf32x3 at the TF32 rate over 3 (the CUDA cores' beside it)
+        # the tf32x3 programs at the TF32 rate over 3 (the CUDA cores'
+        # beside it), a scalar one on the CUDA cores
         cores = attention_bounds(b, n, nk, c, cv, 'float32')
         tc = attention_bounds(b, n, nk, c, cv, 'tf32x3')
         bounds = {op: tc[op] if programs[op] == 'tf32x3' else cores[op]
@@ -1670,8 +1711,9 @@ def train_path(pretorched, na, torch, np, cli):
 def train_f32_path(pretorched, na, torch, np, cli):
     """Phase 6b: phase 6's model, batch, SGD and ``remat=(0,)`` in f32 with
     TF32 off, through ``make_train_step``: steps in turns with the f32
-    backward on tf32x3 (the dispatch's choice) and forced onto the scalar
-    programs (the dispatch patched here, nothing in the package), each
+    attention (K1-fwd, K1-dq, K1-dkv) on tf32x3 (the dispatch's choice) and
+    forced onto the scalar programs (the dispatch patched here, nothing in
+    the package), each
     step's loss finite and its K1 launches by program checked; device time
     (CUDA events) and host time a step, median and spread of each program;
     peak memory; one profiled step of each, by kernel family, with K1's
@@ -1693,7 +1735,7 @@ def train_f32_path(pretorched, na, torch, np, cli):
     dispatch = na.attention_kernel
 
     def forced_scalar(dtype, c, cv, op):
-        """The dispatch with the f32 backward on the scalar programs."""
+        """The dispatch with the f32 attention on the scalar programs."""
         return 'scalar' if dtype == torch.float32 else dispatch(dtype, c, cv,
                                                                 op)
 
@@ -1739,8 +1781,7 @@ def train_f32_path(pretorched, na, torch, np, cli):
     steps = 2 + 4 * F32_TRAIN_STEPS
     want = {k: n * (1 + 2 * F32_TRAIN_STEPS) for k, n in
             {**F32_TRAIN_KERNELS['tf32x3'],
-             'dq scalar': 5, 'dkv scalar': 5}.items()}
-    want['fwd scalar'] = 5 * steps
+             **F32_TRAIN_KERNELS['scalar']}.items()}
     check(launches == want, f'f32 train run: launches by program {launches}, '
           f'expected {want}')
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1760,7 +1801,7 @@ def train_f32_path(pretorched, na, torch, np, cli):
                         [min(dev), max(dev)], 'host_ms': med(host) * 1e3,
                         'host_ms_range': [min(host) * 1e3, max(host) * 1e3],
                         'clips_per_s': TRAIN_CLIPS / med(dev) * 1e3}
-        print(f'f32 step, K1-dq and K1-dkv on {program}: {med(dev):.1f} ms '
+        print(f'f32 step, K1 on {program}: {med(dev):.1f} ms '
               f'CUDA events (steps {min(dev):.1f}-{max(dev):.1f}), '
               f'{med(host) * 1e3:.1f} ms host clock around synchronize '
               f'({min(host) * 1e3:.1f}-{max(host) * 1e3:.1f}), medians of '
@@ -1785,7 +1826,7 @@ def train_f32_path(pretorched, na, torch, np, cli):
         print(f'profiled f32 step ({program}; torch.profiler): {window:.1f} '
               f'ms host window, {busy:.1f} ms of kernels, device idle '
               f'{idle:.1%}; K1 {sum(k1.values()):.1f} ms '
-              f'({sum(k1.values()) / busy:.1%}): K1-fwd (scalar) '
+              f'({sum(k1.values()) / busy:.1%}): K1-fwd ({program}) '
               f'{k1["nonlocal_attention_fwd"]:.1f} ms, K1-dq + K1-dkv '
               f'({program}) {k1["nonlocal_attention_bwd"]:.1f} ms', flush=True)
         families = print_families(by_name, busy, {
@@ -2818,7 +2859,7 @@ def trn_path(pretorched, torch):
 def mnist_path(na, torch):
     """Phase 13: ``MNISTNonLocalNet`` on 64 seeded 28 x 28 images, every BN
     randomized (its blocks' ``W.1`` included): a bf16 forward (K1-fwd on
-    wgmma, C = 16 and 32 padded to 64) and an f32 one (scalar), each with
+    wgmma, C = 16 and 32 padded to 64) and an f32 one (tf32x3), each with
     the counts set to 0 just before it: 2 K1-fwd launches, each launch's
     out and lse held to the plain version at phase 3's tolerances; the f32
     logits with the kernels against the plain attention; zeroing each
@@ -2855,7 +2896,7 @@ def mnist_path(na, torch):
                 nonlocalnet.auto_nonlocal_attention = orig
             by_kernel = kernel_counts(na)
             kernel = na.attention_kernel(dt, 16, 16, 'fwd')
-            check(kernel == ('wgmma' if dt == torch.bfloat16 else 'scalar'),
+            check(kernel == ('wgmma' if dt == torch.bfloat16 else 'tf32x3'),
                   f'MNIST {dname}: K1-fwd on {kernel}')
             check(na.nonlocal_attention_cuda.launches == 2
                   and by_kernel == {f'fwd {kernel}': 2},
@@ -3397,9 +3438,10 @@ def native_path(pretorched, na, torch, np, cli):
 def sagan_kernel_rows(na, torch):
     """K1-fwd alone at SAGAN's shapes, f32 and bf16, against its plain
     version at phase 3's tolerances; each with its time, the plain
-    version's, one SDPA call's and the bound; in bf16 also the mma.sync
-    program that the wgmma programs replaced there (as phase 3 keeps layer
-    3's), held to the plain version at the same tolerances and timed."""
+    version's, one SDPA call's and the bound (f32: at the TF32 rate over 3
+    and on the CUDA cores); also the program the dispatch's choice
+    replaced there (bf16: mma.sync, f32: scalar), held to the plain
+    version at the same tolerances and timed; f32 repeats bitwise."""
     g = torch.Generator(device='cuda').manual_seed(5)
     rows = {}
     for name, (b, n, nk, c, cv) in BIGGAN_SHAPES.items():
@@ -3417,12 +3459,16 @@ def sagan_kernel_rows(na, torch):
             want, want_lse = na.nonlocal_attention_fwd_lse_reference(
                 q.float(), k.float(), v.float())
             err, err_rel, err_lse = fwd_errors(out, lse, want, want_lse)
-            errs_m = (0.0, 0.0, 0.0)
-            earlier = dt == torch.bfloat16
-            if earlier:
-                out_m, lse_m = na._launch_fwd(q, k, v, 1.0, 'mma_sync')
-                errs_m = fwd_errors(out_m, lse_m, want, want_lse)
-                del out_m, lse_m
+            repeats = True
+            if dt == torch.float32:
+                again = na.nonlocal_attention_cuda(q, k, v)
+                repeats = (torch.equal(out, again[0])
+                           and torch.equal(lse, again[1]))
+                del again
+            earlier = 'mma_sync' if dt == torch.bfloat16 else 'scalar'
+            out_m, lse_m = na._launch_fwd(q, k, v, 1.0, earlier)
+            errs_m = fwd_errors(out_m, lse_m, want, want_lse)
+            del out_m, lse_m
             del out, lse, want, want_lse
             tol, tol_lse = TOL[dname]
             tol_rel = TOL_REL_BF16 if dt == torch.bfloat16 else float('inf')
@@ -3431,41 +3477,54 @@ def sagan_kernel_rows(na, torch):
                 lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v),
                 reps=5)
             lib_ms, backend = sdpa_ms(torch, q, k, v)
+            rate = 'tf32x3' if kernel == 'tf32x3' else dname
             bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
-                                                  dname)['fwd']
+                                                  rate)['fwd']
             line = (f'{name} {dname} B={b} N={n} Nk={nk} C={c} Cv={cv} '
                     f'[{kernel}]: max|out-plain|={err:.3e} (tol {tol:g}), '
                     f'/max|plain| {err_rel:.3e} (tol {tol_rel:g}), '
-                    f'max|lse-plain|={err_lse:.3e} (tol {tol_lse:g})\n'
-                    f'    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+                    f'max|lse-plain|={err_lse:.3e} (tol {tol_lse:g})'
+                    + ('' if dt == torch.bfloat16 else
+                       f', a second call bitwise the same: {repeats}')
+                    + f'\n    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
                     f'scaled_dot_product_attention {fmt_ms(lib_ms)} '
-                    f'({backend}), bound {bound_ms:.4f} ms ({bound_by})')
+                    f'({backend}), bound {bound_ms:.4f} ms ({bound_by}'
+                    + (' at the TF32 rate over 3' if rate == 'tf32x3' else '')
+                    + ')')
             row = {'shape': [b, n, nk, c, cv], 'dtype': dname,
                    'program': kernel, 'max_abs_err': err, 'ms': ms,
                    'plain_ms': plain_ms, 'library_ms': lib_ms,
                    'library': f'scaled_dot_product_attention ({backend})',
                    'bound_ms': bound_ms, 'bound_by': bound_by}
-            if earlier:
-                row['earlier_ms'] = median_ms(lambda: na._launch_fwd(
-                    q, k, v, 1.0, 'mma_sync'))
-                row['earlier'] = 'mma.sync program, same run'
-                row['earlier_max_abs_err'] = errs_m[0]
-                row['device_ms'] = queued_ms(
-                    lambda: na.nonlocal_attention_cuda(q, k, v), torch)
-                row['earlier_device_ms'] = queued_ms(
-                    lambda: na._launch_fwd(q, k, v, 1.0, 'mma_sync'), torch)
-                line += (f'\n    the mma.sync program it replaced: '
-                         f'{row["earlier_ms"]:.4f} ms, max|out-plain|='
-                         f'{errs_m[0]:.3e}, /max|plain| {errs_m[1]:.3e}, '
-                         f'max|lse-plain|={errs_m[2]:.3e}; queued (device '
-                         f'time) {row["device_ms"]:.4f} ms ({kernel}), '
-                         f'{row["earlier_device_ms"]:.4f} ms (mma.sync)')
+            if dt == torch.float32:
+                row['bound_ms_cuda_cores'] = attention_bounds(
+                    b, n, nk, c, cv, 'float32')['fwd'][0]
+                row['macs_per_pair'] = c + cv
+                line += (f', {row["bound_ms_cuda_cores"]:.4f} ms on the '
+                         f'CUDA cores; {c + cv} multiply-adds a (query, '
+                         f'key) pair')
+            row['earlier_ms'] = median_ms(lambda: na._launch_fwd(
+                q, k, v, 1.0, earlier))
+            row['earlier'] = f'{earlier} program, same run'
+            row['earlier_max_abs_err'] = errs_m[0]
+            row['device_ms'] = queued_ms(
+                lambda: na.nonlocal_attention_cuda(q, k, v), torch)
+            row['earlier_device_ms'] = queued_ms(
+                lambda: na._launch_fwd(q, k, v, 1.0, earlier), torch)
+            line += (f'\n    the {earlier} program it replaced: '
+                     f'{row["earlier_ms"]:.4f} ms, max|out-plain|='
+                     f'{errs_m[0]:.3e}, /max|plain| {errs_m[1]:.3e}, '
+                     f'max|lse-plain|={errs_m[2]:.3e}; queued (device '
+                     f'time) {row["device_ms"]:.4f} ms ({kernel}), '
+                     f'{row["earlier_device_ms"]:.4f} ms ({earlier})')
             print(line, flush=True)
-            check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
-                  f'kernel disagrees with the plain version: {line}')
+            check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse
+                  and repeats,
+                  f'kernel disagrees with the plain version or itself: '
+                  f'{line}')
             check(errs_m[0] <= tol and errs_m[1] <= tol_rel
                   and errs_m[2] <= tol_lse,
-                  f'the mma.sync program disagrees with the plain version: '
+                  f'the {earlier} program disagrees with the plain version: '
                   f'{line}')
             rows[f'{name} {dname}'] = row
             del q, k, v
@@ -3479,9 +3538,10 @@ def biggan_path(na, torch):
     32 seeded labels in bf16 through ``gan.biggan.sample``: (32, 256, 256,
     3) images, finite, in [-1, 1], one K1-fwd launch a forward on the wide
     wgmma program (C = 96 padded to 128), held to the plain version at
-    phase 3's tolerances; the bf16 images against the f32 images of the
-    same weights and z; at batch 4 in f32 (TF32 off) the images with the
-    kernel (scalar) against the plain attention, and ``gamma`` 0 moving
+    phase 3's tolerances (the f32 sample's launch on tf32x3 too); the bf16
+    images against the f32 images of the same weights and z; at batch 4 in
+    f32 (TF32 off) the images with the kernel (tf32x3) against the plain
+    attention, and ``gamma`` 0 moving
     them; images/s by CUDA events, peak memory and a profiled forward by
     family with K1-fwd's share; one bf16 ``biggan128(ch=96)`` forward, its
     launch on wgmma (C = 48 padded to 64) held to the plain version;
@@ -3522,21 +3582,23 @@ def biggan_path(na, torch):
             biggan.auto_nonlocal_attention = orig
 
     def hold(calls, program, what):
-        """each bf16 launch against the plain version at phase 3's
-        tolerances"""
+        """each launch against the plain version at phase 3's tolerances
+        for its dtype"""
         for q, k, v, got, lse, scale in calls:
             want, want_lse = na.nonlocal_attention_fwd_lse_reference(
                 q.float(), k.float(), v.float(), scale)
             err, err_rel, err_lse = fwd_errors(got, lse, want, want_lse)
-            tol, tol_lse = TOL['bfloat16']
-            line = (f'{what} bf16 K1-fwd {tuple(q.shape)} x '
+            dname = str(q.dtype).split('.')[-1]
+            tol, tol_lse = TOL[dname]
+            tol_rel = (TOL_REL_BF16 if q.dtype == torch.bfloat16
+                       else float('inf'))
+            line = (f'{what} {dname} K1-fwd {tuple(q.shape)} x '
                     f'{tuple(v.shape)} [{program}]: max|out-plain|='
                     f'{err:.3e} (tol {tol:g}), /max|plain| {err_rel:.3e} '
-                    f'(tol {TOL_REL_BF16:g}), max|lse-plain|={err_lse:.3e} '
+                    f'(tol {tol_rel:g}), max|lse-plain|={err_lse:.3e} '
                     f'(tol {tol_lse:g})')
             print(line, flush=True)
-            check(q.dtype == torch.bfloat16 and err <= tol
-                  and err_rel <= TOL_REL_BF16 and err_lse <= tol_lse,
+            check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
                   f'kernel disagrees with the plain version: {line}')
         calls.clear()
 
@@ -3563,9 +3625,11 @@ def biggan_path(na, torch):
         check(by_kernel == {f'fwd {program}': 1} and len(calls) == 1,
               f'biggan256 {dname}: K1 launches {by_kernel}, expected one '
               f'on {program}')
-        if dt == torch.bfloat16:
-            check(program == 'wgmma_wide', f'biggan256 bf16 on {program}')
-            hold(calls, program, 'biggan256')
+        check(program == ('wgmma_wide' if dt == torch.bfloat16 else
+                          'tf32x3'), f'biggan256 {dname} on {program}')
+        if dt == torch.float32:
+            out['launches_by_kernel_f32'] = by_kernel
+        hold(calls, program, 'biggan256')
         del calls
         runs[dname] = img.float()
     rel = rel_l2(runs['bfloat16'], runs['float32'])
@@ -3575,7 +3639,7 @@ def biggan_path(na, torch):
     out['rel_l2_bf16_f32'] = rel
     del runs
 
-    # f32 at batch 4: the kernel (scalar) against the plain attention
+    # f32 at batch 4: the kernel (tf32x3) against the plain attention
     kernel_img = draw(model, 4, torch.float32)
     biggan.auto_nonlocal_attention = na.nonlocal_attention_reference
     try:
@@ -4256,7 +4320,7 @@ def export_programs(pretorched, torch, np, na, fb_cuda, root):
            str(EXPORT_CLIPS), (EXPORT_CLIPS,), 0, 'bfloat16', wide)
     nl.float()
     export('nonlocalresnet3d50_f32', nl, EXPORT_NL_SHAPE, 'float32', 'b',
-           (2, EXPORT_CLIPS), 1, 'float32', {'fwd': {'scalar': 5}, 'k2': {}})
+           (2, EXPORT_CLIPS), 1, 'float32', {'fwd': {'tf32x3': 5}, 'k2': {}})
     del nl
     torch.cuda.empty_cache()
     sf = pretorched.slowfast_resnet50(num_classes=400, pretrained=None,
@@ -5230,11 +5294,12 @@ def kernel_label(line):
         return (f'{m.group(1)} (bf16, wgmma + TMA, C, Cv <= 512, {m.group(2)} '
                 '64-column chunks a consumer, 2 consumer warpgroups at 240 '
                 'registers, 1 producer at 24)')
-    m = re.search(r'nonlocal_attention_bwd_tf32x3_kernelILi(\d+)E', line)
+    m = re.search(r'nonlocal_attention_(fwd|bwd)_tf32x3_kernelILi(\d+)E',
+                  line)
     if m:
-        return (f'nonlocal_attention_bwd_tf32x3_kernel (f32 on mma.sync TF32, '
-                f'3 products; {m.group(1)} 8-column tiles a warp, '
-                f'{16 * int(m.group(1))} output columns a block)')
+        return (f'nonlocal_attention_{m.group(1)}_tf32x3_kernel (f32 on '
+                f'mma.sync TF32, 3 products; {m.group(2)} 8-column tiles a '
+                f'warp, up to {16 * int(m.group(2))} output columns a block)')
     m = re.search(r'nonlocal_attention_(?:fwd|bwd)_(?:bf16|f32)_kernel'
                   r'(?:ILi(\d+)ELb([01])E)?', line)
     if m:
@@ -5324,8 +5389,8 @@ def main():
         pretorched, na, torch, np, cli)
 
     phase('6b. the f32 fine-tuning step: nonlocalresnet3d50 in f32, TF32 '
-          f'off, {TRAIN_CLIPS} clips x 32 frames x 224 px, K1-dq and K1-dkv '
-          'on tf32x3 and on the scalar programs in turns')
+          f'off, {TRAIN_CLIPS} clips x 32 frames x 224 px, K1-fwd, K1-dq '
+          'and K1-dkv on tf32x3 and on the scalar programs in turns')
     f32_train = train_f32_path(pretorched, na, torch, np, cli)
 
     phase('7. gradient agreement: f32 step with the kernels, with the plain '
@@ -5353,7 +5418,7 @@ def main():
           'x 224 px')
     trn = trn_path(pretorched, torch)
 
-    phase('13. MNISTNonLocalNet: K1-fwd on wgmma (bf16) and scalar (f32)')
+    phase('13. MNISTNonLocalNet: K1-fwd on wgmma (bf16) and tf32x3 (f32)')
     mnist = mnist_path(na, torch)
 
     phase('14. BASELINE config 2 through examples/imagenet_eval_torch.py: '
@@ -5456,8 +5521,8 @@ def main():
         {'name': 'nonlocal_attention_fwd_mnist', 'route': 'cuda',
          'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
          'note': 'K1-fwd at MNISTNonLocalNet\'s shapes: the wgmma program '
-                 'in bf16 on C = 16 and 32 padded to 64 by TMA (the scalar '
-                 'one in f32, launches_by_kernel); earlier_ms: the mma.sync '
+                 'in bf16 on C = 16 and 32 padded to 64 by TMA (tf32x3 in '
+                 'f32, launches_by_kernel); earlier_ms: the mma.sync '
                  'program it replaced there',
          'launches': sum(mnist['launches_by_kernel']['bfloat16'].values()),
          'launches_by_kernel': mnist['launches_by_kernel'],
@@ -5470,13 +5535,36 @@ def main():
          'note': 'K1-fwd at SAGAN\'s shapes in biggan256 sampling: the '
                  'wide wgmma program in bf16 on C = 96 padded to 128 by TMA '
                  '(biggan128\'s and the golden lock\'s on the narrow one, '
-                 'the scalar one in f32: other_shapes); earlier_ms: the '
-                 'mma.sync program it replaced there',
+                 'tf32x3 in f32: other_shapes); earlier_ms: the '
+                 'program it replaced there (mma.sync in bf16, scalar in '
+                 'f32)',
          'launches': gan['launches'],
          'launches_by_kernel': gan['launches_by_kernel'],
          **gan['kernel_rows']['biggan256 ch96 bfloat16'],
          'other_shapes': {k: v for k, v in gan['kernel_rows'].items()
                           if k != 'biggan256 ch96 bfloat16'}},
+        {'name': 'nonlocal_attention_fwd_f32', 'route': 'cuda',
+         'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
+         'note': 'K1-fwd in f32 on the tensor cores (tf32x3: three TF32 '
+                 'products per f32 product) at phase 3\'s layer-2 shape; '
+                 'launches: phase 6b\'s f32 steps (launches_by_kernel, the '
+                 'scalar program\'s in the turns that force it); '
+                 'earlier_ms: the scalar program it replaced; layer3: the '
+                 'same at layer 3; train_shapes: the done line\'s f32 '
+                 'block; sagan: phase 16\'s f32 rows',
+         'launches': f32_train['launches_by_kernel']['fwd tf32x3'],
+         'launches_by_kernel': {
+             k.split(' ', 1)[1]: n
+             for k, n in f32_train['launches_by_kernel'].items()
+             if k.startswith('fwd ')},
+         'launches_biggan256_f32': gan['launches_by_kernel_f32'],
+         **k1['layer2 float32'], 'layer3': k1['layer3 float32'],
+         'train_shapes': {name: {key: row[key] for key in (
+             'shape', 'programs', 'ms', 'scalar_ms', 'bound_ms',
+             'bound_ms_cuda_cores', 'library_ms')}
+             for name, row in done_line['float32'].items()},
+         'sagan': {k: v for k, v in gan['kernel_rows'].items()
+                   if k.endswith('float32')}},
         {'name': 'nonlocal_attention_bwd_dq', 'route': 'cuda',
          'source': src + 'nonlocal_attention_bwd.cu', 'replaces': pallas + '141',
          'launches': train_launches[1], **k1b['layer2']['dq'],

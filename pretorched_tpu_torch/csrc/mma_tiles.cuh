@@ -3,9 +3,9 @@
 // accumulation, fragment packing, ldmatrix, and the staging of tiles into
 // shared memory: by plain loads, straight or transposed, for a block of
 // kMThreads threads (4 warps of 16 rows each; the forward), or by cp.async
-// for a block of any size (the backward). At the end, the f32 backward's
-// pieces: mma.sync.m16n8k8 in TF32, the split of an f32 operand into two
-// TF32 halves, and f32 tiles by cp.async.
+// for a block of any size (the backward). At the end, the pieces of the f32
+// programs of K1-fwd, K1-dq and K1-dkv: mma.sync.m16n8k8 in TF32, the split
+// of an f32 operand into two TF32 halves, and f32 tiles by cp.async.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, qd = lane % 4):
 //   A (16 x 16, row-major): a0 = (g, 2qd..+1), a1 = (g + 8, 2qd..+1),

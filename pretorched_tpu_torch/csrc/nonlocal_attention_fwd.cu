@@ -12,7 +12,8 @@
 // What bounds it. At the slice's layer-2 shape (N = Nk = 6272, C = Cv = 256)
 // one batch item is 2 * N^2 * (C + Cv) = 40 GFLOP against ~19 MB of q, k, v
 // in bf16: about 2,000 FLOP per byte, so it is bound by the matrix units,
-// not by memory.
+// not by memory. In f32 (B = 8) that is 322 GFLOP: 1.95 ms at the tensor
+// cores' TF32 rate over 3 (tf32x3 below), 4.81 ms on the CUDA cores.
 //
 // Design. The TPU kernel walks the key axis as a sequential grid dimension
 // and carries the running max m, normalizer l and accumulator in VMEM
@@ -20,7 +21,7 @@
 // block owns (batch item, 64-query tile) and loops over the 64-key tiles
 // itself, keeping m and l in registers. C of any size is handled by forming
 // q k^T in channel chunks. The ragged last key tile is masked; the ragged
-// last query tile is zero-filled on load and skipped on store. Three
+// last query tile is zero-filled on load and skipped on store. Five
 // kernels, chosen by the caller's dispatch on dtype and shape:
 //
 // * bf16 with C and Cv multiples of 8 up to 256 (the eval and train
@@ -54,10 +55,32 @@
 //   chunks (grid.z) and each chunk recomputes q k^T: at C = Cv = 256 that is
 //   1.5x the minimal FLOPs, bought for a register-resident accumulator.
 //   Tiles are staged through shared memory with plain loads.
-// * f32: scalar FMAs (TF32 would break the f32 tolerance), 16 x 16 threads,
-//   each with a 4 x 4 register tile of scores; the (64, Cv) f32 accumulator
-//   in dynamic shared memory (Cv <= 512: 185 KB with the staging tiles, of
-//   the 227 KB a block may have).
+// * f32 with C and Cv up to 512 (every f32 forward of the models: layers 2
+//   and 3, SAGAN's 48 / 192 and 96 / 384, MNIST's 16 and 32): tf32x3,
+//   mma.sync.m16n8k8 in TF32 with three products per f32 product
+//   (nonlocal_attention_fwd_tf32x3_kernel), as the f32 backward
+//   (nonlocal_attention_bwd.cu, mma_tiles.cuh): each operand split in
+//   registers into hi = tf32(x) and lo = tf32(x - hi), lo hi + hi lo + hi
+//   hi, the small terms first. One TF32 product alone keeps 11 bits and
+//   misses the f32 tolerance (out 2e-4 at logits of a few units); three
+//   keep about 22. The mma's own sums truncate, so each 64-channel chunk of
+//   s and each stage of P v is summed from zero on the tensor cores and
+//   joins s or O by an f32 add, which rounds to nearest. A block of 8 warps
+//   owns 64 query rows (4 warp rows x 2 halves) and the whole width of O
+//   in registers (64 f32 a thread at Cv = 256, 128 at 512), so s is formed
+//   once per 64-key tile, each warp a 16 x 32 piece of it; the two warps
+//   of a row exchange their row maxima through shared memory (one barrier a
+//   tile), write p split into its TF32 halves to shared memory, and each
+//   multiplies P (16 x 64) by its half of v's columns after scaling its
+//   half of O by the tile's alpha. The q and k chunks and the rows of v
+//   stream through a 3-slot cp.async ring of 36 KB slots (144 KB a block,
+//   one block an SM; 194 registers a thread at Cv = 256, 233 at 512, no
+//   spills). Widths off 64 read zeros past C and Cv
+//   (cp.async's zero fill); the columns of O past Cv are not stored.
+// * f32 otherwise (C or Cv above 512: gaussian mode's C = 1024): scalar
+//   FMAs, 16 x 16 threads, each with a 4 x 4 register tile of scores; the
+//   (64, Cv) f32 accumulator in dynamic shared memory (Cv <= 512: 185 KB
+//   with the staging tiles, of the 227 KB a block may have).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -241,6 +264,290 @@ size_t f32_smem_bytes(int cv) {
   return sizeof(float) * ((size_t)kBQ * (kCK + 1) + kBK * (kCK + 1) +
                           kBQ * (kBK + 1) + kBK * (kCV + 1) +
                           (size_t)kBQ * acc_stride(cv));
+}
+
+// ------------------------------------------- f32, tensor cores: tf32x3
+constexpr int kXRows = 64;          // query rows a block: 4 warp rows of 16
+constexpr int kXKeys = 64;          // keys a tile
+constexpr int kXK = 64;             // channel chunk of s
+constexpr int kXLdK = kXK + 8;      // 8 mod 32: the 8-byte fragment loads of
+constexpr int kXLdP = kXKeys + 8;   // 8 rows x 4 lanes hit 32 banks
+constexpr int kXThreads = 256;      // 8 warps: 4 warp rows x 2 halves
+constexpr int kXStages = 3;         // ring slots: one in use, two loading
+constexpr int kXSlot = (kXRows + kXKeys) * kXLdK;   // floats: q and k chunks
+constexpr size_t kXSmem =
+    (kXStages * kXSlot + 2 * kXRows * kXLdP + 2 * kXRows) * sizeof(float);
+constexpr int kXMaxWidth = 512;     // the widest C, Cv the C entry takes
+
+// Rows of v a ring slot takes at NT 8-column tiles a warp: its rows are 16
+// NT + 4 floats (4 mod 32: the B fragments' 4-byte loads of rows 2qd and
+// 2qd + 1, columns g, hit 32 banks).
+__host__ __device__ constexpr int tf32x3_v_rows(int nt) {
+  return 64 * (16 * nt + 4) <= kXSlot   ? 64
+         : 32 * (16 * nt + 4) <= kXSlot ? 32
+         : 16 * (16 * nt + 4) <= kXSlot ? 16
+                                        : 8;
+}
+
+// s[t] += the warp's 16 x 32 tile (query rows wr.., keys 32 half + 8t..) of
+// q k^T over one kXK-channel chunk: the block's q rows and the tile's k rows
+// kXLdK apart in `slot`. The chunk's sum starts from zero on the tensor
+// cores and joins s by an f32 add (see mma_tf32x3).
+__device__ __forceinline__ void tf32x3_s_chunk(float (&s)[4][4],
+                                               const float* slot, int wr,
+                                               int half) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+  const float* a = slot + (wr + g) * kXLdK + 2 * qd;
+  const float* b = slot + (kXRows + 32 * half + g) * kXLdK + 2 * qd;
+  float partial[4][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < kXK; kk += 8) {
+    const float2 x0 = *reinterpret_cast<const float2*>(a + kk);
+    const float2 x1 = *reinterpret_cast<const float2*>(a + 8 * kXLdK + kk);
+    uint32_t ahi[4], alo[4];
+    split_tf32(x0.x, ahi[0], alo[0]);
+    split_tf32(x1.x, ahi[1], alo[1]);
+    split_tf32(x0.y, ahi[2], alo[2]);
+    split_tf32(x1.y, ahi[3], alo[3]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float2 y = *reinterpret_cast<const float2*>(b + 8 * t * kXLdK + kk);
+      uint32_t bhi[2], blo[2];
+      split_tf32(y.x, bhi[0], blo[0]);
+      split_tf32(y.y, bhi[1], blo[1]);
+      mma_tf32x3(partial[t], ahi, alo, bhi, blo);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[t][e] += partial[t][e];
+}
+
+// A block of 8 warps owns 64 query rows (4 warp rows of 16) and the whole
+// width of O, two column halves of half_w (a multiple of 32, at most 8 NT),
+// one a warp; O stays in registers, NT tiles of 8 columns a warp. It walks
+// the key tiles as a sequence of ring stages: the q and k chunks of s, then
+// the rows of v. Each warp forms its 16 x 32 of s once per tile; the two
+// warps of a row exchange their row maxima through shared memory, so both
+// scale by the same running max; each writes its p, split into its TF32
+// halves, to shared memory; then each warp adds its rows of P times its
+// half of v to O, after scaling O by the tile's alpha. Each warp keeps the
+// row sums of its own 32 keys a tile; the two halves' are added at the end.
+template <int NT>
+__global__ void __launch_bounds__(kXThreads)
+nonlocal_attention_fwd_tf32x3_kernel(const float* __restrict__ q,
+                                     const float* __restrict__ k,
+                                     const float* __restrict__ v,
+                                     float* __restrict__ out,
+                                     float* __restrict__ lse, int n, int nk,
+                                     int c, int cv, int half_w, float scale) {
+  constexpr int kLdV = 16 * NT + 4;
+  constexpr int kKV = tf32x3_v_rows(NT);
+  constexpr int kVStages = kXKeys / kKV;
+  static_assert(NT % 4 == 0 && kKV * kLdV <= kXSlot, "v rows fit a slot");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* ps_hi = ring + kXStages * kXSlot;    // P (64 x 64): TF32 halves
+  float* ps_lo = ps_hi + kXRows * kXLdP;
+  float* red = ps_lo + kXRows * kXLdP;       // [2][64]: a half's row max / sum
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, qd = lane & 3;
+  const int wr = (warp & 3) * 16;     // the warp's first row in the block
+  const int half = warp >> 2;         // its half of the keys and of O
+  const int bi = blockIdx.y;
+  const int q0 = blockIdx.x * kXRows;
+  const int col0 = half * half_w;     // the warp's first column of O
+  const int cols = min(cv - col0, half_w);   // ... and how many it stores
+  const int live = (cols + 7) / 8;           // its tiles that hold them
+  const float* qb = q + (size_t)bi * n * c;
+  const float* kb = k + (size_t)bi * nk * c;
+  const float* vb = v + (size_t)bi * nk * cv;
+  const bool vec_qk = c % 4 == 0 && aligned16(q) && aligned16(k);
+  const bool vec_v = cv % 4 == 0 && aligned16(v);
+
+  const int n_s = (c + kXK - 1) / kXK;
+  const int per_tile = n_s + kVStages;
+  const int total = (nk + kXKeys - 1) / kXKeys * per_tile;
+
+  // Start stage st's loads into its slot; one commit group per call, empty
+  // past the end, so that the wait below counts stages.
+  auto issue = [&](int st) {
+    if (st < total) {
+      float* slot = ring + (st % kXStages) * kXSlot;
+      const int k0 = st / per_tile * kXKeys, j = st % per_tile;
+      if (j < n_s) {
+        load_tile_f32_async<kXRows, kXK, kXThreads>(
+            slot, kXLdK, qb, c, q0, n, j * kXK, c, vec_qk);
+        load_tile_f32_async<kXKeys, kXK, kXThreads>(
+            slot + kXRows * kXLdK, kXLdK, kb, c, k0, nk, j * kXK, c, vec_qk);
+      } else {
+        load_tile_f32_async<kKV, 16 * NT, kXThreads>(
+            slot, kLdV, vb, cv, k0 + (j - n_s) * kKV, nk, 0, cv, vec_v);
+      }
+    }
+    cp_async_commit();
+  };
+  int st = 0;   // the next stage to use
+  auto next_slot = [&]() -> const float* {
+    cp_async_wait<kXStages - 2>();   // stage st has landed (this thread's)
+    __syncthreads();                 // ... every thread's; slot st - 1 free
+    issue(st + kXStages - 1);
+    return ring + (st++ % kXStages) * kXSlot;
+  };
+
+  // rows wr + g (h = 0) and wr + g + 8 (h = 1) of the warp: the running max
+  // and this thread's share of the row sum (its 8 keys of each tile)
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  // acc[t][0..1]: row wr + g, columns col0 + 8t + 2qd + {0, 1}; [2..3]: row
+  // + 8
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+
+  for (int s0 = 0; s0 < kXStages - 1; ++s0) issue(s0);
+  for (int k0 = 0; k0 < nk; k0 += kXKeys) {
+    // the warp's 16 x 32 of s: keys 32 half + 8t + 2qd + {0, 1}
+    float s[4][4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
+    for (int j = 0; j < n_s; ++j) tf32x3_s_chunk(s, next_slot(), wr, half);
+
+    // ---- scale, mask the keys past nk, and the row maxima of both halves.
+    // red is free: its last readers passed this tile's first barrier.
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 32 * half + 8 * t + 2 * qd + (e & 1);
+        s[t][e] = key < nk ? s[t][e] * scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      if (qd == 0) red[half * kXRows + wr + g + 8 * h] = mx[h];
+    }
+    __syncthreads();
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rt = wr + g + 8 * h;
+      const float m_new = fmaxf(m_r[h], fmaxf(red[rt], red[kXRows + rt]));
+      alpha[h] = expf(m_r[h] - m_new);
+      m_r[h] = m_new;
+      l_r[h] *= alpha[h];
+    }
+
+    // ---- p into ps as its TF32 halves. ps is free: the previous tile's v
+    // stages are behind this tile's first barrier.
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int ct = 32 * half + 8 * t + 2 * qd;   // key in the tile
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rt = wr + g + 8 * h;             // row in the block
+        float2 hi, lo;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(s[t][2 * h + e] - m_r[h]);
+          l_r[h] += p;
+          uint32_t ph, pl;
+          split_tf32(p, ph, pl);
+          (e ? hi.y : hi.x) = __uint_as_float(ph);
+          (e ? lo.y : lo.x) = __uint_as_float(pl);
+        }
+        *reinterpret_cast<float2*>(ps_hi + rt * kXLdP + ct) = hi;
+        *reinterpret_cast<float2*>(ps_lo + rt * kXLdP + ct) = lo;
+      }
+    }
+
+    // ---- O = alpha O + P v, kKV rows of v a stage; P's A fragments come
+    // from ps already split, v's B fragments are split here. Four 8-column
+    // tiles at a time, whose stage sums start from zero and join O by f32
+    // adds.
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      acc[t][0] *= alpha[0];
+      acc[t][1] *= alpha[0];
+      acc[t][2] *= alpha[1];
+      acc[t][3] *= alpha[1];
+    }
+    for (int j = 0; j < kVStages; ++j) {
+      const float* slot = next_slot();   // also: every warp's P is in ps
+      const float* ah = ps_hi + (wr + g) * kXLdP + j * kKV + 2 * qd;
+      const float* al = ps_lo + (wr + g) * kXLdP + j * kKV + 2 * qd;
+      const float* b = slot + 2 * qd * kLdV + col0 + g;
+#pragma unroll
+      for (int t0 = 0; t0 < NT; t0 += 4) {
+        if (t0 >= live) break;    // the warp's tiles past its columns
+        float partial[4][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kKV; kk += 8) {
+          const float2 h0 = *reinterpret_cast<const float2*>(ah + kk);
+          const float2 h1 =
+              *reinterpret_cast<const float2*>(ah + 8 * kXLdP + kk);
+          const float2 l0 = *reinterpret_cast<const float2*>(al + kk);
+          const float2 l1 =
+              *reinterpret_cast<const float2*>(al + 8 * kXLdP + kk);
+          const uint32_t ahi[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
+                                   __float_as_uint(h0.y), __float_as_uint(h1.y)};
+          const uint32_t alo[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
+                                   __float_as_uint(l0.y), __float_as_uint(l1.y)};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const float* bt = b + kk * kLdV + 8 * (t0 + t);
+            uint32_t bhi[2], blo[2];
+            split_tf32(bt[0], bhi[0], blo[0]);
+            split_tf32(bt[kLdV], bhi[1], blo[1]);
+            mma_tf32x3(partial[t], ahi, alo, bhi, blo);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[t0 + t][e] += partial[t][e];
+      }
+    }
+  }
+  cp_async_wait<0>();   // only empty groups remain; leave none in flight
+
+  // ---- epilogue: the row sums of the quad, then of both halves (red is
+  // free: the last tile's v stages are behind its last read)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    if (qd == 0) red[half * kXRows + wr + g + 8 * h] = l_r[h];
+  }
+  __syncthreads();
+  const bool pairs = cv % 2 == 0;   // 8-byte aligned float2 stores
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rt = wr + g + 8 * h;
+    const int row = q0 + rt;
+    if (row >= n) continue;
+    const float l = red[rt] + red[kXRows + rt];
+    const float inv_l = 1.f / l;
+    if (half == 0 && qd == 0) lse[(size_t)bi * n + row] = m_r[h] + logf(l);
+    float* orow = out + ((size_t)bi * n + row) * cv + col0;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int col = 8 * t + 2 * qd;
+      if (col >= cols) break;
+      const float o0 = acc[t][2 * h] * inv_l, o1 = acc[t][2 * h + 1] * inv_l;
+      if (pairs) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(o0, o1);
+      } else {
+        orow[col] = o0;
+        if (col + 1 < cols) orow[col + 1] = o1;
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------ bf16, tensor cores
@@ -889,9 +1196,65 @@ int launch_fwd_wgmma_wide(const void* q, const void* k, const void* v,
   }
 }
 
+// ------------------------------------------------- tf32x3: launch
+template <int NT>
+int launch_fwd_tf32x3_nt(const float* q, const float* k, const float* v,
+                         float* out, float* lse, int b, int n, int nk, int c,
+                         int cv, int half_w, float scale,
+                         cudaStream_t stream) {
+  auto kernel = nonlocal_attention_fwd_tf32x3_kernel<NT>;
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(kernel, kXSmem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kXRows - 1) / kXRows, b);
+  kernel<<<grid, kXThreads, kXSmem, stream>>>(q, k, v, out, lse, n, nk, c, cv,
+                                              half_w, scale);
+  return (int)cudaGetLastError();
+}
+
+// Each half of O takes ceil(Cv / 2) columns rounded up to 32 (whole
+// 4-tile groups); the program instantiated for the narrowest accumulator
+// that holds them.
+int launch_fwd_tf32x3(const float* q, const float* k, const float* v,
+                      float* out, float* lse, int b, int n, int nk, int c,
+                      int cv, float scale, cudaStream_t stream) {
+  const int half_w = ((cv + 1) / 2 + 31) / 32 * 32;
+  const int want = half_w / 8;
+  switch (want <= 4 ? 4 : want <= 8 ? 8 : want <= 16 ? 16 : want <= 24 ? 24
+                                                                       : 32) {
+    case 4: return launch_fwd_tf32x3_nt<4>(q, k, v, out, lse, b, n, nk, c, cv,
+                                           half_w, scale, stream);
+    case 8: return launch_fwd_tf32x3_nt<8>(q, k, v, out, lse, b, n, nk, c, cv,
+                                           half_w, scale, stream);
+    case 16: return launch_fwd_tf32x3_nt<16>(q, k, v, out, lse, b, n, nk, c,
+                                             cv, half_w, scale, stream);
+    case 24: return launch_fwd_tf32x3_nt<24>(q, k, v, out, lse, b, n, nk, c,
+                                             cv, half_w, scale, stream);
+    default: return launch_fwd_tf32x3_nt<32>(q, k, v, out, lse, b, n, nk, c,
+                                             cv, half_w, scale, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// The f32 tensor-core program (tf32x3): the same function as
+// pt_nonlocal_attention_fwd in f32, for C and Cv up to kXMaxWidth (the
+// caller's dispatch picks it).
+int pt_nonlocal_attention_fwd_tf32x3(const void* q, const void* k,
+                                     const void* v, void* out, void* lse,
+                                     int b, int n, int nk, int c, int cv,
+                                     float scale, void* stream) {
+  if (b < 1 || n < 1 || nk < 1 || c < 1 || cv < 1 || b > 65535 ||
+      c > kXMaxWidth || cv > kXMaxWidth)
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd_tf32x3(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), b, n, nk, c, cv, scale,
+      static_cast<cudaStream_t>(stream));
+}
 
 // dtype: 0 = float32 (the scalar kernel), 1 = bfloat16 (mma.sync). All
 // tensors contiguous, on the current device. Returns the cudaError_t of the

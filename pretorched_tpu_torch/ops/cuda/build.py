@@ -105,12 +105,13 @@ def _load() -> ctypes.CDLL:
         build_log = _compile(path)
     lib = ctypes.CDLL(str(path))
     # q, k, v, out, lse; b, n, nk, c, cv; scale, dtype, stream (the wgmma
-    # entry: no dtype, bf16 only)
+    # entries: no dtype, bf16 only; the tf32x3 entry: no dtype, f32 only)
     lib.pt_nonlocal_attention_fwd.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     for fn in (lib.pt_nonlocal_attention_fwd_wgmma,
-               lib.pt_nonlocal_attention_fwd_wgmma_wide):
+               lib.pt_nonlocal_attention_fwd_wgmma_wide,
+               lib.pt_nonlocal_attention_fwd_tf32x3):
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_void_p])
     # q, k, v, do, lse, delta, then dq (dk, dv); b, n, nk, c, cv; scale,
@@ -131,6 +132,7 @@ def _load() -> ctypes.CDLL:
     for fn in (lib.pt_nonlocal_attention_fwd,
                lib.pt_nonlocal_attention_fwd_wgmma,
                lib.pt_nonlocal_attention_fwd_wgmma_wide,
+               lib.pt_nonlocal_attention_fwd_tf32x3,
                lib.pt_nonlocal_attention_bwd_dq,
                lib.pt_nonlocal_attention_bwd_dq_wgmma,
                lib.pt_nonlocal_attention_bwd_dq_wgmma_wide,

@@ -18,10 +18,11 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   zero fill, and of 64 for K1-dq and K1-dkv: Hopper's warp-specialised
   wgmma + TMA kernels; each op takes a second, wide program past 256,
   layer 3's 512),
-  ``'mma_sync'`` (every other bf16 shape), ``'tf32x3'`` (f32 K1-dq and
-  K1-dkv with C and Cv up to ``TF32X3_MAX_WIDTH``: tensor cores, three
-  TF32 products per f32 product) or ``'scalar'`` (the other f32 shapes,
-  and K1-fwd in f32). The
+  ``'mma_sync'`` (every other bf16 shape), ``'tf32x3'`` (f32 K1-fwd,
+  K1-dq and K1-dkv with C and Cv up to ``TF32X3_MAX_WIDTH``: tensor cores,
+  three TF32 products per f32 product; the f32 forward of every model's
+  non-local block, SAGAN's and MNIST's too) or ``'scalar'`` (f32 past
+  512: gaussian mode's C = 1024). The
   kernel wrappers take CUDA tensors only and raise on anything they do not
   take; each counts its launches in ``.launches`` and per program in
   ``.by_kernel`` (``PROGRAMS``: the wide wgmma program as ``'wgmma_wide'``).
@@ -51,7 +52,9 @@ from torch.autograd.function import once_differentiable
 from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_CV_F32 = 512  # the f32 path keeps a (64, Cv) accumulator in shared memory
+# the widest f32 Cv of K1-fwd: the tf32x3 program keeps a block's (64, Cv)
+# O in registers, the scalar one in shared memory; both stop at 512
+MAX_CV_F32 = 512
 KERNELS = ('wgmma', 'mma_sync', 'tf32x3', 'scalar')
 # what ``.by_kernel`` counts: the kernels, wgmma's wide program apart
 PROGRAMS = ('wgmma', 'wgmma_wide', 'mma_sync', 'tf32x3', 'scalar')
@@ -66,11 +69,10 @@ WGMMA_NARROW_WIDTH = 256
 # TMA boxes past the last column as zeros, so it needs only TMA's 16-byte
 # rows (8 bf16); K1-dq's and K1-dkv's programs take whole boxes.
 WGMMA_WIDTH_STEP = {'fwd': 8, 'dq': 64, 'dkv': 64}
-# The widest C and Cv the f32 tensor-core programs of K1-dq and K1-dkv take
-# (a block keeps the whole width of its output in registers); gaussian
-# mode's C = 1024 stays on the scalar program.
+# The widest C and Cv the f32 tensor-core programs of K1-fwd, K1-dq and
+# K1-dkv take (a block keeps the whole width of its output in registers);
+# gaussian mode's C = 1024 stays on the scalar programs.
 TF32X3_MAX_WIDTH = 512
-TF32X3_OPS = ('dq', 'dkv')
 
 
 def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
@@ -81,8 +83,7 @@ def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
     if dtype not in _DTYPE_CODES:
         raise ValueError(f'dtype {dtype} not supported (float32, bfloat16)')
     if dtype == torch.float32:
-        fits = op in TF32X3_OPS and max(c, cv) <= TF32X3_MAX_WIDTH
-        return 'tf32x3' if fits else 'scalar'
+        return 'tf32x3' if max(c, cv) <= TF32X3_MAX_WIDTH else 'scalar'
     step = WGMMA_WIDTH_STEP[op]
     fits = all(w % step == 0 and w <= WGMMA_MAX_WIDTH for w in (c, cv))
     return 'wgmma' if fits else 'mma_sync'
@@ -220,7 +221,7 @@ def _launch_fwd(q, k, v, scale, kernel):
     inputs and count it on ``nonlocal_attention_cuda``."""
     if q.dtype == torch.float32 and v.shape[2] > MAX_CV_F32:
         raise ValueError(f'Cv={v.shape[2]} > {MAX_CV_F32} does not fit the '
-                         'f32 kernel\'s shared-memory accumulator')
+                         'f32 kernels\' accumulator')
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     b, n, c = q.shape
     cv = v.shape[2]
@@ -230,6 +231,7 @@ def _launch_fwd(q, k, v, scale, kernel):
     program = _program(kernel, c, cv)
     if kernel == 'wgmma':
         _check_tma(q, k, v, out)
+    if kernel in ('wgmma', 'tf32x3'):
         _launch(f'pt_nonlocal_attention_fwd_{program}', q, v,
                 (q, k, v, out, lse), scale)
     else:

@@ -19,6 +19,8 @@ from pretorched_tpu_torch.models.layers import batch_norm
 from pretorched_tpu_torch.ops import fused_block as fb
 from pretorched_tpu_torch.ops.cuda import fused_block as fb_cuda
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _tail_args(cin, cm, cout, proj, b=2, t=4, h=14, w=14, seed=0):
     """Numpy inputs in the JAX layouts (as tests/test_fused_block.py)."""

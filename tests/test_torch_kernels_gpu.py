@@ -1,7 +1,7 @@
 """The port's CUDA kernels (the non-local attention forward K1-fwd, its
 backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16 (the
-wide programs of all three at layer 3's C = Cv = 512), K1-dq and K1-dkv
-in f32 on tf32x3 up to C, Cv = 512, and
+wide programs of all three at layer 3's C = Cv = 512), K1-fwd, K1-dq and
+K1-dkv in f32 on tf32x3 up to C, Cv = 512, and
 the fused bottleneck tail K2) against their plain PyTorch versions, on a
 card; K1-fwd and K2 through their registered operators, and
 ``torch.export`` on the card recording them; and each factory of the rest
@@ -80,11 +80,11 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol_out, tol_lse,
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype,programs', [
     (torch.bfloat16, ('wgmma_wide', 'wgmma', 'wgmma')),
-    (torch.float32, ('scalar',) * 3)])
+    (torch.float32, ('tf32x3',) * 3)])
 def test_sagan_shapes_take_their_programs(cuda, dtype, programs):
     """C is no multiple of 64 at SAGAN's shapes, but a multiple of 8: bf16
     runs K1-fwd's wgmma programs on widths padded by TMA (biggan256's Cv =
-    384 the wide one), f32 the scalar one, one launch each."""
+    384 the wide one), f32 the tf32x3 one, one launch each."""
     for (b, n, nk, c, cv, _), program in zip(SAGAN_CASES, programs):
         q = torch.randn(b, n, c, device=cuda, dtype=dtype)
         k = torch.randn(b, nk, c, device=cuda, dtype=dtype)
@@ -252,8 +252,8 @@ def test_tf32x3_reads_lse_per_row_and_sizes_by_cv(cuda, b, n, nk, c, cv):
 @pytest.mark.gpu
 def test_f32_layer_shapes_take_tf32x3(cuda):
     """The non-local model's layer-2 and layer-3 shapes in f32 (B = 1):
-    K1-fwd on scalar, K1-dq and K1-dkv on tf32x3, one launch each through
-    the autograd Function."""
+    K1-fwd, K1-dq and K1-dkv on tf32x3, one launch each through the
+    autograd Function."""
     fns = (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
            na.nonlocal_attention_bwd_dkv_cuda)
     for n, c in ((6272, 256), (784, 512)):
@@ -263,10 +263,71 @@ def test_f32_layer_shapes_take_tf32x3(cuda):
         na.auto_nonlocal_attention(q, k, v).backward(do)
         torch.cuda.synchronize()
         for fn, was, kernel in zip(fns, before,
-                                   ('scalar', 'tf32x3', 'tf32x3')):
+                                   ('tf32x3', 'tf32x3', 'tf32x3')):
             assert {key: fn.by_kernel[key] - was[key]
                     for key in fn.by_kernel} == {
                 key: int(key == kernel) for key in na.PROGRAMS}
+
+
+# f32 K1-fwd beyond CASES: small train-like shapes (layer 2 at 4 frames,
+# layer 3 at 8), MNIST's two blocks, a ragged N and Nk with Cv above and
+# below C, odd widths (Cv odd: scalar stores)
+F32_FWD_CASES = [
+    (2, 784, 784, 256, 256, 1.0),
+    (2, 196, 196, 512, 512, 1.0),
+    (8, 196, 196, 16, 16, 1.0),
+    (8, 49, 49, 32, 32, 1.0),
+    (3, 333, 65, 40, 24, 1.0),
+    (2, 77, 33, 7, 5, 1.0),
+    (2, 100, 90, 20, 151, 0.5),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv,scale', CASES + F32_FWD_CASES)
+def test_f32_forward_program_matches_plain_and_scalar(cuda, b, n, nk, c, cv,
+                                                      scale):
+    """f32 K1-fwd on the program the dispatch picks (tf32x3 up to C, Cv =
+    512, scalar past it), one launch counted under it; out within 2e-4 and
+    lse within 1e-4 of the plain version and of the scalar program at the
+    same inputs, and bitwise the same on a second run."""
+    q, k, v, _ = _bwd_inputs(b, n, nk, c, cv, torch.float32, cuda)
+    program = 'tf32x3' if max(c, cv) <= 512 else 'scalar'
+    assert na.attention_kernel(torch.float32, c, cv, 'fwd') == program
+    fn = na.nonlocal_attention_cuda
+    before = dict(fn.by_kernel)
+    out, lse = na.nonlocal_attention_fwd_lse(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert {p: fn.by_kernel[p] - before[p] for p in na.PROGRAMS} == {
+        p: int(p == program) for p in na.PROGRAMS}
+    assert out.shape == (b, n, cv) and lse.shape == (b, n)
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(q, k, v, scale)
+    old, old_lse = na._launch_fwd(q, k, v, scale, 'scalar')
+    again, again_lse = na.nonlocal_attention_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    for ref, ref_lse in ((want, want_lse), (old, old_lse)):
+        torch.testing.assert_close(out, ref, rtol=0, atol=2e-4)
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv', TF32X3_GUARD_CASES)
+def test_tf32x3_forward_reads_rows_per_item_and_sizes_by_cv(cuda, b, n, nk,
+                                                            c, cv):
+    """The f32 K1-fwd at B > 1 with batch items whose logits differ in
+    scale (a row of another item would move every out and lse), with v and
+    out sized by Cv, not C: each item on its own within 2e-4 (out) and 1e-4
+    (lse) of the plain version."""
+    q, k, v, _ = _bwd_inputs(b, n, nk, c, cv, torch.float32, cuda, seed=3)
+    q = q * torch.arange(1, b + 1, device=cuda, dtype=q.dtype)[:, None, None]
+    out, lse = na.nonlocal_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == (b, n, cv) and lse.shape == (b, n)
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+    for i in range(b):
+        torch.testing.assert_close(out[i], want[i], rtol=0, atol=2e-4)
+        torch.testing.assert_close(lse[i], want_lse[i], rtol=0, atol=1e-4)
 
 
 # (B, N, Nk, C, Cv) for the wgmma kernels (bf16, C and Cv multiples of 64 up
@@ -865,14 +926,14 @@ NATIVE_FRAMES = (24, 32, 40, 56, 64)
 def test_native_length_shapes_match_plain(cuda, frames, layer, dtype,
                                           tol_out, tol_lse):
     """The program the dispatch picks (bf16: wgmma at layer 2, the wide
-    wgmma program at layer 3; f32: scalar) against the plain version in
+    wgmma program at layer 3; f32: tf32x3) against the plain version in
     f32 on the same inputs, at phase 3's tolerances (bf16 out also within
     2e-2 of the largest |out|)."""
     n, c = ((frames // 4 * 784, 256) if layer == 2
             else (frames // 8 * 196, 512))
     q, k, v, _ = _bwd_inputs(10, n, n, c, c, dtype, cuda)
     program = na._program(na.attention_kernel(dtype, c, c, 'fwd'), c, c)
-    assert program == ('scalar' if dtype == torch.float32 else
+    assert program == ('tf32x3' if dtype == torch.float32 else
                        'wgmma' if layer == 2 else 'wgmma_wide')
     before = na.nonlocal_attention_cuda.by_kernel[program]
     out, lse = na.nonlocal_attention_fwd_lse(q, k, v)
@@ -916,7 +977,7 @@ def test_served_resnet18_rows_match_the_direct_forward(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype,kernel,tol_out,tol_lse', [
-    (torch.float32, 'scalar', 2e-4, 1e-4),
+    (torch.float32, 'tf32x3', 2e-4, 1e-4),
     (torch.bfloat16, 'wgmma', 2e-2, 1e-2)])
 @pytest.mark.parametrize('b,n,c', [(64, 196, 16), (64, 49, 32)])
 def test_mnist_nonlocal_shapes_match_plain(cuda, dtype, kernel, tol_out,
@@ -924,7 +985,8 @@ def test_mnist_nonlocal_shapes_match_plain(cuda, dtype, kernel, tol_out,
     """K1-fwd at ``MNISTNonLocalNet``'s two attention shapes (64 images:
     N = 196, C = 16 and N = 49, C = 32), on the kernel the dispatch picks
     (C is a multiple of 8, so bf16 takes the wgmma program on widths padded
-    to 64), against the plain version at phase 3's tolerances."""
+    to 64; f32 tf32x3), against the plain version at phase 3's
+    tolerances."""
     q, k, v, _ = _bwd_inputs(b, n, n, c, c, dtype, cuda)
     assert na.attention_kernel(dtype, c, c, 'fwd') == kernel
     before = na.nonlocal_attention_cuda.by_kernel[kernel]

@@ -9,6 +9,8 @@ from pathlib import Path
 import pretorched_tpu_torch
 from pretorched_tpu_torch.datasets import native
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+
 
 def test_decoder_source_lies_inside_the_port():
     port = Path(pretorched_tpu_torch.__file__).resolve().parent

@@ -16,6 +16,8 @@ from pretorched_tpu.ops.pallas.nonlocal_attention import (
     _nonlocal_attention_fwd_lse)
 from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+
 # (B, N, Nk, C, Cv, scale): square; Nk != N (sub_sample); Cv != C (SAGAN);
 # scale != 1; B > 1 with N not a multiple of 128 — including the two past
 # faults: lse shaped per row for B > 1, and v/out sized by Cv, not C; and
@@ -95,8 +97,7 @@ def test_plain_runs_f32_under_autocast():
 # 32, SAGAN's 48 / 192 and 96 / 384, the golden lock's 16 / 64) take wgmma
 # in K1-fwd, whose programs pad them, and mma.sync in the backward;
 # gaussian mode (1024), past 512 and channels that are no multiple of 8
-# stay on mma.sync; f32 takes scalar in K1-fwd and tf32x3 in K1-dq and
-# K1-dkv up to 512
+# stay on mma.sync; f32 takes tf32x3 in all three up to 512
 DISPATCH = [
     (torch.bfloat16, 256, 256, 'wgmma'),
     (torch.bfloat16, 64, 256, 'wgmma'),
@@ -108,14 +109,14 @@ DISPATCH = [
     (torch.bfloat16, 256, 320, 'wgmma'),
     (torch.bfloat16, 32, 32, 'wgmma,mma_sync,mma_sync'),
     (torch.bfloat16, 96, 64, 'wgmma,mma_sync,mma_sync'),
-    (torch.float32, 256, 256, 'scalar,tf32x3,tf32x3'),
-    (torch.float32, 32, 24, 'scalar,tf32x3,tf32x3'),
+    (torch.float32, 256, 256, 'tf32x3'),
+    (torch.float32, 32, 24, 'tf32x3'),
     (torch.bfloat16, 64, 512, 'wgmma'),
     (torch.bfloat16, 512, 64, 'wgmma'),
     (torch.bfloat16, 384, 320, 'wgmma'),
     (torch.bfloat16, 576, 512, 'mma_sync'),
     (torch.bfloat16, 512, 480, 'wgmma,mma_sync,mma_sync'),
-    (torch.float32, 512, 512, 'scalar,tf32x3,tf32x3'),
+    (torch.float32, 512, 512, 'tf32x3'),
     (torch.bfloat16, 96, 384, 'wgmma,mma_sync,mma_sync'),
     (torch.bfloat16, 48, 192, 'wgmma,mma_sync,mma_sync'),
     (torch.bfloat16, 16, 64, 'wgmma,mma_sync,mma_sync'),
@@ -130,11 +131,12 @@ def kernels_by_op(kernel):
     return dict(zip(na.OPS, names if len(names) == 3 else names * 3))
 
 
-# each case's id: its index, C, Cv and K1-dq's kernel in bf16, K1-fwd's in
-# f32 (scalar), so an f32 case keeps its id whichever backward program the
-# dispatch gives it
+# each case's id: its index, C, Cv and K1-dq's kernel in bf16; an f32 case
+# keeps the name of the scalar K1-fwd it was first written for, whichever
+# programs the dispatch now gives it
 DISPATCH_IDS = [f'dtype{i}-{c}-{cv}-'
-                f'{kernels_by_op(kernel)["fwd" if dtype == torch.float32 else "dq"]}'
+                + ('scalar' if dtype == torch.float32
+                   else kernels_by_op(kernel)['dq'])
                 for i, (dtype, c, cv, kernel) in enumerate(DISPATCH)]
 
 
@@ -229,17 +231,16 @@ F32_BACKWARD = [
 @pytest.mark.parametrize('c,cv,kernel', F32_BACKWARD)
 def test_f32_backward_dispatch_by_width(c, cv, kernel):
     """f32 K1-dq and K1-dkv take tf32x3 wherever C and Cv are at most 512,
-    else scalar; f32 K1-fwd stays on scalar at every width."""
-    for op in ('dq', 'dkv'):
+    else scalar; f32 K1-fwd takes the same program at every width."""
+    for op in na.OPS:
         assert na.attention_kernel(torch.float32, c, cv, op) == kernel, op
-    assert na.attention_kernel(torch.float32, c, cv, 'fwd') == 'scalar'
 
 
 def test_f32_backward_takes_scalar_by_name_where_tf32x3_is_picked():
     """The private launch routes may send a tf32x3 shape to the scalar
     program (the A/B against the program it replaced); tf32x3 takes no
-    shape past 512 and no K1-fwd, and no bf16."""
-    for op in ('dq', 'dkv'):
+    shape past 512 and no bf16, in K1-dq, K1-dkv and K1-fwd alike."""
+    for op in na.OPS:
         na._check_kernel(torch.float32, 256, 256, 'scalar', op)
         na._check_kernel(torch.float32, 512, 512, 'tf32x3', op)
         with pytest.raises(ValueError, match=f'{op} kernel .* does not take'):
@@ -248,8 +249,6 @@ def test_f32_backward_takes_scalar_by_name_where_tf32x3_is_picked():
             na._check_kernel(torch.bfloat16, 256, 256, 'tf32x3', op)
         with pytest.raises(ValueError, match='does not take'):
             na._check_kernel(torch.float32, 256, 256, 'mma_sync', op)
-    with pytest.raises(ValueError, match='does not take'):
-        na._check_kernel(torch.float32, 256, 256, 'tf32x3', 'fwd')
 
 
 @pytest.mark.parametrize('c,cv,kernel', [(256, 256, 'tf32x3'),
@@ -342,3 +341,101 @@ def test_three_tf32_products_keep_the_f32_tolerance():
                        for g, w in zip(got, want)]
     assert max(rels[3]) <= 1e-4, rels
     assert max(rels[1]) > 1e-4, rels
+
+
+# f32 widths of K1-fwd: the models' (MNIST's 16 and 32, SAGAN's 48 / 192
+# and 96 / 384, the golden lock's 16 / 64, layers 2 and 3) and odd ones
+# take tf32x3 up to 512; gaussian mode's C = 1024 and anything wider stay
+# scalar
+F32_FORWARD = [
+    (16, 16, 'tf32x3'), (32, 32, 'tf32x3'), (48, 192, 'tf32x3'),
+    (96, 384, 'tf32x3'), (16, 64, 'tf32x3'), (256, 256, 'tf32x3'),
+    (512, 512, 'tf32x3'), (7, 5, 'tf32x3'), (20, 151, 'tf32x3'),
+    (1024, 512, 'scalar'), (512, 513, 'scalar'), (513, 64, 'scalar'),
+]
+
+
+@pytest.mark.parametrize('c,cv,kernel', F32_FORWARD)
+def test_f32_forward_dispatch_by_width(c, cv, kernel):
+    """f32 K1-fwd takes tf32x3 wherever C and Cv are at most 512, else
+    scalar; where tf32x3 is picked the scalar program is still taken by
+    name, and no bf16 program is."""
+    assert na.attention_kernel(torch.float32, c, cv, 'fwd') == kernel
+    na._check_kernel(torch.float32, c, cv, kernel, 'fwd')
+    na._check_kernel(torch.float32, c, cv, 'scalar', 'fwd')
+    for other in ('wgmma', 'mma_sync') + (
+            ('tf32x3',) if kernel == 'scalar' else ()):
+        with pytest.raises(ValueError, match='fwd kernel .* does not take'):
+            na._check_kernel(torch.float32, c, cv, other, 'fwd')
+
+
+@pytest.mark.parametrize('c,cv,kernel', [(256, 256, 'tf32x3'),
+                                         (48, 192, 'tf32x3'),
+                                         (1024, 512, 'scalar')])
+def test_f32_forward_routes_to_its_entries(monkeypatch, c, cv, kernel):
+    """K1-fwd in f32 calls tf32x3's entry (no dtype code) where the
+    dispatch picks it and the scalar entry (dtype code 0) otherwise, also
+    when scalar is asked for by name at a tf32x3 shape; each launch is
+    counted under its program, out sized by Cv and lse per row. The C
+    entries are replaced by a recorder."""
+    entries = []
+    monkeypatch.setattr(na, '_launch',
+                        lambda entry, *args: entries.append((entry, args[-1])))
+    q = torch.zeros(2, 8, c)
+    k = torch.zeros(2, 5, c)
+    v = torch.zeros(2, 5, cv)
+    fn = na.nonlocal_attention_cuda
+    for program in (kernel, 'scalar'):
+        before = dict(fn.by_kernel)
+        entries.clear()
+        out, lse = na._launch_fwd(q, k, v, 1.0, program)
+        assert out.shape == (2, 8, cv) and lse.shape == (2, 8)
+        assert entries == ([('pt_nonlocal_attention_fwd_tf32x3', 1.0)]
+                           if program == 'tf32x3'
+                           else [('pt_nonlocal_attention_fwd', 0)])
+        assert {p: fn.by_kernel[p] - before[p] for p in na.PROGRAMS} == {
+            p: int(p == program) for p in na.PROGRAMS}
+
+
+def _split_forward(q, k, v, scale, terms, tile=64):
+    """(out, lse) as the tf32x3 K1-fwd forms them: s by ``_mm``, then the
+    online softmax over ``tile``-key tiles, each tile's p v formed by
+    ``_mm`` from zero and folded in by f32 arithmetic, o = alpha o + p v."""
+    s = _mm(q, k.transpose(0, 2, 1), terms) * np.float32(scale)
+    b, n, nk = s.shape
+    m = np.full((b, n), -1e30, np.float32)
+    l = np.zeros((b, n), np.float32)
+    o = np.zeros((b, n, v.shape[2]), np.float32)
+    for j in range(0, nk, tile):
+        st = s[..., j:j + tile]
+        m_new = np.maximum(m, st.max(-1))
+        alpha = np.exp(m - m_new).astype(np.float32)
+        p = np.exp(st - m_new[..., None]).astype(np.float32)
+        l = (l * alpha + p.sum(-1)).astype(np.float32)
+        o = (alpha[..., None] * o + _mm(p, v[:, j:j + tile], terms)).astype(
+            np.float32)
+        m = m_new
+    return (o / l[..., None]).astype(np.float32), (m + np.log(l)).astype(
+        np.float32)
+
+
+def test_three_tf32_products_keep_the_f32_forward_tolerance():
+    """The split arithmetic of the tf32x3 K1-fwd, emulated on the CPU, held
+    to the JAX package's forward (the Pallas kernel in interpret mode):
+    three TF32 products per f32 product keep out within 2e-4 and lse
+    within 1e-4 (the card's f32 tolerances); one TF32 product alone does
+    not here (logits of raw randn at C = 40: errors of ~3e-3). B > 1, Nk !=
+    N and no multiple of 64 (a ragged last key tile), C no multiple of 64,
+    Cv != C, scale != 1."""
+    b, n, nk, c, cv, scale = 2, 300, 200, 40, 72, 0.5
+    q, k, v = _inputs(b, n, nk, c, cv, seed=5)
+    want_out, want_lse = (np.asarray(a) for a in _nonlocal_attention_fwd_lse(
+        q, k, v, scale=scale, interpret=True))
+    errs = {}
+    for terms in (3, 1):
+        out, lse = _split_forward(q, k, v, scale, terms)
+        assert out.shape == (b, n, cv) and lse.shape == (b, n)
+        errs[terms] = (float(np.abs(out - want_out).max()),
+                       float(np.abs(lse - want_lse).max()))
+    assert errs[3][0] <= 2e-4 and errs[3][1] <= 1e-4, errs
+    assert errs[1][0] > 2e-4 and errs[1][1] > 1e-4, errs

@@ -28,6 +28,7 @@ from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
 
 from test_torch_nonlocal_attention import (CASES, DISPATCH, DISPATCH_IDS,
                                            _inputs, kernels_by_op)
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _launches():

@@ -52,7 +52,8 @@ from pretorched_tpu_torch.parallel.evaluate import (pad_batch,
                                                     sharded_accuracy_step)
 from pretorched_tpu_torch.parallel.train import make_train_step
 
-from torch_port_helpers import (jax_variables_from_port, port_state_dict,
+from torch_port_helpers import (jax_variables_from_port,  # noqa: F401
+                                one_torch_thread, port_state_dict,
                                 randomize_port_bn, to_nt)
 
 HERE = os.path.dirname(os.path.abspath(__file__))

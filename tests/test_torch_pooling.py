@@ -11,6 +11,8 @@ import torch
 from pretorched_tpu.ops import pooling as jp
 from pretorched_tpu_torch.ops import pooling as tp
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _both(fn_jax, fn_port, shape, seed=0):
     """(port output, JAX output), both channels-first, on one input."""

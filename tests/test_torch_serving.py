@@ -28,7 +28,8 @@ from pretorched_tpu_torch.serving import (InferenceServer, ServerOverloaded,
 from pretorched_tpu_torch.transforms.fused import (fused_preprocess,
                                                    preprocess_clip)
 
-from torch_port_helpers import port_state_dict, randomize_bn
+from torch_port_helpers import (one_torch_thread,  # noqa: F401 (autouse)
+                                port_state_dict, randomize_bn)
 
 
 def _linear_apply(params, x):

@@ -13,6 +13,8 @@ from pretorched_tpu.transforms import fused as jax_fused
 from pretorched_tpu.transforms import utils as jax_utils
 from pretorched_tpu_torch.transforms import fused, utils
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'data')
 

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Probes behind the design choices of the port's K1-dq, K2 and wide K1-fwd,
-K1-dq and K1-dkv kernels, on one CUDA card (``pretorched_tpu_torch``; no
+"""Probes behind the design choices of the port's K1-dq, K2, wide K1-fwd,
+K1-dq and K1-dkv and f32 K1-fwd kernels, on one CUDA card (``pretorched_tpu_torch``; no
 JAX).
 
     python3 tools/port_kernel_probes.py [k2] [dq] [lr] [wide] [tf32]
-        [tf32_timing] [tf32_loads] [host]
+        [tf32_timing] [tf32_loads] [fwd32] [host]
 
 * ``k2``: builds variants of ``csrc/fused_block.cu`` (the source with one
   textual change each) into their own libraries and times the TMA kernel
@@ -49,6 +49,23 @@ JAX).
   bits: no split arithmetic) and both. ``tf32_loads``: likewise without
   the row chunks (``no_row_loads``), the column chunks (``no_col_loads``)
   or the rows of m (``no_m_loads``) copied from L2.
+* ``fwd32``: the f32 K1-fwd on the tensor cores (tf32x3, ``csrc/
+  nonlocal_attention_fwd.cu``) at layers 2 and 3's train shapes and
+  SAGAN's: ``base`` against ``stages2`` and ``stages4`` (a 2- or 4-slot
+  ring), ``k32`` (32-channel chunks of s), ``two_blocks`` (two blocks an
+  SM: at most 128 registers a thread, 32-channel chunks), ``lo_raw`` (the
+  low TF32 half passed unrounded: the tensor cores drop its low 13 bits),
+  ``across_tiles`` (the three products of four tiles issued product by
+  product across the tiles, in place of each tile's back to back as
+  ``mma_tf32x3`` orders them) and, for their times alone (their outputs are wrong), ``one_product``
+  (one TF32 product per f32 product), ``no_split`` (three products of the
+  unsplit bits), ``own_max`` (each warp scales by its own half's row max:
+  no exchange through shared memory, no extra barrier) and ``no_q_loads``,
+  ``no_k_loads``, ``no_v_loads`` (a stage's copies from L2 left out); each
+  timed in turns with the scalar program beside them, held to the plain
+  f32 forward and to an f64 one (max |out - ref| and |lse - ref|), with
+  its registers a thread at every instantiation and the SASS opcode counts
+  at 16 tiles a warp (layer 2).
 * ``host``: the host time of one K1-fwd wrapper call at layer 3's widths
   (B = 1 and 8), step by step (checks, allocation, device context and
   stream, pointers, the C entry with its four tensor maps and launch, the
@@ -184,6 +201,84 @@ TF32_SHAPES = {'layer2': (8, 6272, 6272, 256, 256),
                'layer3': (8, 784, 784, 512, 512),
                'sub_sample': (8, 6272, 784, 256, 256),
                'seq layer2': (16, 3136, 6272, 256, 256)}
+# the f32 K1-fwd (tf32x3) against: a 2- or 4-slot ring, 32-channel chunks
+# of s, two blocks an SM, the low half unrounded, the products issued
+# across tiles; and, for their times alone, one product, no split
+# arithmetic, each warp on its own row max, and each stage's copies left
+# out
+FWD32_LO = ('mma_tiles.cuh', '  lo = to_tf32(x - __uint_as_float(hi));',
+            '  lo = __float_as_uint(x - __uint_as_float(hi));')
+# the three products of four tiles issued product by product across the
+# tiles (each tile's B halves split first), in q k^T and in P v
+FWD32_ACROSS = [(
+    """      uint32_t bhi[2], blo[2];
+      split_tf32(y.x, bhi[0], blo[0]);
+      split_tf32(y.y, bhi[1], blo[1]);
+      mma_tf32x3(partial[t], ahi, alo, bhi, blo);
+    }
+""", """      split_tf32(y.x, bhi[t][0], blo[t][0]);
+      split_tf32(y.y, bhi[t][1], blo[t][1]);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) mma_tf32(partial[t], alo, bhi[t][0], bhi[t][1]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) mma_tf32(partial[t], ahi, blo[t][0], blo[t][1]);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) mma_tf32(partial[t], ahi, bhi[t][0], bhi[t][1]);
+"""), (
+    """    split_tf32(x1.y, ahi[3], alo[3]);
+#pragma unroll""", """    split_tf32(x1.y, ahi[3], alo[3]);
+    uint32_t bhi[4][2], blo[4][2];
+#pragma unroll"""), (
+    """            uint32_t bhi[2], blo[2];
+            split_tf32(bt[0], bhi[0], blo[0]);
+            split_tf32(bt[kLdV], bhi[1], blo[1]);
+            mma_tf32x3(partial[t], ahi, alo, bhi, blo);
+          }
+""", """            split_tf32(bt[0], bhi[t][0], blo[t][0]);
+            split_tf32(bt[kLdV], bhi[t][1], blo[t][1]);
+          }
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            mma_tf32(partial[t], alo, bhi[t][0], bhi[t][1]);
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            mma_tf32(partial[t], ahi, blo[t][0], blo[t][1]);
+#pragma unroll
+          for (int t = 0; t < 4; ++t)
+            mma_tf32(partial[t], ahi, bhi[t][0], bhi[t][1]);
+"""), (
+    """                                   __float_as_uint(l0.y), __float_as_uint(l1.y)};
+#pragma unroll""", """                                   __float_as_uint(l0.y), __float_as_uint(l1.y)};
+          uint32_t bhi[4][2], blo[4][2];
+#pragma unroll""")]
+FWD32_VARIANTS = {
+    'base': [],
+    'stages2': [('constexpr int kXStages = 3; ', 'constexpr int kXStages = 2; ')],
+    'stages4': [('constexpr int kXStages = 3; ', 'constexpr int kXStages = 4; ')],
+    'k32': [('constexpr int kXK = 64; ', 'constexpr int kXK = 32; ')],
+    'two_blocks': [('__launch_bounds__(kXThreads)\n',
+                    '__launch_bounds__(kXThreads, 2)\n'),
+                   ('constexpr int kXK = 64; ', 'constexpr int kXK = 32; ')],
+    'lo_raw': [FWD32_LO],
+    'across_tiles': FWD32_ACROSS,
+    'one_product': TF32_TIMING_VARIANTS['one_product'],
+    'no_split': TF32_TIMING_VARIANTS['no_split'],
+    'own_max': [('fmaxf(m_r[h], fmaxf(red[rt], red[kXRows + rt]))',
+                 'fmaxf(m_r[h], mx[h])')],
+    'no_q_loads': [('        load_tile_f32_async<kXRows, kXK, kXThreads>(\n'
+                    '            slot, kXLdK, qb, c, q0, n, j * kXK, c, vec_qk);\n',
+                    '')],
+    'no_k_loads': [('        load_tile_f32_async<kXKeys, kXK, kXThreads>(\n'
+                    '            slot + kXRows * kXLdK, kXLdK, kb, c, k0, nk, '
+                    'j * kXK, c, vec_qk);\n', '')],
+    'no_v_loads': [('        load_tile_f32_async<kKV, 16 * NT, kXThreads>(\n'
+                    '            slot, kLdV, vb, cv, k0 + (j - n_s) * kKV, nk, 0, '
+                    'cv, vec_v);\n', '')]}
+FWD32_SHAPES = {'layer2': (8, 6272, 6272, 256, 256),
+                'layer3': (8, 784, 784, 512, 512),
+                'biggan256': (32, 4096, 1024, 96, 384),
+                'biggan128': (32, 4096, 1024, 48, 192)}
 WIDE_FWD_SHAPES = [(20, 784, 784, 512, 512), (8, 784, 784, 512, 512),
                    (1, 784, 784, 512, 512)]
 WIDE_DKV_SHAPES = [(8, 784, 784, 512, 512), (2, 784, 196, 512, 512)]
@@ -601,6 +696,94 @@ def probe_tf32(smi, variants=None, tag='tf32'):
         torch.cuda.empty_cache()
 
 
+def fwd_f64(q, k, v):
+    """The plain forward (out, lse) in f64."""
+    import torch
+    s = torch.bmm(q.double(), k.double().transpose(1, 2))
+    lse = torch.logsumexp(s, -1)
+    return torch.bmm(torch.exp(s - lse[..., None]), v.double()), lse
+
+
+def probe_fwd32(smi):
+    """The f32 K1-fwd's tf32x3 variants (FWD32_VARIANTS) at FWD32_SHAPES:
+    ms in turns (variants, scalar, then back), each held to the plain f32
+    forward and to the f64 one."""
+    import torch
+    from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
+    torch.backends.cuda.matmul.allow_tf32 = False
+    libs = build_variants('nonlocal_attention_fwd.cu', FWD32_VARIANTS, 'fwd32')
+    for name, lib in libs.items():
+        lib.pt_nonlocal_attention_fwd_tf32x3.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p])
+        ops = sass_opcodes(OUT / 'fwd32' / name / 'lib.so',
+                           'fwd_tf32x3_kernelILi16E')
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:14]
+        log = (OUT / 'fwd32' / name / 'build.log').read_text().splitlines()
+        regs = [re.search(r'Used (\d+) registers', log[i + 2]).group(1)
+                + ' at NT ' + re.search(r'kernelILi(\d+)E', line).group(1)
+                + (' (spills ' + re.search(r'(\d+) bytes spill stores',
+                                           log[i + 1]).group(1) + ' B)'
+                   if ' 0 bytes spill stores' not in log[i + 1] else '')
+                for i, line in enumerate(log)
+                if 'Function properties' in line and 'fwd_tf32x3' in line
+                and i + 2 < len(log) and 'Used' in log[i + 2]]
+        print(f'  fwd32 {name}: registers {", ".join(regs)}; SASS of the '
+              f'kernel at 16 tiles a warp, {sum(ops.values())} '
+              f'instructions: '
+              + ', '.join(f'{op} {n}' for op, n in top), flush=True)
+    g = torch.Generator(device='cuda').manual_seed(3)
+    print(f'f32 K1-fwd, tf32x3 variants against scalar, CUDA-event medians '
+          f'of 5 in turns; max |out - ref| and |lse - ref| against the plain '
+          f'f32 and the f64 forward ({smi})')
+    for label, (b, n, nk, c, cv) in FWD32_SHAPES.items():
+        q = torch.randn(b, n, c, device='cuda', generator=g) / c ** 0.25
+        k = torch.randn(b, nk, c, device='cuda', generator=g) / c ** 0.25
+        v = torch.randn(b, nk, cv, device='cuda', generator=g)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        dims = (b, n, nk, c, cv, ctypes.c_float(1.0), stream)
+
+        def runner(lib):
+            out = torch.empty(b, n, cv, device='cuda')
+            lse = torch.empty(b, n, device='cuda')
+            ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out, lse)]
+
+            def fwd():
+                err = lib.pt_nonlocal_attention_fwd_tf32x3(*ptrs, *dims)
+                if err:
+                    raise RuntimeError(f'CUDA error {err}')
+            return fwd, (out, lse)
+
+        runs = {name: runner(lib) for name, lib in libs.items()}
+        runs['scalar'] = (lambda: na._launch_fwd(q, k, v, 1.0, 'scalar'),
+                          None)
+        times = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            times[name].append(median_ms(runs[name][0], reps=5))
+        want = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+        exact = fwd_f64(q, k, v)
+
+        def err(got, ref):
+            return tuple((x.double() - r.double()).abs().max().item()
+                         for x, r in zip(got, ref))
+        print(f'  {label} (B, N, Nk, C, Cv) = {(b, n, nk, c, cv)}: plain f32 '
+              f'to f64 out {err(want, exact)[0]:.2e}, lse '
+              f'{err(want, exact)[1]:.2e}', flush=True)
+        for name, (fn, outs) in runs.items():
+            line = (f'    {name:12s} '
+                    + ' / '.join(f'{t:.3f}' for t in times[name]) + ' ms')
+            if outs is not None:
+                fn()
+                torch.cuda.synchronize()
+                to_plain, to_exact = err(outs, want), err(outs, exact)
+                line += (f'; to plain f32 out {to_plain[0]:.2e}, lse '
+                         f'{to_plain[1]:.2e}; to f64 out {to_exact[0]:.2e}, '
+                         f'lse {to_exact[1]:.2e}')
+            print(line, flush=True)
+        del q, k, v, runs, want, exact
+        torch.cuda.empty_cache()
+
+
 def probe_lr(smi):
     import numpy as np
     import torch
@@ -754,6 +937,7 @@ def main(argv):
                   smi, TF32_TIMING_VARIANTS, 'tf32_timing'),
               'tf32_loads': lambda smi: probe_tf32(
                   smi, TF32_LOAD_VARIANTS, 'tf32_loads'),
+              'fwd32': probe_fwd32,
               'host': probe_host}
     for name in argv or list(probes):
         probes[name](smi)
