@@ -10,8 +10,8 @@ Drives the port's main path once on one CUDA card and checks it:
    with the kernel the dispatch picks (``attention_kernel``: bf16 with C
    and Cv multiples of 8 up to 512 on K1-fwd's wgmma programs, which pad
    them to 64 through TMA, past 256 the wide program, other bf16 shapes on
-   mma.sync; f32 K1-fwd, K1-dq and K1-dkv on tf32x3 up to 512, scalar
-   past it), f32 repeated bitwise, its time, its bound (f32: at the TF32
+   mma.sync; f32 K1-fwd on tf32x3 up to 512, K1-dq and K1-dkv on TF32
+   wgmma (tf32_wgmma) there, scalar past it), f32 repeated bitwise, its time, its bound (f32: at the TF32
    rate over 3 and on the CUDA cores) and one
    ``scaled_dot_product_attention`` call's time, the plain version's at
    layers 2 and 3, and at both layers the kernel that the dispatch's
@@ -41,18 +41,20 @@ Drives the port's main path once on one CUDA card and checks it:
    (at layer 3 its wide programs) replaced: time and host time per call,
    each generic kernel held to the plain backward, K1-dq's two outputs
    held together; K1-dq and K1-dkv must repeat bitwise at every shape. In
-   f32 every shape runs the program the dispatch picks (tf32x3, scalar at
-   gaussian mode's C = 1024), and at layers 2 and 3 the scalar programs
-   tf32x3 replaced are held to the plain backward too and timed beside it
-   with their host times, SDPA's f32 backward, and the bounds at the
-   tensor cores' TF32 rate over 3 and at the CUDA cores'. Then K1's done
+   f32 every shape runs the program the dispatch picks (tf32_wgmma, scalar
+   at gaussian mode's C = 1024), and at layers 2 and 3 the programs
+   tf32_wgmma replaced (mma.sync tf32x3 and scalar) are held to the plain
+   backward too (tf32x3 also to tf32_wgmma) and timed beside it with their
+   host times, SDPA's f32 backward, and the bounds at the tensor cores'
+   TF32 rate over 3 and at the CUDA cores'. Then K1's done
    line: K1-fwd, K1-dq and K1-dkv in bf16 at N = Nk
    = 65,536, C = Cv = 256 (the narrow wgmma programs) against the plain
    version computed in chunks of queries in f32 (the kernel's own out and
    lse for the backward, dk and dv summed over the chunks), at this
    phase's and phase 3's tolerances, timed beside SDPA; and the f32
    kernels timed at the train shapes of layers 2 and 3 beside SDPA in f32
-   (K1-fwd, K1-dq and K1-dkv beside the scalar programs);
+   (K1-fwd beside the scalar program, K1-dq and K1-dkv beside the tf32x3
+   and scalar programs, each backward program held to the plain one);
 6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
    ``remat=(0,)``, SGD, 12 steps of 8 clips x 32 frames x 224 px; it checks
    15 attention launches a step (5 forward, 5 dq and 5 dkv on wgmma, 3 of
@@ -62,10 +64,12 @@ Drives the port's main path once on one CUDA card and checks it:
    (device time by kernel family, each K1 program's, idle share), and
    saves a checkpoint after step 3 that must restore exactly;
 6b. the f32 fine-tuning step: the same model, batch and SGD in f32 with
-   TF32 off, steps in turns with the f32 attention on tf32x3 and forced
-   onto the scalar programs (the dispatch patched in this script): 15 K1
-   launches a step by program (5 K1-fwd, 5 K1-dq and 5 K1-dkv on the
-   program of the turn), finite losses, device and host time a step
+   TF32 off, steps in turns with the f32 attention on the dispatch's
+   choice (K1-dq and K1-dkv on tf32_wgmma, K1-fwd on tf32x3), with K1-dq
+   and K1-dkv forced onto tf32x3 and with all three forced onto the
+   scalar programs (the dispatch patched in this script): 15 K1 launches
+   a step by program (5 K1-fwd, 5 K1-dq and 5 K1-dkv on the programs of
+   the turn), finite losses, device and host time a step
    (median and spread), peak memory, and one profiled step of each with
    K1's share and the device's idle share;
 7. gradient agreement: each non-local block's gradients with the kernels
@@ -325,19 +329,28 @@ DONE_CHUNK = 4096
 # programs of K1-dq and K1-dkv form it, 3 TF32 products on the tensor
 # cores' 495 TFLOP/s for each f32 product
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12, 'tf32x3': 495e12 / 3}
+# the f32 programs on the tensor cores (three TF32 products per f32 product)
+TF32_PROGRAMS = ('tf32x3', 'tf32_wgmma')
 MEM_BYTES_PER_S = 3.35e12
 # 12 steps: the first warms up, the median of steps 2-12 is read, by host
 # clock and by device time (CUDA events around each step)
 TRAIN_CLIPS, TRAIN_STEPS, TRAIN_LR = 8, 12, 1e-3
 # phase 6b: phase 6's step in f32 (TF32 off), the f32 fine-tuning a user of
 # the f32 zoo runs: a warm step on each program, then turns of
-# F32_TRAIN_STEPS steps with K1-fwd, K1-dq and K1-dkv on tf32x3 (t) and
-# forced onto the scalar programs (s), t s s t, and one profiled step of
-# each; K1 launches a step by program
+# F32_TRAIN_STEPS steps with K1-dq and K1-dkv on tf32_wgmma and K1-fwd on
+# tf32x3 (the dispatch's choice, w), K1-dq and K1-dkv forced onto tf32x3
+# (t) and all three onto the scalar programs (s), w t s s t w, and one
+# profiled step of each; K1 launches a step by program
 F32_TRAIN_STEPS = 3
 F32_TRAIN_KERNELS = {
+    'tf32_wgmma': {'fwd tf32x3': 5, 'dq tf32_wgmma': 5, 'dkv tf32_wgmma': 5},
     'tf32x3': {'fwd tf32x3': 5, 'dq tf32x3': 5, 'dkv tf32x3': 5},
     'scalar': {'fwd scalar': 5, 'dq scalar': 5, 'dkv scalar': 5}}
+F32_TRAIN_TURNS = ('tf32_wgmma', 'tf32x3', 'scalar', 'scalar', 'tf32x3',
+                   'tf32_wgmma')
+# the f32 K1 launches a pass (phase 21's pipelined microbatches, phase 22's
+# f32 steps): K1-fwd on tf32x3, K1-dq and K1-dkv on tf32_wgmma
+F32_PASS_KERNELS = F32_TRAIN_KERNELS['tf32_wgmma']
 # K2 (the fused bottleneck tail): (N, T, H, W, Cin, Cm, Cout, projection)
 # of SlowFast-R50 on 20 clips x 64 frames x 224 px (fast pathway B*T =
 # 20 x 32, slow 20 x 4); the first four are fused_blocks=32's, with their
@@ -1162,12 +1175,13 @@ def backward_vs_plain(na, torch):
 def f32_backward_rows(na, torch, name, inputs, got, want, kernels, errs,
                       rels, line, result):
     """Phase 5 in f32: K1-dq and K1-dkv repeated (bitwise); at layers 2 and
-    3 the scalar programs that tf32x3 replaced held to the plain backward
-    too, both timed with their host time per call, beside SDPA's f32
-    backward and the bounds at the tensor cores' tf32x3 rate and at the
-    CUDA cores'. Returns the line and the scalar programs' largest error
-    (0 where not run); keeps the layers' numbers in ``result`` under
-    '<name> float32'."""
+    3 the programs that tf32_wgmma replaced (the mma.sync tf32x3 programs
+    and the scalar ones) held to the plain backward too, tf32x3 also to
+    tf32_wgmma, all three timed with their host time per call, beside
+    SDPA's f32 backward and the bounds at the tensor cores' TF32 rate over
+    3 and at the CUDA cores'. Returns the line and the older programs'
+    largest error (0 where not run); keeps the layers' numbers in
+    ``result`` under '<name> float32'."""
     q, k, v, do, out, lse = inputs
     dq_kernel, kernel = kernels
     b, n, c = q.shape
@@ -1182,37 +1196,50 @@ def f32_backward_rows(na, torch, name, inputs, got, want, kernels, errs,
     line += (f'; a second run bitwise equal: dk, dv {same}, dq {same_dq}')
     check(same, f'f32 K1-dkv ({kernel}) does not repeat at {name}')
     check(same_dq, f'f32 K1-dq ({dq_kernel}) does not repeat at {name}')
-    if name not in ('layer2', 'layer3') or kernel != 'tf32x3':
+    if name not in ('layer2', 'layer3') or kernel != 'tf32_wgmma':
         return line, 0.0
-    scalar = (na._launch_dq(q, k, v, do, lse, delta, 1.0, 'scalar'),
-              *na._launch_dkv(q, k, v, do, lse, delta, 1.0, 'scalar'))
-    scalar_rel = max(rel_to_max(gr, w) for gr, w in zip(scalar, want))
-    del scalar
-    calls = {
-        'dq': (lambda: na.nonlocal_attention_bwd_dq_cuda(
-                   q, k, v, do, lse, delta),
-               lambda: na._launch_dq(q, k, v, do, lse, delta, 1.0, 'scalar')),
-        'dkv': (lambda: na.nonlocal_attention_bwd_dkv_cuda(
-                    q, k, v, do, lse, delta),
-                lambda: na._launch_dkv(q, k, v, do, lse, delta, 1.0,
-                                       'scalar'))}
-    ms = {op: (median_ms(new, reps=5), median_ms(old, reps=3))
-          for op, (new, old) in calls.items()}
-    hosts = {op: (host_us(new, reps=10), host_us(old, reps=3))
-             for op, (new, old) in calls.items()}
+    older_rel, ab = {}, 0.0
+    for older in ('tf32x3', 'scalar'):
+        grads = (na._launch_dq(q, k, v, do, lse, delta, 1.0, older),
+                 *na._launch_dkv(q, k, v, do, lse, delta, 1.0, older))
+        older_rel[older] = max(rel_to_max(gr, w) for gr, w in zip(grads, want))
+        if older == 'tf32x3':
+            ab = max(rel_to_max(x, y) for x, y in zip(got, grads))
+        del grads
+    check(ab <= TOL_BWD['float32'], f'f32 K1-dq / K1-dkv: tf32_wgmma and '
+          f'tf32x3 disagree at {name}: {ab}')
+
+    def calls(op, program):
+        launch = na._launch_dq if op == 'dq' else na._launch_dkv
+        if program == kernel:
+            wrapper = (na.nonlocal_attention_bwd_dq_cuda if op == 'dq'
+                       else na.nonlocal_attention_bwd_dkv_cuda)
+            return lambda: wrapper(q, k, v, do, lse, delta)
+        return lambda: launch(q, k, v, do, lse, delta, 1.0, program)
+    programs = (kernel, 'tf32x3', 'scalar')
+    ms = {op: tuple(median_ms(calls(op, pr), reps=5 if pr != 'scalar' else 3)
+                    for pr in programs) for op in ('dq', 'dkv')}
+    hosts = {op: tuple(host_us(calls(op, pr), reps=10 if pr != 'scalar'
+                               else 3) for pr in programs)
+             for op in ('dq', 'dkv')}
     plain_ms = median_ms(lambda: na.nonlocal_attention_bwd_reference(
         q, k, v, out, lse, do), reps=3)
     lib_ms, backend = sdpa_ms(torch, q, k, v, do)
     tc = attention_bounds(b, n, nk, c, cv, 'tf32x3')
     cores = attention_bounds(b, n, nk, c, cv, 'float32')
     # multiply-adds per (query, key) pair: K1-dq's s, dp and dq once; K1-dkv's
-    # dk blocks s, dp and dk, its dv blocks s again and dv
-    pair = {'dq': (2 * c + cv, 2 * c + cv), 'dkv': (3 * c + 2 * cv,
-                                                   2 * c + 2 * cv)}
-    line += (f'; the scalar programs they replaced: max|d-plain|/max|d| '
-             f'{scalar_rel:.2e}\n    f32 ' + ', '.join(
-                 f'{op} {ms[op][0]:.3f} ms (scalar {ms[op][1]:.3f}; host per '
-                 f'call {hosts[op][0]:.1f} us, scalar {hosts[op][1]:.1f}; '
+    # dk blocks s, dp and dk, its dv blocks s again and dv (tf32_wgmma at
+    # 512: two column chunks a part, each forming s and dp)
+    chunks = -(-max(c, cv) // 256)
+    pair = {'dq': (chunks * (c + cv) + c, 2 * c + cv),
+            'dkv': (chunks * (2 * c + cv) + c + cv, 2 * c + 2 * cv)}
+    line += (f'; the programs it replaced: max|d-plain|/max|d| tf32x3 '
+             f'{older_rel["tf32x3"]:.2e}, scalar {older_rel["scalar"]:.2e};'
+             f' max|tf32_wgmma-tf32x3|/max|tf32x3| {ab:.2e}\n    f32 '
+             + ', '.join(
+                 f'{op} {ms[op][0]:.3f} ms (tf32x3 {ms[op][1]:.3f}, scalar '
+                 f'{ms[op][2]:.3f}; host per call {hosts[op][0]:.1f} us, '
+                 f'tf32x3 {hosts[op][1]:.1f}, scalar {hosts[op][2]:.1f}; '
                  f'bound {tc[op][0]:.4f} ms at the TF32 rate over 3, '
                  f'{cores[op][0]:.4f} on the CUDA cores; {pair[op][0]} '
                  f'multiply-adds a pair, minimum {pair[op][1]})'
@@ -1223,7 +1250,7 @@ def f32_backward_rows(na, torch, name, inputs, got, want, kernels, errs,
                f'dq, dk, dv together)')
     plain = 'nonlocal_attention_bwd_reference (dq, dk, dv together)'
     result[f'{name} float32'] = {
-        op: {'kernel': kernel, 'program': 'tf32x3',
+        op: {'kernel': kernel, 'program': kernel,
              'max_abs_err': errs[0] if op == 'dq' else max(errs[1:]),
              'max_rel_err': rels[0] if op == 'dq' else max(rels[1:]),
              'ms': ms[op][0], 'plain_ms': plain_ms, 'plain': plain,
@@ -1231,12 +1258,16 @@ def f32_backward_rows(na, torch, name, inputs, got, want, kernels, errs,
              'bound_ms': tc[op][0], 'bound_by': tc[op][1],
              'bound_rate': 'TF32 dense 495 TFLOP/s over 3 products',
              'bound_ms_cuda_cores': cores[op][0],
-             'earlier_ms': ms[op][1], 'earlier': 'scalar program, same run',
-             'host_us': hosts[op][0], 'earlier_host_us': hosts[op][1],
+             'earlier_ms': ms[op][1],
+             'earlier': 'mma.sync tf32x3 program, same run',
+             'scalar_ms': ms[op][2], 'host_us': hosts[op][0],
+             'earlier_host_us': hosts[op][1],
+             'scalar_host_us': hosts[op][2],
+             'max_rel_err_to_tf32x3': ab,
              'multiply_adds_per_pair': pair[op][0],
              'minimal_multiply_adds_per_pair': pair[op][1]}
         for op in ms}
-    return line, scalar_rel
+    return line, max(older_rel.values())
 
 
 def k1_done_line(na, torch):
@@ -1245,9 +1276,10 @@ def k1_done_line(na, torch):
     chunks of DONE_CHUNK queries in f32 (the backward's from the kernel's
     own out and lse; dk and dv summed over the chunks) at phase 3's and
     phase 5's tolerances, each timed beside SDPA; then the f32 kernels
-    timed at the train shapes of layers 2 and 3 beside SDPA in f32, K1-fwd,
-    K1-dq and K1-dkv (tf32x3) beside the scalar programs they replaced.
-    Returns the numbers."""
+    timed at the train shapes of layers 2 and 3 beside SDPA in f32, K1-fwd
+    (tf32x3) beside the scalar program it replaced, K1-dq and K1-dkv
+    (tf32_wgmma) beside the tf32x3 and scalar programs, each of the three
+    backward programs held to the plain backward. Returns the numbers."""
     b, n, nk, c, cv = DONE_LINE_SHAPE
     dt = torch.bfloat16
     g = torch.Generator(device='cuda').manual_seed(6)
@@ -1352,7 +1384,27 @@ def k1_done_line(na, torch):
                 q, k, v, do, lse, delta), reps=3),
             'dkv': median_ms(lambda: na.nonlocal_attention_bwd_dkv_cuda(
                 q, k, v, do, lse, delta), reps=3)}
-        # the scalar programs tf32x3 replaced, same inputs
+        # each backward program held to the plain backward
+        want = na.nonlocal_attention_bwd_reference(q, k, v, out, lse, do)
+        rels = {}
+        for program in (programs['dq'], 'tf32x3', 'scalar'):
+            grads = (na._launch_dq(q, k, v, do, lse, delta, 1.0, program),
+                     *na._launch_dkv(q, k, v, do, lse, delta, 1.0, program))
+            rels[program] = max(rel_to_max(gr, w)
+                                for gr, w in zip(grads, want))
+            del grads
+        del want
+        check(max(rels.values()) <= TOL_BWD['float32'],
+              f'done line f32 {name}: a backward program disagrees with the '
+              f'plain backward: {rels}')
+        # the older programs, same inputs: K1-fwd's scalar one that tf32x3
+        # replaced; K1-dq's and K1-dkv's tf32x3 and scalar ones that
+        # tf32_wgmma replaced
+        tf32x3 = {
+            'dq': median_ms(lambda: na._launch_dq(
+                q, k, v, do, lse, delta, 1.0, 'tf32x3'), reps=3),
+            'dkv': median_ms(lambda: na._launch_dkv(
+                q, k, v, do, lse, delta, 1.0, 'tf32x3'), reps=3)}
         scalar = {
             'fwd': median_ms(lambda: na._launch_fwd(q, k, v, 1.0, 'scalar'),
                              reps=3),
@@ -1367,27 +1419,33 @@ def k1_done_line(na, torch):
                 q, k, v, out, lse, do), reps=3)}
         sdpa = {'fwd': sdpa_ms(torch, q, k, v),
                 'bwd': sdpa_ms(torch, q, k, v, do)}
-        # the tf32x3 programs at the TF32 rate over 3 (the CUDA cores'
+        # the tensor-core programs at the TF32 rate over 3 (the CUDA cores'
         # beside it), a scalar one on the CUDA cores
         cores = attention_bounds(b, n, nk, c, cv, 'float32')
         tc = attention_bounds(b, n, nk, c, cv, 'tf32x3')
-        bounds = {op: tc[op] if programs[op] == 'tf32x3' else cores[op]
+        bounds = {op: tc[op] if programs[op] in TF32_PROGRAMS else cores[op]
                   for op in na.OPS}
         print(f'{name:10s} float32 B={b} N={n} Nk={nk} C={c} Cv={cv}: '
               + ', '.join(
                   f'{op} [{programs[op]}] {ms:.3f} ms (bound '
                   f'{bounds[op][0]:.3f}'
                   + (f' at the TF32 rate over 3, {cores[op][0]:.3f} on the '
-                     f'CUDA cores; scalar {scalar[op]:.3f} ms)'
+                     f'CUDA cores; '
+                     + (f'tf32x3 {tf32x3[op]:.3f} ms, ' if op in tf32x3
+                        else '')
+                     + f'scalar {scalar[op]:.3f} ms)'
                      if op in scalar else ' on the CUDA cores)')
                   for op, ms in times.items())
+              + '; max|d-plain|/max|d| ' + ', '.join(
+                  f'{pr} {r:.2e}' for pr, r in rels.items())
               + f'; plain {plain["fwd"]:.3f} ms, its backward '
               f'{plain["bwd"]:.3f} ms; scaled_dot_product_attention '
               f'{fmt_ms(sdpa["fwd"][0])} ({sdpa["fwd"][1]}), its backward '
               f'{fmt_ms(sdpa["bwd"][0])} ({sdpa["bwd"][1]})', flush=True)
         result['float32'][name] = {
             'shape': [b, n, nk, c, cv], 'programs': programs, 'ms': times,
-            'scalar_ms': scalar, 'plain_ms': plain,
+            'tf32x3_ms': tf32x3, 'scalar_ms': scalar, 'plain_ms': plain,
+            'max_rel_err': rels,
             'bound_ms': {op: bd[0] for op, bd in bounds.items()},
             'bound_ms_cuda_cores': {op: bd[0] for op, bd in cores.items()},
             'library_ms': {key: ms for key, (ms, _) in sdpa.items()},
@@ -1711,9 +1769,10 @@ def train_path(pretorched, na, torch, np, cli):
 def train_f32_path(pretorched, na, torch, np, cli):
     """Phase 6b: phase 6's model, batch, SGD and ``remat=(0,)`` in f32 with
     TF32 off, through ``make_train_step``: steps in turns with the f32
-    attention (K1-fwd, K1-dq, K1-dkv) on tf32x3 (the dispatch's choice) and
-    forced onto the scalar programs (the dispatch patched here, nothing in
-    the package), each
+    attention on the dispatch's choice (K1-fwd tf32x3, K1-dq and K1-dkv
+    tf32_wgmma), with K1-dq and K1-dkv forced onto tf32x3 and with all
+    three forced onto the scalar programs (the dispatch patched here,
+    nothing in the package), each
     step's loss finite and its K1 launches by program checked; device time
     (CUDA events) and host time a step, median and spread of each program;
     peak memory; one profiled step of each, by kernel family, with K1's
@@ -1734,16 +1793,22 @@ def train_f32_path(pretorched, na, torch, np, cli):
     check(x.dtype == torch.float32, f'batch {x.dtype}')
     dispatch = na.attention_kernel
 
-    def forced_scalar(dtype, c, cv, op):
-        """The dispatch with the f32 attention on the scalar programs."""
-        return 'scalar' if dtype == torch.float32 else dispatch(dtype, c, cv,
-                                                                op)
+    def forced(program):
+        """The dispatch with the f32 attention on ``program`` (K1-fwd on
+        tf32x3 where that is tf32_wgmma or tf32x3)."""
+        if program == 'tf32_wgmma':
+            return dispatch
 
-    times = {'tf32x3': ([], []), 'scalar': ([], [])}   # (host s, device ms)
+        def choose(dtype, c, cv, op):
+            if dtype != torch.float32:
+                return dispatch(dtype, c, cv, op)
+            return program
+        return choose
+
+    times = {p: ([], []) for p in F32_TRAIN_KERNELS}   # (host s, device ms)
 
     def run(program, steps, timed=True):
-        na.attention_kernel = dispatch if program == 'tf32x3' \
-            else forced_scalar
+        na.attention_kernel = forced(program)
         try:
             for _ in range(steps):
                 before = kernel_counts(na)
@@ -1773,15 +1838,16 @@ def train_f32_path(pretorched, na, torch, np, cli):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     set_counts(na, 0)
-    run('tf32x3', 1, timed=False)
-    run('scalar', 1, timed=False)
-    losses = [run(p, F32_TRAIN_STEPS)
-              for p in ('tf32x3', 'scalar', 'scalar', 'tf32x3')]
+    for program in F32_TRAIN_KERNELS:
+        run(program, 1, timed=False)
+    losses = [run(p, F32_TRAIN_STEPS) for p in F32_TRAIN_TURNS]
     launches = kernel_counts(na)
-    steps = 2 + 4 * F32_TRAIN_STEPS
-    want = {k: n * (1 + 2 * F32_TRAIN_STEPS) for k, n in
-            {**F32_TRAIN_KERNELS['tf32x3'],
-             **F32_TRAIN_KERNELS['scalar']}.items()}
+    steps = len(F32_TRAIN_KERNELS) + len(F32_TRAIN_TURNS) * F32_TRAIN_STEPS
+    want = {}
+    for program, per_step in F32_TRAIN_KERNELS.items():
+        n_steps = 1 + F32_TRAIN_TURNS.count(program) * F32_TRAIN_STEPS
+        for key, n in per_step.items():
+            want[key] = want.get(key, 0) + n * n_steps
     check(launches == want, f'f32 train run: launches by program {launches}, '
           f'expected {want}')
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1790,8 +1856,9 @@ def train_f32_path(pretorched, na, torch, np, cli):
            'losses': losses}
     print(f'nonlocalresnet3d50 in f32 (TF32 off), remat=(0,), SGD lr '
           f'{TRAIN_LR:g}; {TRAIN_CLIPS} clips x 32 x 224 x 224 a step; '
-          f'turns tf32x3, scalar, scalar, tf32x3 of {F32_TRAIN_STEPS} steps '
-          f'after a warm step of each; launches by program in {steps} steps '
+          f'turns {", ".join(F32_TRAIN_TURNS)} of {F32_TRAIN_STEPS} steps '
+          f'after a warm step of each (K1-fwd on tf32x3 in the turns of '
+          f'tf32_wgmma); launches by program in {steps} steps '
           f'{launches}; peak device memory {peak_gb:.2f} GiB; losses at the '
           f'turns\' ends {", ".join(f"{v:.4f}" for v in losses)}',
           flush=True)
@@ -1807,9 +1874,8 @@ def train_f32_path(pretorched, na, torch, np, cli):
               f'({min(host) * 1e3:.1f}-{max(host) * 1e3:.1f}), medians of '
               f'{len(dev)} = {TRAIN_CLIPS / med(dev) * 1e3:.2f} train '
               f'clips/s', flush=True)
-    for program in ('tf32x3', 'scalar'):
-        na.attention_kernel = dispatch if program == 'tf32x3' \
-            else forced_scalar
+    for program in F32_TRAIN_KERNELS:
+        na.attention_kernel = forced(program)
         try:
             window, by_name = device_times(lambda: step(x, labels), torch)
         finally:
@@ -1821,22 +1887,31 @@ def train_f32_path(pretorched, na, torch, np, cli):
             continue
         k1 = {key: sum(us for name, us in by_name.items() if key in name)
               / 1e3 for key in ('nonlocal_attention_fwd',
-                                'nonlocal_attention_bwd')}
+                                'nonlocal_attention_bwd', 'tf32_split')}
         idle = max(0.0, 1 - busy / window)
         print(f'profiled f32 step ({program}; torch.profiler): {window:.1f} '
               f'ms host window, {busy:.1f} ms of kernels, device idle '
               f'{idle:.1%}; K1 {sum(k1.values()):.1f} ms '
-              f'({sum(k1.values()) / busy:.1%}): K1-fwd ({program}) '
+              f'({sum(k1.values()) / busy:.1%}): K1-fwd '
+              f'({"scalar" if program == "scalar" else "tf32x3"}) '
               f'{k1["nonlocal_attention_fwd"]:.1f} ms, K1-dq + K1-dkv '
-              f'({program}) {k1["nonlocal_attention_bwd"]:.1f} ms', flush=True)
+              f'({program}'
+              + ('; its pre-pass tf32_split_kernel '
+                 f'{k1["tf32_split"]:.1f} ms included'
+                 if program == 'tf32_wgmma' else '')
+              + f') {k1["nonlocal_attention_bwd"] + k1["tf32_split"]:.1f} ms',
+              flush=True)
         families = print_families(by_name, busy, {
-            'attention': ('nonlocal_attention',), 'convolution': CONV_KEYS,
+            'attention': ('nonlocal_attention', 'tf32_split'),
+            'convolution': CONV_KEYS,
             'batch norm': ('batch_norm', 'bn_fw', 'bn_bw'),
             'optimizer': ('multi_tensor', 'foreach')})
         out[program].update({
             'profile': {'window_ms': window, 'kernel_ms': busy, 'idle': idle,
                         'k1_fwd_ms': k1['nonlocal_attention_fwd'],
-                        'k1_bwd_ms': k1['nonlocal_attention_bwd'],
+                        'k1_bwd_ms': k1['nonlocal_attention_bwd']
+                        + k1['tf32_split'],
+                        'k1_split_ms': k1['tf32_split'],
                         'k1_share': sum(k1.values()) / busy,
                         'families_ms': families}})
     del model, opt, sched, step, x
@@ -4755,9 +4830,9 @@ def pipeline_moe_path(pretorched, na, torch, np):
         launches, by_kernel = counts(na), kernel_counts(na)
         check(launches == (5 * PIPE_MICRO,) * 3,
               f'the pipelined backward launched {launches}')
-        if dtype == 'bfloat16':
-            expect_kernels(na, TRAIN_KERNELS, PIPE_MICRO,
-                           'pipelined backward')
+        expect_kernels(na, TRAIN_KERNELS if dtype == 'bfloat16'
+                       else F32_PASS_KERNELS, PIPE_MICRO,
+                       f'pipelined backward ({dtype})')
         loss_mb, g_mb, scale_mb = grads(model, PIPE_MICRO)
         loss_whole, g_whole, norm_whole = grads(model)
         res = {'loss': loss_pp, 'loss_microbatches': loss_mb,
@@ -5164,6 +5239,7 @@ def seq_path(pretorched, na, torch, np, cli, unsharded_ms):
     finally:
         seq_rules._Stacked.halo = stacked_halo
     f32_launches = counts(na)
+    expect_kernels(na, F32_PASS_KERNELS, 3, 'the f32 seq check')
     err = {k: grad_spread(v, want) for k, v in
            (('seq', got), ('unsharded', ref), ('fault', bad))}
     worst = {k: max(e.values()) for k, e in err.items()}
@@ -5294,6 +5370,15 @@ def kernel_label(line):
         return (f'{m.group(1)} (bf16, wgmma + TMA, C, Cv <= 512, {m.group(2)} '
                 '64-column chunks a consumer, 2 consumer warpgroups at 240 '
                 'registers, 1 producer at 24)')
+    m = re.search(r'nonlocal_attention_bwd_tf32_wgmma_kernelILi(\d+)E', line)
+    if m:
+        return (f'nonlocal_attention_bwd_tf32_wgmma_kernel (f32 on TF32 '
+                f'wgmma + TMA, 3 products; {m.group(1)} output columns a '
+                f'consumer, 2 consumer warpgroups at 240 registers, 1 '
+                f'producer at 24)')
+    if 'tf32_split_kernel' in line:
+        return ('tf32_split_kernel (tf32_wgmma\'s pre-pass: the operands\' '
+                'TF32 halves, transposed where a product needs it)')
     m = re.search(r'nonlocal_attention_(fwd|bwd)_tf32x3_kernelILi(\d+)E',
                   line)
     if m:
@@ -5389,8 +5474,9 @@ def main():
         pretorched, na, torch, np, cli)
 
     phase('6b. the f32 fine-tuning step: nonlocalresnet3d50 in f32, TF32 '
-          f'off, {TRAIN_CLIPS} clips x 32 frames x 224 px, K1-fwd, K1-dq '
-          'and K1-dkv on tf32x3 and on the scalar programs in turns')
+          f'off, {TRAIN_CLIPS} clips x 32 frames x 224 px, K1-dq and K1-dkv '
+          'on tf32_wgmma, on tf32x3 and (K1-fwd too) on the scalar programs '
+          'in turns')
     f32_train = train_f32_path(pretorched, na, torch, np, cli)
 
     phase('7. gradient agreement: f32 step with the kernels, with the plain '
@@ -5548,10 +5634,11 @@ def main():
          'note': 'K1-fwd in f32 on the tensor cores (tf32x3: three TF32 '
                  'products per f32 product) at phase 3\'s layer-2 shape; '
                  'launches: phase 6b\'s f32 steps (launches_by_kernel, the '
-                 'scalar program\'s in the turns that force it); '
-                 'earlier_ms: the scalar program it replaced; layer3: the '
-                 'same at layer 3; train_shapes: the done line\'s f32 '
-                 'block; sagan: phase 16\'s f32 rows',
+                 'scalar program\'s in the turns that force it; tf32x3 in '
+                 'the turns of tf32_wgmma and of tf32x3); earlier_ms: the '
+                 'scalar program it replaced; layer3: the same at layer 3; '
+                 'train_shapes: the done line\'s f32 block; sagan: phase '
+                 '16\'s f32 rows',
          'launches': f32_train['launches_by_kernel']['fwd tf32x3'],
          'launches_by_kernel': {
              k.split(' ', 1)[1]: n
@@ -5560,8 +5647,9 @@ def main():
          'launches_biggan256_f32': gan['launches_by_kernel_f32'],
          **k1['layer2 float32'], 'layer3': k1['layer3 float32'],
          'train_shapes': {name: {key: row[key] for key in (
-             'shape', 'programs', 'ms', 'scalar_ms', 'bound_ms',
-             'bound_ms_cuda_cores', 'library_ms')}
+             'shape', 'programs', 'ms', 'tf32x3_ms', 'scalar_ms',
+             'bound_ms', 'bound_ms_cuda_cores', 'library_ms',
+             'max_rel_err')}
              for name, row in done_line['float32'].items()},
          'sagan': {k: v for k, v in gan['kernel_rows'].items()
                    if k.endswith('float32')}},
@@ -5599,12 +5687,15 @@ def main():
         *[{'name': f'nonlocal_attention_bwd_{op}_f32', 'route': 'cuda',
            'source': src + 'nonlocal_attention_bwd.cu',
            'replaces': pallas + ('141' if op == 'dq' else '172'),
-           'note': f'K1-{op} in f32 on the tensor cores (tf32x3: three '
-                   'TF32 products per f32 product); launches: phase 6b\'s '
-                   'f32 steps (launches_by_kernel, the scalar program\'s in '
-                   'the turns that force it); earlier_ms: the scalar '
-                   'program it replaced; layer3: the same at layer 3',
-           'launches': f32_train['launches_by_kernel'][f'{op} tf32x3'],
+           'note': f'K1-{op} in f32 on TF32 wgmma + TMA (tf32_wgmma: three '
+                   'TF32 products per f32 product, the operands split into '
+                   'their TF32 halves by a pre-pass, whose time is in ms); '
+                   'launches: phase 6b\'s f32 steps (launches_by_kernel, '
+                   'the tf32x3 and scalar programs\' in the turns that '
+                   'force them); earlier_ms: the mma.sync tf32x3 program it '
+                   'replaced, scalar_ms the scalar one; layer3: the same at '
+                   'layer 3; train_shapes: the done line\'s f32 block',
+           'launches': f32_train['launches_by_kernel'][f'{op} tf32_wgmma'],
            'launches_by_kernel': {
                k.split(' ', 1)[1]: n
                for k, n in f32_train['launches_by_kernel'].items()
@@ -5612,7 +5703,13 @@ def main():
            **k1b['layer2 float32'][op], 'shape': list(TRAIN_SHAPES['layer2']),
            'dtype': 'float32', 'layer3': {
                **k1b['layer3 float32'][op],
-               'shape': list(TRAIN_SHAPES['layer3'])}}
+               'shape': list(TRAIN_SHAPES['layer3'])},
+           'train_shapes': {name: {
+               'ms': row['ms'][op], 'tf32x3_ms': row['tf32x3_ms'][op],
+               'scalar_ms': row['scalar_ms'][op],
+               'bound_ms': row['bound_ms'][op],
+               'max_rel_err': row['max_rel_err']}
+               for name, row in done_line['float32'].items()}}
           for op in ('dq', 'dkv')],
         {'name': 'fused_bottleneck_tail', 'route': 'cuda',
          'source': src + 'fused_block.cu',

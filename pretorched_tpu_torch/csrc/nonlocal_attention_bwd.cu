@@ -41,7 +41,7 @@
 // mode. Each chunk recomputes s and dp: at C = Cv = 256 in bf16 that is
 // 2.6x the minimal FLOPs, bought for register-resident accumulators. dk and
 // dv are separate chunks of the K1-dkv grid, so a dv block skips dp. The
-// caller's dispatch picks one of five programs:
+// caller's dispatch picks one of six programs:
 //
 // * bf16 with C and Cv multiples of 64 up to 256 (the train layer-2
 //   shape): warp-specialised wgmma kernels with TMA, which form s (s^T)
@@ -67,8 +67,19 @@
 //   resident in shared memory (186 KB), 40 KB a tile; wider channels take
 //   64 rows on 4 warps and stream both operands.
 // * f32 with C and Cv up to 512 (every f32 shape of the models but gaussian
-//   mode's C = 1024): tf32x3, mma.sync.m16n8k8 in TF32 with three products
-//   per f32 product (nonlocal_attention_bwd_tf32x3_kernel). One TF32
+//   mode's C = 1024): tf32_wgmma, the same arithmetic as tf32x3 below on
+//   Hopper's TF32 wgmma with TMA (nonlocal_attention_bwd_tf32_wgmma_kernel
+//   and its pre-pass tf32_split_kernel, near the end of this file). A
+//   pre-pass splits each operand once into its TF32 halves in scratch,
+//   the accumulating products' operand transposed, so that TF32 wgmma,
+//   which reads both operands K-major only, takes every product from
+//   shared memory; s and dp are formed once per tile and X goes through
+//   shared memory, split. At layer 2 K1-dq 5.7 and K1-dkv 9.9 ms against
+//   tf32x3's 16.3 and 27.4 (PERF.md). tf32x3 stays launchable by
+//   name (the A/B against it).
+// * f32 by name (the program tf32_wgmma replaced): tf32x3,
+//   mma.sync.m16n8k8 in TF32 with three products per f32 product
+//   (nonlocal_attention_bwd_tf32x3_kernel). One TF32
 //   product keeps 11 bits of each operand and misses the f32 tolerance
 //   (1e-4 of the largest gradient; 6.4e-4 at layer 2). Each operand is
 //   split in registers into hi = tf32(x) and lo = tf32(x - hi)
@@ -99,9 +110,8 @@
 //   columns, 247 at 512). The probe's variants put the time a third each in
 //   the products, the copies from L2 and the rest (barriers, X): neither a
 //   4-slot ring nor two blocks an SM (128 registers, spilling at 512)
-//   changes it by more than 8%. TF32 wgmma reads both operands K-major
-//   only: q, k, v and do would need transposes in shared memory for the
-//   accumulating products, left for a later redesign.
+//   changes it by more than 8%. Its split once per warp and its mma.sync
+//   products are what tf32_wgmma replaced.
 // * f32 otherwise (C or Cv above 512): scalar FMAs, 16 x 16 threads, each
 //   with a 4 x 4 register tile; X passes through shared memory. Its third
 //   operand is staged by plain loads between barriers.
@@ -2028,6 +2038,524 @@ int launch_dq_wgmma_wide(const void* q, const void* k, const void* v,
   }
 }
 
+// ------------------------- f32, Hopper: TF32 wgmma + TMA (tf32_wgmma)
+// The f32 K1-dq and K1-dkv (`_attn_dq_kernel`, `_attn_dkv_kernel`) for C
+// and Cv up to 512, on Hopper's tensor-core instruction. One generic block
+// program over rows and cols, as the tf32x3 program above (rows = queries
+// for K1-dq, keys for K1-dkv), with the products of three TF32 halves
+// (lo hi + hi lo + hi hi) on wgmma.mma_async m64nNk8.f32.tf32.tf32.
+//
+// TF32 wgmma reads both operands from shared memory K-major only, and the
+// accumulating product X m contracts over the streamed axis: m (k for
+// K1-dq; q and do for K1-dkv) must arrive with that axis contiguous. So a
+// pre-pass (tf32_split_kernel, four launches a call) splits every operand
+// once into its TF32 halves, hi = tf32(x) and lo = tf32(x - hi), and
+// writes them to scratch the wrapper allocates: the row and column
+// operands of s and dp as they are stored (rows of channels, padded with
+// zeros to a multiple of 64), and m transposed, (channels, streamed axis).
+// Each split operand is one tensor (2B, rows, cols): hi of item b at 2b,
+// lo at 2b + 1, so one TMA map serves both halves. No warp splits an
+// operand in the main kernel.
+//
+// A block owns 64 rows and 2 WN output columns of one part (WN = 32, 64 or
+// 128 by the width; grid.z walks the parts and their column chunks: dq;
+// dk, then dv). Warpgroup 2 produces (one thread issues every TMA copy
+// into a ring of kGStages 32 KB slots); consumer warpgroups 0 and 1 take
+// the 64-column tiles of the streamed axis in step:
+//   s and dp: each consumer forms its 32 columns of the tile (m64n32k8)
+//     over 32-channel stages (A: the rows' chunk, B: the columns' chunk,
+//     both halves of each in one slot), kGUnroll stages back to back, each
+//     summed from zero on the tensor cores (two partials in turn) and
+//     added in f32 as soon as the next stage is queued behind it;
+//   X = p or ds, zero outside the valid rows and columns, split into its
+//     TF32 halves and written K-major and swizzled into the X buffer (its
+//     32 columns of each), read by both consumers;
+//   acc += X m: consumer g multiplies all of X (SS: A = X from shared
+//     memory) by the columns [2 WN z + WN g, + WN) of m^T, two stages of
+//     32 streamed positions, summed from zero over the tile (m64nWNk8) and
+//     added to acc in f32; the first stage's slot is released as soon as
+//     its products are done, so the next tile's stages load behind the
+//     second's.
+// Every sum on the tensor cores is at most 12 (s, dp) or 24 (X m) TF32
+// products long before an f32 add takes it: their own accumulation
+// truncates (see mma_tf32x3); summed over the whole axis instead, the
+// gradients sat 5.5e-5 of the largest from f64 at layer 2, promoted 1.6e-6
+// (the plain f32 backward 4.3e-6; tools/port_kernel_probes.py tw32). X
+// goes through shared memory (both consumers need all of it), so the
+// accumulating product is SS and holds no A fragments in registers: acc
+// and its tile partial take WN registers, s, dp and their two partials 64.
+// Every wgmma group is waited on in the loop iteration that issued it:
+// with a stage's partial or a tile's X m group pending across iterations,
+// ptxas serialized the wgmmas (+25%). K1-dq's multiply-adds per (query,
+// key) are C + Cv + C, the minimum; K1-dkv's dv blocks form s again (C +
+// Cv more than the minimum 2C + 2Cv at C = Cv = 256); 512 takes two
+// column chunks, each forming s and dp.
+//
+// What bounds it: operations, 2.93 ms (K1-dq) and 3.91 ms (K1-dkv) at
+// layer 2 at the TF32 rate over 3 (the header). It takes 5.7-6.0 and
+// 9.9-10.6 ms there (H100 80GB HBM3, 700 W; PERF.md): the probe
+// finds the time neither in the products (none of s and dp issued: no
+// faster), nor in the copies from L2 (half the bytes: -2 to -9%; every
+// block reading the same rows: -3 to -10%), nor in the pre-pass (0.29 /
+// 0.32 ms); issuing the score stages eight at a time instead of by pairs
+// took 5-10%. A ring round trip per stage sets the pace.
+constexpr int kGRows = 64;        // rows per block
+constexpr int kGCols = 64;        // streamed columns per tile
+constexpr int kGChunk = 32;       // channels per stage: a 128-byte f32 row
+constexpr int kGPad = 64;         // the split operands' channel padding
+constexpr int kGStages = 6;       // ring slots
+constexpr int kGSlot = 32768;     // a ring slot: 4 boxes of 64 x 32 f32
+constexpr int kGXBufs = 1;        // X buffers
+constexpr int kGUnroll = 8;       // score stages issued back to back
+constexpr int kGXBytes = 32768;   // one X buffer: 2 halves x 2 chunks
+constexpr int kGMaxWidth = 512;
+
+int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+struct TwParams {
+  float* out0;          // part 0: dq or dk (X = ds)
+  float* out1;          // part 1: dv (X = p)
+  const float* lse;     // (B x n_stats), n_stats = rows or cols
+  const float* delta;
+  int rows, cols;
+  int nc, nv;           // 32-channel stages of s and of dp (both even)
+  int w0, w1;           // the parts' widths
+  int zsplit;           // blocks with blockIdx.z < zsplit make part 0
+  int stats_on_rows;    // 1 for dq
+  float scale;
+};
+
+size_t tw_smem() {
+  return (size_t)kGStages * kGSlot + kGXBufs * kGXBytes +
+         sizeof(Ring<kGStages>) +
+         1024;   // + 1024: aligning the base
+}
+
+// Queue ring stage st's chunk product into p (the consumer's 64 x 32 of s
+// or dp from zero): A the rows' chunk, B the consumer's 32 columns of the
+// columns' chunk (b_off), both as TF32 halves in the slot.
+template <int ST>
+__device__ __forceinline__ void tw_stage(float (&p)[16], Ring<ST>* ring,
+                                         uint32_t ring_s, int st,
+                                         uint32_t b_off) {
+  ring->wait_full(st);
+  const uint32_t sl = ring_s + Ring<ST>::slot(st) * kGSlot;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_tf32x3(p, sl + 32 * kk, sl + 8192 + 32 * kk,
+                 sl + 16384 + b_off + 32 * kk, sl + 24576 + b_off + 32 * kk,
+                 kk == 0);
+  wgmma_commit();
+}
+
+// A completed stage's partial p joins s (an s stage) or dp by f32 adds.
+__device__ __forceinline__ void tw_join(float (&s)[16], float (&dp)[16],
+                                        float (&p)[16], bool to_s) {
+  reg_fence(p);
+  if (to_s) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] += p[e];
+  } else {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dp[e] += p[e];
+  }
+}
+
+// The tile's U stages st + j .. st + j + U - 1 (U even) into p0 and p1 in
+// turn: each stage joins s (below nc) or dp once the stage after it is
+// queued behind it, so the tensor cores drain once, after the last; each
+// slot is released once read. Every wgmma group is waited on in this call:
+// ptxas serializes a warpgroup's wgmmas when a group read by other
+// instructions is still pending across a loop iteration.
+template <int U, int ST>
+__device__ __forceinline__ void tw_stages(float (&s)[16], float (&dp)[16],
+                                          float (&p0)[16], float (&p1)[16],
+                                          Ring<ST>* ring, uint32_t ring_s,
+                                          int st, int j, int nc,
+                                          uint32_t b_off) {
+  static_assert(U % 2 == 0, "stages go to p0 and p1 in pairs");
+  tw_stage(p0, ring, ring_s, st + j, b_off);
+#pragma unroll
+  for (int i = 1; i < U; ++i) {
+    if (i & 1) {
+      tw_stage(p1, ring, ring_s, st + j + i, b_off);
+      wgmma_wait<1>();
+      tw_join(s, dp, p0, j + i - 1 < nc);
+    } else {
+      tw_stage(p0, ring, ring_s, st + j + i, b_off);
+      wgmma_wait<1>();
+      tw_join(s, dp, p1, j + i - 1 < nc);
+    }
+    ring->release(st + j + i - 1);
+  }
+  wgmma_wait<0>();
+  tw_join(s, dp, p1, j + U - 1 < nc);
+  ring->release(st + j + U - 1);
+}
+
+template <int WN>
+__global__ void __launch_bounds__(kWThreads, 1)
+nonlocal_attention_bwd_tf32_wgmma_kernel(
+    const __grid_constant__ CUtensorMap ramap,
+    const __grid_constant__ CUtensorMap camap,
+    const __grid_constant__ CUtensorMap rbmap,
+    const __grid_constant__ CUtensorMap cbmap,
+    const __grid_constant__ CUtensorMap m0map,
+    const __grid_constant__ CUtensorMap m1map, const TwParams p) {
+  constexpr int ST = kGStages;
+  constexpr int kMBytes = WN * 128;   // one TF32 half of an m stage
+  static_assert(2 * kMBytes <= kGSlot, "an m stage fits a slot");
+  static_assert(ST >= 4, "a tile's four m stages are held at once");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_p = align1024(smem_raw);
+  unsigned char* xbuf = ring_p + ST * kGSlot;
+  Ring<ST>* ring = reinterpret_cast<Ring<ST>*>(xbuf + kGXBufs * kGXBytes);
+
+  const int bi = blockIdx.y;
+  const int r0 = blockIdx.x * kGRows;
+  const int part = (int)blockIdx.z < p.zsplit ? 0 : 1;
+  const int w_base = ((int)blockIdx.z - (part ? p.zsplit : 0)) * 2 * WN;
+  const int n_dp = part == 0 ? p.nv : 0;   // part 1 (dv) needs no dp
+  const int tiles = (p.cols + kGCols - 1) / kGCols;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    ring->init(kWConsumerWarps);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: per tile the s stages, the dp stages, then the four m
+    // stages (column chunk j / 2 of the tile for consumer j % 2)
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      const CUtensorMap* mmap = part ? &m1map : &m0map;
+      int st = 0;
+      for (int t = 0; t < tiles; ++t) {
+        const int c0 = t * kGCols;
+        for (int j = 0; j < p.nc + n_dp; ++j, ++st) {
+          const bool is_s = j < p.nc;
+          const int ch = (is_s ? j : j - p.nc) * kGChunk;
+          const CUtensorMap* am = is_s ? &ramap : &rbmap;
+          const CUtensorMap* bm = is_s ? &camap : &cbmap;
+          unsigned char* slot = ring_p + Ring<ST>::slot(st) * kGSlot;
+          uint64_t* full = &ring->full[Ring<ST>::slot(st)];
+          ring->wait_empty(st);
+          mbar_expect_tx(full, kGSlot);
+          tma_load(slot, am, full, ch, r0, 2 * bi);
+          tma_load(slot + 8192, am, full, ch, r0, 2 * bi + 1);
+          tma_load(slot + 16384, bm, full, ch, c0, 2 * bi);
+          tma_load(slot + 24576, bm, full, ch, c0, 2 * bi + 1);
+        }
+        for (int j = 0; j < 4; ++j, ++st) {
+          unsigned char* slot = ring_p + Ring<ST>::slot(st) * kGSlot;
+          uint64_t* full = &ring->full[Ring<ST>::slot(st)];
+          const int col = c0 + (j >> 1) * kGChunk, row = w_base + (j & 1) * WN;
+          ring->wait_empty(st);
+          mbar_expect_tx(full, 2 * kMBytes);
+          tma_load(slot, mmap, full, col, row, 2 * bi);
+          tma_load(slot + kMBytes, mmap, full, col, row, 2 * bi + 1);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const uint32_t ring_s = smem_addr(ring_p);
+    const uint32_t x_s = smem_addr(xbuf);
+    const int n_stats = p.stats_on_rows ? p.rows : p.cols;
+    const float* lse = p.lse + (size_t)bi * n_stats;
+    const float* delta = p.delta + (size_t)bi * n_stats;
+    // rows warp * 16 + g (h = 0) and + 8 (h = 1) of the block
+    float lse_r[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+    if (p.stats_on_rows) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + warp * 16 + g + 8 * h;
+        if (row < p.rows) {
+          lse_r[h] = lse[row];
+          delta_r[h] = delta[row];
+        }
+      }
+    }
+    // zeroed and pinned before the products: ptxas serializes the wgmmas
+    // of an accumulator first defined inside the pipeline (C7515)
+    float acc[WN / 2], pa[WN / 2], s[16], dp[16], p0[16], p1[16];
+#pragma unroll
+    for (int e = 0; e < WN / 2; ++e) acc[e] = pa[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p0[e] = p1[e] = 0.f;
+    reg_fence(acc);
+    reg_fence(pa);
+    reg_fence(p0);
+    reg_fence(p1);
+
+    const uint32_t b_off = wg * 4096;   // the consumer's 32 columns
+    int st = 0;   // the next ring stage
+    for (int t = 0; t < tiles; ++t) {
+      const int c0 = t * kGCols;
+      // this consumer's columns c0 + 32 wg + 8 j + 2 qd + e: their lse and
+      // delta (K1-dkv), loaded before the products, behind which the loads'
+      // latency hides
+      float lse_c[8], delta_c[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = c0 + 32 * wg + 8 * (i >> 1) + 2 * qd + (i & 1);
+        const bool load = !p.stats_on_rows && col < p.cols;
+        lse_c[i] = load ? lse[col] : 0.f;
+        delta_c[i] = load ? delta[col] : 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = dp[e] = 0.f;
+      // ---- s and dp: the tile's stage j (s below nc, dp past it), kGUnroll
+      // at a time, a remainder by pairs (nc and n_dp are even)
+      const int n = p.nc + n_dp;
+      int js = 0;
+      for (; js + kGUnroll <= n; js += kGUnroll)
+        tw_stages<kGUnroll>(s, dp, p0, p1, ring, ring_s, st, js, p.nc, b_off);
+      for (; js < n; js += 2)
+        tw_stages<2>(s, dp, p0, p1, ring, ring_s, st, js, p.nc, b_off);
+      st += n;
+
+      // ---- X: this consumer's columns, as TF32 halves into chunk wg of X
+      // buffer t % kGXBufs. Free: each consumer's X m product of tile t - 1
+      // completed before its s and dp above; with two buffers, both
+      // consumers passed tile t - 1's barrier after their product on tile
+      // t - 2; with one, the barrier here.
+      if (kGXBufs == 1) named_sync(2, 256);
+      unsigned char* xb = xbuf + (t % kGXBufs) * kGXBytes + wg * 8192;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ct = 8 * j + 2 * qd;           // column in the chunk
+        const int col = c0 + 32 * wg + ct;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rt = warp * 16 + g + 8 * h;  // row in the block
+          float2 hi, lo;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float l = p.stats_on_rows ? lse_r[h] : lse_c[2 * j + e];
+            const float d = p.stats_on_rows ? delta_r[h] : delta_c[2 * j + e];
+            float x = 0.f;
+            if (r0 + rt < p.rows && col + e < p.cols) {
+              x = expf(s[4 * j + 2 * h + e] * p.scale - l);
+              if (n_dp) x *= (dp[4 * j + 2 * h + e] - d) * p.scale;
+            }
+            uint32_t xh, xl;
+            split_tf32(x, xh, xl);
+            (e ? hi.y : hi.x) = __uint_as_float(xh);
+            (e ? lo.y : lo.x) = __uint_as_float(xl);
+          }
+          *reinterpret_cast<float2*>(xb + swizzled_f32(rt, ct)) = hi;
+          *reinterpret_cast<float2*>(xb + 16384 + swizzled_f32(rt, ct)) = lo;
+        }
+      }
+      fence_proxy_async();
+      named_sync(1, 256);   // X of both consumers written
+
+      // ---- acc += X m over the tile's two column chunks: this consumer's
+      // m stages are st + wg and st + 2 + wg, the other two it releases at
+      // once; chunk 0's own slot is released as soon as its group is done,
+      // so the next tile's stages load behind chunk 1's products
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ring->wait_full(st + j);
+      ring->release(st + 1 - wg);
+      ring->release(st + 3 - wg);
+      const uint32_t xs = x_s + (t % kGXBufs) * kGXBytes;
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t m = ring_s + Ring<ST>::slot(st + 2 * i + wg) * kGSlot;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_tf32x3(pa, xs + i * 8192 + 32 * kk,
+                       xs + 16384 + i * 8192 + 32 * kk, m + 32 * kk,
+                       m + kMBytes + 32 * kk, (i | kk) == 0);
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<1>();
+      ring->release(st + wg);
+      wgmma_wait<0>();
+      reg_fence(pa);
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e) acc[e] += pa[e];
+      ring->release(st + 2 + wg);
+      st += 4;
+    }
+
+    // ---- epilogue: acc (rows warp * 16 + g + 8 h, columns w_base + WN wg
+    // + 8 j + 2 qd + e) straight to the output
+    float* out = part ? p.out1 : p.out0;
+    const int w = part ? p.w1 : p.w0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + warp * 16 + g + 8 * h;
+      if (row >= p.rows) continue;
+      float* orow = out + ((size_t)bi * p.rows + row) * w;
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = w_base + WN * wg + 8 * j + 2 * qd + e;
+          if (col < w) orow[col] = acc[4 * j + 2 * h + e];
+        }
+    }
+  }
+}
+
+// The pre-pass: x (b, rows, cols) f32 -> its TF32 halves sp (2b, rows,
+// cols_p), hi of item i at 2i, lo at 2i + 1, zero past cols; and, where
+// spt is given, the same transposed, spt (2b, cols_p, rows_p), zero past
+// rows. Tiles of 32 x 32 through shared memory, every load and store
+// coalesced.
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float* __restrict__ x, float* __restrict__ sp,
+                  float* __restrict__ spt, int rows, int cols, int cols_p,
+                  int rows_p) {
+  __shared__ float hs[32][33], ls[32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int bi = blockIdx.z;
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  const float* xb = x + (size_t)bi * rows * cols;
+  float* hi = sp + (size_t)(2 * bi) * rows * cols_p;
+  float* lo = hi + (size_t)rows * cols_p;
+  for (int i = ty; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + tx;
+    const float v = r < rows && c < cols ? xb[(size_t)r * cols + c] : 0.f;
+    uint32_t h, l;
+    split_tf32(v, h, l);
+    if (r < rows) {
+      hi[(size_t)r * cols_p + c] = __uint_as_float(h);
+      lo[(size_t)r * cols_p + c] = __uint_as_float(l);
+    }
+    hs[i][tx] = __uint_as_float(h);
+    ls[i][tx] = __uint_as_float(l);
+  }
+  if (spt == nullptr) return;
+  __syncthreads();
+  float* hit = spt + (size_t)(2 * bi) * cols_p * rows_p;
+  float* lot = hit + (size_t)cols_p * rows_p;
+  for (int i = ty; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + tx;
+    if (r < rows_p) {
+      hit[(size_t)c * rows_p + r] = hs[tx][i];
+      lot[(size_t)c * rows_p + r] = ls[tx][i];
+    }
+  }
+}
+
+// Bytes of one split operand (2b, rows, cols) f32, 256-byte aligned.
+size_t tw_region(int b, int rows, int cols) {
+  return ((size_t)2 * b * rows * cols * sizeof(float) + 255) / 256 * 256;
+}
+
+// The scratch a call takes: the split row and column operands of s and
+// dp, m0 = the column operand of s transposed (k^T for K1-dq, q^T for
+// K1-dkv) and, for K1-dkv, m1 = do^T.
+size_t tw_scratch_bytes(bool dkv, int b, int rows, int cols, int c, int cv) {
+  const int cp = round_up(c, kGPad), cvp = round_up(cv, kGPad);
+  const int colp = round_up(cols, 4);
+  return tw_region(b, rows, cp) + tw_region(b, cols, cp) +
+         tw_region(b, rows, cvp) + tw_region(b, cols, cvp) +
+         tw_region(b, cp, colp) + (dkv ? tw_region(b, cvp, colp) : 0);
+}
+
+int launch_split(const float* x, float* sp, float* spt, int b, int rows,
+                 int cols, int cols_p, cudaStream_t stream) {
+  const int rows_p = spt ? round_up(rows, 4) : rows;
+  const dim3 grid(cols_p / 32, (rows_p + 31) / 32, b);
+  tf32_split_kernel<<<grid, 256, 0, stream>>>(x, sp, spt, rows, cols, cols_p,
+                                              rows_p);
+  return (int)cudaGetLastError();
+}
+
+template <int WN>
+int launch_tw(const CUtensorMap (&maps)[6], const TwParams& p, int b, int z,
+              cudaStream_t stream) {
+  auto kernel = nonlocal_attention_bwd_tf32_wgmma_kernel<WN>;
+  const size_t smem = tw_smem();
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(kernel, smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((p.rows + kGRows - 1) / kGRows, b, z);
+  kernel<<<grid, kWThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                            maps[3], maps[4], maps[5], p);
+  return (int)cudaGetLastError();
+}
+
+// K1-dq (dkv = false: rows = queries, ra = q, ca = k, rb = do, cb = v, out0
+// = dq) or K1-dkv (rows = keys, ra = k, ca = q, rb = v, cb = do, out0 = dk,
+// out1 = dv): the pre-pass, then the main kernel.
+int run_tf32_wgmma(bool dkv, const void* ra_src, const void* ca_src,
+                   const void* rb_src, const void* cb_src, const void* lse,
+                   const void* delta, void* out0, void* out1, void* scratch,
+                   int b, int rows, int cols, int c, int cv, float scale,
+                   cudaStream_t stream) {
+  if (c > kGMaxWidth || cv > kGMaxWidth || 2 * b > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int cp = round_up(c, kGPad), cvp = round_up(cv, kGPad);
+  const int colp = round_up(cols, 4);
+  unsigned char* at = static_cast<unsigned char*>(scratch);
+  auto take = [&](int r, int cc) {
+    float* f = reinterpret_cast<float*>(at);
+    at += tw_region(b, r, cc);
+    return f;
+  };
+  float* ra = take(rows, cp);
+  float* ca = take(cols, cp);
+  float* rb = take(rows, cvp);
+  float* cb = take(cols, cvp);
+  float* m0 = take(cp, colp);
+  float* m1 = dkv ? take(cvp, colp) : m0;
+  int err;
+  if ((err = launch_split(static_cast<const float*>(ra_src), ra, nullptr, b,
+                          rows, c, cp, stream)) ||
+      (err = launch_split(static_cast<const float*>(ca_src), ca, m0, b, cols,
+                          c, cp, stream)) ||
+      (err = launch_split(static_cast<const float*>(rb_src), rb, nullptr, b,
+                          rows, cv, cvp, stream)) ||
+      (err = launch_split(static_cast<const float*>(cb_src), cb,
+                          dkv ? m1 : nullptr, b, cols, cv, cvp, stream)))
+    return err;
+  // WN: each consumer's output columns, the narrowest that covers the
+  // widest part in one chunk, 128 past that (the rest over grid.z)
+  const int wmax = dkv && cvp > cp ? cvp : cp;
+  const int wn = wmax <= 64 ? 32 : wmax <= 128 ? 64 : 128;
+  CUtensorMap maps[6];   // ra, ca, rb, cb, m0, m1
+  if (!make_map_f32(&maps[0], ra, 2 * b, rows, cp, kGRows) ||
+      !make_map_f32(&maps[1], ca, 2 * b, cols, cp, kGCols) ||
+      !make_map_f32(&maps[2], rb, 2 * b, rows, cvp, kGRows) ||
+      !make_map_f32(&maps[3], cb, 2 * b, cols, cvp, kGCols) ||
+      !make_map_f32(&maps[4], m0, 2 * b, cp, colp, wn) ||
+      !make_map_f32(&maps[5], m1, 2 * b, dkv ? cvp : cp, colp, wn))
+    return (int)cudaErrorNotSupported;
+  TwParams p;
+  p.out0 = static_cast<float*>(out0);
+  p.out1 = static_cast<float*>(out1);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.rows = rows;
+  p.cols = cols;
+  p.nc = cp / kGChunk;
+  p.nv = cvp / kGChunk;
+  p.w0 = c;
+  p.w1 = cv;
+  p.zsplit = (cp + 2 * wn - 1) / (2 * wn);
+  p.stats_on_rows = !dkv;
+  p.scale = scale;
+  const int z = p.zsplit + (dkv ? (cvp + 2 * wn - 1) / (2 * wn) : 0);
+  switch (wn) {
+    case 32: return launch_tw<32>(maps, p, b, z, stream);
+    case 64: return launch_tw<64>(maps, p, b, z, stream);
+    default: return launch_tw<128>(maps, p, b, z, stream);
+  }
+}
+
 bool bad_shape(int b, int n, int nk, int c, int cv) {
   return b < 1 || n < 1 || nk < 1 || c < 1 || cv < 1 || b > 65535;
 }
@@ -2096,6 +2624,44 @@ int pt_nonlocal_attention_bwd_dkv_tf32x3(const void* q, const void* k,
   BwdParams<float> p = dkv_params<float>(q, k, v, dout, lse, delta, dk, dv, n,
                                          nk, c, cv, scale);
   return launch_tf32x3(p, b, true, static_cast<cudaStream_t>(stream));
+}
+
+// The f32 TF32-wgmma program (tf32_wgmma): the same functions as
+// pt_nonlocal_attention_bwd_dq and pt_nonlocal_attention_bwd_dkv in f32,
+// for C and Cv up to kGMaxWidth, with `scratch` (16-byte aligned) of
+// pt_nonlocal_attention_bwd_tf32_wgmma_scratch bytes for the operands'
+// TF32 halves. Any f32 tensors: the pre-pass reads them with plain loads.
+long long pt_nonlocal_attention_bwd_tf32_wgmma_scratch(int dkv, int b, int n,
+                                                       int nk, int c,
+                                                       int cv) {
+  return (long long)(dkv ? tw_scratch_bytes(true, b, nk, n, c, cv)
+                         : tw_scratch_bytes(false, b, n, nk, c, cv));
+}
+
+int pt_nonlocal_attention_bwd_dq_tf32_wgmma(const void* q, const void* k,
+                                            const void* v, const void* dout,
+                                            const void* lse,
+                                            const void* delta, void* dq,
+                                            void* scratch, int b, int n,
+                                            int nk, int c, int cv,
+                                            float scale, void* stream) {
+  if (bad_shape(b, n, nk, c, cv)) return (int)cudaErrorInvalidValue;
+  return run_tf32_wgmma(false, q, k, dout, v, lse, delta, dq, dq, scratch, b,
+                        n, nk, c, cv, scale,
+                        static_cast<cudaStream_t>(stream));
+}
+
+int pt_nonlocal_attention_bwd_dkv_tf32_wgmma(const void* q, const void* k,
+                                             const void* v, const void* dout,
+                                             const void* lse,
+                                             const void* delta, void* dk,
+                                             void* dv, void* scratch, int b,
+                                             int n, int nk, int c, int cv,
+                                             float scale, void* stream) {
+  if (bad_shape(b, n, nk, c, cv)) return (int)cudaErrorInvalidValue;
+  return run_tf32_wgmma(true, k, q, v, dout, lse, delta, dk, dv, scratch, b,
+                        nk, n, c, cv, scale,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 wgmma kernel: the same function as pt_nonlocal_attention_bwd_dkv,

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the warp-specialised kernels of the
 // non-local attention (K1-fwd, K1-dq and K1-dkv, bf16; their wide programs
-// of layer 3 too): the TMA tensor maps, the mbarrier ring, the wgmma
-// descriptors and products, and setmaxnreg.
+// of layer 3 too; the f32 K1-dq and K1-dkv on TF32 wgmma): the TMA tensor
+// maps, the mbarrier ring, the wgmma descriptors and products, and
+// setmaxnreg.
 //
 // Shared-memory tiles. Every operand tile is a stack of 64-channel chunks,
 // each chunk `rows` rows of 128 bytes (64 bf16), written by TMA with the
@@ -18,6 +19,14 @@
 //   = 1024, the step between 8-row groups along K; LBO = the chunk stride,
 //   the step between 64-column blocks along N; the k-th k16 step starts
 //   16 rows (2048 bytes) further down.
+//
+// f32 tiles (the TF32 products). A 128-byte row holds 32 f32, so a chunk
+// is 32 channels; TMA's 128-byte swizzle moves the 16-byte group j (4 f32)
+// of row r to group j ^ (r % 8), the same bytes as in bf16. TF32 wgmma
+// (m64nNk8) reads A and B from shared memory K-major only (no transpose
+// bit for 32-bit types), and its k8 step is 32 bytes, as bf16's k16 step:
+// the K-major descriptors above hold unchanged (SBO = 1024, the k-th step
+// 32 k bytes past the chunk).
 //
 // Accumulators. A warpgroup's m64nN f32 accumulator is N / 2 registers a
 // thread; warp w of the group holds rows 16 w .. 16 w + 15 in the
@@ -67,28 +76,44 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous bf16 tensor (b, rows, cols) as the 3-D tensor
-// (cols, rows, b), boxes of 64 columns x box_rows rows x 1, 128-byte
-// swizzle. A box past `rows` reads zeros and is clipped on store, so a
-// ragged tile never touches the next batch item; a box past `cols` (cols
-// no multiple of 64, K1-fwd's padded widths) likewise. cols % 8 == 0 (rows
-// of 16 bytes) and a 16-byte aligned base (the wrapper checks both).
-// False on failure.
-bool make_map(CUtensorMap* map, const void* base, int b, int rows, int cols,
-              int box_rows) {
+// The map of a contiguous tensor (b, rows, cols) of `esize`-byte elements
+// as the 3-D tensor (cols, rows, b), boxes of one 128-byte row (128 /
+// esize columns) x box_rows rows x 1, 128-byte swizzle. A box past `rows`
+// reads zeros and is clipped on store, so a ragged tile never touches the
+// next batch item; a box past `cols` likewise. Rows of a multiple of 16
+// bytes and a 16-byte aligned base (the callers check both). False on
+// failure.
+bool make_map_typed(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                    const void* base, int b, int rows, int cols,
+                    int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)b};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * esize,
+                                 (cuuint64_t)rows * cols * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / esize), (cuuint32_t)box_rows,
+                             1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor's map: boxes of 64 columns. cols % 8 == 0 (K1-fwd's widths
+// that are no multiple of 64 read zeros past cols).
+bool make_map(CUtensorMap* map, const void* base, int b, int rows, int cols,
+              int box_rows) {
+  return make_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, b,
+                        rows, cols, box_rows);
+}
+
+// An f32 tensor's map: boxes of 32 columns. cols % 4 == 0.
+bool make_map_f32(CUtensorMap* map, const void* base, int b, int rows,
+                  int cols, int box_rows) {
+  return make_map_typed(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, b,
+                        rows, cols, box_rows);
 }
 
 constexpr int kMaxDevices = 64;
@@ -237,6 +262,12 @@ __device__ __forceinline__ uint32_t swizzled_pair(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
 }
 
+// Byte offset of the f32 (row r, column c) of a swizzled 32-column f32
+// chunk, as TMA would have written it.
+__device__ __forceinline__ uint32_t swizzled_f32(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
+}
+
 // ------------------------------------------- device: named barriers, regs
 
 // Barrier `id` (1..15; 0 is __syncthreads') over `count` threads.
@@ -283,6 +314,12 @@ __device__ __forceinline__ void wgmma_commit() {
 // register while the tensor cores may still read it.
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups of the warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 template <int N>
@@ -440,6 +477,81 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[4][32],
         "+f"(d[3][28]), "+f"(d[3][29]), "+f"(d[3][30]), "+f"(d[3][31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(scale_d));
+}
+
+// ---------------------------------------------- device: TF32 wgmma (f32)
+
+#define WG_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_F16(d, i) \
+  WG_F4(d, i), WG_F4(d, i + 4), WG_F4(d, i + 8), WG_F4(d, i + 12)
+
+// d (64 x 32) = (scale_d ? d : 0) + a (64 x 8) b (8 x 32) in TF32 (the low
+// 13 bits of each f32 operand are not read), both in shared memory,
+// K-major
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1;\n"
+      "}\n"
+      : WG_F16(d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// the same, 64 x 64
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n"
+      "}\n"
+      : WG_F16(d, 0), WG_F16(d, 16)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// the same, 64 x 128
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+      "1;\n"
+      "}\n"
+      : WG_F16(d, 0), WG_F16(d, 16), WG_F16(d, 32), WG_F16(d, 48)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+#undef WG_F16
+#undef WG_F4
+
+// d += a b for one k8 step in f32 from three TF32 products, the small
+// terms first (lo hi, hi lo, hi hi; see mma_tf32x3): a_hi, a_lo and b_hi,
+// b_lo are the shared addresses of the step in the operands' TF32 halves,
+// each a K-major 128-byte-swizzled tile. `first`: d starts from zero.
+template <int R>
+__device__ __forceinline__ void wgmma_tf32x3(float (&d)[R], uint32_t a_hi,
+                                             uint32_t a_lo, uint32_t b_hi,
+                                             uint32_t b_lo, bool first) {
+  wgmma_tf32(d, wgmma_desc(a_lo, 16, 1024), wgmma_desc(b_hi, 16, 1024),
+             !first);
+  wgmma_tf32(d, wgmma_desc(a_hi, 16, 1024), wgmma_desc(b_lo, 16, 1024), 1);
+  wgmma_tf32(d, wgmma_desc(a_hi, 16, 1024), wgmma_desc(b_hi, 16, 1024), 1);
 }
 
 // ------------------------------------ device: the kernels' shared steps

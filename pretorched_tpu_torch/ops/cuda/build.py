@@ -129,6 +129,19 @@ def _load() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 5
                        + [ctypes.c_float] + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
+    # the tf32_wgmma entries: q, k, v, do, lse, delta, dq (dk, dv), then
+    # their scratch (pt_nonlocal_attention_bwd_tf32_wgmma_scratch bytes);
+    # b, n, nk, c, cv; scale; stream
+    for fn, outs in ((lib.pt_nonlocal_attention_bwd_dq_tf32_wgmma, 1),
+                     (lib.pt_nonlocal_attention_bwd_dkv_tf32_wgmma, 2)):
+        fn.argtypes = ([ctypes.c_void_p] * (7 + outs) + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    # dkv (0 or 1), b, n, nk, c, cv -> bytes
+    lib.pt_nonlocal_attention_bwd_tf32_wgmma_scratch.argtypes = (
+        [ctypes.c_int] * 6)
+    lib.pt_nonlocal_attention_bwd_tf32_wgmma_scratch.restype = (
+        ctypes.c_longlong)
     for fn in (lib.pt_nonlocal_attention_fwd,
                lib.pt_nonlocal_attention_fwd_wgmma,
                lib.pt_nonlocal_attention_fwd_wgmma_wide,

@@ -18,11 +18,13 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   zero fill, and of 64 for K1-dq and K1-dkv: Hopper's warp-specialised
   wgmma + TMA kernels; each op takes a second, wide program past 256,
   layer 3's 512),
-  ``'mma_sync'`` (every other bf16 shape), ``'tf32x3'`` (f32 K1-fwd,
-  K1-dq and K1-dkv with C and Cv up to ``TF32X3_MAX_WIDTH``: tensor cores,
-  three TF32 products per f32 product; the f32 forward of every model's
-  non-local block, SAGAN's and MNIST's too) or ``'scalar'`` (f32 past
-  512: gaussian mode's C = 1024). The
+  ``'mma_sync'`` (every other bf16 shape), ``'tf32_wgmma'`` (f32 K1-dq
+  and K1-dkv with C and Cv up to ``TF32X3_MAX_WIDTH``: TF32 wgmma + TMA
+  with three TF32 products per f32 product, on operands a pre-pass split
+  into their TF32 halves in scratch), ``'tf32x3'`` (f32 K1-fwd up to 512:
+  mma.sync with the same arithmetic; the f32 forward of every model's
+  non-local block, SAGAN's and MNIST's too; f32 K1-dq and K1-dkv by name)
+  or ``'scalar'`` (f32 past 512: gaussian mode's C = 1024). The
   kernel wrappers take CUDA tensors only and raise on anything they do not
   take; each counts its launches in ``.launches`` and per program in
   ``.by_kernel`` (``PROGRAMS``: the wide wgmma program as ``'wgmma_wide'``).
@@ -55,9 +57,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the widest f32 Cv of K1-fwd: the tf32x3 program keeps a block's (64, Cv)
 # O in registers, the scalar one in shared memory; both stop at 512
 MAX_CV_F32 = 512
-KERNELS = ('wgmma', 'mma_sync', 'tf32x3', 'scalar')
+KERNELS = ('wgmma', 'mma_sync', 'tf32_wgmma', 'tf32x3', 'scalar')
 # what ``.by_kernel`` counts: the kernels, wgmma's wide program apart
-PROGRAMS = ('wgmma', 'wgmma_wide', 'mma_sync', 'tf32x3', 'scalar')
+PROGRAMS = ('wgmma', 'wgmma_wide', 'mma_sync', 'tf32_wgmma', 'tf32x3',
+            'scalar')
 OPS = ('fwd', 'dq', 'dkv')
 # The widest C and Cv the wgmma kernels take (64-channel TMA boxes). A
 # warpgroup holds a (64, 256) f32 accumulator in 128 registers a thread:
@@ -83,23 +86,27 @@ def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
     if dtype not in _DTYPE_CODES:
         raise ValueError(f'dtype {dtype} not supported (float32, bfloat16)')
     if dtype == torch.float32:
-        return 'tf32x3' if max(c, cv) <= TF32X3_MAX_WIDTH else 'scalar'
+        if max(c, cv) > TF32X3_MAX_WIDTH:
+            return 'scalar'
+        return 'tf32x3' if op == 'fwd' else 'tf32_wgmma'
     step = WGMMA_WIDTH_STEP[op]
     fits = all(w % step == 0 and w <= WGMMA_MAX_WIDTH for w in (c, cv))
     return 'wgmma' if fits else 'mma_sync'
 
 
 # (kernel, the dispatch's choice) pairs a private launch may take: the
-# generic program of each dtype takes its every shape, so a launch of the
-# program that replaced it can be held against it
-_OLDER = {('mma_sync', 'wgmma'), ('scalar', 'tf32x3')}
+# generic program of each dtype takes its every shape, and the f32
+# backward's mma.sync program every shape of its TF32-wgmma successor, so
+# a launch of the program that replaced one can be held against it
+_OLDER = {('mma_sync', 'wgmma'), ('scalar', 'tf32x3'),
+          ('tf32x3', 'tf32_wgmma'), ('scalar', 'tf32_wgmma')}
 
 
 def _check_kernel(dtype, c: int, cv: int, kernel: str, op: str):
     """``kernel`` must be the dispatch's choice for ``op``, or mma_sync
-    where that is wgmma, scalar where it is tf32x3: the mma.sync and scalar
-    kernels take every shape of their dtype, so a wgmma or tf32x3 launch
-    can be held against the kernel it replaced."""
+    where that is wgmma, scalar where it is tf32x3, tf32x3 or scalar where
+    it is tf32_wgmma: the older kernels take every shape of their
+    successors, so a launch can be held against the kernel it replaced."""
     chosen = attention_kernel(dtype, c, cv, op)
     if kernel != chosen and (kernel, chosen) not in _OLDER:
         raise ValueError(f'{op} kernel {kernel!r} does not take {dtype} with '
@@ -198,6 +205,33 @@ def _check_tma(*tensors):
                              f'{t.data_ptr():#x}')
 
 
+def tf32_wgmma_scratch_bytes(dkv: bool, b: int, n: int, nk: int, c: int,
+                             cv: int) -> int:
+    """Bytes of a tf32_wgmma launch's scratch, as the C entry
+    ``pt_nonlocal_attention_bwd_tf32_wgmma_scratch`` lays it out: each
+    operand of s and dp split into its TF32 halves, (2B, rows, channels
+    padded to 64), and the column operands of the accumulating products
+    transposed, (2B, channels padded to 64, streamed axis padded to 4);
+    each region 256-byte aligned."""
+    rows, cols = (nk, n) if dkv else (n, nk)
+    cp, cvp = -(-c // 64) * 64, -(-cv // 64) * 64
+    colp = -(-cols // 4) * 4
+
+    def region(r, w):
+        return -(-2 * b * r * w * 4 // 256) * 256
+
+    return (region(rows, cp) + region(cols, cp) + region(rows, cvp)
+            + region(cols, cvp) + region(cp, colp)
+            + (region(cvp, colp) if dkv else 0))
+
+
+def _tf32_wgmma_scratch(q, v, nk, dkv):
+    """The scratch of a tf32_wgmma launch, in f32 words."""
+    b, n, c = q.shape
+    nbytes = tf32_wgmma_scratch_bytes(dkv, b, n, nk, c, v.shape[2])
+    return torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
+
+
 def _count(fn, program):
     fn.launches += 1
     fn.by_kernel[program] += 1
@@ -287,7 +321,11 @@ def _launch_dq(q, k, v, do, lse, delta, scale, kernel):
     program = _program(kernel, c, cv)
     if kernel == 'wgmma':
         _check_tma(q, k, v, do, dq)
-    if kernel in ('wgmma', 'tf32x3'):
+    if kernel == 'tf32_wgmma':
+        _launch('pt_nonlocal_attention_bwd_dq_tf32_wgmma', q, v,
+                (q, k, v, do, lse, delta, dq,
+                 _tf32_wgmma_scratch(q, v, k.shape[1], False)), scale)
+    elif kernel in ('wgmma', 'tf32x3'):
         _launch(f'pt_nonlocal_attention_bwd_dq_{program}', q, v,
                 (q, k, v, do, lse, delta, dq), scale)
     else:
@@ -317,7 +355,11 @@ def _launch_dkv(q, k, v, do, lse, delta, scale, kernel):
     program = _program(kernel, c, cv)
     if kernel == 'wgmma':
         _check_tma(q, k, v, do, dk, dv)
-    if kernel in ('wgmma', 'tf32x3'):
+    if kernel == 'tf32_wgmma':
+        _launch('pt_nonlocal_attention_bwd_dkv_tf32_wgmma', q, v,
+                (q, k, v, do, lse, delta, dk, dv,
+                 _tf32_wgmma_scratch(q, v, k.shape[1], True)), scale)
+    elif kernel in ('wgmma', 'tf32x3'):
         _launch(f'pt_nonlocal_attention_bwd_dkv_{program}', q, v,
                 (q, k, v, do, lse, delta, dk, dv), scale)
     else:

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (the non-local attention forward K1-fwd, its
 backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16 (the
 wide programs of all three at layer 3's C = Cv = 512), K1-fwd, K1-dq and
-K1-dkv in f32 on tf32x3 up to C, Cv = 512, and
+K1-dkv in f32 up to C, Cv = 512 (K1-fwd on tf32x3, K1-dq and K1-dkv on
+TF32 wgmma, tf32_wgmma, held to the tf32x3 programs too), and
 the fused bottleneck tail K2) against their plain PyTorch versions, on a
 card; K1-fwd and K2 through their registered operators, and
 ``torch.export`` on the card recording them; and each factory of the rest
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from pretorched_tpu_torch.ops import fused_block as fb
+from pretorched_tpu_torch.ops.cuda import build
 from pretorched_tpu_torch.ops.cuda import fused_block as fb_cuda
 from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
 
@@ -128,8 +130,8 @@ def test_backward_kernels_match_plain(cuda, dtype, tol, b, n, nk, c, cv,
                                       scale):
     """dq, dk, dv of K1-dq and K1-dkv against the plain backward in f32 on
     the same inputs, out and lse; max error relative to the largest
-    gradient. f32: tf32x3 (three TF32 products per f32 product; scalar FMAs
-    at gaussian mode's C = 1024), sums in another order. bf16: ds and p are
+    gradient. f32: tf32_wgmma (three TF32 products per f32 product; scalar
+    FMAs at gaussian mode's C = 1024), sums in another order. bf16: ds and p are
     rounded to bf16 for the products, and the outputs are bf16."""
     q, k, v, do = _bwd_inputs(b, n, nk, c, cv, dtype, cuda)
     out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v, scale)
@@ -187,15 +189,15 @@ def test_launch_counters_advance_once_per_backward(cuda):
 @pytest.mark.parametrize('b,n,nk,c,cv,scale', CASES)
 def test_f32_backward_programs_match_plain_and_scalar(cuda, b, n, nk, c, cv,
                                                       scale):
-    """f32 K1-dq and K1-dkv on the program the dispatch picks (tf32x3 up to
-    C, Cv = 512, scalar past it), one launch each counted under it; against
-    the plain backward at 1e-4 of the largest gradient, against the scalar
-    program at the same inputs within the same, and bitwise the same on a
-    second run (no atomics)."""
+    """f32 K1-dq and K1-dkv on the program the dispatch picks (tf32_wgmma
+    up to C, Cv = 512, scalar past it), one launch each counted under it;
+    against the plain backward at 1e-4 of the largest gradient, against the
+    scalar program at the same inputs within the same, and bitwise the same
+    on a second run (no atomics)."""
     q, k, v, do = _bwd_inputs(b, n, nk, c, cv, torch.float32, cuda)
     out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v, scale)
     delta = (do * out).sum(-1)
-    program = 'tf32x3' if max(c, cv) <= 512 else 'scalar'
+    program = 'tf32_wgmma' if max(c, cv) <= 512 else 'scalar'
     for op in ('dq', 'dkv'):
         assert na.attention_kernel(torch.float32, c, cv, op) == program
     fns = (na.nonlocal_attention_bwd_dq_cuda, na.nonlocal_attention_bwd_dkv_cuda)
@@ -252,8 +254,8 @@ def test_tf32x3_reads_lse_per_row_and_sizes_by_cv(cuda, b, n, nk, c, cv):
 @pytest.mark.gpu
 def test_f32_layer_shapes_take_tf32x3(cuda):
     """The non-local model's layer-2 and layer-3 shapes in f32 (B = 1):
-    K1-fwd, K1-dq and K1-dkv on tf32x3, one launch each through the
-    autograd Function."""
+    K1-fwd on tf32x3, K1-dq and K1-dkv on tf32_wgmma, one launch each
+    through the autograd Function."""
     fns = (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
            na.nonlocal_attention_bwd_dkv_cuda)
     for n, c in ((6272, 256), (784, 512)):
@@ -263,10 +265,63 @@ def test_f32_layer_shapes_take_tf32x3(cuda):
         na.auto_nonlocal_attention(q, k, v).backward(do)
         torch.cuda.synchronize()
         for fn, was, kernel in zip(fns, before,
-                                   ('tf32x3', 'tf32x3', 'tf32x3')):
+                                   ('tf32x3', 'tf32_wgmma', 'tf32_wgmma')):
             assert {key: fn.by_kernel[key] - was[key]
                     for key in fn.by_kernel} == {
                 key: int(key == kernel) for key in na.PROGRAMS}
+
+
+# tf32_wgmma at small train-like shapes: B = 3 with rows of each item on
+# another scale, Cv above and below C, N no multiple of 64, N != Nk, the
+# widths of layer 2 (256) and layer 3 (512, two column chunks a part), and
+# widths no multiple of 64 (the pre-pass pads them)
+TF32_WGMMA_CASES = [
+    (3, 200, 150, 64, 192, 1.0), (3, 150, 200, 192, 64, 1.0),
+    (3, 333, 65, 40, 24, 0.5), (2, 300, 300, 256, 256, 1.0),
+    (2, 196, 100, 512, 512, 1.0), (2, 130, 257, 512, 128, 1.0),
+    (1, 97, 64, 320, 96, 1.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv,scale', TF32_WGMMA_CASES)
+def test_tf32_wgmma_matches_plain_and_tf32x3(cuda, b, n, nk, c, cv, scale):
+    """f32 K1-dq and K1-dkv on tf32_wgmma, one launch each counted under
+    it: each batch item's dq, dk, dv within 1e-4 of the plain backward's
+    largest (a wrong item's lse or delta would move them), within the same
+    of the mma.sync tf32x3 program at the same inputs, bitwise the same on
+    a second run (no atomics); its scratch as large as the C entry lays
+    it out."""
+    q, k, v, do = _bwd_inputs(b, n, nk, c, cv, torch.float32, cuda, seed=4)
+    q = q * torch.arange(1, b + 1, device=cuda, dtype=q.dtype)[:, None, None]
+    out, lse = na.nonlocal_attention_fwd_lse_reference(q, k, v, scale)
+    delta = (do * out).sum(-1)
+    lib = build.load_library()
+    for dkv in (False, True):
+        assert na.tf32_wgmma_scratch_bytes(dkv, b, n, nk, c, cv) == (
+            lib.pt_nonlocal_attention_bwd_tf32_wgmma_scratch(
+                int(dkv), b, n, nk, c, cv))
+    fns = (na.nonlocal_attention_bwd_dq_cuda, na.nonlocal_attention_bwd_dkv_cuda)
+    before = [dict(fn.by_kernel) for fn in fns]
+    got = (na.nonlocal_attention_bwd_dq_cuda(q, k, v, do, lse, delta, scale),
+           *na.nonlocal_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, scale))
+    torch.cuda.synchronize()
+    for fn, was in zip(fns, before):
+        assert {p: fn.by_kernel[p] - was[p] for p in na.PROGRAMS} == {
+            p: int(p == 'tf32_wgmma') for p in na.PROGRAMS}
+    want = na.nonlocal_attention_bwd_reference(q, k, v, out, lse, do, scale)
+    older = (na._launch_dq(q, k, v, do, lse, delta, scale, 'tf32x3'),
+             *na._launch_dkv(q, k, v, do, lse, delta, scale, 'tf32x3'))
+    again = (na._launch_dq(q, k, v, do, lse, delta, scale, 'tf32_wgmma'),
+             *na._launch_dkv(q, k, v, do, lse, delta, scale, 'tf32_wgmma'))
+    torch.cuda.synchronize()
+    for g, w, old, rep, x, name in zip(got, want, older, again, (q, k, v),
+                                       ('dq', 'dk', 'dv')):
+        assert g.shape == x.shape and g.dtype == torch.float32, name
+        assert torch.equal(g, rep), name
+        assert _rel_err(g, old) <= 1e-4, (name, _rel_err(g, old))
+        for i in range(b):
+            assert _rel_err(g[i], w[i]) <= 1e-4, (name, i, _rel_err(g[i], w[i]))
 
 
 # f32 K1-fwd beyond CASES: small train-like shapes (layer 2 at 4 frames,
@@ -1103,7 +1158,7 @@ def test_attention_operator_launches_the_kernel(cuda):
     torch.cuda.synchronize()
     after = na.nonlocal_attention_cuda.by_kernel
     assert {p: after[p] - before[p] for p in after} == {
-        'wgmma': 1, 'wgmma_wide': 0, 'mma_sync': 0, 'tf32x3': 0, 'scalar': 0}
+        p: int(p == 'wgmma') for p in na.PROGRAMS}
     want, want_lse = na.nonlocal_attention_fwd_lse_reference(
         q.float(), k.float(), v.float())
     assert _rel_to_max(out, want) <= 2e-2

@@ -97,7 +97,9 @@ def test_plain_runs_f32_under_autocast():
 # 32, SAGAN's 48 / 192 and 96 / 384, the golden lock's 16 / 64) take wgmma
 # in K1-fwd, whose programs pad them, and mma.sync in the backward;
 # gaussian mode (1024), past 512 and channels that are no multiple of 8
-# stay on mma.sync; f32 takes tf32x3 in all three up to 512
+# stay on mma.sync; f32 takes tf32x3 in K1-fwd and tf32_wgmma in K1-dq and
+# K1-dkv up to 512
+F32 = 'tf32x3,tf32_wgmma,tf32_wgmma'
 DISPATCH = [
     (torch.bfloat16, 256, 256, 'wgmma'),
     (torch.bfloat16, 64, 256, 'wgmma'),
@@ -109,14 +111,14 @@ DISPATCH = [
     (torch.bfloat16, 256, 320, 'wgmma'),
     (torch.bfloat16, 32, 32, 'wgmma,mma_sync,mma_sync'),
     (torch.bfloat16, 96, 64, 'wgmma,mma_sync,mma_sync'),
-    (torch.float32, 256, 256, 'tf32x3'),
-    (torch.float32, 32, 24, 'tf32x3'),
+    (torch.float32, 256, 256, F32),
+    (torch.float32, 32, 24, F32),
     (torch.bfloat16, 64, 512, 'wgmma'),
     (torch.bfloat16, 512, 64, 'wgmma'),
     (torch.bfloat16, 384, 320, 'wgmma'),
     (torch.bfloat16, 576, 512, 'mma_sync'),
     (torch.bfloat16, 512, 480, 'wgmma,mma_sync,mma_sync'),
-    (torch.float32, 512, 512, 'tf32x3'),
+    (torch.float32, 512, 512, F32),
     (torch.bfloat16, 96, 384, 'wgmma,mma_sync,mma_sync'),
     (torch.bfloat16, 48, 192, 'wgmma,mma_sync,mma_sync'),
     (torch.bfloat16, 16, 64, 'wgmma,mma_sync,mma_sync'),
@@ -177,9 +179,9 @@ def test_dispatch_takes_mma_sync_by_name_and_refuses_the_rest():
 def test_fwd_and_dkv_dispatch_route_each_shape(monkeypatch, dtype, c, cv,
                                                kernel):
     """K1-fwd and K1-dkv call the C entry of the kernel the dispatch picks:
-    wgmma's narrow entry up to 256, its wide entry past it, tf32x3's (no
-    dtype code in these), the mma.sync / scalar entry with its dtype code
-    otherwise; each launch
+    wgmma's narrow entry up to 256, its wide entry past it, tf32x3's and
+    tf32_wgmma's (no dtype code in these), the mma.sync / scalar entry with
+    its dtype code otherwise; each launch
     is counted under its program (the wide one as ``wgmma_wide``). The C
     entries are replaced by a recorder, so no card is needed."""
     entries = []
@@ -203,7 +205,7 @@ def test_fwd_and_dkv_dispatch_route_each_shape(monkeypatch, dtype, c, cv,
         else:
             dk, dv = na._launch_dkv(q, q, v, v, stats, stats, 1.0, chosen)
             assert dk.shape == q.shape and dv.shape == v.shape
-        if chosen in ('wgmma', 'tf32x3'):
+        if chosen in ('wgmma', 'tf32x3', 'tf32_wgmma'):
             assert entries == [(f'{name}_{program}', 1.0)], op
         else:
             assert entries == [(name, na._DTYPE_CODES[dtype])], op
@@ -219,21 +221,27 @@ def test_launch_counters_are_kept_per_kernel():
 
 # f32 widths of K1-dq and K1-dkv: the models' (MNIST's 16 and 32, SAGAN's
 # 48 / 192 and 96 / 384, layers 2 and 3) and the card tests' odd ones take
-# tf32x3 up to 512; gaussian mode's C = 1024 and anything wider stay scalar
+# tf32_wgmma up to 512 (K1-fwd tf32x3); gaussian mode's C = 1024 and
+# anything wider stay scalar. Each case keeps the id of the program it was
+# first written for.
 F32_BACKWARD = [
-    (16, 16, 'tf32x3'), (32, 32, 'tf32x3'), (48, 192, 'tf32x3'),
-    (96, 384, 'tf32x3'), (256, 256, 'tf32x3'), (512, 512, 'tf32x3'),
-    (8, 24, 'tf32x3'), (20, 150, 'tf32x3'), (392, 260, 'tf32x3'),
-    (1, 512, 'tf32x3'), (1024, 512, 'scalar'), (512, 513, 'scalar'),
+    (16, 16, 'tf32_wgmma'), (32, 32, 'tf32_wgmma'), (48, 192, 'tf32_wgmma'),
+    (96, 384, 'tf32_wgmma'), (256, 256, 'tf32_wgmma'),
+    (512, 512, 'tf32_wgmma'), (8, 24, 'tf32_wgmma'), (20, 150, 'tf32_wgmma'),
+    (392, 260, 'tf32_wgmma'), (1, 512, 'tf32_wgmma'),
+    (1024, 512, 'scalar'), (512, 513, 'scalar'),
 ]
+F32_BACKWARD_IDS = [f'{c}-{cv}-' + ('scalar' if k == 'scalar' else 'tf32x3')
+                    for c, cv, k in F32_BACKWARD]
 
 
-@pytest.mark.parametrize('c,cv,kernel', F32_BACKWARD)
+@pytest.mark.parametrize('c,cv,kernel', F32_BACKWARD, ids=F32_BACKWARD_IDS)
 def test_f32_backward_dispatch_by_width(c, cv, kernel):
-    """f32 K1-dq and K1-dkv take tf32x3 wherever C and Cv are at most 512,
-    else scalar; f32 K1-fwd takes the same program at every width."""
+    """f32 K1-dq and K1-dkv take tf32_wgmma wherever C and Cv are at most
+    512, else scalar; f32 K1-fwd takes tf32x3 there (scalar past it)."""
     for op in na.OPS:
-        assert na.attention_kernel(torch.float32, c, cv, op) == kernel, op
+        want = 'tf32x3' if op == 'fwd' and kernel != 'scalar' else kernel
+        assert na.attention_kernel(torch.float32, c, cv, op) == want, op
 
 
 def test_f32_backward_takes_scalar_by_name_where_tf32x3_is_picked():
@@ -251,20 +259,67 @@ def test_f32_backward_takes_scalar_by_name_where_tf32x3_is_picked():
             na._check_kernel(torch.float32, 256, 256, 'mma_sync', op)
 
 
+@pytest.mark.parametrize('c,cv', [(256, 512), (512, 512), (20, 150)])
+def test_f32_backward_takes_the_older_programs_by_name(c, cv):
+    """Where the dispatch picks tf32_wgmma for K1-dq and K1-dkv, the
+    mma.sync tf32x3 program and the scalar one are still taken by name
+    (the A/B against the programs it replaced); tf32_wgmma is taken for
+    neither K1-fwd nor bf16 nor past 512, and no bf16 program for f32."""
+    for op in ('dq', 'dkv'):
+        assert na.attention_kernel(torch.float32, c, cv, op) == 'tf32_wgmma'
+        for kernel in ('tf32_wgmma', 'tf32x3', 'scalar'):
+            na._check_kernel(torch.float32, c, cv, kernel, op)
+        for kernel in ('wgmma', 'mma_sync'):
+            with pytest.raises(ValueError, match=f'{op} kernel .* does not'):
+                na._check_kernel(torch.float32, c, cv, kernel, op)
+        with pytest.raises(ValueError, match='does not take'):
+            na._check_kernel(torch.float32, 1024, cv, 'tf32_wgmma', op)
+        with pytest.raises(ValueError, match='does not take'):
+            na._check_kernel(torch.bfloat16, c, cv, 'tf32_wgmma', op)
+    with pytest.raises(ValueError, match='fwd kernel .* does not take'):
+        na._check_kernel(torch.float32, c, cv, 'tf32_wgmma', 'fwd')
+
+
+@pytest.mark.parametrize('dkv,b,n,nk,c,cv', [
+    (False, 8, 6272, 6272, 256, 256), (True, 8, 6272, 6272, 256, 256),
+    (True, 8, 784, 784, 512, 512), (False, 3, 130, 77, 40, 72),
+    (True, 3, 130, 77, 40, 72)])
+def test_tf32_wgmma_scratch_holds_the_split_operands(dkv, b, n, nk, c, cv):
+    """The scratch of a tf32_wgmma launch (the C entry's layout, held
+    equal to it on the card) holds each operand of s and dp as its two TF32
+    halves, channels padded to 64, and the column operands of the
+    accumulating products transposed, the streamed axis padded to 4: at
+    layer 2, 10 (K1-dq) and 12 (K1-dkv) f32 copies of a 51 MB operand."""
+    got = na.tf32_wgmma_scratch_bytes(dkv, b, n, nk, c, cv)
+    pad = lambda x, m: -(-x // m) * m   # noqa: E731
+    rows, cols = (nk, n) if dkv else (n, nk)
+    floats = 2 * b * (rows * pad(c, 64) + cols * pad(c, 64)
+                      + rows * pad(cv, 64) + cols * pad(cv, 64)
+                      + pad(c, 64) * pad(cols, 4)
+                      + (pad(cv, 64) * pad(cols, 4) if dkv else 0))
+    assert 4 * floats <= got < 4 * floats + 6 * 256
+    if (n, c, cv) == (6272, 256, 256):
+        assert got == (12 if dkv else 10) * 4 * b * n * c
+
+
 @pytest.mark.parametrize('c,cv,kernel', [(256, 256, 'tf32x3'),
                                          (1024, 512, 'scalar')])
 def test_f32_backward_routes_to_its_entries(monkeypatch, c, cv, kernel):
-    """K1-dq and K1-dkv in f32 call tf32x3's entries (no dtype code) where
-    the dispatch picks it and the scalar entries (dtype code 0) otherwise,
-    also when scalar is asked for by name at a tf32x3 shape; each launch is
-    counted under its program. The C entries are replaced by a recorder."""
+    """K1-dq and K1-dkv in f32 call tf32_wgmma's entries (no dtype code,
+    a scratch tensor after the outputs) where the dispatch picks it,
+    tf32x3's by name there and the scalar entries (dtype code 0) otherwise,
+    also when scalar is asked for by name at a tf32_wgmma shape; each
+    launch is counted under its program. The C entries are replaced by a
+    recorder."""
     entries = []
     monkeypatch.setattr(na, '_launch',
                         lambda entry, *args: entries.append((entry, args[-1])))
     q = torch.zeros(1, 8, c)
     v = torch.zeros(1, 8, cv)
     stats = torch.zeros(1, 8)
-    for program in (kernel, 'scalar'):
+    programs = (kernel, 'scalar') + (('tf32_wgmma',) if kernel == 'tf32x3'
+                                     else ())
+    for program in programs:
         for fn, launch, name in (
                 (na.nonlocal_attention_bwd_dq_cuda, na._launch_dq,
                  'pt_nonlocal_attention_bwd_dq'),
@@ -277,8 +332,8 @@ def test_f32_backward_routes_to_its_entries(monkeypatch, c, cv, kernel):
                                       else (outs,))] == (
                 [q.shape] if fn is na.nonlocal_attention_bwd_dq_cuda
                 else [q.shape, v.shape])
-            assert entries == ([(f'{name}_tf32x3', 1.0)]
-                               if program == 'tf32x3' else [(name, 0)])
+            assert entries == ([(f'{name}_{program}', 1.0)]
+                               if program != 'scalar' else [(name, 0)])
             assert {k: fn.by_kernel[k] - before[k] for k in na.PROGRAMS} == {
                 k: int(k == program) for k in na.PROGRAMS}
 

@@ -115,9 +115,10 @@ def test_dq_dispatch_routes_each_shape(monkeypatch, dtype, c, cv, kernel):
     """K1-dq takes the kernel ``attention_kernel`` picks for it: the wgmma
     entry (no dtype code) for bf16 with C and Cv multiples of 64 up to 256,
     its wide entry past 256 up to 512 (layer 3's 512), counted as
-    ``wgmma_wide``; the tf32x3 entry (no dtype code) for f32 up to 512; the
-    generic entry with its dtype code otherwise. The C entry is replaced by
-    a recorder, so no card is needed."""
+    ``wgmma_wide``; the tf32_wgmma entry (no dtype code, a scratch tensor
+    after dq) for f32 up to 512; the generic entry with its dtype code
+    otherwise. The C entry is replaced by a recorder, so no card is
+    needed."""
     kernel = kernels_by_op(kernel)['dq']
     entries = []
     monkeypatch.setattr(na, '_launch',
@@ -132,7 +133,7 @@ def test_dq_dispatch_routes_each_shape(monkeypatch, dtype, c, cv, kernel):
     assert dq.shape == q.shape and dq.dtype == dtype
     program = ('wgmma_wide' if kernel == 'wgmma' and max(c, cv) > 256
                else kernel)
-    if kernel in ('wgmma', 'tf32x3'):
+    if kernel in ('wgmma', 'tf32_wgmma'):
         assert entries == [(f'pt_nonlocal_attention_bwd_dq_{program}', 1.0)]
     else:
         assert entries == [('pt_nonlocal_attention_bwd_dq',

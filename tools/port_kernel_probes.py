@@ -4,7 +4,7 @@ K1-dq and K1-dkv and f32 K1-fwd kernels, on one CUDA card (``pretorched_tpu_torc
 JAX).
 
     python3 tools/port_kernel_probes.py [k2] [dq] [lr] [wide] [tf32]
-        [tf32_timing] [tf32_loads] [fwd32] [host]
+        [tf32_timing] [tf32_loads] [fwd32] [tw32] [host]
 
 * ``k2``: builds variants of ``csrc/fused_block.cu`` (the source with one
   textual change each) into their own libraries and times the TMA kernel
@@ -66,6 +66,33 @@ JAX).
   f32 forward and to an f64 one (max |out - ref| and |lse - ref|), with
   its registers a thread at every instantiation and the SASS opcode counts
   at 16 tiles a warp (layer 2).
+* ``tw32``: the f32 K1-dq and K1-dkv on TF32 wgmma + TMA (tf32_wgmma,
+  ``csrc/nonlocal_attention_bwd.cu``) at the train shapes of layers 2
+  and 3, ``sub_sample``, the seq axis and the narrow f32 widths
+  (SAGAN's, the MNIST net's): ``base`` (score stages issued eight at a
+  time, 6 ring slots, one X buffer, a tile's first m chunk released as
+  soon as its products are done) against ``pairs`` and ``u4`` (two or
+  four at a time: the tensor cores drain more often), ``x2_stages5``
+  (two X buffers, 5 slots), ``whole_m`` (the m slots released after the
+  whole X m product), ``first_build`` (those three together: the order
+  of this program's first build), ``cross`` (each stage's partial and
+  each tile's X m product left pending across loop iterations, so the
+  tensor cores never drain: ptxas serializes the wgmmas instead),
+  ``rows_evict_last`` (the rows' copies marked evict-last in L2) and
+  ``truncating`` (each output's sum accumulated on the tensor cores over
+  the whole streamed axis, no per-tile partial joined by an f32 add),
+  each held to the plain f32 backward and to an f64 one; and, for their
+  times alone (their outputs are wrong), ``prep_only`` (the pre-pass
+  that splits and transposes the operands, alone: what splitting in
+  shared memory could save at most), ``no_prep`` (the main kernel alone,
+  on the scratch as it was), ``shared_rows`` (every block copies the
+  same rows' operands, which then stay in L2), ``one_product`` (hi hi
+  alone: one TF32 product per f32 product), ``no_lo_loads`` (the lo
+  halves not copied from L2: half the bytes, as operands split in shared
+  memory would move), ``no_scores`` (no product of s or dp issued) and
+  ``no_x_m`` (no X m product issued): the phases' shares; each timed in
+  turns with the mma.sync tf32x3 program beside them, with its
+  registers.
 * ``host``: the host time of one K1-fwd wrapper call at layer 3's widths
   (B = 1 and 8), step by step (checks, allocation, device context and
   stream, pointers, the C entry with its four tensor maps and launch, the
@@ -279,6 +306,169 @@ FWD32_SHAPES = {'layer2': (8, 6272, 6272, 256, 256),
                 'layer3': (8, 784, 784, 512, 512),
                 'biggan256': (32, 4096, 1024, 96, 384),
                 'biggan128': (32, 4096, 1024, 48, 192)}
+# the f32 K1-dq and K1-dkv on TF32 wgmma (tf32_wgmma) against: the score
+# stages issued by pairs or fours (not eights), 5 ring slots with two X
+# buffers, each tile's m slots released after the whole X m product, the
+# first build's order (all three), the stages and the X m product left
+# pending across loop iterations, each output summed on the tensor cores;
+# and, for their times alone, the pre-pass alone, the main kernel alone,
+# one product, no lo loads
+TW_ROWS = """          tma_load(slot, am, full, ch, r0, 2 * bi);
+          tma_load(slot + 8192, am, full, ch, r0, 2 * bi + 1);
+"""
+TW_PRODUCER = (TW_ROWS + """          tma_load(slot + 16384, bm, full, ch, c0, 2 * bi);
+          tma_load(slot + 24576, bm, full, ch, c0, 2 * bi + 1);""",
+               """          tma_load(slot, am, full, ch, r0, 2 * bi);
+          tma_load(slot + 16384, bm, full, ch, c0, 2 * bi);""")
+TW_TMA = "// src -> box (c0.., r0.., bi); rows past the tensor's end are not written."
+TW_EVICT_LAST = r"""// The L2 eviction policy evict_last (createpolicy): lines so loaded stay
+// in L2 ahead of the others.
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// tma_load with an L2 eviction policy.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int r0,
+                                         int bi, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c0), "r"(r0), "r"(bi), "l"(policy)
+      : "memory");
+}
+
+"""
+TW_THREE = """  wgmma_tf32(d, wgmma_desc(a_lo, 16, 1024), wgmma_desc(b_hi, 16, 1024),
+             !first);
+  wgmma_tf32(d, wgmma_desc(a_hi, 16, 1024), wgmma_desc(b_lo, 16, 1024), 1);
+  wgmma_tf32(d, wgmma_desc(a_hi, 16, 1024), wgmma_desc(b_hi, 16, 1024), 1);"""
+TW_ONE = """  wgmma_tf32(d, wgmma_desc(a_hi, 16, 1024), wgmma_desc(b_hi, 16, 1024),
+             !first);"""
+TW_PAIRS = ('kGUnroll = 8;', 'kGUnroll = 2;')
+TW_X2 = [('kGStages = 6;', 'kGStages = 5;'), ('kGXBufs = 1;', 'kGXBufs = 2;')]
+TW_PREP = """      (err = launch_split(static_cast<const float*>(cb_src), cb,
+                          dkv ? m1 : nullptr, b, cols, cv, cvp, stream)))
+    return err;
+"""
+TW_ACC = """          wgmma_tf32x3(pa, xs + i * 8192 + 32 * kk,
+                       xs + 16384 + i * 8192 + 32 * kk, m + 32 * kk,
+                       m + kMBytes + 32 * kk, (i | kk) == 0);"""
+TW_JOIN = """      reg_fence(pa);
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e) acc[e] += pa[e];
+      ring->release(st + 2 + wg);"""
+TW_WHOLE_M = ("""      wgmma_wait<1>();
+      ring->release(st + wg);
+      wgmma_wait<0>();""", """      wgmma_wait<0>();
+      ring->release(st + wg);""")
+TW_CROSS = [("""    int st = 0;   // the next ring stage
+""", """    int st = 0;   // the next ring stage
+    int m_own = 0;    // the previous tile's first m stage of this consumer
+"""), ("""      const int n = p.nc + n_dp;
+      int js = 0;
+      for (; js + kGUnroll <= n; js += kGUnroll)
+        tw_stages<kGUnroll>(s, dp, p0, p1, ring, ring_s, st, js, p.nc, b_off);
+      for (; js < n; js += 2)
+        tw_stages<2>(s, dp, p0, p1, ring, ring_s, st, js, p.nc, b_off);
+      st += n;
+""", """      const int n = p.nc + n_dp;
+      tw_stage(p0, ring, ring_s, st, b_off);
+      wgmma_wait<1>();
+      reg_fence(pa);
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e) acc[e] += pa[e];
+      if (t > 0) {
+        ring->release(m_own);
+        ring->release(m_own + 2);
+      }
+      for (int j = 1; j < n - 1; j += 2) {
+        tw_stage(p1, ring, ring_s, st + j, b_off);
+        wgmma_wait<1>();
+        tw_join(s, dp, p0, j - 1 < p.nc);
+        ring->release(st + j - 1);
+        tw_stage(p0, ring, ring_s, st + j + 1, b_off);
+        wgmma_wait<1>();
+        tw_join(s, dp, p1, j < p.nc);
+        ring->release(st + j);
+      }
+      tw_stage(p1, ring, ring_s, st + n - 1, b_off);
+      wgmma_wait<1>();
+      tw_join(s, dp, p0, n - 2 < p.nc);
+      ring->release(st + n - 2);
+      wgmma_wait<0>();
+      tw_join(s, dp, p1, n - 1 < p.nc);
+      ring->release(st + n - 1);
+      st += n;
+"""), ("""      wgmma_wait<1>();
+      ring->release(st + wg);
+      wgmma_wait<0>();
+      reg_fence(pa);
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e) acc[e] += pa[e];
+      ring->release(st + 2 + wg);
+      st += 4;
+    }
+""", """      m_own = st + wg;
+      st += 4;
+    }
+    wgmma_wait<0>();
+    reg_fence(pa);
+#pragma unroll
+    for (int e = 0; e < WN / 2; ++e) acc[e] += pa[e];
+    ring->release(m_own);
+    ring->release(m_own + 2);
+""")]
+TW_VARIANTS = {
+    'base': [],
+    'pairs': [TW_PAIRS],
+    'u4': [('kGUnroll = 8;', 'kGUnroll = 4;')],
+    'x2_stages5': TW_X2,
+    'whole_m': [TW_WHOLE_M],
+    'first_build': [TW_PAIRS, *TW_X2, TW_WHOLE_M],
+    'cross': TW_CROSS,
+    'truncating': [(TW_ACC, TW_ACC.replace('(pa,', '(acc,')
+                    .replace('(i | kk) == 0', 'false')),
+                   (TW_JOIN, TW_JOIN.replace(
+                       'reg_fence(pa);\n#pragma unroll\n      for (int e = 0; '
+                       'e < WN / 2; ++e) acc[e] += pa[e];', 'reg_fence(acc);'))],
+    'prep_only': [(TW_PREP, TW_PREP + '  return 0;\n')],
+    'no_prep': [('  int err;\n  if ((err = launch_split(', '  int err;\n'
+                 '  if (false && (err = launch_split(')],
+    'one_product': [('wgmma_tiles.cuh', TW_THREE, TW_ONE)],
+    'no_lo_loads': [TW_PRODUCER,
+                    ('mbar_expect_tx(full, kGSlot);',
+                     'mbar_expect_tx(full, kGSlot / 2);'),
+                    ('mbar_expect_tx(full, 2 * kMBytes);',
+                     'mbar_expect_tx(full, kMBytes);'),
+                    ('          tma_load(slot + kMBytes, mmap, full, col, row, '
+                     '2 * bi + 1);\n', '')]}
+TW_VARIANTS['rows_evict_last'] = [
+    ('wgmma_tiles.cuh', TW_TMA, TW_EVICT_LAST + TW_TMA),
+    (TW_ROWS, TW_ROWS.replace('2 * bi);', '2 * bi, l2_evict_last());')
+     .replace('2 * bi + 1);', '2 * bi + 1, l2_evict_last());'))]
+TW_VARIANTS['shared_rows'] = [(TW_ROWS, TW_ROWS.replace('r0, 2 * bi + 1', '0, 1')
+                               .replace('r0, 2 * bi', '0, 0'))]
+TW_VARIANTS['no_scores'] = [("""    wgmma_tf32x3(p, sl + 32 * kk, sl + 8192 + 32 * kk,
+                 sl + 16384 + b_off + 32 * kk, sl + 24576 + b_off + 32 * kk,
+                 kk == 0);""", '    ;')]
+TW_VARIANTS['no_x_m'] = [("""          wgmma_tf32x3(pa, xs + i * 8192 + 32 * kk,
+                       xs + 16384 + i * 8192 + 32 * kk, m + 32 * kk,
+                       m + kMBytes + 32 * kk, (i | kk) == 0);""", '          ;')]
+TW_TIMING_ONLY = ('prep_only', 'no_prep', 'one_product', 'no_lo_loads',
+                  'no_scores', 'no_x_m', 'shared_rows')
+TW_SHAPES = {'layer2': (8, 6272, 6272, 256, 256),
+             'layer3': (8, 784, 784, 512, 512),
+             'sub_sample': (8, 6272, 784, 256, 256),
+             'seq layer2': (16, 3136, 6272, 256, 256),
+             'biggan256': (32, 4096, 1024, 96, 384),
+             'biggan128': (32, 4096, 1024, 48, 192),
+             'mnist 16': (8, 196, 196, 16, 16),
+             'mnist 32': (8, 49, 49, 32, 32)}
 WIDE_FWD_SHAPES = [(20, 784, 784, 512, 512), (8, 784, 784, 512, 512),
                    (1, 784, 784, 512, 512)]
 WIDE_DKV_SHAPES = [(8, 784, 784, 512, 512), (2, 784, 196, 512, 512)]
@@ -696,6 +886,105 @@ def probe_tf32(smi, variants=None, tag='tf32'):
         torch.cuda.empty_cache()
 
 
+def probe_tw32(smi):
+    """tf32_wgmma's variants (TW_VARIANTS) at TW_SHAPES: ms of K1-dq and
+    K1-dkv in turns (variants, tf32x3, then back), each held to the plain
+    f32 backward and to the f64 one."""
+    import torch
+    from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag = 'tw32'
+    libs = build_variants('nonlocal_attention_bwd.cu', TW_VARIANTS, tag)
+    for name, lib in libs.items():
+        for fn, outs in ((lib.pt_nonlocal_attention_bwd_dq_tf32_wgmma, 1),
+                         (lib.pt_nonlocal_attention_bwd_dkv_tf32_wgmma, 2)):
+            fn.argtypes = ([ctypes.c_void_p] * (7 + outs)
+                           + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_void_p])
+        log = (OUT / tag / name / 'build.log').read_text().splitlines()
+        regs = [kernel_name(line.split("'")[1]) + ' '
+                + re.search(r'Used (\d+) registers', log[i + 3]).group(1)
+                for i, line in enumerate(log)
+                if 'Compiling entry function' in line and 'tf32_wgmma' in line
+                and i + 3 < len(log) and 'Used' in log[i + 3]]
+        spills = [line for line in log if 'spill stores' in line
+                  and ' 0 bytes spill stores' not in line]
+        print(f'  {tag} {name}: registers at entry {", ".join(regs)}; '
+              f'{len(spills)} functions spill', flush=True)
+    g = torch.Generator(device='cuda').manual_seed(3)
+    print(f'f32 K1-dq and K1-dkv, tf32_wgmma variants against tf32x3, '
+          f'CUDA-event medians of 5 in turns (the pre-pass included); max '
+          f'|d - ref| / max |ref| against the plain f32 and the f64 backward '
+          f'({smi})')
+    for label, (b, n, nk, c, cv) in TW_SHAPES.items():
+        q = torch.randn(b, n, c, device='cuda', generator=g) / c ** 0.25
+        k = torch.randn(b, nk, c, device='cuda', generator=g) / c ** 0.25
+        v = torch.randn(b, nk, cv, device='cuda', generator=g)
+        do = torch.randn(b, n, cv, device='cuda', generator=g)
+        out, lse = na.nonlocal_attention_cuda(q, k, v)
+        delta = (do * out).sum(-1)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        dims = (b, n, nk, c, cv, ctypes.c_float(1.0), stream)
+        ins = [ctypes.c_void_p(t.data_ptr())
+               for t in (q, k, v, do, lse, delta)]
+        scratch = torch.empty(max(na.tf32_wgmma_scratch_bytes(
+            dkv, b, n, nk, c, cv) for dkv in (False, True)) // 4,
+            device='cuda')
+        sp = ctypes.c_void_p(scratch.data_ptr())
+
+        def runner(lib):
+            dq = torch.empty_like(q)
+            dk, dv = torch.empty_like(k), torch.empty_like(v)
+
+            def dq_fn():
+                err = lib.pt_nonlocal_attention_bwd_dq_tf32_wgmma(
+                    *ins, ctypes.c_void_p(dq.data_ptr()), sp, *dims)
+                if err:
+                    raise RuntimeError(f'CUDA error {err}')
+
+            def dkv_fn():
+                err = lib.pt_nonlocal_attention_bwd_dkv_tf32_wgmma(
+                    *ins, ctypes.c_void_p(dk.data_ptr()),
+                    ctypes.c_void_p(dv.data_ptr()), sp, *dims)
+                if err:
+                    raise RuntimeError(f'CUDA error {err}')
+            return dq_fn, dkv_fn, (dq, dk, dv)
+
+        runs = {name: runner(lib) for name, lib in libs.items()}
+        runs['tf32x3'] = (
+            lambda: na._launch_dq(q, k, v, do, lse, delta, 1.0, 'tf32x3'),
+            lambda: na._launch_dkv(q, k, v, do, lse, delta, 1.0, 'tf32x3'),
+            None)
+        times = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            dq_fn, dkv_fn, _ = runs[name]
+            times[name].append((median_ms(dq_fn, reps=5),
+                                median_ms(dkv_fn, reps=5)))
+        want = na.nonlocal_attention_bwd_reference(q, k, v, out, lse, do)
+        exact = bwd_f64(q, k, v, out, lse, do)
+
+        def rel(got, ref):
+            return max(((x.double() - r.double()).abs().max()
+                        / r.double().abs().max()).item()
+                       for x, r in zip(got, ref))
+        print(f'  {label} (B, N, Nk, C, Cv) = {(b, n, nk, c, cv)}: plain f32 '
+              f'to f64 {rel(want, exact):.2e}', flush=True)
+        for name, (dq_fn, dkv_fn, outs) in runs.items():
+            ts = times[name]
+            line = (f'    {name:12s} dq '
+                    + ' / '.join(f'{t[0]:.3f}' for t in ts) + ' ms, dkv '
+                    + ' / '.join(f'{t[1]:.3f}' for t in ts) + ' ms')
+            if outs is not None and name not in TW_TIMING_ONLY:
+                dq_fn()
+                dkv_fn()
+                torch.cuda.synchronize()
+                line += (f'; to plain f32 {rel(outs, want):.2e}, to f64 '
+                         f'{rel(outs, exact):.2e}')
+            print(line, flush=True)
+        del q, k, v, do, out, lse, delta, runs, want, exact, scratch
+        torch.cuda.empty_cache()
+
+
 def fwd_f64(q, k, v):
     """The plain forward (out, lse) in f64."""
     import torch
@@ -937,7 +1226,7 @@ def main(argv):
                   smi, TF32_TIMING_VARIANTS, 'tf32_timing'),
               'tf32_loads': lambda smi: probe_tf32(
                   smi, TF32_LOAD_VARIANTS, 'tf32_loads'),
-              'fwd32': probe_fwd32,
+              'fwd32': probe_fwd32, 'tw32': probe_tw32,
               'host': probe_host}
     for name in argv or list(probes):
         probes[name](smi)
