@@ -10,13 +10,14 @@ Drives the port's main path once on one CUDA card and checks it:
    with the kernel the dispatch picks (``attention_kernel``: bf16 with C
    and Cv multiples of 8 up to 512 on K1-fwd's wgmma programs, which pad
    them to 64 through TMA, past 256 the wide program, other bf16 shapes on
-   mma.sync; f32 K1-fwd on tf32x3 up to 512, K1-dq and K1-dkv on TF32
-   wgmma (tf32_wgmma) there, scalar past it), f32 repeated bitwise, its time, its bound (f32: at the TF32
-   rate over 3 and on the CUDA cores) and one
-   ``scaled_dot_product_attention`` call's time, the plain version's at
-   layers 2 and 3, and at both layers the kernel that the dispatch's
-   choice replaced (bf16: mma.sync, f32: scalar; held to the plain version
-   at the same tolerances) and each one's host time per call;
+   mma.sync; f32 K1-fwd, K1-dq and K1-dkv on TF32 wgmma (tf32_wgmma) up
+   to 512, scalar past it), f32 repeated bitwise and held to tf32x3, its
+   time, its bound (f32: at the TF32 rate over 3 and on the CUDA cores)
+   and one ``scaled_dot_product_attention`` call's time, the plain
+   version's at layers 2 and 3, and at both layers the kernels that the
+   dispatch's choice replaced (bf16: mma.sync, f32: tf32x3 and scalar;
+   held to the plain version at the same tolerances) and the first one's
+   host time per call;
 4. the eval path: a fabricated hosted ``kinetics-400`` checkpoint for
    ``nonlocalresnet3d50`` (seeded init, every BN randomized, non-local
    weights included), a frame folder of JPEGs, and the 10-clip, 32-frame,
@@ -53,8 +54,8 @@ Drives the port's main path once on one CUDA card and checks it:
    lse for the backward, dk and dv summed over the chunks), at this
    phase's and phase 3's tolerances, timed beside SDPA; and the f32
    kernels timed at the train shapes of layers 2 and 3 beside SDPA in f32
-   (K1-fwd beside the scalar program, K1-dq and K1-dkv beside the tf32x3
-   and scalar programs, each backward program held to the plain one);
+   (K1-fwd, K1-dq and K1-dkv beside the tf32x3 and scalar programs, each
+   program held to the plain version, K1-fwd's to tf32x3 too);
 6. the training path: ``nonlocalresnet3d50`` from the same checkpoint, bf16,
    ``remat=(0,)``, SGD, 12 steps of 8 clips x 32 frames x 224 px; it checks
    15 attention launches a step (5 forward, 5 dq and 5 dkv on wgmma, 3 of
@@ -65,9 +66,9 @@ Drives the port's main path once on one CUDA card and checks it:
    saves a checkpoint after step 3 that must restore exactly;
 6b. the f32 fine-tuning step: the same model, batch and SGD in f32 with
    TF32 off, steps in turns with the f32 attention on the dispatch's
-   choice (K1-dq and K1-dkv on tf32_wgmma, K1-fwd on tf32x3), with K1-dq
-   and K1-dkv forced onto tf32x3 and with all three forced onto the
-   scalar programs (the dispatch patched in this script): 15 K1 launches
+   choice (all three on tf32_wgmma), with K1-fwd forced onto tf32x3, with
+   all three forced onto tf32x3 and onto the scalar programs (the
+   dispatch patched in this script): 15 K1 launches
    a step by program (5 K1-fwd, 5 K1-dq and 5 K1-dkv on the programs of
    the turn), finite losses, device and host time a step
    (median and spread), peak memory, and one profiled step of each with
@@ -128,8 +129,9 @@ Drives the port's main path once on one CUDA card and checks it:
     bf16): videos/s, the backbone computing in bf16, the logits held to the
     f32 forward, the generator path repeating from its seed;
 13. ``MNISTNonLocalNet`` on 64 images: K1-fwd on wgmma in bf16 (C = 16
-    and 32, padded to 64) and on tf32x3 in f32, 2 launches a
-    forward, each held to the plain version, the f32 logits against the
+    and 32, padded to 64) and on tf32_wgmma in f32, 2 launches a
+    forward, each held to the plain version (f32: and to tf32x3, both
+    timed queued), the f32 logits against the
     plain attention, ``W.1`` moving them, and the bf16 launches timed
     beside the mma.sync program that wgmma replaced there (also held to
     the plain version);
@@ -156,8 +158,9 @@ Drives the port's main path once on one CUDA card and checks it:
     every BN's statistics randomized, SAGAN's ``gamma`` 0.5) sampling 32
     seeded labels through ``gan.biggan.sample`` in bf16: (32, 256, 256, 3)
     images, finite, in [-1, 1], one K1-fwd launch a forward on the wide
-    wgmma program (C = 96, Cv = 384 padded to 128 and 384; tf32x3 in f32),
-    each launch held to the plain version, the bf16 images against
+    wgmma program (C = 96, Cv = 384 padded to 128 and 384; tf32_wgmma in
+    f32, held to tf32x3 too), each launch held to the plain version, the
+    bf16 images against
     the f32 images of the same
     weights and z; at batch 4 in f32 the images with the kernel against the
     plain attention, and ``gamma`` 0 moving them; images/s, peak memory, a
@@ -211,7 +214,7 @@ Drives the port's main path once on one CUDA card and checks it:
     and ``resnet50`` (f32, symbolic batch at 1, 8 and 64), reloaded in a
     fresh process that builds no model (``tools/port_export_reload.py``):
     5 K1-fwd launches a non-local forward (bf16: 2 wgmma + 3 wgmma_wide;
-    f32: tf32x3), 11 K2 (6 TMA + 5 mma.sync) a SlowFast forward, the
+    f32: tf32_wgmma), 11 K2 (6 TMA + 5 mma.sync) a SlowFast forward, the
     logits against the eager forward's (bf16 rel L2 5e-3; f32, TF32 off,
     1e-4), each forward timed in both; ``tools/convert_weights_torch.py
     --eval`` on phase 14's val folder with a fabricated hosted
@@ -337,19 +340,21 @@ MEM_BYTES_PER_S = 3.35e12
 TRAIN_CLIPS, TRAIN_STEPS, TRAIN_LR = 8, 12, 1e-3
 # phase 6b: phase 6's step in f32 (TF32 off), the f32 fine-tuning a user of
 # the f32 zoo runs: a warm step on each program, then turns of
-# F32_TRAIN_STEPS steps with K1-dq and K1-dkv on tf32_wgmma and K1-fwd on
-# tf32x3 (the dispatch's choice, w), K1-dq and K1-dkv forced onto tf32x3
-# (t) and all three onto the scalar programs (s), w t s s t w, and one
+# F32_TRAIN_STEPS steps with K1-fwd, K1-dq and K1-dkv on tf32_wgmma (the
+# dispatch's choice, w), K1-fwd forced onto tf32x3 (f), all three onto
+# tf32x3 (t) and onto the scalar programs (s), w f t s s t f w, and one
 # profiled step of each; K1 launches a step by program
 F32_TRAIN_STEPS = 3
 F32_TRAIN_KERNELS = {
-    'tf32_wgmma': {'fwd tf32x3': 5, 'dq tf32_wgmma': 5, 'dkv tf32_wgmma': 5},
+    'tf32_wgmma': {'fwd tf32_wgmma': 5, 'dq tf32_wgmma': 5,
+                   'dkv tf32_wgmma': 5},
+    'fwd_tf32x3': {'fwd tf32x3': 5, 'dq tf32_wgmma': 5, 'dkv tf32_wgmma': 5},
     'tf32x3': {'fwd tf32x3': 5, 'dq tf32x3': 5, 'dkv tf32x3': 5},
     'scalar': {'fwd scalar': 5, 'dq scalar': 5, 'dkv scalar': 5}}
-F32_TRAIN_TURNS = ('tf32_wgmma', 'tf32x3', 'scalar', 'scalar', 'tf32x3',
-                   'tf32_wgmma')
+F32_TRAIN_TURNS = ('tf32_wgmma', 'fwd_tf32x3', 'tf32x3', 'scalar', 'scalar',
+                   'tf32x3', 'fwd_tf32x3', 'tf32_wgmma')
 # the f32 K1 launches a pass (phase 21's pipelined microbatches, phase 22's
-# f32 steps): K1-fwd on tf32x3, K1-dq and K1-dkv on tf32_wgmma
+# f32 steps): K1-fwd, K1-dq and K1-dkv on tf32_wgmma
 F32_PASS_KERNELS = F32_TRAIN_KERNELS['tf32_wgmma']
 # K2 (the fused bottleneck tail): (N, T, H, W, Cin, Cm, Cout, projection)
 # of SlowFast-R50 on 20 clips x 64 frames x 224 px (fast pathway B*T =
@@ -641,10 +646,11 @@ def kernel_vs_plain(na, torch):
     """Phase 3: every case in both dtypes, with the kernel the dispatch
     picks, f32 repeated bitwise; each timed with its bound (f32: at the
     TF32 rate over 3 and on the CUDA cores, beside the multiply-adds a
-    pair) and SDPA's time; layers 2 and 3 also on the kernel that the
-    dispatch's choice replaced (bf16: mma.sync, f32: scalar), which is held
-    to the plain version at the same tolerances and timed with its host
-    time.
+    pair) and SDPA's time; layers 2 and 3 also on the kernels that the
+    dispatch's choice replaced (bf16: mma.sync; f32: tf32x3 and scalar),
+    which are held to the plain version at the same tolerances and timed
+    with the first one's host time; f32 also held to tf32x3 at every
+    shape.
     Returns the rows of layers 2 and 3 (bf16 under the layer's name, f32
     under '<layer> float32')."""
     g = torch.Generator(device='cuda').manual_seed(0)
@@ -678,18 +684,29 @@ def kernel_vs_plain(na, torch):
                 line += f', a second call bitwise the same: {repeats}'
                 del again
             layer = name in ('layer2', 'layer3')
-            older = 'mma_sync' if dt == torch.bfloat16 else 'scalar'
-            earlier = layer and kernel != older
-            errs_m = (0.0, 0.0, 0.0)
-            if earlier:
-                # the kernel the dispatch's choice replaced, at its
-                # tolerances
-                out_m, lse_m = na._launch_fwd(q, k, v, 1.0, older)
-                errs_m = fwd_errors(out_m, lse_m, want, want_lse)
+            # the kernels the dispatch's choice replaced, at its
+            # tolerances: bf16 mma.sync and f32 scalar at the layers, f32
+            # tf32x3 at every shape (held to the new program too)
+            olders = ([] if kernel in ('mma_sync', 'scalar') else
+                      ['mma_sync'] if dt == torch.bfloat16
+                      else ['tf32x3', 'scalar'])
+            olders = [o for o in olders if layer or o == 'tf32x3']
+            older = olders[0] if olders else None
+            earlier = layer and older is not None
+            errs_m, ab = {}, (0.0, 0.0)
+            for o in olders:
+                out_m, lse_m = na._launch_fwd(q, k, v, 1.0, o)
+                errs_m[o] = fwd_errors(out_m, lse_m, want, want_lse)
+                line += (f'\n    the {o} kernel: max|out-plain|='
+                         f'{errs_m[o][0]:.3e}, /max|plain| '
+                         f'{errs_m[o][1]:.3e}, max|lse-plain|='
+                         f'{errs_m[o][2]:.3e}')
+                if o == 'tf32x3':
+                    ab = ((out_m - out).abs().max().item(),
+                          (lse_m - lse).abs().max().item())
+                    line += (f'; max|{kernel}-{o}| out {ab[0]:.3e}, lse '
+                             f'{ab[1]:.3e}')
                 del out_m, lse_m
-                line += (f'\n    the {older} kernel: max|out-plain|='
-                         f'{errs_m[0]:.3e}, /max|plain| {errs_m[1]:.3e}, '
-                         f'max|lse-plain|={errs_m[2]:.3e}')
             del want, want_lse
             ms = median_ms(lambda: na.nonlocal_attention_cuda(q, k, v))
             line += f'\n    kernel {ms:.3f} ms'
@@ -698,7 +715,7 @@ def kernel_vs_plain(na, torch):
                     lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v))
                 line += f', plain {plain_ms:.3f} ms'
             lib_ms, backend = sdpa_ms(torch, q, k, v)
-            rate = 'tf32x3' if kernel == 'tf32x3' else dname
+            rate = 'tf32x3' if kernel in TF32_PROGRAMS else dname
             bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
                                                   rate)['fwd']
             line += (f', scaled_dot_product_attention {fmt_ms(lib_ms)} '
@@ -712,16 +729,18 @@ def kernel_vs_plain(na, torch):
                 line += (f', {cores_ms:.4f} ms on the CUDA cores; '
                          f'{c + cv} multiply-adds a (query, key) pair')
             if earlier:
-                earlier_ms = median_ms(lambda: na._launch_fwd(
-                    q, k, v, 1.0, older))
+                older_ms = {o: median_ms(lambda: na._launch_fwd(
+                    q, k, v, 1.0, o)) for o in olders}
+                earlier_ms = older_ms[older]
                 hosts = (host_us(lambda: na.nonlocal_attention_cuda(
                              q, k, v)),
                          host_us(lambda: na._launch_fwd(
                              q, k, v, 1.0, older)),
                          host_us(lambda: na.nonlocal_attention_fwd_lse(
                              q, k, v)))
-                line += (f'; the {older} kernel {earlier_ms:.3f} ms; '
-                         f'host per call {hosts[0]:.1f} us ({kernel}, '
+                line += ('; ' + ', '.join(f'the {o} kernel {t:.3f} ms'
+                                          for o, t in older_ms.items())
+                         + f'; host per call {hosts[0]:.1f} us ({kernel}, '
                          f'the wrapper), {hosts[2]:.1f} us (the same '
                          f'through the operator pretorched::'
                          f'nonlocal_attention_fwd), {hosts[1]:.1f} us '
@@ -738,6 +757,8 @@ def kernel_vs_plain(na, torch):
                     'host_us_operator': hosts[2]}
                 if dt == torch.float32:
                     row.update({'bound_ms_cuda_cores': cores_ms,
+                                'scalar_ms': older_ms['scalar'],
+                                'max_abs_diff_to_tf32x3': ab[0],
                                 'macs_per_pair': c + cv,
                                 'shape': [b, n, nk, c, cv],
                                 'dtype': dname})
@@ -749,10 +770,12 @@ def kernel_vs_plain(na, torch):
                   and repeats,
                   f'kernel disagrees with the plain version or itself: '
                   f'{line}')
-            check(errs_m[0] <= tol and errs_m[1] <= tol_rel
-                  and errs_m[2] <= tol_lse,
-                  f'the {older} kernel disagrees with the plain version: '
-                  f'{line}')
+            for o, e in errs_m.items():
+                check(e[0] <= tol and e[1] <= tol_rel and e[2] <= tol_lse,
+                      f'the {o} kernel disagrees with the plain version: '
+                      f'{line}')
+            check(ab[0] <= tol and ab[1] <= tol_lse,
+                  f'K1-fwd {kernel} and tf32x3 disagree: {line}')
             del q, k, v, out, lse
             torch.cuda.empty_cache()
     return result
@@ -921,9 +944,9 @@ def main_path(pretorched, na, torch, np):
         print(f'f32 logits, kernel ({f32_by_kernel}) vs plain attention: '
               f'rel L2 {rel:.3e} (tol 1e-3); bf16 vs f32-plain: rel L2 '
               f'{rel_bf16:.3e}')
-        check(f32_by_kernel == {'fwd tf32x3': 5},
+        check(f32_by_kernel == {'fwd tf32_wgmma': 5},
               f'the f32 forward launched {f32_by_kernel}, expected 5 '
-              'K1-fwd on tf32x3')
+              'K1-fwd on tf32_wgmma')
         check(bool(torch.isfinite(logits_k).all()) and rel <= 1e-3,
               f'kernel and plain paths disagree: rel L2 {rel:.3e}')
         folded.float()
@@ -1276,10 +1299,11 @@ def k1_done_line(na, torch):
     chunks of DONE_CHUNK queries in f32 (the backward's from the kernel's
     own out and lse; dk and dv summed over the chunks) at phase 3's and
     phase 5's tolerances, each timed beside SDPA; then the f32 kernels
-    timed at the train shapes of layers 2 and 3 beside SDPA in f32, K1-fwd
-    (tf32x3) beside the scalar program it replaced, K1-dq and K1-dkv
-    (tf32_wgmma) beside the tf32x3 and scalar programs, each of the three
-    backward programs held to the plain backward. Returns the numbers."""
+    timed at the train shapes of layers 2 and 3 beside SDPA in f32, K1-fwd,
+    K1-dq and K1-dkv (tf32_wgmma) beside the tf32x3 and scalar programs,
+    each of the three forward programs held to the plain forward (and
+    tf32_wgmma to tf32x3), each of the three backward programs to the
+    plain backward. Returns the numbers."""
     b, n, nk, c, cv = DONE_LINE_SHAPE
     dt = torch.bfloat16
     g = torch.Generator(device='cuda').manual_seed(6)
@@ -1397,10 +1421,30 @@ def k1_done_line(na, torch):
         check(max(rels.values()) <= TOL_BWD['float32'],
               f'done line f32 {name}: a backward program disagrees with the '
               f'plain backward: {rels}')
-        # the older programs, same inputs: K1-fwd's scalar one that tf32x3
-        # replaced; K1-dq's and K1-dkv's tf32x3 and scalar ones that
+        # each forward program held to the plain forward, the dispatch's
+        # also to tf32x3: max |out - ref|, max |lse - ref|
+        want, want_lse = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+        fwd_errs = {}
+        for program in (programs['fwd'], 'tf32x3', 'scalar'):
+            o, lo = na._launch_fwd(q, k, v, 1.0, program)
+            fwd_errs[program] = ((o - want).abs().max().item(),
+                                 (lo - want_lse).abs().max().item())
+            if program == 'tf32x3':
+                fwd_errs[f'{programs["fwd"]} to tf32x3'] = (
+                    (out - o).abs().max().item(),
+                    (lse - lo).abs().max().item())
+            del o, lo
+        del want, want_lse
+        tol, tol_lse = TOL['float32']
+        check(all(e <= tol and el <= tol_lse
+                  for e, el in fwd_errs.values()),
+              f'done line f32 {name}: a forward program disagrees with the '
+              f'plain forward or tf32x3: {fwd_errs}')
+        # the older programs, same inputs: tf32x3 and scalar, which
         # tf32_wgmma replaced
         tf32x3 = {
+            'fwd': median_ms(lambda: na._launch_fwd(q, k, v, 1.0, 'tf32x3'),
+                             reps=3),
             'dq': median_ms(lambda: na._launch_dq(
                 q, k, v, do, lse, delta, 1.0, 'tf32x3'), reps=3),
             'dkv': median_ms(lambda: na._launch_dkv(
@@ -1438,6 +1482,9 @@ def k1_done_line(na, torch):
                   for op, ms in times.items())
               + '; max|d-plain|/max|d| ' + ', '.join(
                   f'{pr} {r:.2e}' for pr, r in rels.items())
+              + '; K1-fwd max|out-ref|, max|lse-ref| ' + ', '.join(
+                  f'{pr} {e:.2e} / {el:.2e}'
+                  for pr, (e, el) in fwd_errs.items())
               + f'; plain {plain["fwd"]:.3f} ms, its backward '
               f'{plain["bwd"]:.3f} ms; scaled_dot_product_attention '
               f'{fmt_ms(sdpa["fwd"][0])} ({sdpa["fwd"][1]}), its backward '
@@ -1445,7 +1492,7 @@ def k1_done_line(na, torch):
         result['float32'][name] = {
             'shape': [b, n, nk, c, cv], 'programs': programs, 'ms': times,
             'tf32x3_ms': tf32x3, 'scalar_ms': scalar, 'plain_ms': plain,
-            'max_rel_err': rels,
+            'max_rel_err': rels, 'fwd_max_abs_err': fwd_errs,
             'bound_ms': {op: bd[0] for op, bd in bounds.items()},
             'bound_ms_cuda_cores': {op: bd[0] for op, bd in cores.items()},
             'library_ms': {key: ms for key, (ms, _) in sdpa.items()},
@@ -1769,9 +1816,9 @@ def train_path(pretorched, na, torch, np, cli):
 def train_f32_path(pretorched, na, torch, np, cli):
     """Phase 6b: phase 6's model, batch, SGD and ``remat=(0,)`` in f32 with
     TF32 off, through ``make_train_step``: steps in turns with the f32
-    attention on the dispatch's choice (K1-fwd tf32x3, K1-dq and K1-dkv
-    tf32_wgmma), with K1-dq and K1-dkv forced onto tf32x3 and with all
-    three forced onto the scalar programs (the dispatch patched here,
+    attention on the dispatch's choice (K1-fwd, K1-dq and K1-dkv on
+    tf32_wgmma), with K1-fwd forced onto tf32x3, with all three forced onto
+    tf32x3 and onto the scalar programs (the dispatch patched here,
     nothing in the package), each
     step's loss finite and its K1 launches by program checked; device time
     (CUDA events) and host time a step, median and spread of each program;
@@ -1794,15 +1841,16 @@ def train_f32_path(pretorched, na, torch, np, cli):
     dispatch = na.attention_kernel
 
     def forced(program):
-        """The dispatch with the f32 attention on ``program`` (K1-fwd on
-        tf32x3 where that is tf32_wgmma or tf32x3)."""
+        """The dispatch with the f32 attention on ``program`` ('fwd_tf32x3':
+        K1-fwd on tf32x3, K1-dq and K1-dkv on the dispatch's choice)."""
         if program == 'tf32_wgmma':
             return dispatch
 
         def choose(dtype, c, cv, op):
-            if dtype != torch.float32:
+            if dtype != torch.float32 or (program == 'fwd_tf32x3'
+                                          and op != 'fwd'):
                 return dispatch(dtype, c, cv, op)
-            return program
+            return 'tf32x3' if program == 'fwd_tf32x3' else program
         return choose
 
     times = {p: ([], []) for p in F32_TRAIN_KERNELS}   # (host s, device ms)
@@ -1857,8 +1905,8 @@ def train_f32_path(pretorched, na, torch, np, cli):
     print(f'nonlocalresnet3d50 in f32 (TF32 off), remat=(0,), SGD lr '
           f'{TRAIN_LR:g}; {TRAIN_CLIPS} clips x 32 x 224 x 224 a step; '
           f'turns {", ".join(F32_TRAIN_TURNS)} of {F32_TRAIN_STEPS} steps '
-          f'after a warm step of each (K1-fwd on tf32x3 in the turns of '
-          f'tf32_wgmma); launches by program in {steps} steps '
+          f'after a warm step of each (fwd_tf32x3: K1-fwd forced onto '
+          f'tf32x3); launches by program in {steps} steps '
           f'{launches}; peak device memory {peak_gb:.2f} GiB; losses at the '
           f'turns\' ends {", ".join(f"{v:.4f}" for v in losses)}',
           flush=True)
@@ -1889,18 +1937,16 @@ def train_f32_path(pretorched, na, torch, np, cli):
               / 1e3 for key in ('nonlocal_attention_fwd',
                                 'nonlocal_attention_bwd', 'tf32_split')}
         idle = max(0.0, 1 - busy / window)
+        ran = {key.split()[0]: key.split()[1]
+               for key in F32_TRAIN_KERNELS[program]}
         print(f'profiled f32 step ({program}; torch.profiler): {window:.1f} '
               f'ms host window, {busy:.1f} ms of kernels, device idle '
               f'{idle:.1%}; K1 {sum(k1.values()):.1f} ms '
-              f'({sum(k1.values()) / busy:.1%}): K1-fwd '
-              f'({"scalar" if program == "scalar" else "tf32x3"}) '
+              f'({sum(k1.values()) / busy:.1%}): K1-fwd ({ran["fwd"]}) '
               f'{k1["nonlocal_attention_fwd"]:.1f} ms, K1-dq + K1-dkv '
-              f'({program}'
-              + ('; its pre-pass tf32_split_kernel '
-                 f'{k1["tf32_split"]:.1f} ms included'
-                 if program == 'tf32_wgmma' else '')
-              + f') {k1["nonlocal_attention_bwd"] + k1["tf32_split"]:.1f} ms',
-              flush=True)
+              f'({ran["dq"]}) {k1["nonlocal_attention_bwd"]:.1f} ms, the '
+              f'tf32_wgmma programs\' pre-passes (tf32_split_kernel, both '
+              f'directions) {k1["tf32_split"]:.1f} ms', flush=True)
         families = print_families(by_name, busy, {
             'attention': ('nonlocal_attention', 'tf32_split'),
             'convolution': CONV_KEYS,
@@ -1909,8 +1955,7 @@ def train_f32_path(pretorched, na, torch, np, cli):
         out[program].update({
             'profile': {'window_ms': window, 'kernel_ms': busy, 'idle': idle,
                         'k1_fwd_ms': k1['nonlocal_attention_fwd'],
-                        'k1_bwd_ms': k1['nonlocal_attention_bwd']
-                        + k1['tf32_split'],
+                        'k1_bwd_ms': k1['nonlocal_attention_bwd'],
                         'k1_split_ms': k1['tf32_split'],
                         'k1_share': sum(k1.values()) / busy,
                         'families_ms': families}})
@@ -2934,10 +2979,12 @@ def trn_path(pretorched, torch):
 def mnist_path(na, torch):
     """Phase 13: ``MNISTNonLocalNet`` on 64 seeded 28 x 28 images, every BN
     randomized (its blocks' ``W.1`` included): a bf16 forward (K1-fwd on
-    wgmma, C = 16 and 32 padded to 64) and an f32 one (tf32x3), each with
-    the counts set to 0 just before it: 2 K1-fwd launches, each launch's
-    out and lse held to the plain version at phase 3's tolerances; the f32
-    logits with the kernels against the plain attention; zeroing each
+    wgmma, C = 16 and 32 padded to 64) and an f32 one (tf32_wgmma, padded to
+    32 by its pre-pass), each with the counts set to 0 just before it: 2
+    K1-fwd launches, each launch's out and lse held to the plain version at
+    phase 3's tolerances (the f32 ones also to tf32x3 on the same inputs,
+    both timed queued); the f32 logits with the kernels against the plain
+    attention; zeroing each
     ``W.1`` moves them; the bf16 launches timed against the plain version,
     SDPA, the bound and the mma.sync program that wgmma replaced there (held
     to the plain version too). Returns the numbers for the result line."""
@@ -2971,7 +3018,8 @@ def mnist_path(na, torch):
                 nonlocalnet.auto_nonlocal_attention = orig
             by_kernel = kernel_counts(na)
             kernel = na.attention_kernel(dt, 16, 16, 'fwd')
-            check(kernel == ('wgmma' if dt == torch.bfloat16 else 'tf32x3'),
+            check(kernel == ('wgmma' if dt == torch.bfloat16
+                             else 'tf32_wgmma'),
                   f'MNIST {dname}: K1-fwd on {kernel}')
             check(na.nonlocal_attention_cuda.launches == 2
                   and by_kernel == {f'fwd {kernel}': 2},
@@ -2994,10 +3042,30 @@ def mnist_path(na, torch):
                         f'max|out-plain|={err:.3e} (tol {tol:g}), /max|plain| '
                         f'{err_rel:.3e} (tol {tol_rel:g}), max|lse-plain|='
                         f'{err_lse:.3e} (tol {tol_lse:g})')
+                ab = (0.0, 0.0)
+                if dt == torch.float32:
+                    # the program it replaced, same inputs
+                    out_x, lse_x = na._launch_fwd(q, k, v, 1.0, 'tf32x3')
+                    errs_x = fwd_errors(out_x, lse_x, want, want_lse)
+                    ab = ((out_x - out).abs().max().item(),
+                          (lse_x - lse).abs().max().item())
+                    device = (queued_ms(lambda: na.nonlocal_attention_cuda(
+                                  q, k, v), torch),
+                              queued_ms(lambda: na._launch_fwd(
+                                  q, k, v, 1.0, 'tf32x3'), torch))
+                    line += (f'; tf32x3 max|out-plain|={errs_x[0]:.3e}, '
+                             f'max|lse-plain|={errs_x[2]:.3e}, max|{kernel}-'
+                             f'tf32x3| out {ab[0]:.3e}, lse {ab[1]:.3e}; '
+                             f'queued (device time) {device[0]:.4f} ms '
+                             f'({kernel}), {device[1]:.4f} ms (tf32x3)')
+                    ab = (max(ab[0], errs_x[0]), max(ab[1], errs_x[2]))
+                    del out_x, lse_x
                 print(line, flush=True)
                 check(err <= tol and err_rel <= tol_rel
-                      and err_lse <= tol_lse,
-                      f'kernel disagrees with the plain version: {line}')
+                      and err_lse <= tol_lse and ab[0] <= tol
+                      and ab[1] <= tol_lse,
+                      f'kernel disagrees with the plain version or '
+                      f'tf32x3: {line}')
                 rows.append((shape, q, k, v, err))
             runs[dname] = {'logits': logits, 'rows': rows,
                            'by_kernel': {kernel: 2}}
@@ -3515,8 +3583,9 @@ def sagan_kernel_rows(na, torch):
     version at phase 3's tolerances; each with its time, the plain
     version's, one SDPA call's and the bound (f32: at the TF32 rate over 3
     and on the CUDA cores); also the program the dispatch's choice
-    replaced there (bf16: mma.sync, f32: scalar), held to the plain
-    version at the same tolerances and timed; f32 repeats bitwise."""
+    replaced there (bf16: mma.sync, f32: tf32x3), held to the plain
+    version at the same tolerances (f32: and to the new program's out and
+    lse) and timed; f32 repeats bitwise."""
     g = torch.Generator(device='cuda').manual_seed(5)
     rows = {}
     for name, (b, n, nk, c, cv) in BIGGAN_SHAPES.items():
@@ -3540,9 +3609,12 @@ def sagan_kernel_rows(na, torch):
                 repeats = (torch.equal(out, again[0])
                            and torch.equal(lse, again[1]))
                 del again
-            earlier = 'mma_sync' if dt == torch.bfloat16 else 'scalar'
+            earlier = 'mma_sync' if dt == torch.bfloat16 else 'tf32x3'
             out_m, lse_m = na._launch_fwd(q, k, v, 1.0, earlier)
             errs_m = fwd_errors(out_m, lse_m, want, want_lse)
+            ab = (((out_m - out).abs().max().item(),
+                   (lse_m - lse).abs().max().item())
+                  if dt == torch.float32 else (0.0, 0.0))
             del out_m, lse_m
             del out, lse, want, want_lse
             tol, tol_lse = TOL[dname]
@@ -3552,7 +3624,7 @@ def sagan_kernel_rows(na, torch):
                 lambda: na.nonlocal_attention_fwd_lse_reference(q, k, v),
                 reps=5)
             lib_ms, backend = sdpa_ms(torch, q, k, v)
-            rate = 'tf32x3' if kernel == 'tf32x3' else dname
+            rate = 'tf32x3' if kernel in TF32_PROGRAMS else dname
             bound_ms, bound_by = attention_bounds(b, n, nk, c, cv,
                                                   rate)['fwd']
             line = (f'{name} {dname} B={b} N={n} Nk={nk} C={c} Cv={cv} '
@@ -3591,16 +3663,21 @@ def sagan_kernel_rows(na, torch):
                      f'{errs_m[0]:.3e}, /max|plain| {errs_m[1]:.3e}, '
                      f'max|lse-plain|={errs_m[2]:.3e}; queued (device '
                      f'time) {row["device_ms"]:.4f} ms ({kernel}), '
-                     f'{row["earlier_device_ms"]:.4f} ms ({earlier})')
+                     f'{row["earlier_device_ms"]:.4f} ms ({earlier})'
+                     + (f'; max|{kernel}-{earlier}| out {ab[0]:.3e}, lse '
+                        f'{ab[1]:.3e}' if dt == torch.float32 else ''))
+            if dt == torch.float32:
+                row['max_abs_diff_to_tf32x3'] = ab[0]
             print(line, flush=True)
             check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse
                   and repeats,
                   f'kernel disagrees with the plain version or itself: '
                   f'{line}')
             check(errs_m[0] <= tol and errs_m[1] <= tol_rel
-                  and errs_m[2] <= tol_lse,
-                  f'the {earlier} program disagrees with the plain version: '
-                  f'{line}')
+                  and errs_m[2] <= tol_lse and ab[0] <= tol
+                  and ab[1] <= tol_lse,
+                  f'the {earlier} program disagrees with the plain version '
+                  f'or the new one: {line}')
             rows[f'{name} {dname}'] = row
             del q, k, v
             torch.cuda.empty_cache()
@@ -3613,10 +3690,10 @@ def biggan_path(na, torch):
     32 seeded labels in bf16 through ``gan.biggan.sample``: (32, 256, 256,
     3) images, finite, in [-1, 1], one K1-fwd launch a forward on the wide
     wgmma program (C = 96 padded to 128), held to the plain version at
-    phase 3's tolerances (the f32 sample's launch on tf32x3 too); the bf16
-    images against the f32 images of the same weights and z; at batch 4 in
-    f32 (TF32 off) the images with the kernel (tf32x3) against the plain
-    attention, and ``gamma`` 0 moving
+    phase 3's tolerances (the f32 sample's launch on tf32_wgmma too, and
+    held to tf32x3); the bf16 images against the f32 images of the same
+    weights and z; at batch 4 in f32 (TF32 off) the images with the kernel
+    (tf32_wgmma) against the plain attention, and ``gamma`` 0 moving
     them; images/s by CUDA events, peak memory and a profiled forward by
     family with K1-fwd's share; one bf16 ``biggan128(ch=96)`` forward, its
     launch on wgmma (C = 48 padded to 64) held to the plain version;
@@ -3658,7 +3735,7 @@ def biggan_path(na, torch):
 
     def hold(calls, program, what):
         """each launch against the plain version at phase 3's tolerances
-        for its dtype"""
+        for its dtype; an f32 one also against tf32x3 on its inputs"""
         for q, k, v, got, lse, scale in calls:
             want, want_lse = na.nonlocal_attention_fwd_lse_reference(
                 q.float(), k.float(), v.float(), scale)
@@ -3672,9 +3749,19 @@ def biggan_path(na, torch):
                     f'{err:.3e} (tol {tol:g}), /max|plain| {err_rel:.3e} '
                     f'(tol {tol_rel:g}), max|lse-plain|={err_lse:.3e} '
                     f'(tol {tol_lse:g})')
+            ab = (0.0, 0.0)
+            if q.dtype == torch.float32:
+                out_x, lse_x = na._launch_fwd(q, k, v, scale, 'tf32x3')
+                ab = ((out_x - got).abs().max().item(),
+                      (lse_x - lse).abs().max().item())
+                line += (f'; max|{program}-tf32x3| out {ab[0]:.3e}, lse '
+                         f'{ab[1]:.3e}')
+                del out_x, lse_x
             print(line, flush=True)
-            check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse,
-                  f'kernel disagrees with the plain version: {line}')
+            check(err <= tol and err_rel <= tol_rel and err_lse <= tol_lse
+                  and ab[0] <= tol and ab[1] <= tol_lse,
+                  f'kernel disagrees with the plain version or tf32x3: '
+                  f'{line}')
         calls.clear()
 
     out = {}
@@ -3701,7 +3788,7 @@ def biggan_path(na, torch):
               f'biggan256 {dname}: K1 launches {by_kernel}, expected one '
               f'on {program}')
         check(program == ('wgmma_wide' if dt == torch.bfloat16 else
-                          'tf32x3'), f'biggan256 {dname} on {program}')
+                          'tf32_wgmma'), f'biggan256 {dname} on {program}')
         if dt == torch.float32:
             out['launches_by_kernel_f32'] = by_kernel
         hold(calls, program, 'biggan256')
@@ -3714,7 +3801,7 @@ def biggan_path(na, torch):
     out['rel_l2_bf16_f32'] = rel
     del runs
 
-    # f32 at batch 4: the kernel (tf32x3) against the plain attention
+    # f32 at batch 4: the kernel (tf32_wgmma) against the plain attention
     kernel_img = draw(model, 4, torch.float32)
     biggan.auto_nonlocal_attention = na.nonlocal_attention_reference
     try:
@@ -4395,7 +4482,8 @@ def export_programs(pretorched, torch, np, na, fb_cuda, root):
            str(EXPORT_CLIPS), (EXPORT_CLIPS,), 0, 'bfloat16', wide)
     nl.float()
     export('nonlocalresnet3d50_f32', nl, EXPORT_NL_SHAPE, 'float32', 'b',
-           (2, EXPORT_CLIPS), 1, 'float32', {'fwd': {'tf32x3': 5}, 'k2': {}})
+           (2, EXPORT_CLIPS), 1, 'float32',
+           {'fwd': {'tf32_wgmma': 5}, 'k2': {}})
     del nl
     torch.cuda.empty_cache()
     sf = pretorched.slowfast_resnet50(num_classes=400, pretrained=None,
@@ -5370,15 +5458,21 @@ def kernel_label(line):
         return (f'{m.group(1)} (bf16, wgmma + TMA, C, Cv <= 512, {m.group(2)} '
                 '64-column chunks a consumer, 2 consumer warpgroups at 240 '
                 'registers, 1 producer at 24)')
-    m = re.search(r'nonlocal_attention_bwd_tf32_wgmma_kernelILi(\d+)E', line)
+    m = re.search(r'nonlocal_attention_(fwd|bwd)_tf32_wgmma_kernelILi(\d+)E',
+                  line)
     if m:
-        return (f'nonlocal_attention_bwd_tf32_wgmma_kernel (f32 on TF32 '
-                f'wgmma + TMA, 3 products; {m.group(1)} output columns a '
-                f'consumer, 2 consumer warpgroups at 240 registers, 1 '
+        return (f'nonlocal_attention_{m.group(1)}_tf32_wgmma_kernel (f32 '
+                f'{"K1-fwd" if m.group(1) == "fwd" else "K1-dq, K1-dkv"} on '
+                f'TF32 wgmma + TMA, 3 products; {m.group(2)} output columns '
+                f'a consumer, 2 consumer warpgroups at 240 registers, 1 '
                 f'producer at 24)')
-    if 'tf32_split_kernel' in line:
-        return ('tf32_split_kernel (tf32_wgmma\'s pre-pass: the operands\' '
-                'TF32 halves, transposed where a product needs it)')
+    m = re.search(r'nonlocal_attention_(fwd|bwd)_cu\w*tf32_split_kernel', line)
+    if m or 'tf32_split_kernel' in line:
+        where = (f' of K1-{"fwd" if m.group(1) == "fwd" else "dq, K1-dkv"}'
+                 if m else '')
+        return (f'tf32_split_kernel (tf32_wgmma\'s pre-pass{where}: the '
+                'operands\' TF32 halves, transposed where a product needs '
+                'it)')
     m = re.search(r'nonlocal_attention_(fwd|bwd)_tf32x3_kernelILi(\d+)E',
                   line)
     if m:
@@ -5474,9 +5568,9 @@ def main():
         pretorched, na, torch, np, cli)
 
     phase('6b. the f32 fine-tuning step: nonlocalresnet3d50 in f32, TF32 '
-          f'off, {TRAIN_CLIPS} clips x 32 frames x 224 px, K1-dq and K1-dkv '
-          'on tf32_wgmma, on tf32x3 and (K1-fwd too) on the scalar programs '
-          'in turns')
+          f'off, {TRAIN_CLIPS} clips x 32 frames x 224 px, K1 on '
+          'tf32_wgmma, K1-fwd alone on tf32x3, all three on tf32x3 and on '
+          'the scalar programs in turns')
     f32_train = train_f32_path(pretorched, na, torch, np, cli)
 
     phase('7. gradient agreement: f32 step with the kernels, with the plain '
@@ -5504,7 +5598,8 @@ def main():
           'x 224 px')
     trn = trn_path(pretorched, torch)
 
-    phase('13. MNISTNonLocalNet: K1-fwd on wgmma (bf16) and tf32x3 (f32)')
+    phase('13. MNISTNonLocalNet: K1-fwd on wgmma (bf16) and tf32_wgmma '
+          '(f32)')
     mnist = mnist_path(na, torch)
 
     phase('14. BASELINE config 2 through examples/imagenet_eval_torch.py: '
@@ -5607,8 +5702,8 @@ def main():
         {'name': 'nonlocal_attention_fwd_mnist', 'route': 'cuda',
          'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
          'note': 'K1-fwd at MNISTNonLocalNet\'s shapes: the wgmma program '
-                 'in bf16 on C = 16 and 32 padded to 64 by TMA (tf32x3 in '
-                 'f32, launches_by_kernel); earlier_ms: the mma.sync '
+                 'in bf16 on C = 16 and 32 padded to 64 by TMA (tf32_wgmma '
+                 'in f32, launches_by_kernel); earlier_ms: the mma.sync '
                  'program it replaced there',
          'launches': sum(mnist['launches_by_kernel']['bfloat16'].values()),
          'launches_by_kernel': mnist['launches_by_kernel'],
@@ -5621,8 +5716,8 @@ def main():
          'note': 'K1-fwd at SAGAN\'s shapes in biggan256 sampling: the '
                  'wide wgmma program in bf16 on C = 96 padded to 128 by TMA '
                  '(biggan128\'s and the golden lock\'s on the narrow one, '
-                 'tf32x3 in f32: other_shapes); earlier_ms: the '
-                 'program it replaced there (mma.sync in bf16, scalar in '
+                 'tf32_wgmma in f32: other_shapes); earlier_ms: the '
+                 'program it replaced there (mma.sync in bf16, tf32x3 in '
                  'f32)',
          'launches': gan['launches'],
          'launches_by_kernel': gan['launches_by_kernel'],
@@ -5631,15 +5726,16 @@ def main():
                           if k != 'biggan256 ch96 bfloat16'}},
         {'name': 'nonlocal_attention_fwd_f32', 'route': 'cuda',
          'source': src + 'nonlocal_attention_fwd.cu', 'replaces': pallas + '33',
-         'note': 'K1-fwd in f32 on the tensor cores (tf32x3: three TF32 '
-                 'products per f32 product) at phase 3\'s layer-2 shape; '
-                 'launches: phase 6b\'s f32 steps (launches_by_kernel, the '
-                 'scalar program\'s in the turns that force it; tf32x3 in '
-                 'the turns of tf32_wgmma and of tf32x3); earlier_ms: the '
-                 'scalar program it replaced; layer3: the same at layer 3; '
-                 'train_shapes: the done line\'s f32 block; sagan: phase '
-                 '16\'s f32 rows',
-         'launches': f32_train['launches_by_kernel']['fwd tf32x3'],
+         'note': 'K1-fwd in f32 on TF32 wgmma + TMA (tf32_wgmma: three '
+                 'TF32 products per f32 product, q and k split and v split '
+                 'and transposed by a pre-pass, whose time is in ms) at '
+                 'phase 3\'s layer-2 shape; launches: phase 6b\'s f32 '
+                 'steps (launches_by_kernel, tf32x3\'s and scalar\'s in '
+                 'the turns that force them); earlier_ms: the mma.sync '
+                 'tf32x3 program it replaced, scalar_ms the scalar one; '
+                 'layer3: the same at layer 3; train_shapes: the done '
+                 'line\'s f32 block; sagan: phase 16\'s f32 rows',
+         'launches': f32_train['launches_by_kernel']['fwd tf32_wgmma'],
          'launches_by_kernel': {
              k.split(' ', 1)[1]: n
              for k, n in f32_train['launches_by_kernel'].items()
@@ -5649,7 +5745,7 @@ def main():
          'train_shapes': {name: {key: row[key] for key in (
              'shape', 'programs', 'ms', 'tf32x3_ms', 'scalar_ms',
              'bound_ms', 'bound_ms_cuda_cores', 'library_ms',
-             'max_rel_err')}
+             'fwd_max_abs_err')}
              for name, row in done_line['float32'].items()},
          'sagan': {k: v for k, v in gan['kernel_rows'].items()
                    if k.endswith('float32')}},

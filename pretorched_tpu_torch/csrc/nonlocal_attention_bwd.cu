@@ -69,7 +69,8 @@
 // * f32 with C and Cv up to 512 (every f32 shape of the models but gaussian
 //   mode's C = 1024): tf32_wgmma, the same arithmetic as tf32x3 below on
 //   Hopper's TF32 wgmma with TMA (nonlocal_attention_bwd_tf32_wgmma_kernel
-//   and its pre-pass tf32_split_kernel, near the end of this file). A
+//   near the end of this file, and its pre-pass tf32_split_kernel in
+//   tf32_wgmma.cuh). A
 //   pre-pass splits each operand once into its TF32 halves in scratch,
 //   the accumulating products' operand transposed, so that TF32 wgmma,
 //   which reads both operands K-major only, takes every product from
@@ -121,6 +122,7 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "tf32_wgmma.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -2048,7 +2050,8 @@ int launch_dq_wgmma_wide(const void* q, const void* k, const void* v,
 // TF32 wgmma reads both operands from shared memory K-major only, and the
 // accumulating product X m contracts over the streamed axis: m (k for
 // K1-dq; q and do for K1-dkv) must arrive with that axis contiguous. So a
-// pre-pass (tf32_split_kernel, four launches a call) splits every operand
+// pre-pass (tf32_split_kernel in tf32_wgmma.cuh, shared with the f32
+// K1-fwd; four launches a call) splits every operand
 // once into its TF32 halves, hi = tf32(x) and lo = tf32(x - hi), and
 // writes them to scratch the wrapper allocates: the row and column
 // operands of s and dp as they are stored (rows of channels, padded with
@@ -2104,13 +2107,10 @@ constexpr int kGCols = 64;        // streamed columns per tile
 constexpr int kGChunk = 32;       // channels per stage: a 128-byte f32 row
 constexpr int kGPad = 64;         // the split operands' channel padding
 constexpr int kGStages = 6;       // ring slots
-constexpr int kGSlot = 32768;     // a ring slot: 4 boxes of 64 x 32 f32
 constexpr int kGXBufs = 1;        // X buffers
 constexpr int kGUnroll = 8;       // score stages issued back to back
 constexpr int kGXBytes = 32768;   // one X buffer: 2 halves x 2 chunks
 constexpr int kGMaxWidth = 512;
-
-int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 struct TwParams {
   float* out0;          // part 0: dq or dk (X = ds)
@@ -2129,24 +2129,6 @@ size_t tw_smem() {
   return (size_t)kGStages * kGSlot + kGXBufs * kGXBytes +
          sizeof(Ring<kGStages>) +
          1024;   // + 1024: aligning the base
-}
-
-// Queue ring stage st's chunk product into p (the consumer's 64 x 32 of s
-// or dp from zero): A the rows' chunk, B the consumer's 32 columns of the
-// columns' chunk (b_off), both as TF32 halves in the slot.
-template <int ST>
-__device__ __forceinline__ void tw_stage(float (&p)[16], Ring<ST>* ring,
-                                         uint32_t ring_s, int st,
-                                         uint32_t b_off) {
-  ring->wait_full(st);
-  const uint32_t sl = ring_s + Ring<ST>::slot(st) * kGSlot;
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_tf32x3(p, sl + 32 * kk, sl + 8192 + 32 * kk,
-                 sl + 16384 + b_off + 32 * kk, sl + 24576 + b_off + 32 * kk,
-                 kk == 0);
-  wgmma_commit();
 }
 
 // A completed stage's partial p joins s (an s stage) or dp by f32 adds.
@@ -2408,52 +2390,6 @@ nonlocal_attention_bwd_tf32_wgmma_kernel(
   }
 }
 
-// The pre-pass: x (b, rows, cols) f32 -> its TF32 halves sp (2b, rows,
-// cols_p), hi of item i at 2i, lo at 2i + 1, zero past cols; and, where
-// spt is given, the same transposed, spt (2b, cols_p, rows_p), zero past
-// rows. Tiles of 32 x 32 through shared memory, every load and store
-// coalesced.
-__global__ void __launch_bounds__(256)
-tf32_split_kernel(const float* __restrict__ x, float* __restrict__ sp,
-                  float* __restrict__ spt, int rows, int cols, int cols_p,
-                  int rows_p) {
-  __shared__ float hs[32][33], ls[32][33];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int bi = blockIdx.z;
-  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
-  const float* xb = x + (size_t)bi * rows * cols;
-  float* hi = sp + (size_t)(2 * bi) * rows * cols_p;
-  float* lo = hi + (size_t)rows * cols_p;
-  for (int i = ty; i < 32; i += 8) {
-    const int r = r0 + i, c = c0 + tx;
-    const float v = r < rows && c < cols ? xb[(size_t)r * cols + c] : 0.f;
-    uint32_t h, l;
-    split_tf32(v, h, l);
-    if (r < rows) {
-      hi[(size_t)r * cols_p + c] = __uint_as_float(h);
-      lo[(size_t)r * cols_p + c] = __uint_as_float(l);
-    }
-    hs[i][tx] = __uint_as_float(h);
-    ls[i][tx] = __uint_as_float(l);
-  }
-  if (spt == nullptr) return;
-  __syncthreads();
-  float* hit = spt + (size_t)(2 * bi) * cols_p * rows_p;
-  float* lot = hit + (size_t)cols_p * rows_p;
-  for (int i = ty; i < 32; i += 8) {
-    const int c = c0 + i, r = r0 + tx;
-    if (r < rows_p) {
-      hit[(size_t)c * rows_p + r] = hs[tx][i];
-      lot[(size_t)c * rows_p + r] = ls[tx][i];
-    }
-  }
-}
-
-// Bytes of one split operand (2b, rows, cols) f32, 256-byte aligned.
-size_t tw_region(int b, int rows, int cols) {
-  return ((size_t)2 * b * rows * cols * sizeof(float) + 255) / 256 * 256;
-}
-
 // The scratch a call takes: the split row and column operands of s and
 // dp, m0 = the column operand of s transposed (k^T for K1-dq, q^T for
 // K1-dkv) and, for K1-dkv, m1 = do^T.
@@ -2463,15 +2399,6 @@ size_t tw_scratch_bytes(bool dkv, int b, int rows, int cols, int c, int cv) {
   return tw_region(b, rows, cp) + tw_region(b, cols, cp) +
          tw_region(b, rows, cvp) + tw_region(b, cols, cvp) +
          tw_region(b, cp, colp) + (dkv ? tw_region(b, cvp, colp) : 0);
-}
-
-int launch_split(const float* x, float* sp, float* spt, int b, int rows,
-                 int cols, int cols_p, cudaStream_t stream) {
-  const int rows_p = spt ? round_up(rows, 4) : rows;
-  const dim3 grid(cols_p / 32, (rows_p + 31) / 32, b);
-  tf32_split_kernel<<<grid, 256, 0, stream>>>(x, sp, spt, rows, cols, cols_p,
-                                              rows_p);
-  return (int)cudaGetLastError();
 }
 
 template <int WN>

@@ -21,7 +21,7 @@
 // block owns (batch item, 64-query tile) and loops over the 64-key tiles
 // itself, keeping m and l in registers. C of any size is handled by forming
 // q k^T in channel chunks. The ragged last key tile is masked; the ragged
-// last query tile is zero-filled on load and skipped on store. Five
+// last query tile is zero-filled on load and skipped on store. Six
 // kernels, chosen by the caller's dispatch on dtype and shape:
 //
 // * bf16 with C and Cv multiples of 8 up to 256 (the eval and train
@@ -56,7 +56,19 @@
 //   1.5x the minimal FLOPs, bought for a register-resident accumulator.
 //   Tiles are staged through shared memory with plain loads.
 // * f32 with C and Cv up to 512 (every f32 forward of the models: layers 2
-//   and 3, SAGAN's 48 / 192 and 96 / 384, MNIST's 16 and 32): tf32x3,
+//   and 3, SAGAN's 48 / 192 and 96 / 384, the golden lock's 16 / 64,
+//   MNIST's 16 and 32): tf32_wgmma, the arithmetic of tf32x3 below on
+//   Hopper's TF32 wgmma with TMA, warp-specialised
+//   (nonlocal_attention_fwd_tf32_wgmma_kernel near the end of this file,
+//   its pre-pass tf32_split_kernel in tf32_wgmma.cuh). TF32 wgmma reads
+//   both operands K-major only, so a pre-pass splits q and k once into
+//   their TF32 halves and v into its halves transposed, in scratch, and
+//   pads every width to 32 with zeros (widths that TMA cannot take, such
+//   as C = 7, never reach the main kernel); P goes through shared memory,
+//   split, and O = alpha O + the tile's P v partial in f32. At layer 2
+//   3.4 ms against tf32x3's 10.0 (PERF.md). tf32x3 stays launchable by
+//   name (the A/B against it).
+// * f32 by name (the program tf32_wgmma replaced): tf32x3,
 //   mma.sync.m16n8k8 in TF32 with three products per f32 product
 //   (nonlocal_attention_fwd_tf32x3_kernel), as the f32 backward
 //   (nonlocal_attention_bwd.cu, mma_tiles.cuh): each operand split in
@@ -87,6 +99,7 @@
 #include <stdint.h>
 
 #include "mma_tiles.cuh"
+#include "tf32_wgmma.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -1235,6 +1248,404 @@ int launch_fwd_tf32x3(const float* q, const float* k, const float* v,
   }
 }
 
+
+// ------------------------- f32, Hopper: TF32 wgmma + TMA (tf32_wgmma)
+// The f32 K1-fwd (`_attn_kernel`) for C and Cv up to 512 on Hopper's
+// tensor-core instruction: the arithmetic of tf32x3 above (three TF32
+// products per f32 product, lo hi + hi lo + hi hi, every sum on the tensor
+// cores short and joined by an f32 add) on wgmma.mma_async m64nNk8.f32.
+// tf32.tf32, the layout of the f32 K1-dq and K1-dkv
+// (nonlocal_attention_bwd_tf32_wgmma_kernel) made forward-shaped.
+//
+// TF32 wgmma reads both operands from shared memory K-major only. s = q k^T
+// contracts over channels, so q and k are K-major as stored; P v contracts
+// over keys, so v must arrive transposed, (Cv, Nk), keys contiguous. A
+// pre-pass (tf32_split_kernel, tf32_wgmma.cuh; three launches a call)
+// writes into scratch the wrapper allocates q's and k's TF32 halves as
+// stored, (2B, rows, C padded to 32), and v's transposed, (2B, Cv padded to
+// 32, Nk padded to 4): hi of item b at 2b, lo at 2b + 1, one TMA map each.
+// Widths off 32 (the tests' C = 7, Cv = 5; MNIST's 16) are zero-padded
+// there, so the main kernel never sees a width TMA cannot take: zero
+// channels add nothing to s, and O's columns past Cv are not stored. No
+// warp splits an operand in the main kernel.
+//
+// A block owns 64 query rows and 2 WN columns of O (WN = 32, 64, 96 or
+// 128; past 256 columns grid.z walks parts of at most 256, each forming s
+// again: 1.5x the products at layer 3's C = Cv = 512, 1.2x at SAGAN's 96 /
+// 384). Warpgroup 2 produces (one thread issues every TMA copy into a ring
+// of kFStages 32 KB slots: per 64-key tile the q and k chunks of s, then
+// four v^T stages); consumer warpgroups 0 and 1 take the tiles in step:
+//   s: each consumer forms its 32 key columns of the 64 x 64 tile
+//     (m64n32k8) over 32-channel stages, kFUnroll at a time, each summed
+//     from zero on the tensor cores and joined to s by an f32 add;
+//   the two consumers exchange their rows' maxima through shared memory
+//     (one named barrier a tile, which also frees P: both finished the
+//     previous tile's P v before reaching it);
+//   P = exp(s - m), split into its TF32 halves, written K-major and
+//     swizzled into the P buffer (each consumer its 32 keys), read by both;
+//   each consumer multiplies all of P (SS) by its WN columns of v^T, two
+//     stages of 32 keys summed from zero (m64nWNk8), then O = alpha O +
+//     partial in f32: the promotion and the online softmax's rescale are
+//     one pass.
+// Each consumer keeps the row sums of its own keys; both halves' are added
+// at the end, and lse = m + log(l) as in tf32x3. Every wgmma group is
+// waited on in the loop iteration that issued it (left pending across
+// iterations, ptxas serializes the wgmmas: nonlocal_attention_bwd.cu).
+// Registers at WN = 128: O 64, its partial 64, s 16, two stage partials 32.
+//
+// What bounds it: operations, 1.953 ms at layer 2 (B = 8) at the TF32 rate
+// over 3 (the header). It takes 3.45 ms there against tf32x3's 10.06 (H100
+// 80GB HBM3, 700 W; PERF.md), and tools/port_kernel_probes.py tw32fwd
+// finds the pace in neither the products (one TF32 product instead of
+// three: -3 to -6%) nor the pre-pass (0.19 ms); each 64-key tile moves 12
+// ring stages from L2, q's chunks again every tile. Eight score stages at
+// a time beat pairs by 10%, 6 slots beat 4 by 8-11%; parts of 128 columns
+// instead of 256 cost 57% at layer 3. Summed over all keys on the tensor
+// cores instead of promoted, out sat 1.2e-5 from f64 at layer 2 (promoted
+// 1.8e-7, the plain f32 forward 4.9e-7) at the same time.
+constexpr int kFRows = 64;        // query rows per block
+constexpr int kFKeys = 64;        // keys per tile
+constexpr int kFChunk = 32;       // channels per stage: a 128-byte f32 row
+constexpr int kFStages = 6;       // ring slots
+constexpr int kFUnroll = 8;       // score stages issued back to back
+constexpr int kFPBytes = 32768;   // P: 2 halves x 2 chunks of 32 keys
+constexpr int kFMaxPart = 256;    // O's columns a block takes at most
+constexpr int kFMaxWidth = 512;
+
+struct TfParams {
+  float* out;
+  float* lse;
+  int n, nk, cv;
+  int nc;               // 32-channel stages of s
+  float scale;
+};
+
+size_t tf_smem() {
+  return (size_t)kFStages * kGSlot + kFPBytes + sizeof(Ring<kFStages>) +
+         4 * kFRows * sizeof(float) +   // the consumers' row maxima, sums
+         1024;                          // aligning the base
+}
+
+// A completed stage's partial p joins s by f32 adds.
+__device__ __forceinline__ void tf_join(float (&s)[16], float (&p)[16]) {
+  reg_fence(p);
+#pragma unroll
+  for (int e = 0; e < 16; ++e) s[e] += p[e];
+}
+
+// The tile's U score stages st .. st + U - 1 into p0 and p1 in turn: each
+// joins s once the stage after it is queued behind it, so the tensor cores
+// drain once, after the last; each slot is released once read, and every
+// wgmma group is waited on in this call.
+template <int U, int ST>
+__device__ __forceinline__ void tf_stages(float (&s)[16], float (&p0)[16],
+                                          float (&p1)[16], Ring<ST>* ring,
+                                          uint32_t ring_s, int st,
+                                          uint32_t b_off) {
+  tw_stage(p0, ring, ring_s, st, b_off);
+#pragma unroll
+  for (int i = 1; i < U; ++i) {
+    if (i & 1) {
+      tw_stage(p1, ring, ring_s, st + i, b_off);
+      wgmma_wait<1>();
+      tf_join(s, p0);
+    } else {
+      tw_stage(p0, ring, ring_s, st + i, b_off);
+      wgmma_wait<1>();
+      tf_join(s, p1);
+    }
+    ring->release(st + i - 1);
+  }
+  wgmma_wait<0>();
+  if constexpr (U & 1) {
+    tf_join(s, p0);
+  } else {
+    tf_join(s, p1);
+  }
+  ring->release(st + U - 1);
+}
+
+template <int WN>
+__global__ void __launch_bounds__(kWThreads, 1)
+nonlocal_attention_fwd_tf32_wgmma_kernel(
+    const __grid_constant__ CUtensorMap qmap,
+    const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const TfParams p) {
+  constexpr int ST = kFStages;
+  constexpr int kVBytes = WN * 128;   // one TF32 half of a v^T stage
+  static_assert(2 * kVBytes <= kGSlot, "a v^T stage fits a slot");
+  static_assert(ST >= 4, "a tile's four v^T stages are held at once");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring_p = align1024(smem_raw);
+  unsigned char* pbuf = ring_p + ST * kGSlot;
+  Ring<ST>* ring = reinterpret_cast<Ring<ST>*>(pbuf + kFPBytes);
+  float* red = reinterpret_cast<float*>(ring + 1);   // [2][64] max, [2][64] l
+
+  const int bi = blockIdx.y;
+  const int r0 = blockIdx.x * kFRows;
+  const int w_base = blockIdx.z * 2 * WN;
+  const int tiles = (p.nk + kFKeys - 1) / kFKeys;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    ring->init(kWConsumerWarps);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: per tile the s stages, then the four v^T stages (key
+    // chunk j / 2 of the tile for consumer j % 2)
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int st = 0;
+      for (int t = 0; t < tiles; ++t) {
+        const int k0 = t * kFKeys;
+        for (int j = 0; j < p.nc; ++j, ++st) {
+          unsigned char* slot = ring_p + Ring<ST>::slot(st) * kGSlot;
+          uint64_t* full = &ring->full[Ring<ST>::slot(st)];
+          ring->wait_empty(st);
+          mbar_expect_tx(full, kGSlot);
+          tma_load(slot, &qmap, full, j * kFChunk, r0, 2 * bi);
+          tma_load(slot + 8192, &qmap, full, j * kFChunk, r0, 2 * bi + 1);
+          tma_load(slot + 16384, &kmap, full, j * kFChunk, k0, 2 * bi);
+          tma_load(slot + 24576, &kmap, full, j * kFChunk, k0, 2 * bi + 1);
+        }
+        for (int j = 0; j < 4; ++j, ++st) {
+          unsigned char* slot = ring_p + Ring<ST>::slot(st) * kGSlot;
+          uint64_t* full = &ring->full[Ring<ST>::slot(st)];
+          const int key = k0 + (j >> 1) * kFChunk, row = w_base + (j & 1) * WN;
+          ring->wait_empty(st);
+          mbar_expect_tx(full, 2 * kVBytes);
+          tma_load(slot, &vmap, full, key, row, 2 * bi);
+          tma_load(slot + kVBytes, &vmap, full, key, row, 2 * bi + 1);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, qd = lane & 3;
+    const uint32_t ring_s = smem_addr(ring_p);
+    const uint32_t p_s = smem_addr(pbuf);
+    // zeroed and pinned before the products: ptxas serializes the wgmmas
+    // of an accumulator first defined inside the pipeline (C7515)
+    float acc[WN / 2], pa[WN / 2], s[16], p0[16], p1[16];
+#pragma unroll
+    for (int e = 0; e < WN / 2; ++e) acc[e] = pa[e] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p0[e] = p1[e] = 0.f;
+    reg_fence(acc);
+    reg_fence(pa);
+    reg_fence(p0);
+    reg_fence(p1);
+    // rows warp * 16 + g (h = 0) and + 8 (h = 1) of the block: the running
+    // max and this thread's share of the row sum (its 8 keys of each tile)
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+    const uint32_t b_off = wg * 4096;   // the consumer's 32 keys
+    int st = 0;   // the next ring stage
+    for (int t = 0; t < tiles; ++t) {
+      const int k0 = t * kFKeys;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = 0.f;
+      // ---- s: kFUnroll stages at a time, the rest by pairs, then one
+      int js = 0;
+      for (; js + kFUnroll <= p.nc; js += kFUnroll)
+        tf_stages<kFUnroll>(s, p0, p1, ring, ring_s, st + js, b_off);
+      for (; js + 2 <= p.nc; js += 2)
+        tf_stages<2>(s, p0, p1, ring, ring_s, st + js, b_off);
+      if (js < p.nc) tf_stages<1>(s, p0, p1, ring, ring_s, st + js, b_off);
+      st += p.nc;
+
+      // ---- scale, mask the keys past nk, and the row maxima of both
+      // consumers (s[4 j + 2 h + e]: row warp * 16 + g + 8 h, key k0 + 32 wg
+      // + 8 j + 2 qd + e)
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 32 * wg + 8 * j + 2 * qd + (e & 1);
+          float& x = s[4 * j + e];
+          x = key < p.nk ? x * p.scale : kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        if (qd == 0) red[wg * kFRows + warp * 16 + g + 8 * h] = mx[h];
+      }
+      // both maxima written; and P is free: each consumer's P v product of
+      // tile t - 1 completed before it arrived here
+      named_sync(2, 256);
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float other = red[(1 - wg) * kFRows + warp * 16 + g + 8 * h];
+        const float m_new = fmaxf(m_r[h], fmaxf(mx[h], other));
+        alpha[h] = expf(m_r[h] - m_new);
+        m_r[h] = m_new;
+        l_r[h] *= alpha[h];
+      }
+
+      // ---- P: this consumer's keys, as TF32 halves into chunk wg
+      unsigned char* pb = pbuf + wg * 8192;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int ct = 8 * j + 2 * qd;           // key in the chunk
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rt = warp * 16 + g + 8 * h;  // row in the block
+          float2 hi, lo;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = expf(s[4 * j + 2 * h + e] - m_r[h]);
+            l_r[h] += x;
+            uint32_t xh, xl;
+            split_tf32(x, xh, xl);
+            (e ? hi.y : hi.x) = __uint_as_float(xh);
+            (e ? lo.y : lo.x) = __uint_as_float(xl);
+          }
+          *reinterpret_cast<float2*>(pb + swizzled_f32(rt, ct)) = hi;
+          *reinterpret_cast<float2*>(pb + 16384 + swizzled_f32(rt, ct)) = lo;
+        }
+      }
+      fence_proxy_async();
+      named_sync(1, 256);   // P of both consumers written
+
+      // ---- O = alpha O + P v^T over the tile's two key chunks: this
+      // consumer's v^T stages are st + wg and st + 2 + wg, the other two it
+      // releases at once; chunk 0's own slot is released as soon as its
+      // group is done, so the next tile's stages load behind chunk 1's
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ring->wait_full(st + j);
+      ring->release(st + 1 - wg);
+      ring->release(st + 3 - wg);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t m = ring_s + Ring<ST>::slot(st + 2 * i + wg) * kGSlot;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_tf32x3(pa, p_s + i * 8192 + 32 * kk,
+                       p_s + 16384 + i * 8192 + 32 * kk, m + 32 * kk,
+                       m + kVBytes + 32 * kk, (i | kk) == 0);
+        }
+        wgmma_commit();
+      }
+      wgmma_wait<1>();
+      ring->release(st + wg);
+      wgmma_wait<0>();
+      reg_fence(pa);
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e)
+        acc[e] = acc[e] * alpha[(e >> 1) & 1] + pa[e];
+      ring->release(st + 2 + wg);
+      st += 4;
+    }
+
+    // ---- epilogue: the row sums of the quad, then of both consumers
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+      l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+      if (qd == 0) red[(2 + wg) * kFRows + warp * 16 + g + 8 * h] = l_r[h];
+    }
+    named_sync(2, 256);
+    const bool pairs = p.cv % 2 == 0;   // 8-byte aligned float2 stores
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rt = warp * 16 + g + 8 * h;
+      const int row = r0 + rt;
+      if (row >= p.n) continue;
+      const float l = red[2 * kFRows + rt] + red[3 * kFRows + rt];
+      const float inv_l = 1.f / l;
+      if (wg == 0 && qd == 0 && blockIdx.z == 0)
+        p.lse[(size_t)bi * p.n + row] = m_r[h] + logf(l);
+      float* orow = p.out + ((size_t)bi * p.n + row) * p.cv;
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j) {
+        const int col = w_base + WN * wg + 8 * j + 2 * qd;
+        const float o0 = acc[4 * j + 2 * h] * inv_l;
+        const float o1 = acc[4 * j + 2 * h + 1] * inv_l;
+        if (pairs && col + 1 < p.cv) {
+          *reinterpret_cast<float2*>(orow + col) = make_float2(o0, o1);
+        } else {
+          if (col < p.cv) orow[col] = o0;
+          if (col + 1 < p.cv) orow[col + 1] = o1;
+        }
+      }
+    }
+  }
+}
+
+// Bytes of the scratch a call takes: q's and k's TF32 halves as stored
+// and v's transposed (tf32_wgmma.cuh), each region 256-byte aligned.
+size_t tf_scratch_bytes(int b, int n, int nk, int c, int cv) {
+  const int cp = round_up(c, kFChunk), cvp = round_up(cv, kFChunk);
+  return tw_region(b, n, cp) + tw_region(b, nk, cp) +
+         tw_region(b, cvp, round_up(nk, 4));
+}
+
+template <int WN>
+int launch_tf(const CUtensorMap (&maps)[3], const TfParams& p, int b,
+              int blocks, int z, cudaStream_t stream) {
+  auto kernel = nonlocal_attention_fwd_tf32_wgmma_kernel<WN>;
+  const size_t smem = tf_smem();
+  static int smem_allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(kernel, smem, smem_allowed);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(blocks, b, z), kWThreads, smem, stream>>>(maps[0], maps[1],
+                                                         maps[2], p);
+  return (int)cudaGetLastError();
+}
+
+// The pre-pass, then the main kernel. O's columns (Cv padded to 32) go
+// over z parts of at most kFMaxPart, each of two consumers' WN columns:
+// WN the narrowest of 32, 64, 96, 128 that covers a part.
+int run_fwd_tf32_wgmma(const float* q, const float* k, const float* v,
+                       float* out, float* lse, void* scratch, int b, int n,
+                       int nk, int c, int cv, float scale,
+                       cudaStream_t stream) {
+  if (c > kFMaxWidth || cv > kFMaxWidth) return (int)cudaErrorInvalidValue;
+  const int cp = round_up(c, kFChunk), cvp = round_up(cv, kFChunk);
+  const int nkp = round_up(nk, 4);
+  float* qs = static_cast<float*>(scratch);
+  float* ks = qs + tw_region(b, n, cp) / sizeof(float);
+  float* vt = ks + tw_region(b, nk, cp) / sizeof(float);
+  int err;
+  if ((err = launch_split(q, qs, nullptr, b, n, c, cp, stream)) ||
+      (err = launch_split(k, ks, nullptr, b, nk, c, cp, stream)) ||
+      (err = launch_split(v, nullptr, vt, b, nk, cv, cvp, stream)))
+    return err;
+  const int z = (cvp + kFMaxPart - 1) / kFMaxPart;
+  const int half = ((cvp + z - 1) / z + 1) / 2;
+  const int wn = round_up(half, 32);
+  CUtensorMap maps[3];   // q, k, v^T
+  if (!make_map_f32(&maps[0], qs, 2 * b, n, cp, kFRows) ||
+      !make_map_f32(&maps[1], ks, 2 * b, nk, cp, kFKeys) ||
+      !make_map_f32(&maps[2], vt, 2 * b, cvp, nkp, wn))
+    return (int)cudaErrorNotSupported;
+  TfParams p;
+  p.out = out;
+  p.lse = lse;
+  p.n = n;
+  p.nk = nk;
+  p.cv = cv;
+  p.nc = cp / kFChunk;
+  p.scale = scale;
+  const int blocks = (n + kFRows - 1) / kFRows;
+  switch (wn) {
+    case 32: return launch_tf<32>(maps, p, b, blocks, z, stream);
+    case 64: return launch_tf<64>(maps, p, b, blocks, z, stream);
+    case 96: return launch_tf<96>(maps, p, b, blocks, z, stream);
+    default: return launch_tf<128>(maps, p, b, blocks, z, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1253,6 +1664,30 @@ int pt_nonlocal_attention_fwd_tf32x3(const void* q, const void* k,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), b, n, nk, c, cv, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The f32 TF32-wgmma program (tf32_wgmma): the same function as
+// pt_nonlocal_attention_fwd in f32, for C and Cv up to kFMaxWidth (the
+// caller's dispatch picks it), with `scratch` (16-byte aligned) of
+// pt_nonlocal_attention_fwd_tf32_wgmma_scratch bytes for the operands'
+// TF32 halves. Any f32 tensors: the pre-pass reads them with plain loads.
+long long pt_nonlocal_attention_fwd_tf32_wgmma_scratch(int b, int n, int nk,
+                                                       int c, int cv) {
+  return (long long)tf_scratch_bytes(b, n, nk, c, cv);
+}
+
+int pt_nonlocal_attention_fwd_tf32_wgmma(const void* q, const void* k,
+                                         const void* v, void* out, void* lse,
+                                         void* scratch, int b, int n, int nk,
+                                         int c, int cv, float scale,
+                                         void* stream) {
+  if (b < 1 || n < 1 || nk < 1 || c < 1 || cv < 1 || b > 65535)
+    return (int)cudaErrorInvalidValue;
+  return run_fwd_tf32_wgmma(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), scratch, b, n, nk, c, cv, scale,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the warp-specialised kernels of the
 // non-local attention (K1-fwd, K1-dq and K1-dkv, bf16; their wide programs
-// of layer 3 too; the f32 K1-dq and K1-dkv on TF32 wgmma): the TMA tensor
-// maps, the mbarrier ring, the wgmma descriptors and products, and
+// of layer 3 too; the f32 K1-fwd, K1-dq and K1-dkv on TF32 wgmma): the TMA
+// tensor maps, the mbarrier ring, the wgmma descriptors and products, and
 // setmaxnreg.
 //
 // Shared-memory tiles. Every operand tile is a stack of 64-channel chunks,
@@ -515,6 +515,23 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t desc_a,
       "%28, %29, %30, %31}, %32, %33, p, 1, 1;\n"
       "}\n"
       : WG_F16(d, 0), WG_F16(d, 16)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// the same, 64 x 96
+__device__ __forceinline__ void wgmma_tf32(float (&d)[48], uint64_t desc_a,
+                                           uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1;\n"
+      "}\n"
+      : WG_F16(d, 0), WG_F16(d, 16), WG_F16(d, 32)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

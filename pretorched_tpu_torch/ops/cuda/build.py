@@ -142,10 +142,21 @@ def _load() -> ctypes.CDLL:
         [ctypes.c_int] * 6)
     lib.pt_nonlocal_attention_bwd_tf32_wgmma_scratch.restype = (
         ctypes.c_longlong)
+    # K1-fwd's tf32_wgmma entry: q, k, v, out, lse, then its scratch
+    # (pt_nonlocal_attention_fwd_tf32_wgmma_scratch(b, n, nk, c, cv)
+    # bytes); b, n, nk, c, cv; scale; stream
+    lib.pt_nonlocal_attention_fwd_tf32_wgmma.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p])
+    lib.pt_nonlocal_attention_fwd_tf32_wgmma_scratch.argtypes = (
+        [ctypes.c_int] * 5)
+    lib.pt_nonlocal_attention_fwd_tf32_wgmma_scratch.restype = (
+        ctypes.c_longlong)
     for fn in (lib.pt_nonlocal_attention_fwd,
                lib.pt_nonlocal_attention_fwd_wgmma,
                lib.pt_nonlocal_attention_fwd_wgmma_wide,
                lib.pt_nonlocal_attention_fwd_tf32x3,
+               lib.pt_nonlocal_attention_fwd_tf32_wgmma,
                lib.pt_nonlocal_attention_bwd_dq,
                lib.pt_nonlocal_attention_bwd_dq_wgmma,
                lib.pt_nonlocal_attention_bwd_dq_wgmma_wide,

@@ -18,13 +18,13 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   zero fill, and of 64 for K1-dq and K1-dkv: Hopper's warp-specialised
   wgmma + TMA kernels; each op takes a second, wide program past 256,
   layer 3's 512),
-  ``'mma_sync'`` (every other bf16 shape), ``'tf32_wgmma'`` (f32 K1-dq
-  and K1-dkv with C and Cv up to ``TF32X3_MAX_WIDTH``: TF32 wgmma + TMA
-  with three TF32 products per f32 product, on operands a pre-pass split
-  into their TF32 halves in scratch), ``'tf32x3'`` (f32 K1-fwd up to 512:
-  mma.sync with the same arithmetic; the f32 forward of every model's
-  non-local block, SAGAN's and MNIST's too; f32 K1-dq and K1-dkv by name)
-  or ``'scalar'`` (f32 past 512: gaussian mode's C = 1024). The
+  ``'mma_sync'`` (every other bf16 shape), ``'tf32_wgmma'`` (f32 K1-fwd,
+  K1-dq and K1-dkv with C and Cv up to ``TF32X3_MAX_WIDTH``: TF32 wgmma +
+  TMA with three TF32 products per f32 product, on operands a pre-pass
+  split into their TF32 halves in scratch; the f32 forward and backward of
+  every model's non-local block, SAGAN's and MNIST's too), ``'tf32x3'``
+  (the programs it replaced, mma.sync with the same arithmetic, by name
+  only) or ``'scalar'`` (f32 past 512: gaussian mode's C = 1024). The
   kernel wrappers take CUDA tensors only and raise on anything they do not
   take; each counts its launches in ``.launches`` and per program in
   ``.by_kernel`` (``PROGRAMS``: the wide wgmma program as ``'wgmma_wide'``).
@@ -54,8 +54,9 @@ from torch.autograd.function import once_differentiable
 from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the widest f32 Cv of K1-fwd: the tf32x3 program keeps a block's (64, Cv)
-# O in registers, the scalar one in shared memory; both stop at 512
+# the widest f32 Cv of K1-fwd: the tensor-core programs keep a block's O
+# in registers (tf32_wgmma past 256 columns in grid.z parts), the scalar
+# one in shared memory; all stop at 512
 MAX_CV_F32 = 512
 KERNELS = ('wgmma', 'mma_sync', 'tf32_wgmma', 'tf32x3', 'scalar')
 # what ``.by_kernel`` counts: the kernels, wgmma's wide program apart
@@ -88,7 +89,7 @@ def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
     if dtype == torch.float32:
         if max(c, cv) > TF32X3_MAX_WIDTH:
             return 'scalar'
-        return 'tf32x3' if op == 'fwd' else 'tf32_wgmma'
+        return 'tf32_wgmma'
     step = WGMMA_WIDTH_STEP[op]
     fits = all(w % step == 0 and w <= WGMMA_MAX_WIDTH for w in (c, cv))
     return 'wgmma' if fits else 'mma_sync'
@@ -96,17 +97,17 @@ def attention_kernel(dtype, c: int, cv: int, op: str) -> str:
 
 # (kernel, the dispatch's choice) pairs a private launch may take: the
 # generic program of each dtype takes its every shape, and the f32
-# backward's mma.sync program every shape of its TF32-wgmma successor, so
-# a launch of the program that replaced one can be held against it
-_OLDER = {('mma_sync', 'wgmma'), ('scalar', 'tf32x3'),
-          ('tf32x3', 'tf32_wgmma'), ('scalar', 'tf32_wgmma')}
+# mma.sync programs every shape of their TF32-wgmma successors, so a
+# launch of the program that replaced one can be held against it
+_OLDER = {('mma_sync', 'wgmma'), ('tf32x3', 'tf32_wgmma'),
+          ('scalar', 'tf32_wgmma')}
 
 
 def _check_kernel(dtype, c: int, cv: int, kernel: str, op: str):
     """``kernel`` must be the dispatch's choice for ``op``, or mma_sync
-    where that is wgmma, scalar where it is tf32x3, tf32x3 or scalar where
-    it is tf32_wgmma: the older kernels take every shape of their
-    successors, so a launch can be held against the kernel it replaced."""
+    where that is wgmma, tf32x3 or scalar where it is tf32_wgmma: the older
+    kernels take every shape of their successors, so a launch can be held
+    against the kernel it replaced."""
     chosen = attention_kernel(dtype, c, cv, op)
     if kernel != chosen and (kernel, chosen) not in _OLDER:
         raise ValueError(f'{op} kernel {kernel!r} does not take {dtype} with '
@@ -225,10 +226,27 @@ def tf32_wgmma_scratch_bytes(dkv: bool, b: int, n: int, nk: int, c: int,
             + (region(cvp, colp) if dkv else 0))
 
 
-def _tf32_wgmma_scratch(q, v, nk, dkv):
-    """The scratch of a tf32_wgmma launch, in f32 words."""
+def tf32_wgmma_fwd_scratch_bytes(b: int, n: int, nk: int, c: int,
+                                 cv: int) -> int:
+    """Bytes of a tf32_wgmma K1-fwd launch's scratch, as the C entry
+    ``pt_nonlocal_attention_fwd_tf32_wgmma_scratch`` lays it out: q and k
+    split into their TF32 halves, (2B, rows, C padded to 32), and v's
+    halves transposed, (2B, Cv padded to 32, Nk padded to 4); each region
+    256-byte aligned. Freed after the call."""
+    cp, cvp = -(-c // 32) * 32, -(-cv // 32) * 32
+
+    def region(r, w):
+        return -(-2 * b * r * w * 4 // 256) * 256
+
+    return region(n, cp) + region(nk, cp) + region(cvp, -(-nk // 4) * 4)
+
+
+def _tf32_wgmma_scratch(q, v, nk, op):
+    """The scratch of a tf32_wgmma launch of ``op``, in f32 words."""
     b, n, c = q.shape
-    nbytes = tf32_wgmma_scratch_bytes(dkv, b, n, nk, c, v.shape[2])
+    nbytes = (tf32_wgmma_fwd_scratch_bytes(b, n, nk, c, v.shape[2])
+              if op == 'fwd' else tf32_wgmma_scratch_bytes(
+                  op == 'dkv', b, n, nk, c, v.shape[2]))
     return torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
 
 
@@ -265,7 +283,11 @@ def _launch_fwd(q, k, v, scale, kernel):
     program = _program(kernel, c, cv)
     if kernel == 'wgmma':
         _check_tma(q, k, v, out)
-    if kernel in ('wgmma', 'tf32x3'):
+    if kernel == 'tf32_wgmma':
+        _launch('pt_nonlocal_attention_fwd_tf32_wgmma', q, v,
+                (q, k, v, out, lse,
+                 _tf32_wgmma_scratch(q, v, k.shape[1], 'fwd')), scale)
+    elif kernel in ('wgmma', 'tf32x3'):
         _launch(f'pt_nonlocal_attention_fwd_{program}', q, v,
                 (q, k, v, out, lse), scale)
     else:
@@ -324,7 +346,7 @@ def _launch_dq(q, k, v, do, lse, delta, scale, kernel):
     if kernel == 'tf32_wgmma':
         _launch('pt_nonlocal_attention_bwd_dq_tf32_wgmma', q, v,
                 (q, k, v, do, lse, delta, dq,
-                 _tf32_wgmma_scratch(q, v, k.shape[1], False)), scale)
+                 _tf32_wgmma_scratch(q, v, k.shape[1], 'dq')), scale)
     elif kernel in ('wgmma', 'tf32x3'):
         _launch(f'pt_nonlocal_attention_bwd_dq_{program}', q, v,
                 (q, k, v, do, lse, delta, dq), scale)
@@ -358,7 +380,7 @@ def _launch_dkv(q, k, v, do, lse, delta, scale, kernel):
     if kernel == 'tf32_wgmma':
         _launch('pt_nonlocal_attention_bwd_dkv_tf32_wgmma', q, v,
                 (q, k, v, do, lse, delta, dk, dv,
-                 _tf32_wgmma_scratch(q, v, k.shape[1], True)), scale)
+                 _tf32_wgmma_scratch(q, v, k.shape[1], 'dkv')), scale)
     elif kernel in ('wgmma', 'tf32x3'):
         _launch(f'pt_nonlocal_attention_bwd_dkv_{program}', q, v,
                 (q, k, v, do, lse, delta, dk, dv), scale)

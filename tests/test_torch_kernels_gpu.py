@@ -1,8 +1,8 @@
 """The port's CUDA kernels (the non-local attention forward K1-fwd, its
 backward K1-dq, K1-dkv, each on wgmma where the dispatch sends bf16 (the
 wide programs of all three at layer 3's C = Cv = 512), K1-fwd, K1-dq and
-K1-dkv in f32 up to C, Cv = 512 (K1-fwd on tf32x3, K1-dq and K1-dkv on
-TF32 wgmma, tf32_wgmma, held to the tf32x3 programs too), and
+K1-dkv in f32 up to C, Cv = 512 (on TF32 wgmma, tf32_wgmma, held to the
+tf32x3 programs too), and
 the fused bottleneck tail K2) against their plain PyTorch versions, on a
 card; K1-fwd and K2 through their registered operators, and
 ``torch.export`` on the card recording them; and each factory of the rest
@@ -82,11 +82,11 @@ def test_attention_kernel_matches_plain(cuda, dtype, tol_out, tol_lse,
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype,programs', [
     (torch.bfloat16, ('wgmma_wide', 'wgmma', 'wgmma')),
-    (torch.float32, ('tf32x3',) * 3)])
+    (torch.float32, ('tf32_wgmma',) * 3)])
 def test_sagan_shapes_take_their_programs(cuda, dtype, programs):
     """C is no multiple of 64 at SAGAN's shapes, but a multiple of 8: bf16
     runs K1-fwd's wgmma programs on widths padded by TMA (biggan256's Cv =
-    384 the wide one), f32 the tf32x3 one, one launch each."""
+    384 the wide one), f32 the tf32_wgmma one, one launch each."""
     for (b, n, nk, c, cv, _), program in zip(SAGAN_CASES, programs):
         q = torch.randn(b, n, c, device=cuda, dtype=dtype)
         k = torch.randn(b, nk, c, device=cuda, dtype=dtype)
@@ -254,8 +254,8 @@ def test_tf32x3_reads_lse_per_row_and_sizes_by_cv(cuda, b, n, nk, c, cv):
 @pytest.mark.gpu
 def test_f32_layer_shapes_take_tf32x3(cuda):
     """The non-local model's layer-2 and layer-3 shapes in f32 (B = 1):
-    K1-fwd on tf32x3, K1-dq and K1-dkv on tf32_wgmma, one launch each
-    through the autograd Function."""
+    K1-fwd, K1-dq and K1-dkv on tf32_wgmma, one launch each through the
+    autograd Function."""
     fns = (na.nonlocal_attention_cuda, na.nonlocal_attention_bwd_dq_cuda,
            na.nonlocal_attention_bwd_dkv_cuda)
     for n, c in ((6272, 256), (784, 512)):
@@ -264,8 +264,7 @@ def test_f32_layer_shapes_take_tf32x3(cuda):
         before = [dict(fn.by_kernel) for fn in fns]
         na.auto_nonlocal_attention(q, k, v).backward(do)
         torch.cuda.synchronize()
-        for fn, was, kernel in zip(fns, before,
-                                   ('tf32x3', 'tf32_wgmma', 'tf32_wgmma')):
+        for fn, was, kernel in zip(fns, before, ('tf32_wgmma',) * 3):
             assert {key: fn.by_kernel[key] - was[key]
                     for key in fn.by_kernel} == {
                 key: int(key == kernel) for key in na.PROGRAMS}
@@ -342,12 +341,12 @@ F32_FWD_CASES = [
 @pytest.mark.parametrize('b,n,nk,c,cv,scale', CASES + F32_FWD_CASES)
 def test_f32_forward_program_matches_plain_and_scalar(cuda, b, n, nk, c, cv,
                                                       scale):
-    """f32 K1-fwd on the program the dispatch picks (tf32x3 up to C, Cv =
-    512, scalar past it), one launch counted under it; out within 2e-4 and
-    lse within 1e-4 of the plain version and of the scalar program at the
-    same inputs, and bitwise the same on a second run."""
+    """f32 K1-fwd on the program the dispatch picks (tf32_wgmma up to C,
+    Cv = 512, scalar past it), one launch counted under it; out within 2e-4
+    and lse within 1e-4 of the plain version and of the scalar program at
+    the same inputs, and bitwise the same on a second run."""
     q, k, v, _ = _bwd_inputs(b, n, nk, c, cv, torch.float32, cuda)
-    program = 'tf32x3' if max(c, cv) <= 512 else 'scalar'
+    program = 'tf32_wgmma' if max(c, cv) <= 512 else 'scalar'
     assert na.attention_kernel(torch.float32, c, cv, 'fwd') == program
     fn = na.nonlocal_attention_cuda
     before = dict(fn.by_kernel)
@@ -380,6 +379,55 @@ def test_tf32x3_forward_reads_rows_per_item_and_sizes_by_cv(cuda, b, n, nk,
     torch.cuda.synchronize()
     assert out.shape == (b, n, cv) and lse.shape == (b, n)
     want, want_lse = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+    for i in range(b):
+        torch.testing.assert_close(out[i], want[i], rtol=0, atol=2e-4)
+        torch.testing.assert_close(lse[i], want_lse[i], rtol=0, atol=1e-4)
+
+
+# the f32 K1-fwd on tf32_wgmma: B = 3 with each item's rows on another
+# scale (its lse per row of each item), Cv above and below C (out sized by
+# Cv), ragged N and Nk, N != Nk both ways, layer 3's 512 (two grid.z parts)
+# and SAGAN's 96 / 384 (two parts of 192), widths off 64 and off 32 (the
+# pre-pass pads them), odd Cv (element stores), one key tile
+TF32_WGMMA_FWD_CASES = [
+    (3, 200, 150, 64, 192, 1.0), (3, 150, 200, 192, 64, 1.0),
+    (3, 333, 65, 40, 24, 0.5), (2, 300, 300, 256, 256, 1.0),
+    (2, 196, 100, 512, 512, 1.0), (2, 130, 257, 512, 128, 1.0),
+    (2, 257, 130, 96, 384, 1.0), (1, 97, 64, 320, 96, 1.0),
+    (2, 77, 33, 7, 5, 2.0), (2, 100, 90, 20, 151, 1.0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('b,n,nk,c,cv,scale', TF32_WGMMA_FWD_CASES)
+def test_tf32_wgmma_forward_matches_plain_and_tf32x3(cuda, b, n, nk, c, cv,
+                                                     scale):
+    """f32 K1-fwd on tf32_wgmma, one launch counted under it: each batch
+    item's out within 2e-4 and lse within 1e-4 of the plain version (a row
+    of another item would move them), the same of the mma.sync tf32x3
+    program at the same inputs, bitwise the same on a second run; its
+    scratch as large as the C entry lays it out."""
+    q, k, v, _ = _bwd_inputs(b, n, nk, c, cv, torch.float32, cuda, seed=5)
+    q = q * torch.arange(1, b + 1, device=cuda, dtype=q.dtype)[:, None, None]
+    assert na.attention_kernel(torch.float32, c, cv, 'fwd') == 'tf32_wgmma'
+    assert na.tf32_wgmma_fwd_scratch_bytes(b, n, nk, c, cv) == (
+        build.load_library().pt_nonlocal_attention_fwd_tf32_wgmma_scratch(
+            b, n, nk, c, cv))
+    fn = na.nonlocal_attention_cuda
+    before = dict(fn.by_kernel)
+    out, lse = na.nonlocal_attention_cuda(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert {p: fn.by_kernel[p] - before[p] for p in na.PROGRAMS} == {
+        p: int(p == 'tf32_wgmma') for p in na.PROGRAMS}
+    assert out.shape == (b, n, cv) and lse.shape == (b, n)
+    assert out.dtype == lse.dtype == torch.float32
+    want, want_lse = na.nonlocal_attention_fwd_lse_reference(q, k, v, scale)
+    old, old_lse = na._launch_fwd(q, k, v, scale, 'tf32x3')
+    again, again_lse = na._launch_fwd(q, k, v, scale, 'tf32_wgmma')
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+    torch.testing.assert_close(out, old, rtol=0, atol=2e-4)
+    torch.testing.assert_close(lse, old_lse, rtol=0, atol=1e-4)
     for i in range(b):
         torch.testing.assert_close(out[i], want[i], rtol=0, atol=2e-4)
         torch.testing.assert_close(lse[i], want_lse[i], rtol=0, atol=1e-4)
@@ -988,7 +1036,7 @@ def test_native_length_shapes_match_plain(cuda, frames, layer, dtype,
             else (frames // 8 * 196, 512))
     q, k, v, _ = _bwd_inputs(10, n, n, c, c, dtype, cuda)
     program = na._program(na.attention_kernel(dtype, c, c, 'fwd'), c, c)
-    assert program == ('tf32x3' if dtype == torch.float32 else
+    assert program == ('tf32_wgmma' if dtype == torch.float32 else
                        'wgmma' if layer == 2 else 'wgmma_wide')
     before = na.nonlocal_attention_cuda.by_kernel[program]
     out, lse = na.nonlocal_attention_fwd_lse(q, k, v)
@@ -1032,16 +1080,17 @@ def test_served_resnet18_rows_match_the_direct_forward(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype,kernel,tol_out,tol_lse', [
-    (torch.float32, 'tf32x3', 2e-4, 1e-4),
-    (torch.bfloat16, 'wgmma', 2e-2, 1e-2)])
+    (torch.float32, 'tf32_wgmma', 2e-4, 1e-4),
+    (torch.bfloat16, 'wgmma', 2e-2, 1e-2)],
+    ids=['dtype0-tf32x3-0.0002-0.0001', 'dtype1-wgmma-0.02-0.01'])
 @pytest.mark.parametrize('b,n,c', [(64, 196, 16), (64, 49, 32)])
 def test_mnist_nonlocal_shapes_match_plain(cuda, dtype, kernel, tol_out,
                                            tol_lse, b, n, c):
     """K1-fwd at ``MNISTNonLocalNet``'s two attention shapes (64 images:
     N = 196, C = 16 and N = 49, C = 32), on the kernel the dispatch picks
     (C is a multiple of 8, so bf16 takes the wgmma program on widths padded
-    to 64; f32 tf32x3), against the plain version at phase 3's
-    tolerances."""
+    to 64; f32 tf32_wgmma, whose pre-pass pads them to 32), against the
+    plain version at phase 3's tolerances."""
     q, k, v, _ = _bwd_inputs(b, n, n, c, c, dtype, cuda)
     assert na.attention_kernel(dtype, c, c, 'fwd') == kernel
     before = na.nonlocal_attention_cuda.by_kernel[kernel]

@@ -97,9 +97,9 @@ def test_plain_runs_f32_under_autocast():
 # 32, SAGAN's 48 / 192 and 96 / 384, the golden lock's 16 / 64) take wgmma
 # in K1-fwd, whose programs pad them, and mma.sync in the backward;
 # gaussian mode (1024), past 512 and channels that are no multiple of 8
-# stay on mma.sync; f32 takes tf32x3 in K1-fwd and tf32_wgmma in K1-dq and
-# K1-dkv up to 512
-F32 = 'tf32x3,tf32_wgmma,tf32_wgmma'
+# stay on mma.sync; f32 takes tf32_wgmma in K1-fwd, K1-dq and K1-dkv up to
+# 512
+F32 = 'tf32_wgmma'
 DISPATCH = [
     (torch.bfloat16, 256, 256, 'wgmma'),
     (torch.bfloat16, 64, 256, 'wgmma'),
@@ -221,7 +221,7 @@ def test_launch_counters_are_kept_per_kernel():
 
 # f32 widths of K1-dq and K1-dkv: the models' (MNIST's 16 and 32, SAGAN's
 # 48 / 192 and 96 / 384, layers 2 and 3) and the card tests' odd ones take
-# tf32_wgmma up to 512 (K1-fwd tf32x3); gaussian mode's C = 1024 and
+# tf32_wgmma up to 512 (K1-fwd too); gaussian mode's C = 1024 and
 # anything wider stay scalar. Each case keeps the id of the program it was
 # first written for.
 F32_BACKWARD = [
@@ -238,16 +238,16 @@ F32_BACKWARD_IDS = [f'{c}-{cv}-' + ('scalar' if k == 'scalar' else 'tf32x3')
 @pytest.mark.parametrize('c,cv,kernel', F32_BACKWARD, ids=F32_BACKWARD_IDS)
 def test_f32_backward_dispatch_by_width(c, cv, kernel):
     """f32 K1-dq and K1-dkv take tf32_wgmma wherever C and Cv are at most
-    512, else scalar; f32 K1-fwd takes tf32x3 there (scalar past it)."""
+    512, else scalar; so does f32 K1-fwd."""
     for op in na.OPS:
-        want = 'tf32x3' if op == 'fwd' and kernel != 'scalar' else kernel
-        assert na.attention_kernel(torch.float32, c, cv, op) == want, op
+        assert na.attention_kernel(torch.float32, c, cv, op) == kernel, op
 
 
 def test_f32_backward_takes_scalar_by_name_where_tf32x3_is_picked():
-    """The private launch routes may send a tf32x3 shape to the scalar
-    program (the A/B against the program it replaced); tf32x3 takes no
-    shape past 512 and no bf16, in K1-dq, K1-dkv and K1-fwd alike."""
+    """The private launch routes may send a shape of the f32 tensor-core
+    programs to the scalar program or to tf32x3 (the A/Bs against the
+    programs tf32_wgmma replaced); tf32x3 takes no shape past 512 and no
+    bf16, in K1-dq, K1-dkv and K1-fwd alike."""
     for op in na.OPS:
         na._check_kernel(torch.float32, 256, 256, 'scalar', op)
         na._check_kernel(torch.float32, 512, 512, 'tf32x3', op)
@@ -261,11 +261,11 @@ def test_f32_backward_takes_scalar_by_name_where_tf32x3_is_picked():
 
 @pytest.mark.parametrize('c,cv', [(256, 512), (512, 512), (20, 150)])
 def test_f32_backward_takes_the_older_programs_by_name(c, cv):
-    """Where the dispatch picks tf32_wgmma for K1-dq and K1-dkv, the
-    mma.sync tf32x3 program and the scalar one are still taken by name
+    """Where the dispatch picks tf32_wgmma for K1-fwd, K1-dq and K1-dkv,
+    the mma.sync tf32x3 program and the scalar one are still taken by name
     (the A/B against the programs it replaced); tf32_wgmma is taken for
-    neither K1-fwd nor bf16 nor past 512, and no bf16 program for f32."""
-    for op in ('dq', 'dkv'):
+    neither bf16 nor past 512, and no bf16 program for f32."""
+    for op in na.OPS:
         assert na.attention_kernel(torch.float32, c, cv, op) == 'tf32_wgmma'
         for kernel in ('tf32_wgmma', 'tf32x3', 'scalar'):
             na._check_kernel(torch.float32, c, cv, kernel, op)
@@ -276,8 +276,6 @@ def test_f32_backward_takes_the_older_programs_by_name(c, cv):
             na._check_kernel(torch.float32, 1024, cv, 'tf32_wgmma', op)
         with pytest.raises(ValueError, match='does not take'):
             na._check_kernel(torch.bfloat16, c, cv, 'tf32_wgmma', op)
-    with pytest.raises(ValueError, match='fwd kernel .* does not take'):
-        na._check_kernel(torch.float32, c, cv, 'tf32_wgmma', 'fwd')
 
 
 @pytest.mark.parametrize('dkv,b,n,nk,c,cv', [
@@ -400,39 +398,49 @@ def test_three_tf32_products_keep_the_f32_tolerance():
 
 # f32 widths of K1-fwd: the models' (MNIST's 16 and 32, SAGAN's 48 / 192
 # and 96 / 384, the golden lock's 16 / 64, layers 2 and 3) and odd ones
-# take tf32x3 up to 512; gaussian mode's C = 1024 and anything wider stay
-# scalar
+# take tf32_wgmma up to 512; gaussian mode's C = 1024 and anything wider
+# stay scalar. Each case keeps the id of the program it was first written
+# for.
 F32_FORWARD = [
-    (16, 16, 'tf32x3'), (32, 32, 'tf32x3'), (48, 192, 'tf32x3'),
-    (96, 384, 'tf32x3'), (16, 64, 'tf32x3'), (256, 256, 'tf32x3'),
-    (512, 512, 'tf32x3'), (7, 5, 'tf32x3'), (20, 151, 'tf32x3'),
+    (16, 16, 'tf32_wgmma'), (32, 32, 'tf32_wgmma'), (48, 192, 'tf32_wgmma'),
+    (96, 384, 'tf32_wgmma'), (16, 64, 'tf32_wgmma'),
+    (256, 256, 'tf32_wgmma'), (512, 512, 'tf32_wgmma'),
+    (7, 5, 'tf32_wgmma'), (20, 151, 'tf32_wgmma'),
     (1024, 512, 'scalar'), (512, 513, 'scalar'), (513, 64, 'scalar'),
 ]
+F32_FORWARD_IDS = [f'{c}-{cv}-' + ('scalar' if k == 'scalar' else 'tf32x3')
+                   for c, cv, k in F32_FORWARD]
 
 
-@pytest.mark.parametrize('c,cv,kernel', F32_FORWARD)
+@pytest.mark.parametrize('c,cv,kernel', F32_FORWARD, ids=F32_FORWARD_IDS)
 def test_f32_forward_dispatch_by_width(c, cv, kernel):
-    """f32 K1-fwd takes tf32x3 wherever C and Cv are at most 512, else
-    scalar; where tf32x3 is picked the scalar program is still taken by
-    name, and no bf16 program is."""
+    """f32 K1-fwd takes tf32_wgmma wherever C and Cv are at most 512, else
+    scalar; where tf32_wgmma is picked the tf32x3 and scalar programs are
+    still taken by name, and no bf16 program is."""
     assert na.attention_kernel(torch.float32, c, cv, 'fwd') == kernel
     na._check_kernel(torch.float32, c, cv, kernel, 'fwd')
     na._check_kernel(torch.float32, c, cv, 'scalar', 'fwd')
+    older = ('tf32x3',) if kernel == 'tf32_wgmma' else ()
+    for name in older:
+        na._check_kernel(torch.float32, c, cv, name, 'fwd')
     for other in ('wgmma', 'mma_sync') + (
-            ('tf32x3',) if kernel == 'scalar' else ()):
+            ('tf32x3', 'tf32_wgmma') if kernel == 'scalar' else ()):
         with pytest.raises(ValueError, match='fwd kernel .* does not take'):
             na._check_kernel(torch.float32, c, cv, other, 'fwd')
 
 
-@pytest.mark.parametrize('c,cv,kernel', [(256, 256, 'tf32x3'),
-                                         (48, 192, 'tf32x3'),
-                                         (1024, 512, 'scalar')])
+@pytest.mark.parametrize('c,cv,kernel', [(256, 256, 'tf32_wgmma'),
+                                         (48, 192, 'tf32_wgmma'),
+                                         (1024, 512, 'scalar')],
+                         ids=['256-256-tf32x3', '48-192-tf32x3',
+                              '1024-512-scalar'])
 def test_f32_forward_routes_to_its_entries(monkeypatch, c, cv, kernel):
-    """K1-fwd in f32 calls tf32x3's entry (no dtype code) where the
-    dispatch picks it and the scalar entry (dtype code 0) otherwise, also
-    when scalar is asked for by name at a tf32x3 shape; each launch is
-    counted under its program, out sized by Cv and lse per row. The C
-    entries are replaced by a recorder."""
+    """K1-fwd in f32 calls tf32_wgmma's entry (no dtype code, a scratch
+    tensor after lse) where the dispatch picks it, tf32x3's by name there
+    and the scalar entry (dtype code 0) otherwise, also when scalar is
+    asked for by name at a tf32_wgmma shape; each launch is counted under
+    its program, out sized by Cv and lse per row. The C entries are
+    replaced by a recorder."""
     entries = []
     monkeypatch.setattr(na, '_launch',
                         lambda entry, *args: entries.append((entry, args[-1])))
@@ -440,23 +448,72 @@ def test_f32_forward_routes_to_its_entries(monkeypatch, c, cv, kernel):
     k = torch.zeros(2, 5, c)
     v = torch.zeros(2, 5, cv)
     fn = na.nonlocal_attention_cuda
-    for program in (kernel, 'scalar'):
+    programs = (kernel, 'scalar') + (('tf32x3',) if kernel == 'tf32_wgmma'
+                                     else ())
+    for program in programs:
         before = dict(fn.by_kernel)
         entries.clear()
         out, lse = na._launch_fwd(q, k, v, 1.0, program)
         assert out.shape == (2, 8, cv) and lse.shape == (2, 8)
-        assert entries == ([('pt_nonlocal_attention_fwd_tf32x3', 1.0)]
-                           if program == 'tf32x3'
+        assert entries == ([(f'pt_nonlocal_attention_fwd_{program}', 1.0)]
+                           if program != 'scalar'
                            else [('pt_nonlocal_attention_fwd', 0)])
         assert {p: fn.by_kernel[p] - before[p] for p in na.PROGRAMS} == {
             p: int(p == program) for p in na.PROGRAMS}
 
 
-def _split_forward(q, k, v, scale, terms, tile=64):
+@pytest.mark.parametrize('b,n,nk,c,cv', [
+    (8, 6272, 6272, 256, 256), (8, 784, 784, 512, 512),
+    (32, 4096, 1024, 96, 384), (32, 4096, 1024, 48, 192),
+    (64, 196, 196, 16, 16), (64, 49, 49, 32, 32), (3, 130, 77, 7, 5)],
+    ids=['layer2', 'layer3', 'biggan256', 'biggan128', 'mnist16', 'mnist32',
+         'ragged'])
+def test_tf32_wgmma_forward_gets_its_scratch(monkeypatch, b, n, nk, c, cv):
+    """K1-fwd's tf32_wgmma entry gets q, k, v, out, lse and then its
+    scratch, f32 words of ``tf32_wgmma_fwd_scratch_bytes``: q's and k's two
+    TF32 halves, channels padded to 32, and v's transposed, Cv padded to 32
+    and the keys to 4, each region 256-byte aligned; at layer 2 six f32
+    copies of a 51 MB operand (308 MB). The C entry is replaced by a
+    recorder, and the tensors are never written."""
+    calls = []
+    monkeypatch.setattr(na, '_launch', lambda entry, q, v, tensors, scale:
+                        calls.append((entry, q.shape, v.shape, tensors)))
+    q = torch.empty(b, n, c)
+    k = torch.empty(b, nk, c)
+    v = torch.empty(b, nk, cv)
+    out, lse = na._launch_fwd(q, k, v, 0.5, 'tf32_wgmma')
+    [(entry, qs, vs, tensors)] = calls
+    assert entry == 'pt_nonlocal_attention_fwd_tf32_wgmma'
+    assert (qs, vs) == (q.shape, v.shape) and len(tensors) == 6
+    assert tensors[3] is out and tensors[4] is lse
+    scratch = tensors[5]
+    assert scratch.dtype == torch.float32 and scratch.dim() == 1
+    got = na.tf32_wgmma_fwd_scratch_bytes(b, n, nk, c, cv)
+    assert scratch.numel() * 4 == got
+    pad = lambda x, m: -(-x // m) * m   # noqa: E731
+    regions = [2 * b * n * pad(c, 32), 2 * b * nk * pad(c, 32),
+               2 * b * pad(cv, 32) * pad(nk, 4)]
+    assert got == sum(pad(4 * r, 256) for r in regions)
+    if (n, c, cv) == (6272, 256, 256):
+        assert got == 6 * 4 * b * n * c == 308281344
+
+
+def _split_forward(q, k, v, scale, terms, tile=64, stage=None):
     """(out, lse) as the tf32x3 K1-fwd forms them: s by ``_mm``, then the
     online softmax over ``tile``-key tiles, each tile's p v formed by
-    ``_mm`` from zero and folded in by f32 arithmetic, o = alpha o + p v."""
-    s = _mm(q, k.transpose(0, 2, 1), terms) * np.float32(scale)
+    ``_mm`` from zero and folded in by f32 arithmetic, o = alpha o + p v.
+    ``stage``: s summed in f32 over stages of that many channels, each
+    formed by ``_mm`` from zero (the tf32_wgmma program's stages)."""
+    kt = k.transpose(0, 2, 1)
+    if stage is None:
+        s = _mm(q, kt, terms)
+    else:
+        s = np.zeros((q.shape[0], q.shape[1], k.shape[1]), np.float32)
+        for j in range(0, q.shape[2], stage):
+            s = (s + _mm(np.ascontiguousarray(q[..., j:j + stage]),
+                         np.ascontiguousarray(kt[:, j:j + stage]),
+                         terms)).astype(np.float32)
+    s = s * np.float32(scale)
     b, n, nk = s.shape
     m = np.full((b, n), -1e30, np.float32)
     l = np.zeros((b, n), np.float32)
@@ -489,6 +546,29 @@ def test_three_tf32_products_keep_the_f32_forward_tolerance():
     errs = {}
     for terms in (3, 1):
         out, lse = _split_forward(q, k, v, scale, terms)
+        assert out.shape == (b, n, cv) and lse.shape == (b, n)
+        errs[terms] = (float(np.abs(out - want_out).max()),
+                       float(np.abs(lse - want_lse).max()))
+    assert errs[3][0] <= 2e-4 and errs[3][1] <= 1e-4, errs
+    assert errs[1][0] > 2e-4 and errs[1][1] > 1e-4, errs
+
+
+def test_tf32_wgmma_forward_arithmetic_keeps_the_f32_tolerance():
+    """The promoted arithmetic of the tf32_wgmma K1-fwd, emulated on the
+    CPU: s summed over 32-channel stages, each from zero (three TF32
+    products per f32 product) and joined by an f32 add; P split into its
+    TF32 halves; each 64-key tile's P v from zero, folded in as o = alpha o
+    + partial. Held to the JAX package's forward (the Pallas kernel in
+    interpret mode) within out 2e-4 and lse 1e-4, which one TF32 product
+    misses. B > 1, Nk != N and no multiple of 64, C = 40 (a stage of 8
+    channels and 24 zeros), Cv != C, scale != 1."""
+    b, n, nk, c, cv, scale = 2, 300, 200, 40, 72, 0.5
+    q, k, v = _inputs(b, n, nk, c, cv, seed=7)
+    want_out, want_lse = (np.asarray(a) for a in _nonlocal_attention_fwd_lse(
+        q, k, v, scale=scale, interpret=True))
+    errs = {}
+    for terms in (3, 1):
+        out, lse = _split_forward(q, k, v, scale, terms, stage=32)
         assert out.shape == (b, n, cv) and lse.shape == (b, n)
         errs[terms] = (float(np.abs(out - want_out).max()),
                        float(np.abs(lse - want_lse).max()))

@@ -124,7 +124,9 @@ def test_serving_resolver_pool_correctness(rng):
 
 def test_serving_resolver_pool_error_propagates(rng):
     """A resolver dying (a failure while reading a bucket back) fails every
-    outstanding future, and close() reports it."""
+    outstanding future, and close() reports it. A submit that runs after
+    the failure has killed the server is refused at its caller, with the
+    failure as the cause; every submit before it got a future."""
     params = _params(rng)
     srv = _server(_linear_apply, params, max_batch=4, max_wait_ms=0.0,
                   example_ndim=2, resolver_threads=3)
@@ -133,7 +135,19 @@ def test_serving_resolver_pool_error_propagates(rng):
         raise RuntimeError('injected readback failure')
 
     srv._split_outputs = exploding_split
-    futs = [srv.submit(np.ones((3, 4), np.float32)) for _ in range(8)]
+    futs, refused = [], []
+    for _ in range(8):
+        try:
+            futs.append(srv.submit(np.ones((3, 4), np.float32)))
+        except RuntimeError as e:
+            refused.append(e)
+        else:
+            assert not refused      # no future after a refusal
+    assert futs and len(futs) + len(refused) == 8
+    for e in refused:
+        assert str(e) == 'server batcher died'
+        assert isinstance(e.__cause__, RuntimeError)
+        assert 'injected readback' in str(e.__cause__)
     for f in futs:
         with pytest.raises(RuntimeError, match='injected readback'):
             f.result(timeout=60)

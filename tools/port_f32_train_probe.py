@@ -9,14 +9,15 @@ file and frame folder under ``build/chip_smoke``, then runs (all by
 default):
 
 * ``bwd``: phase 5 (``chip_smoke.backward_vs_plain``: K1-dq and K1-dkv at
-  every train shape in both dtypes, the f32 rows on tf32x3 beside the
-  scalar programs at layers 2 and 3) and the done line
+  every train shape in both dtypes, the f32 rows on tf32_wgmma beside the
+  tf32x3 and scalar programs at layers 2 and 3) and the done line
   (``k1_done_line``, its f32 block);
 * ``train``: phase 6b (``train_f32_path``: the f32 fine-tuning step on
-  tf32x3 and on the scalar programs in turns, profiled);
+  tf32_wgmma, with K1-fwd on tf32x3, on tf32x3 and on the scalar programs
+  in turns, profiled);
 * ``grad``: phase 7 (``gradient_agreement``: the f32 step with the kernels
   and with the plain attention against the f64 step);
-* ``seq``: phase 22 (``seq_path``, whose f32 step runs tf32x3), after
+* ``seq``: phase 22 (``seq_path``, whose f32 step runs tf32_wgmma), after
   phase 6's bf16 steps for its unsharded step time.
 
 Prints its numbers as one JSON line; exits nonzero without CUDA or when a
@@ -60,7 +61,7 @@ def main(argv):
     cs.phase('2. build')
     build.load_library()
     for line in build.build_log.splitlines():
-        if 'Function properties for' in line and 'tf32x3' in line:
+        if 'Function properties for' in line and 'tf32' in line:
             print('  ' + cs.kernel_label(line))
     shutil.rmtree(cs.WORK, ignore_errors=True)
     os.environ['PRETORCHED_HOME'] = str(cs.WORK / 'zoo')

@@ -4,7 +4,7 @@ K1-dq and K1-dkv and f32 K1-fwd kernels, on one CUDA card (``pretorched_tpu_torc
 JAX).
 
     python3 tools/port_kernel_probes.py [k2] [dq] [lr] [wide] [tf32]
-        [tf32_timing] [tf32_loads] [fwd32] [tw32] [host]
+        [tf32_timing] [tf32_loads] [fwd32] [tw32] [tw32fwd] [host]
 
 * ``k2``: builds variants of ``csrc/fused_block.cu`` (the source with one
   textual change each) into their own libraries and times the TMA kernel
@@ -93,6 +93,25 @@ JAX).
   ``no_x_m`` (no X m product issued): the phases' shares; each timed in
   turns with the mma.sync tf32x3 program beside them, with its
   registers.
+* ``tw32fwd``: the f32 K1-fwd on TF32 wgmma + TMA (tf32_wgmma, ``csrc/
+  nonlocal_attention_fwd.cu``) at layers 2 and 3 and SAGAN's shapes:
+  ``base`` (score stages issued eight at a time, 6 ring slots, O's
+  columns in grid.z parts of at most 256) against ``pairs`` (two at a
+  time), ``stages4`` and ``stages5`` (4 or 5 ring slots), ``z4`` (parts
+  of at most 128 columns: layer 3's 512 in four, each forming s again),
+  ``truncating`` (P v accumulated on the tensor cores over all keys, O
+  rescaled before each tile's product, no partial joined by an f32 add)
+  and ``lo_raw`` (the low halves left unrounded, x - hi: equal to
+  ``base`` bit for bit only if the tensor cores drop an operand's low 13
+  bits), each held to the plain f32 forward and to an f64 one; and, for
+  their times alone (their outputs are wrong), ``prep_only`` (the
+  pre-pass alone), ``no_prep`` (the main kernel alone), ``one_product``
+  (hi hi alone), ``no_pv`` (no P v product issued), ``no_q_loads`` and
+  ``no_v_loads`` (a stage's q, or v^T, copies from L2 left out: what
+  keeping the block's q resident in shared memory could save at most,
+  and the P v operand's share); each timed in
+  turns with tf32x3, scalar and one f32 SDPA call beside them, with the
+  bound at the TF32 rate over 3 and its registers.
 * ``host``: the host time of one K1-fwd wrapper call at layer 3's widths
   (B = 1 and 8), step by step (checks, allocation, device context and
   stream, pointers, the C entry with its four tensor maps and launch, the
@@ -453,7 +472,7 @@ TW_VARIANTS['rows_evict_last'] = [
      .replace('2 * bi + 1);', '2 * bi + 1, l2_evict_last());'))]
 TW_VARIANTS['shared_rows'] = [(TW_ROWS, TW_ROWS.replace('r0, 2 * bi + 1', '0, 1')
                                .replace('r0, 2 * bi', '0, 0'))]
-TW_VARIANTS['no_scores'] = [("""    wgmma_tf32x3(p, sl + 32 * kk, sl + 8192 + 32 * kk,
+TW_VARIANTS['no_scores'] = [('tf32_wgmma.cuh', """    wgmma_tf32x3(p, sl + 32 * kk, sl + 8192 + 32 * kk,
                  sl + 16384 + b_off + 32 * kk, sl + 24576 + b_off + 32 * kk,
                  kk == 0);""", '    ;')]
 TW_VARIANTS['no_x_m'] = [("""          wgmma_tf32x3(pa, xs + i * 8192 + 32 * kk,
@@ -469,6 +488,59 @@ TW_SHAPES = {'layer2': (8, 6272, 6272, 256, 256),
              'biggan128': (32, 4096, 1024, 48, 192),
              'mnist 16': (8, 196, 196, 16, 16),
              'mnist 32': (8, 49, 49, 32, 32)}
+# the f32 K1-fwd on TF32 wgmma (tf32_wgmma) against: the score stages
+# issued by pairs, 4 or 5 ring slots, O in parts of 128 columns, P v summed
+# on the tensor cores over all keys, the low halves unrounded; and, for
+# their times alone, the pre-pass alone, the main kernel alone, one
+# product, no P v product
+TF_PV = """          wgmma_tf32x3(pa, p_s + i * 8192 + 32 * kk,
+                       p_s + 16384 + i * 8192 + 32 * kk, m + 32 * kk,
+                       m + kVBytes + 32 * kk, (i | kk) == 0);"""
+TF_JOIN = """      reg_fence(pa);
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e)
+        acc[e] = acc[e] * alpha[(e >> 1) & 1] + pa[e];"""
+TF_FENCE = """      ring->release(st + 3 - wg);
+      wgmma_fence();"""
+TF_Q_LOADS = """          tma_load(slot, &qmap, full, j * kFChunk, r0, 2 * bi);
+          tma_load(slot + 8192, &qmap, full, j * kFChunk, r0, 2 * bi + 1);
+"""
+TF_V_LOADS = """          tma_load(slot, &vmap, full, key, row, 2 * bi);
+          tma_load(slot + kVBytes, &vmap, full, key, row, 2 * bi + 1);
+"""
+TF_PREP = """      (err = launch_split(v, nullptr, vt, b, nk, cv, cvp, stream)))
+    return err;
+"""
+TF_VARIANTS = {
+    'base': [],
+    'pairs': [('kFUnroll = 8;', 'kFUnroll = 2;')],
+    'stages4': [('kFStages = 6;', 'kFStages = 4;')],
+    'stages5': [('kFStages = 6;', 'kFStages = 5;')],
+    'z4': [('kFMaxPart = 256;', 'kFMaxPart = 128;')],
+    'truncating': [(TF_PV, TF_PV.replace('(pa,', '(acc,')
+                    .replace('(i | kk) == 0', 'false')),
+                   (TF_FENCE, TF_FENCE.replace(
+                       '      wgmma_fence();',
+                       '#pragma unroll\n      for (int e = 0; e < WN / 2; ++e)'
+                       ' acc[e] *= alpha[(e >> 1) & 1];\n      wgmma_fence();')),
+                   (TF_JOIN, '      reg_fence(acc);')],
+    'lo_raw': [('mma_tiles.cuh', '  lo = to_tf32(x - __uint_as_float(hi));',
+                '  lo = __float_as_uint(x - __uint_as_float(hi));')],
+    'prep_only': [(TF_PREP, TF_PREP + '  return 0;\n')],
+    'no_prep': [('  int err;\n  if ((err = launch_split(q,',
+                 '  int err;\n  if (false && (err = launch_split(q,')],
+    'one_product': [('wgmma_tiles.cuh', TW_THREE, TW_ONE)],
+    'no_pv': [(TF_PV, '          ;')],
+    'no_q_loads': [(TF_Q_LOADS, ''), ('mbar_expect_tx(full, kGSlot);',
+                                      'mbar_expect_tx(full, kGSlot / 2);')],
+    'no_v_loads': [(TF_V_LOADS, ''), ('mbar_expect_tx(full, 2 * kVBytes);',
+                                      'mbar_expect_tx(full, 0);')]}
+TF_TIMING_ONLY = ('prep_only', 'no_prep', 'one_product', 'no_pv',
+                  'no_q_loads', 'no_v_loads')
+TF_SHAPES = {'layer2': (8, 6272, 6272, 256, 256),
+             'layer3': (8, 784, 784, 512, 512),
+             'biggan256': (32, 4096, 1024, 96, 384),
+             'biggan128': (32, 4096, 1024, 48, 192)}
 WIDE_FWD_SHAPES = [(20, 784, 784, 512, 512), (8, 784, 784, 512, 512),
                    (1, 784, 784, 512, 512)]
 WIDE_DKV_SHAPES = [(8, 784, 784, 512, 512), (2, 784, 196, 512, 512)]
@@ -1073,6 +1145,108 @@ def probe_fwd32(smi):
         torch.cuda.empty_cache()
 
 
+def probe_tw32fwd(smi):
+    """The f32 K1-fwd's tf32_wgmma variants (TF_VARIANTS) at TF_SHAPES: ms
+    in turns (variants, tf32x3, scalar, SDPA f32, then back), each held to
+    the plain f32 forward and to the f64 one, beside the bound at the TF32
+    rate over 3 (operations: 2 B N Nk (C + Cv) at 495 / 3 TFLOP/s)."""
+    import torch
+    import torch.nn.functional as F
+    from pretorched_tpu_torch.ops.cuda import nonlocal_attention as na
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag = 'tw32fwd'
+    libs = build_variants('nonlocal_attention_fwd.cu', TF_VARIANTS, tag)
+    for name, lib in libs.items():
+        lib.pt_nonlocal_attention_fwd_tf32_wgmma.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_void_p])
+        log = (OUT / tag / name / 'build.log').read_text().splitlines()
+        regs = [kernel_name(line.split("'")[1]) + ' '
+                + re.search(r'Used (\d+) registers', log[i + 3]).group(1)
+                for i, line in enumerate(log)
+                if 'Compiling entry function' in line
+                and 'fwd_tf32_wgmma' in line
+                and i + 3 < len(log) and 'Used' in log[i + 3]]
+        spills = [line for line in log if 'spill stores' in line
+                  and ' 0 bytes spill stores' not in line]
+        print(f'  {tag} {name}: registers at entry {", ".join(regs)}; '
+              f'{len(spills)} functions spill', flush=True)
+    g = torch.Generator(device='cuda').manual_seed(3)
+    print(f'f32 K1-fwd, tf32_wgmma variants against tf32x3, scalar and one '
+          f'f32 SDPA call, CUDA-event medians of 5 in turns (the pre-pass '
+          f'included); max |out - ref| and |lse - ref| against the plain f32 '
+          f'and the f64 forward ({smi})')
+    for label, (b, n, nk, c, cv) in TF_SHAPES.items():
+        q = torch.randn(b, n, c, device='cuda', generator=g) / c ** 0.25
+        k = torch.randn(b, nk, c, device='cuda', generator=g) / c ** 0.25
+        v = torch.randn(b, nk, cv, device='cuda', generator=g)
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        dims = (b, n, nk, c, cv, ctypes.c_float(1.0), stream)
+        scratch = torch.empty(na.tf32_wgmma_fwd_scratch_bytes(
+            b, n, nk, c, cv) // 4, device='cuda')
+
+        def runner(lib):
+            out = torch.empty(b, n, cv, device='cuda')
+            lse = torch.empty(b, n, device='cuda')
+            ptrs = [ctypes.c_void_p(t.data_ptr())
+                    for t in (q, k, v, out, lse, scratch)]
+
+            def fwd():
+                err = lib.pt_nonlocal_attention_fwd_tf32_wgmma(*ptrs, *dims)
+                if err:
+                    raise RuntimeError(f'CUDA error {err}')
+            return fwd, (out, lse)
+
+        q4, k4, v4 = (x[:, None] for x in (q, k, v))
+        runs = {name: runner(lib) for name, lib in libs.items()}
+        runs['tf32x3'] = (lambda: na._launch_fwd(q, k, v, 1.0, 'tf32x3'),
+                          None)
+        runs['scalar'] = (lambda: na._launch_fwd(q, k, v, 1.0, 'scalar'),
+                          None)
+        runs['sdpa f32'] = (lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0), None)
+        times = {name: [] for name in runs}
+        with torch.no_grad():
+            for name in list(runs) + list(runs)[::-1]:
+                times[name].append(median_ms(runs[name][0], reps=5))
+        want = na.nonlocal_attention_fwd_lse_reference(q, k, v)
+        exact = fwd_f64(q, k, v)
+        base = None
+
+        def err(got, ref):
+            return tuple((x.double() - r.double()).abs().max().item()
+                         for x, r in zip(got, ref))
+        bound = 2 * b * n * nk * (c + cv) / (495e12 / 3) * 1e3
+        print(f'  {label} (B, N, Nk, C, Cv) = {(b, n, nk, c, cv)}: bound '
+              f'{bound:.3f} ms (operations at the TF32 rate over 3); plain '
+              f'f32 to f64 out {err(want, exact)[0]:.2e}, lse '
+              f'{err(want, exact)[1]:.2e}', flush=True)
+        for name, (fn, outs) in runs.items():
+            line = (f'    {name:12s} '
+                    + ' / '.join(f'{t:.3f}' for t in times[name]) + ' ms')
+            if outs is not None and name not in TF_TIMING_ONLY:
+                fn()
+                torch.cuda.synchronize()
+                to_plain, to_exact = err(outs, want), err(outs, exact)
+                line += (f'; to plain f32 out {to_plain[0]:.2e}, lse '
+                         f'{to_plain[1]:.2e}; to f64 out {to_exact[0]:.2e}, '
+                         f'lse {to_exact[1]:.2e}')
+                if name == 'base':
+                    base = tuple(x.clone() for x in outs)
+                elif base is not None:
+                    line += ('; bitwise as base' if all(
+                        torch.equal(x, y) for x, y in zip(outs, base))
+                        else '; differs from base')
+            elif name == 'tf32x3':
+                got = na._launch_fwd(q, k, v, 1.0, 'tf32x3')
+                to_exact = err(got, exact)
+                line += (f'; to f64 out {to_exact[0]:.2e}, lse '
+                         f'{to_exact[1]:.2e}')
+            print(line, flush=True)
+        del q, k, v, q4, k4, v4, runs, want, exact, scratch, base
+        torch.cuda.empty_cache()
+
+
 def probe_lr(smi):
     import numpy as np
     import torch
@@ -1227,6 +1401,7 @@ def main(argv):
               'tf32_loads': lambda smi: probe_tf32(
                   smi, TF32_LOAD_VARIANTS, 'tf32_loads'),
               'fwd32': probe_fwd32, 'tw32': probe_tw32,
+              'tw32fwd': probe_tw32fwd,
               'host': probe_host}
     for name in argv or list(probes):
         probes[name](smi)
