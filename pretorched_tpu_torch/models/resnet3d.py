@@ -48,6 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.registry import image_settings, register_model, register_settings
 from ..core.wrapper import PretrainedModel
 from ..ops.pooling import global_avg_pool, max_pool
+from ..utils.profiling import span
 from .layers import (SpaceToDepthConv, batch_norm, conv3d_kaiming_out,
                      frozen_bn_stats)
 
@@ -96,12 +97,19 @@ def _tup3(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
 
 
+@contextlib.contextmanager
+def _recompute():
+    with frozen_bn_stats(), span('remat.recompute'):
+        yield
+
+
 def checkpointed(fn, *args):
     """``fn(*args)`` with its activations recomputed in the backward; the
-    recompute leaves BN running statistics alone (``frozen_bn_stats``)."""
+    recompute leaves BN running statistics alone (``frozen_bn_stats``) and
+    is the span ``remat.recompute``."""
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(),
-                                          frozen_bn_stats()))
+                                          _recompute()))
 
 
 def _shortcut_a(x, out_ch, stride):
@@ -309,7 +317,8 @@ class VideoResNet(PretrainedModel):
     def _features(self, x, lo: int = 0, hi: int = 4):
         """Segments lo..hi-1 of [stem + layer1, layer2, layer3, layer4]."""
         if lo == 0:
-            x = self._stem_pool(F.relu(self.bn1(self.conv1(x))))
+            with span('stem'):
+                x = self._stem_pool(F.relu(self.bn1(self.conv1(x))))
         remat = self._remat_stages() if torch.is_grad_enabled() else ()
         for stage in range(lo + 1, hi + 1):
             for i, blk in enumerate(getattr(self, f'layer{stage}')):

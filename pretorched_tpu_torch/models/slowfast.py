@@ -44,6 +44,7 @@ from ..core.registry import register_model
 from ..core.wrapper import PretrainedModel
 from ..ops.fused_block import TailLayout, fold_bn, fused_tail_with_layout
 from ..ops.pooling import global_avg_pool, max_pool
+from ..utils.profiling import span
 from .layers import SpaceToDepthConv, batch_norm
 
 
@@ -197,8 +198,9 @@ class FastPathway(nn.Module):
 
     def forward(self, x):
         """Pooled features and, with laterals, the four lateral outputs."""
-        x = max_pool(F.relu(self.bn1(self.conv1(x))), (1, 3, 3), (1, 2, 2),
-                     (0, 1, 1))
+        with span('stem'):
+            x = max_pool(F.relu(self.bn1(self.conv1(x))), (1, 3, 3),
+                         (1, 2, 2), (0, 1, 1))
         lat = [self.lateral_p1(x)] if self.laterals else []
         for i in range(2, 6):
             x = getattr(self, f'res{i}')(x)
@@ -224,8 +226,9 @@ class SlowPathway(nn.Module):
         self.out_channels = inp
 
     def forward(self, x, lateral=None):
-        x = max_pool(F.relu(self.bn1(self.conv1(x))), (1, 3, 3), (1, 2, 2),
-                     (0, 1, 1))
+        with span('stem'):
+            x = max_pool(F.relu(self.bn1(self.conv1(x))), (1, 3, 3),
+                         (1, 2, 2), (0, 1, 1))
         for i in range(2, 6):
             if lateral:
                 x = torch.cat([x, lateral[i - 2]], dim=1)

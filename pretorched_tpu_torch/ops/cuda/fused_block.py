@@ -27,6 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...utils.profiling import span
 from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -227,22 +228,26 @@ def prepare_tail(y1, x_res, w2, a2, w3, a3, wp=None, ap=None):
 
 
 def launch_tail(prepared):
-    """Launch K2 on the arguments of ``prepare_tail``; returns its out."""
+    """Launch K2 on the arguments of ``prepare_tail``; returns its out. The
+    C call alone is the span ``k2.tail``."""
     lib = build.load_library()
     p = prepared
     dev = p['y1'].device
-    ptrs = map(_ptr, (p['y1'], p['x'], p['w2'], p['a2'], p['w3'], p['a3'],
-                      p['wp'], p['ap'], p['out']))
+    ptrs = tuple(map(_ptr, (p['y1'], p['x'], p['w2'], p['a2'], p['w3'],
+                            p['a3'], p['wp'], p['ap'], p['out'])))
     kernel = p['kernel']
     with torch.cuda.device(dev):
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        if kernel == 'tma':
-            err = lib.pt_fused_bottleneck_tail_tma(*ptrs, *p['dims'], stream)
-        elif kernel == 'mma_sync':
-            err = lib.pt_fused_bottleneck_tail_mma(*ptrs, *p['dims'], stream)
-        else:
-            err = lib.pt_fused_bottleneck_tail(
-                *ptrs, *p['dims'], _DTYPE_CODES[p['y1'].dtype], stream)
+        with span('k2.tail'):
+            if kernel == 'tma':
+                err = lib.pt_fused_bottleneck_tail_tma(*ptrs, *p['dims'],
+                                                       stream)
+            elif kernel == 'mma_sync':
+                err = lib.pt_fused_bottleneck_tail_mma(*ptrs, *p['dims'],
+                                                       stream)
+            else:
+                err = lib.pt_fused_bottleneck_tail(
+                    *ptrs, *p['dims'], _DTYPE_CODES[p['y1'].dtype], stream)
     build.check(lib, err, f'fused_bottleneck_tail ({kernel}) launch')
     fn = fused_bottleneck_tail_cuda
     fn.launches += 1

@@ -28,6 +28,8 @@ under ``sub_sample``, Cv from C in SAGAN attention. Accumulation is f32.
   kernel wrappers take CUDA tensors only and raise on anything they do not
   take; each counts its launches in ``.launches`` and per program in
   ``.by_kernel`` (``PROGRAMS``: the wide wgmma program as ``'wgmma_wide'``).
+  Each C call is the span ``k1.fwd``, ``k1.dq`` or ``k1.dkv``
+  (``utils.profiling``), the tf32_wgmma programs' pre-pass inside it.
 * ``nonlocal_attention_fwd_lse_reference`` / ``nonlocal_attention_reference``
   / ``nonlocal_attention_bwd_reference``: the plain PyTorch versions, N x N
   matrices in f32.
@@ -51,6 +53,7 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
+from ...utils.profiling import span
 from . import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -310,17 +313,23 @@ def nonlocal_attention_fwd_lse(q, k, v, scale: float = 1.0):
 
 
 def _launch(entry, q, v, tensors, scale, *dtype):
-    """Call the C entry ``entry`` on contiguous, checked ``tensors``, the
-    shape of q and v, ``scale`` and ``dtype`` (its code, for the entries
-    that take one), on the current stream; raise on a launch error."""
+    """Call the C entry ``entry`` (``pt_nonlocal_attention_<op>...``) on
+    contiguous, checked ``tensors``, the shape of q and v, ``scale`` and
+    ``dtype`` (its code, for the entries that take one), on the current
+    stream; raise on a launch error. The call alone is the span
+    ``k1.fwd``, ``k1.dq`` or ``k1.dkv``."""
     lib = build.load_library()
     b, n, c = q.shape
     nk, cv = v.shape[1], v.shape[2]
+    # pt_nonlocal_attention_fwd..., _bwd_dq... or _bwd_dkv...
+    op = entry.split('_')[3:5]
+    name = 'k1.' + (op[0] if op[0] == 'fwd' else op[1])
+    args = (*map(_ptr, tensors), b, n, nk, c, cv, float(scale), *dtype)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, entry)(*map(_ptr, tensors), b, n, nk, c, cv,
-                                  float(scale), *dtype,
-                                  ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(q.device).cuda_stream)
+        with span(name):
+            err = getattr(lib, entry)(*args, stream)
     build.check(lib, err, f'{entry} launch')
 
 

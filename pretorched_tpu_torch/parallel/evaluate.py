@@ -17,6 +17,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .mesh import data_group, place_model  # noqa: F401  (JAX's home of it)
 
 
@@ -87,9 +88,11 @@ def multi_clip_eval_step(model, mesh=None, topk=(1, 5)):
     average. ``step(clips, labels)``: clips (B, N_clips, C, T, H, W) on the
     model's device (with a mesh, this rank's videos), labels (B,) with -1
     for padding; returns a dict of device scalars (``top1``, ``top5``,
-    ``loss``, ``count``), summed over the mesh's 'data' ranks."""
+    ``loss``, ``count``), summed over the mesh's 'data' ranks. Each call is
+    the span ``eval.step``."""
 
     @torch.inference_mode()
+    @span('eval.step')
     def step(clips, labels):
         b, n = clips.shape[:2]
         logits = model(clips.reshape((b * n,) + tuple(clips.shape[2:])))

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from ..models.layers import set_bn_group
 from ..models.resnet3d import checkpointed
+from ..utils.profiling import span
 from .mesh import axes_group, axis_size, data_group, data_size
 
 
@@ -69,6 +70,10 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     FSDP-sharded. ``zero_axis='data'`` requires the ZeRO optimizer of
     ``zero_init``, and with ``zero_params=True`` its FSDP model too; they
     take no 'seq' axis.
+
+    Spans (``utils.profiling``): ``train.step`` around a call, inside it
+    ``train.forward`` (the model), ``train.backward`` (the loss and its
+    backward) and ``train.optimizer`` (``optimizer`` and ``scheduler``).
     """
     from .zero import is_fsdp, is_zero
 
@@ -110,6 +115,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         def forward(x):
             return checkpointed(model, x)
 
+    @span('train.step')
     def step(x, labels) -> Dict[str, torch.Tensor]:
         if x.shape[0] % accum_steps:
             raise ValueError(f'batch {x.shape[0]} not divisible by '
@@ -118,9 +124,11 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         losses, top1s = [], []
         for xi, li in zip(x.chunk(accum_steps), labels.chunk(accum_steps)):
-            logits = forward(xi)
-            loss = cross_entropy(logits, li)
-            (loss / accum_steps).backward()
+            with span('train.forward'):
+                logits = forward(xi)
+            with span('train.backward'):
+                loss = cross_entropy(logits, li)
+                (loss / accum_steps).backward()
             losses.append(loss.detach())
             top1s.append((logits.argmax(1) == li).float().mean())
         metrics = torch.stack([torch.stack(losses).mean(),
@@ -130,9 +138,10 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if metrics_group is not None:
             dist.all_reduce(metrics, group=metrics_group)
             metrics /= n_data
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        with span('train.optimizer'):
+            optimizer.step()
+            if scheduler is not None:
+                scheduler.step()
         return {'loss': metrics[0], 'top1': metrics[1]}
 
     return step

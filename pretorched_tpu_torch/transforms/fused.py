@@ -26,6 +26,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
+
 
 def _settings_tuple(settings) -> Tuple:
     get = settings.__getitem__ if isinstance(settings, dict) else \
@@ -55,6 +57,8 @@ def _affine_consts(input_range, mean, std, dtype, device):
     ``x * (k/std) + (-mean/std)``, constants computed in float64."""
     k = 1.0 if max(input_range) == 255 else 1.0 / 255.0
     std64 = np.asarray(std, np.float64)
+    # two constants made on the host, each copied to ``device``
+    count('preprocess.host_consts', 2)
     mul = torch.as_tensor(k / std64, dtype=dtype, device=device)
     add = torch.as_tensor(-np.asarray(mean, np.float64) / std64, dtype=dtype,
                           device=device)
@@ -69,6 +73,8 @@ def resize_weights(in_size: int, out_size: int, scale: float,
     normalized and samples outside the input get weight 0. The f32 formula
     of ``jax.image.scale_and_translate``."""
     f32 = dict(dtype=torch.float32, device=device)
+    # scale and translation: made on the host, each copied to ``device``
+    count('preprocess.host_consts', 2)
     scale_t = torch.tensor(scale, **f32)
     inv_scale = 1.0 / scale_t
     kernel_scale = torch.clamp(inv_scale, min=1.0)
@@ -232,9 +238,13 @@ def ten_crop(x: torch.Tensor, crop: int, channels_last: bool = True):
 def preprocess_clip(frames_u8, settings, channels_last: bool = True,
                     dtype: torch.dtype = torch.float32, device=None):
     """Video clip: uint8 (T, H, W, 3) -> (1, T, S, S, 3) normalized, or
-    (1, 3, T, S, S) (NCTHW, what the models take) when not channels_last."""
-    out = fused_preprocess(frames_u8, settings, channels_last=True,
-                           dtype=dtype, device=device)[None]
-    if not channels_last:
-        out = out.permute(0, 4, 1, 2, 3).contiguous()
+    (1, 3, T, S, S) (NCTHW, what the models take) when not channels_last.
+    Counted in the counter ``preprocess.clips`` and timed by the span
+    ``preprocess.clip``."""
+    count('preprocess.clips')
+    with span('preprocess.clip'):
+        out = fused_preprocess(frames_u8, settings, channels_last=True,
+                               dtype=dtype, device=device)[None]
+        if not channels_last:
+            out = out.permute(0, 4, 1, 2, 3).contiguous()
     return out

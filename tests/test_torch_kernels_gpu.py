@@ -186,6 +186,39 @@ def test_launch_counters_advance_once_per_backward(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_launch_spans_carry_device_time(cuda, dtype):
+    """Under a profiler each K1 and K2 launch is a span
+    (``utils.profiling``) with positive device ms. K1-dq and K1-dkv run on
+    autograd's device thread, and take the span that the caller of
+    ``backward`` holds open as their parent."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pretorched_tpu_torch.utils import profiling
+
+    q, k, v, do = _bwd_inputs(2, 1024, 1024, 64, 64, dtype, cuda)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    tail = _k2_inputs(K2_CASES[0], dtype, cuda)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profiling.span('test.fwd'):
+            out = na.auto_nonlocal_attention(q, k, v)
+        with profiling.span('test.bwd'):
+            out.backward(do)
+        with torch.no_grad():
+            fb.fused_bottleneck_tail(*tail)
+    got = profiling.recorded()
+    profiling.reset()
+    for name in ('k1.fwd', 'k1.dq', 'k1.dkv', 'k2.tail'):
+        assert len(got[name]['device_ms']) == 1, name
+        assert got[name]['device_ms'][0] > 0, name
+    assert got['k1.fwd']['parent'] == 'test.fwd'
+    assert got['k1.dq']['parent'] == got['k1.dkv']['parent'] == 'test.bwd'
+    bwd = got['test.bwd']
+    assert 0 <= bwd['self_device_ms'][0] < bwd['device_ms'][0]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize('b,n,nk,c,cv,scale', CASES)
 def test_f32_backward_programs_match_plain_and_scalar(cuda, b, n, nk, c, cv,
                                                       scale):

@@ -333,14 +333,17 @@ def test_op_shapes_and_flops():
 
 
 def test_step_timer_and_trace(tmp_path):
-    t = profiling.StepTimer()
-    t.data_loaded()
-    t.step_done()
-    s = str(t)
-    assert 'Time' in s and 'Data' in s
+    """``trace`` writes the profiler's trace, the program's spans in it as
+    ``pretorched.*`` ranges."""
     with profiling.trace(str(tmp_path / 'trace')) as logdir:
-        torch.ones(8, 8) @ torch.ones(8, 8)
-    assert any(f.endswith('.pt.trace.json') for f in os.listdir(logdir))
+        with profiling.span('test.trace'):
+            torch.ones(8, 8) @ torch.ones(8, 8)
+    files = [f for f in os.listdir(logdir) if f.endswith('.pt.trace.json')]
+    assert files
+    with open(os.path.join(logdir, files[0])) as f:
+        assert '"pretorched.test.trace"' in f.read()
+    assert 'test.trace' in profiling.recorded()
+    profiling.reset()
 
 
 @pytest.mark.parametrize('case', ['log', 'log0', 'div0', 'nan_in', 'mul_nan'])
