@@ -12,6 +12,22 @@ the tensor's device:
 * range scaling and mean/std fold into one FMA (``_affine_consts``);
 * when the resize is the identity, the uint8 window is cropped first.
 
+The resize weights and the FMA's constants depend only on the geometry
+(frame size, crop, scale, translation), the settings, the dtype and the
+device, so they are built once and kept on the device in ``CONSTS``, a
+least-recently-used map of at most ``CONSTS.maxsize`` = 128 entries. A
+build copies constants from pageable host memory, which blocks the host
+until the device has drained its queue; a hit launches nothing and copies
+nothing, so a warm clip never blocks the host. An entry is an (out, in)
+matrix, 4 bytes a weight in f32 and 2 in bf16 (287 KB for a 224 x 320 f32
+matrix), or two 3-vectors: the cache holds at most 128 x 4 x out x in
+bytes of the largest geometry it has seen (37 MB of 224 x 320 f32
+matrices, 462 MB of 224 x 4032). The counters
+``preprocess.const_cache.hits`` and ``.misses`` say how often it engages;
+``preprocess.host_consts`` counts the constants the builds copy. Its
+tensors are shared by every caller, which only read them. ``cache_clear()``
+empties it.
+
 The train chain (``fused_train_preprocess``, l.141-198) draws its crop
 offsets and flips from a ``torch.Generator`` and hands them to a
 deterministic core, ``fused_train_apply``, which a test can feed the draws
@@ -21,7 +37,9 @@ of JAX's ``_fused_train``. ``ten_crop`` (l.201-213) is the 10-crop eval.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import threading
+from collections import OrderedDict
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -52,44 +70,107 @@ def _resize_target(h, w, crop, scale, preserve_aspect_ratio, input_size):
     return int(round(target_short * h / w)), target_short
 
 
+class _DeviceConsts:
+    """A bounded least-recently-used map from a key to tensors built once:
+    ``get(key, build)`` returns the entry, calling ``build`` on a miss
+    (outside inference mode and autograd, so that an entry first built in
+    an inference-mode call serves a training call too) and dropping the
+    least recently used entry past ``maxsize``."""
+
+    def __init__(self, maxsize: int):
+        self.maxsize = maxsize
+        self._entries: 'OrderedDict[tuple, object]' = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key: tuple, build: Callable[[], object]):
+        with self._lock:
+            value = self._entries.get(key)
+            if value is not None:
+                self._entries.move_to_end(key)
+        if value is not None:
+            count('preprocess.const_cache.hits')
+            return value
+        count('preprocess.const_cache.misses')
+        with torch.inference_mode(False), torch.no_grad():
+            value = build()
+        with self._lock:
+            self._entries[key] = value
+            while len(self._entries) > self.maxsize:
+                self._entries.popitem(last=False)
+        return value
+
+    def __len__(self):
+        with self._lock:
+            return len(self._entries)
+
+    def clear(self):
+        with self._lock:
+            self._entries.clear()
+
+
+# the preprocess's device constants, by geometry (module docstring)
+CONSTS = _DeviceConsts(maxsize=128)
+
+
+def cache_clear():
+    """Forget every cached resize matrix and normalize constant."""
+    CONSTS.clear()
+
+
+def _device_key(device):
+    """``device`` as a key: None means the default device."""
+    return torch.device(device) if device is not None else \
+        torch.get_default_device()
+
+
 def _affine_consts(input_range, mean, std, dtype, device):
     """u8 -> [0,1] (or [0,255]) scaling and (x - mean) / std as one FMA:
-    ``x * (k/std) + (-mean/std)``, constants computed in float64."""
-    k = 1.0 if max(input_range) == 255 else 1.0 / 255.0
-    std64 = np.asarray(std, np.float64)
-    # two constants made on the host, each copied to ``device``
-    count('preprocess.host_consts', 2)
-    mul = torch.as_tensor(k / std64, dtype=dtype, device=device)
-    add = torch.as_tensor(-np.asarray(mean, np.float64) / std64, dtype=dtype,
-                          device=device)
-    return mul, add
+    ``x * (k/std) + (-mean/std)``, constants computed in float64. Cached
+    in ``CONSTS``: the (mul, add) pair is shared, read it only."""
+    def build():
+        k = 1.0 if max(input_range) == 255 else 1.0 / 255.0
+        std64 = np.asarray(std, np.float64)
+        # two constants made on the host, each copied to ``device``
+        count('preprocess.host_consts', 2)
+        mul = torch.as_tensor(k / std64, dtype=dtype, device=device)
+        add = torch.as_tensor(-np.asarray(mean, np.float64) / std64,
+                              dtype=dtype, device=device)
+        return mul, add
+    return CONSTS.get(('affine', tuple(input_range), tuple(mean), tuple(std),
+                       dtype, _device_key(device)), build)
 
 
 def resize_weights(in_size: int, out_size: int, scale: float,
-                   translation: float, device=None) -> torch.Tensor:
+                   translation: float, device=None,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(out_size, in_size) antialiased bilinear weights: output pixel o
     samples input coordinate ``(o + 0.5 - translation) / scale - 0.5``, with
     a triangle kernel widened by 1/scale when downsampling; columns are
     normalized and samples outside the input get weight 0. The f32 formula
-    of ``jax.image.scale_and_translate``."""
-    f32 = dict(dtype=torch.float32, device=device)
-    # scale and translation: made on the host, each copied to ``device``
-    count('preprocess.host_consts', 2)
-    scale_t = torch.tensor(scale, **f32)
-    inv_scale = 1.0 / scale_t
-    kernel_scale = torch.clamp(inv_scale, min=1.0)
-    sample_f = ((torch.arange(out_size, **f32) + 0.5) * inv_scale
-                - torch.tensor(translation, **f32) * inv_scale - 0.5)
-    x = (sample_f[:, None] - torch.arange(in_size, **f32)[None, :]).abs() \
-        / kernel_scale
-    w = torch.clamp(1.0 - x, min=0.0)
-    total = w.sum(dim=1, keepdim=True)
-    eps = 1000.0 * float(np.finfo(np.float32).eps)
-    w = torch.where(total.abs() > eps,
-                    w / torch.where(total != 0, total, torch.ones_like(total)),
-                    torch.zeros_like(w))
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[:, None], w, torch.zeros_like(w))
+    of ``jax.image.scale_and_translate``, cast to ``dtype``. Cached in
+    ``CONSTS`` by all six arguments: the matrix is shared, read it only."""
+    def build():
+        f32 = dict(dtype=torch.float32, device=device)
+        # scale and translation: made on the host, each copied to ``device``
+        count('preprocess.host_consts', 2)
+        scale_t = torch.tensor(scale, **f32)
+        inv_scale = 1.0 / scale_t
+        kernel_scale = torch.clamp(inv_scale, min=1.0)
+        sample_f = ((torch.arange(out_size, **f32) + 0.5) * inv_scale
+                    - torch.tensor(translation, **f32) * inv_scale - 0.5)
+        x = (sample_f[:, None] - torch.arange(in_size, **f32)[None, :]).abs() \
+            / kernel_scale
+        w = torch.clamp(1.0 - x, min=0.0)
+        total = w.sum(dim=1, keepdim=True)
+        eps = 1000.0 * float(np.finfo(np.float32).eps)
+        w = torch.where(total.abs() > eps,
+                        w / torch.where(total != 0, total,
+                                        torch.ones_like(total)),
+                        torch.zeros_like(w))
+        inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+        return torch.where(inside[:, None], w, torch.zeros_like(w)).to(dtype)
+    return CONSTS.get(('resize', in_size, out_size, scale, translation,
+                       _device_key(device), dtype), build)
 
 
 def fused_preprocess(batch_u8, settings, channels_last: bool = True,
@@ -115,8 +196,8 @@ def fused_preprocess(batch_u8, settings, channels_last: bool = True,
     else:
         # resize + crop in one: window pixel j samples the resized grid at
         # top + j, i.e. translation -top at scale nh/h (fused.py:101-111)
-        wh = resize_weights(h, crop, nh / h, -float(top), x.device).to(dtype)
-        ww = resize_weights(w, crop, nw / w, -float(left), x.device).to(dtype)
+        wh = resize_weights(h, crop, nh / h, -float(top), x.device, dtype)
+        ww = resize_weights(w, crop, nw / w, -float(left), x.device, dtype)
         x = x.to(dtype)
         x = torch.einsum('oh,bhwc->bowc', wh, x)
         x = torch.einsum('pw,bowc->bopc', ww, x)
@@ -184,8 +265,8 @@ def fused_train_apply(batch_u8, settings, tops, lefts, hflip, vflip=None,
         x = x[torch.arange(b, device=x.device)[:, None, None],
               rows[:, :, None], cols[:, None, :]].to(dtype)
     else:
-        wh = resize_weights(h, nh, nh / h, 0.0, x.device)[rows].to(dtype)
-        ww = resize_weights(w, nw, nw / w, 0.0, x.device)[cols].to(dtype)
+        wh = resize_weights(h, nh, nh / h, 0.0, x.device, dtype)[rows]
+        ww = resize_weights(w, nw, nw / w, 0.0, x.device, dtype)[cols]
         x = torch.einsum('boh,bhwc->bowc', wh, x.to(dtype))
         x = torch.einsum('bpw,bowc->bopc', ww, x)
     return _finalize(x, input_space, input_range, mean, std, dtype,

@@ -5,8 +5,9 @@ K1-dkv in f32 up to C, Cv = 512 (on TF32 wgmma, tf32_wgmma, held to the
 tf32x3 programs too), and
 the fused bottleneck tail K2) against their plain PyTorch versions, on a
 card; K1-fwd and K2 through their registered operators, and
-``torch.export`` on the card recording them; and each factory of the rest
-of the 2D zoo built there, its bf16 forward held to its f32 one.
+``torch.export`` on the card recording them; each factory of the rest
+of the 2D zoo built there, its bf16 forward held to its f32 one; and a
+warm video preprocess making no synchronising call.
 
 Every test here is marked ``gpu`` and skips without CUDA. The file imports
 no JAX, so it runs on a machine that has only PyTorch (the suite's
@@ -216,6 +217,45 @@ def test_launch_spans_carry_device_time(cuda, dtype):
     assert got['k1.dq']['parent'] == got['k1.dkv']['parent'] == 'test.bwd'
     bwd = got['test.bwd']
     assert 0 <= bwd['self_device_ms'][0] < bwd['device_ms'][0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('frames', [32, 64])
+def test_a_warm_clip_makes_no_synchronising_call(cuda, frames):
+    """The eval cells' clips (32 and 64 frames of 240 x 320 uint8 to 224
+    px, bf16, NCTHW): a cold clip copies its resize weights and normalize
+    constants from the host, which synchronises; once they are cached on
+    the card a clip makes no synchronising call, and its output is the
+    cold clip's bit for bit."""
+    from pretorched_tpu_torch.transforms import fused
+
+    settings = {'input_size': [3, 224, 224], 'input_space': 'RGB',
+                'input_range': [0, 1], 'mean': [0.485, 0.456, 0.406],
+                'std': [0.229, 0.224, 0.225], 'scale': 0.875}
+    clip = torch.randint(0, 256, (frames, 240, 320, 3), dtype=torch.uint8,
+                         device=cuda, generator=torch.Generator(
+                             cuda).manual_seed(frames))
+
+    def run():
+        return fused.preprocess_clip(clip, settings, channels_last=False,
+                                     dtype=torch.bfloat16)
+
+    fused.cache_clear()
+    try:
+        torch.cuda.set_sync_debug_mode('error')
+        with pytest.raises(RuntimeError, match='synchroniz'):
+            run()
+        torch.cuda.set_sync_debug_mode('default')
+        cold = run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        warm = run()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+        fused.cache_clear()
+    assert warm.shape == (1, 3, frames, 224, 224)
+    assert warm.dtype == torch.bfloat16
+    assert torch.equal(warm, cold)
 
 
 @pytest.mark.gpu
